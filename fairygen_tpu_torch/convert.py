@@ -3,7 +3,8 @@ initialisation on a device.
 
 Port state is a nested dict (and list) of tensors mirroring the JAX pytree,
 with two layout rules: the DiT's stacked per-block leaves (leading axis L)
-become a list of L block dicts, and convolution weights are channels-first
+become a list of L block dicts (a stacked LoRA ``scale`` of shape (L,)
+becomes one 0-d tensor per block), and convolution weights are channels-first
 — 5-D ``w`` (kt, kh, kw, C_in, C_out) -> (C_out, C_in, kt, kh, kw), 4-D
 ``w`` (kh, kw, C_in, C_out) -> (C_out, C_in, kh, kw).  Dense weights stay
 (d_in, d_out).
@@ -37,7 +38,8 @@ def _leaf(a, key, device, dtype):
 
 def _tree(node, device, dtype, key=None):
     if isinstance(node, dict):
-        out = {k: _tree(v, device, dtype, k) for k, v in node.items()}
+        # LoRA leaves stay in their own dtype (fp32), whatever the base's
+        out = {k: _tree(v, device, None if k == "lora" else dtype, k) for k, v in node.items()}
         if isinstance(node.get("blocks"), dict):  # stacked DiT blocks -> list
             stacked = out["blocks"]
             n = len(next(iter(_leaves(stacked))))
@@ -66,7 +68,8 @@ def _index(node, i):
 
 def from_jax_params(tree, device="cuda", dtype=None) -> Dict[str, Any]:
     """A JAX-package param tree (numpy leaves) of the Wan DiT, UMT5 or
-    VAE38 -> port state on ``device`` (optionally cast to ``dtype``)."""
+    VAE38 -> port state on ``device`` (optionally cast to ``dtype``; LoRA
+    subtrees keep their dtype)."""
     return _tree(tree, resolve_device(device), dtype)
 
 

@@ -35,11 +35,30 @@ class FlowMatchScheduler:
             raise NotImplementedError(f"flow-match template {template!r} is not ported yet")
         self.sigmas: Optional[np.ndarray] = None
         self.timesteps: Optional[np.ndarray] = None
+        self.training = False
+        self.linear_timesteps_weights: Optional[np.ndarray] = None
 
-    def set_timesteps(self, num_inference_steps=100, denoising_strength=1.0, shift=None):
+    def set_timesteps(self, num_inference_steps=100, denoising_strength=1.0, shift=None,
+                      training=False):
         self.sigmas, self.timesteps = set_timesteps_wan(
             num_inference_steps, denoising_strength, shift)
+        self.training = training
+        if training:
+            self._set_training_weight()
         return self
+
+    def _set_training_weight(self):
+        """The training loss weights: a Gaussian bell over the timesteps,
+        shifted to a zero minimum and normalised, in float32."""
+        steps = 1000
+        x = self.timesteps.astype(np.float32)
+        y = np.exp(-2 * ((x - steps / 2) / steps) ** 2)
+        y_shifted = y - y.min()
+        w = y_shifted * (steps / y_shifted.sum())
+        if len(self.timesteps) != 1000:
+            w = w * (len(self.timesteps) / steps)
+            w = w + w[1]
+        self.linear_timesteps_weights = w
 
     def step(self, model_output, step_index: int, sample):
         """Euler flow step x += v·(σ_{i+1} − σ_i), σ_n = 0; the step size

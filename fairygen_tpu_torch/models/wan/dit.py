@@ -1,8 +1,9 @@
-"""Wan video DiT (port of fairygen_tpu/models/wan/dit.py, inference path).
+"""Wan video DiT (port of fairygen_tpu/models/wan/dit.py).
 
 Params are a nested dict of tensors mirroring the JAX pytree; per-block
 params are a list of dicts; dense weights are (d_in, d_out), applied as
-``x @ w + b``.  Each block runs the fused-norm form of the JAX package
+``x @ w + b``, plus the layer's LoRA update when it carries a ``"lora"``
+entry (``models/adapters.py``).  Each block runs the fused-norm form of the JAX package
 (models/wan/dit.py:386-426): K1 ``layer_norm_modulate`` three times, the
 self-attention through K2 (q and k) + K3/K4, the text cross-attention
 through K2 (``rope=False``) + K4 with the per-prompt (k, v) hoisted by
@@ -10,6 +11,11 @@ through K2 (``rope=False``) + K4 with the per-prompt (k, v) hoisted by
 CUDA tensors and their plain versions on CPU tensors.  A head_dim other
 than 128 (the tiny golden configs) runs the plain rms-norm -> RoPE ->
 attention chain, as in the JAX package; on CUDA that is refused.
+
+Training differentiates the same forward: K1 and the fused attention
+entries carry their own gradients (``ops/``), and ``remat=True`` wraps each
+block in ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``
+per block).
 """
 from __future__ import annotations
 
@@ -19,7 +25,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..adapters import apply_adapter
 from ...ops.attention import LOG2E, attention
 from ...ops.fused_norms import affine_rows, layer_norm_modulate
 from ...ops.fused_qk import build_freqs_full, fused_q_attention, fused_qk_attention
@@ -64,7 +72,11 @@ class WanDiTConfig:
 
 def _dense(p, x):
     y = torch.matmul(x, p["w"])
-    return y + p["b"] if "b" in p else y
+    if "b" in p:
+        y = y + p["b"]
+    if "lora" in p:
+        y = apply_adapter(y, x, p)
+    return y
 
 
 def sinusoidal_embedding_1d(dim: int, position: torch.Tensor) -> torch.Tensor:
@@ -130,10 +142,13 @@ def _expand_segments(m, seg: int, s: int):
 
 
 def dit_block(p, x, t_mod, freqs, freqs_full, cfg: WanDiTConfig, cross_kv,
-              seg: Optional[int] = None, img_kv=None):
+              seg: Optional[int] = None, img_kv=None, ctx=None):
     """One DiT block (upstream wan_video_dit.py:213-229) in the fused-norm
     form.  t_mod: (B, 1, 6, D) uniform or (B, 2, 6, D) two-segment rows with
-    boundary ``seg``."""
+    boundary ``seg``.  ``cross_kv`` None: the block projects its (k, v) from
+    the embedded text ``ctx`` itself."""
+    if cross_kv is None:
+        cross_kv = _cross_kv(p["cross_attn"], ctx, cfg)
     mod = (p["modulation"][None, None].float() + t_mod.float()).to(x.dtype)
     rows = mod if mod.shape[1] == 2 else torch.cat([mod, mod], dim=1)
     if seg is not None:
@@ -163,21 +178,21 @@ def text_embedding(params, ctx):
     return _dense(params["text_embed"]["fc2"], _gelu_tanh(h))
 
 
+def _cross_kv(ca, ctx, cfg: WanDiTConfig):
+    """One block's text (k, v), each (B, Lk, N, hd), from the embedded text."""
+    b, lk, _ = ctx.shape
+    k = rms_norm(_dense(ca["k"], ctx), ca["norm_k"], cfg.eps)
+    v = _dense(ca["v"], ctx)
+    return (k.reshape(b, lk, cfg.num_heads, cfg.head_dim),
+            v.reshape(b, lk, cfg.num_heads, cfg.head_dim))
+
+
 def precompute_cross_kv(params, cfg: WanDiTConfig, context):
     """Per-block cross-attention (k, v), each (B, Lk, N, hd), over a fixed
     prompt context — step-independent, so the pipeline computes them once
     per prompt (same ops, same order as in the block)."""
     ctx = text_embedding(params, context)
-    b, lk, _ = ctx.shape
-    hd = cfg.head_dim
-    out = []
-    for blk in params["blocks"]:
-        ca = blk["cross_attn"]
-        k = rms_norm(_dense(ca["k"], ctx), ca["norm_k"], cfg.eps)
-        v = _dense(ca["v"], ctx)
-        out.append((k.reshape(b, lk, cfg.num_heads, hd),
-                    v.reshape(b, lk, cfg.num_heads, hd)))
-    return out
+    return [_cross_kv(blk["cross_attn"], ctx, cfg) for blk in params["blocks"]]
 
 
 def _image_cross_kv(params, cfg: WanDiTConfig, clip_feature):
@@ -248,11 +263,15 @@ def time_embedding(params, cfg: WanDiTConfig, timestep):
 
 def wan_dit_forward(params, cfg: WanDiTConfig, latents, timestep, context=None, *,
                     y=None, clip_feature=None, fuse_vae_embedding_in_latents: bool = False,
-                    cross_kv=None):
+                    cross_kv=None, remat=False):
     """Denoiser forward (upstream model_fn_wan_video, wan_video.py:1122-1388,
     text / first-frame / I2V-y conditioning).  latents (B, C, F, H, W);
     timestep (B,); context (B, L, text_dim) or ``cross_kv`` from
-    :func:`precompute_cross_kv`.  Returns (B, out_dim, F, H, W)."""
+    :func:`precompute_cross_kv`.  ``remat=True`` recomputes each block in
+    the backward pass from its input.  Returns (B, out_dim, F, H, W)."""
+    if remat == "offload":
+        raise NotImplementedError("remat='offload' (host-offloaded block inputs) is not "
+                                  "ported yet")
     b, _, _, H, W = latents.shape
     _, ph, pw = cfg.patch_size
     if latents.is_cuda and cfg.head_dim != 128:
@@ -270,8 +289,10 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, timestep, context=None, 
         t, t_mod = time_embedding(params, cfg, timestep)
         t_mod = t_mod[:, None]
 
+    ctx = None
     if cross_kv is None:
-        cross_kv = precompute_cross_kv(params, cfg, context)
+        ctx = text_embedding(params, context)
+        cross_kv = [None] * cfg.num_layers
     img_kv = [None] * cfg.num_layers
     if cfg.has_image_input and clip_feature is not None and cfg.require_clip_embedding:
         img_kv = _image_cross_kv(params, cfg, clip_feature)
@@ -283,7 +304,7 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, timestep, context=None, 
     freqs = build_freqs_grid(precompute_freqs_3d(cfg.head_dim), *grid, device=x.device)
     freqs_full = build_freqs_full(freqs) if cfg.head_dim == 128 else None
     for i, blk in enumerate(params["blocks"]):
-        x = dit_block(blk, x, t_mod, freqs, freqs_full, cfg, cross_kv[i], seg=seg,
-                      img_kv=img_kv[i])
+        args = (blk, x, t_mod, freqs, freqs_full, cfg, cross_kv[i], seg, img_kv[i], ctx)
+        x = checkpoint(dit_block, *args, use_reentrant=False) if remat else dit_block(*args)
     x = head_forward(params["head"], x, t, cfg, seg=seg)
     return unpatchify(x, grid, cfg)

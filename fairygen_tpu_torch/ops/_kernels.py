@@ -25,18 +25,24 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "fairygen_tpu_torch"
 LIB_NAME = "libfairygen_kernels.so"
-SOURCES = ("ln_modulate.cu", "rms_rope.cu", "flash_attention.cu")
-KERNELS = ("ln_modulate", "rms_rope_heads_major", "flash_bounded", "flash_small_kv")
+SOURCES = ("ln_modulate.cu", "rms_rope.cu", "flash_attention.cu", "flash_attention_train.cu")
+KERNELS = ("ln_modulate", "rms_rope_heads_major", "flash_bounded", "flash_small_kv",
+           "flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
 
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "fg_ln_modulate": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
     "fg_rms_rope_heads_major": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fg_flash_bounded": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fg_flash_small_kv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fg_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fg_flash_fwd_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fg_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P],
+    "fg_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

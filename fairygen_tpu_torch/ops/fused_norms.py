@@ -3,7 +3,8 @@ fairygen_tpu/ops/fused_norms.py ``layer_norm_modulate`` / ``_ln_mod_kernel``).
 
 CUDA tensors go through the hand-written kernel ``csrc/ln_modulate.cu``
 (bf16); CPU tensors take :func:`layer_norm_modulate_plain`, the same
-formula in PyTorch.
+formula in PyTorch.  The gradient differentiates the plain formula, as the
+JAX package's ``_ln_mod_bwd`` does: there is no backward kernel.
 """
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ def layer_norm_modulate_plain(x, shift2, scale2, seg: int = 0, eps: float = 1e-6
 def layer_norm_modulate(x, shift2, scale2, seg: int = 0, eps: float = 1e-6):
     """x (B, S, D); shift2/scale2 (B, 2, D) segment rows; tokens with index
     >= ``seg`` use row 1 (``seg=0`` => row 1 everywhere)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, shift2, scale2)):
+        return _LayerNormModulate.apply(x, shift2, scale2, seg, eps)
     if not x.is_cuda:
         return layer_norm_modulate_plain(x, shift2, scale2, seg, eps)
     b, s, d = x.shape
@@ -41,6 +44,25 @@ def layer_norm_modulate(x, shift2, scale2, seg: int = 0, eps: float = 1e-6):
     _kernels.launch("ln_modulate", "fg_ln_modulate", x.data_ptr(), shift2.data_ptr(),
                     scale2.data_ptr(), out.data_ptr(), b, s, d, int(seg), float(eps))
     return out
+
+
+class _LayerNormModulate(torch.autograd.Function):
+    """Forward K1 (through :func:`layer_norm_modulate`, grad off), backward
+    the autograd of :func:`layer_norm_modulate_plain` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, shift2, scale2, seg, eps):
+        ctx.save_for_backward(x, shift2, scale2)
+        ctx.seg, ctx.eps = seg, eps
+        return layer_norm_modulate(x, shift2, scale2, seg, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = layer_norm_modulate_plain(*inputs, ctx.seg, ctx.eps)
+        grads = torch.autograd.grad(out, inputs, g)
+        return grads + (None, None)
 
 
 def affine_rows(weight, bias, batch: int):

@@ -1,5 +1,5 @@
 """K2: rms-apply -> RoPE -> head-major q/k prep, and the DiT attention
-entries built on it (port of fairygen_tpu/ops/fused_qk.py, forward only).
+entries built on it (port of fairygen_tpu/ops/fused_qk.py).
 
 The rotation of adjacent pairs (2i, 2i+1) uses full-width tables:
 ``cos_full[s, j] = cos[s, j // 2]`` and ``sin_sign[s, j] = ∓sin[s, j // 2]``
@@ -7,13 +7,22 @@ The rotation of adjacent pairs (2i, 2i+1) uses full-width tables:
 
 CUDA tensors go through ``csrc/rms_rope.cu`` (bf16, head_dim 128); CPU
 tensors take :func:`rms_rope_heads_major_plain`.
+
+The attention entries' gradients recompute the plain chain (rms_norm ->
+RoPE -> ``attention(prescaled=True, bounded_logits=True)``) and
+differentiate it, as the JAX package's ``_fused_vjp_bwd`` and
+``_fused_q_vjp_bwd`` do; on CUDA that attention is the K6a/K6b/K6c flash
+attention.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _kernels
+from .attention import attention
 from .flash_attention import flash_attention_heads_major
+from .norms import rms_norm
+from .rope import rope_apply
 
 _PREP_BQ = 512
 
@@ -95,13 +104,82 @@ def rms_rope_heads_major(x, gamma, rowscale, freqs_full, n_heads: int,
     return out
 
 
+def _pair_freqs(freqs_full):
+    """(2, S, hd) (cos_full, sin_sign) -> the (2, S, hd/2) pair tables."""
+    return torch.stack([freqs_full[0, :, 0::2], freqs_full[1, :, 1::2]])
+
+
+def _reference_chain(xq, xk, v, gamma_q, gamma_k, freqs, n_heads, eps):
+    """The plain chain the self-attention gradient differentiates."""
+    b, s, d = xq.shape
+    hd = d // n_heads
+    q = rope_apply(rms_norm(xq, gamma_q, eps).reshape(b, s, n_heads, hd), freqs)
+    k = rope_apply(rms_norm(xk, gamma_k, eps).reshape(b, s, n_heads, hd), freqs)
+    return attention(q, k, v, prescaled=True, bounded_logits=True)
+
+
+def _cross_reference_chain(xq, k, v, gamma_q, n_heads, eps):
+    """The plain chain the cross-attention gradient differentiates."""
+    b, s, d = xq.shape
+    q = rms_norm(xq, gamma_q, eps).reshape(b, s, n_heads, d // n_heads)
+    return attention(q, k, v, prescaled=True, bounded_logits=True)
+
+
+def _recompute_grads(ctx, chain, g, *static):
+    """Gradients of ``chain(*saved, *static)`` for the inputs that need one."""
+    saved = ctx.saved_tensors
+    inputs = [t.detach().requires_grad_(need) for t, need in zip(saved, ctx.needs_input_grad)]
+    wanted = [t for t in inputs if t.requires_grad]
+    with torch.enable_grad():
+        out = chain(*inputs, *static)
+    grads = iter(torch.autograd.grad(out, wanted, g))
+    return [next(grads) if t.requires_grad else None for t in inputs]
+
+
+class _FusedQK(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xq, xk, v, gamma_q, gamma_k, freqs_full, n_heads, eps):
+        ctx.save_for_backward(xq, xk, v, gamma_q, gamma_k, freqs_full)
+        ctx.static = (n_heads, eps)
+        return fused_qk_attention(xq, xk, v, gamma_q, gamma_k, freqs_full, n_heads, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        n_heads, eps = ctx.static
+        grads = _recompute_grads(
+            ctx, lambda xq, xk, v, gq, gk, ff: _reference_chain(xq, xk, v, gq, gk,
+                                                                _pair_freqs(ff), n_heads, eps),
+            g)
+        return tuple(grads[:5]) + (None, None, None)
+
+
+class _FusedQ(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xq, k, v, gamma_q, n_heads, eps):
+        ctx.save_for_backward(xq, k, v, gamma_q)
+        ctx.static = (n_heads, eps)
+        return fused_q_attention(xq, k, v, gamma_q, n_heads, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _recompute_grads(ctx, _cross_reference_chain, g, *ctx.static)
+        return tuple(grads) + (None, None)
+
+
+def _needs_grad(*ts):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def fused_qk_attention(xq, xk, v, gamma_q, gamma_k, freqs_full, n_heads: int,
                        eps: float):
     """Self-attention from raw q/k projections: K2 on q and k, then the
     bounded attention (K3, or K4 when s_pad is one k tile).
 
     xq/xk (B, S, D) projections, v (B, S, N, hd); gamma_q MUST be
-    pre-scaled by hd^-1/2·log2e.  Returns (B, S, N, hd)."""
+    pre-scaled by hd^-1/2·log2e.  Returns (B, S, N, hd).  Gradients for
+    xq, xk, v and both gammas."""
+    if _needs_grad(xq, xk, v, gamma_q, gamma_k):
+        return _FusedQK.apply(xq, xk, v, gamma_q, gamma_k, freqs_full, n_heads, eps)
     b, s, _ = xq.shape
     s_pad, bq, bk = _pad_for_flash(s)
     qh = rms_rope_heads_major(xq, gamma_q, _rowscale(xq, eps), freqs_full,
@@ -115,7 +193,10 @@ def fused_qk_attention(xq, xk, v, gamma_q, gamma_k, freqs_full, n_heads: int,
 def fused_q_attention(xq, k, v, gamma_q, n_heads: int, eps: float):
     """Cross-attention with the q side through K2 (``rope=False``): k/v are
     already per-head (B, Lk, N, hd) (rms-normed k); gamma_q pre-scaled by
-    hd^-1/2·log2e.  Returns (B, S, N, hd)."""
+    hd^-1/2·log2e.  Returns (B, S, N, hd).  Gradients for xq, k, v and
+    gamma_q."""
+    if _needs_grad(xq, k, v, gamma_q):
+        return _FusedQ.apply(xq, k, v, gamma_q, n_heads, eps)
     b, s, _ = xq.shape
     lk, hd = k.shape[1], k.shape[3]
     s_pad, bq, _ = _pad_for_flash(s)

@@ -23,6 +23,7 @@ from fairygen_tpu_torch.models.wan.vae import WanVAEConfig
 from fairygen_tpu_torch.ops import _kernels
 from fairygen_tpu_torch.ops import flash_attention, fused_norms, fused_qk
 from fairygen_tpu_torch.pipelines.wan_video import WanVideoPipeline
+from fairygen_tpu_torch.training.train_step import make_wan_sft_train_step
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "fairygen_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -50,7 +51,7 @@ def test_the_scan_sees_the_whole_package():
 
 
 @pytest.mark.parametrize("entry", ["pipeline", "from_jax_params", "init_dit", "init_umt5",
-                                   "init_vae"])
+                                   "init_vae", "train_step"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
@@ -59,13 +60,15 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
         "init_dit": lambda: convert.init_dit_params(WanDiTConfig(num_layers=1)),
         "init_umt5": lambda: convert.init_umt5_params(UMT5Config.tiny()),
         "init_vae": lambda: convert.init_vae_params(WanVAEConfig.tiny()),
+        "train_step": lambda: make_wan_sft_train_step(WanDiTConfig(num_layers=1), None),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
 
 
 WRAPPERS = [fused_norms.layer_norm_modulate, fused_qk.rms_rope_heads_major,
-            flash_attention.flash_attention_heads_major]
+            flash_attention.flash_attention_heads_major, flash_attention.flash_fwd,
+            flash_attention.flash_bwd_dq, flash_attention.flash_bwd_dkv]
 
 
 @pytest.mark.parametrize("fn", WRAPPERS, ids=lambda f: f.__name__)
