@@ -6,7 +6,8 @@
 
 Phases, each printing its wall seconds:
   1. device   — card name/count, nvidia-smi name and power limit, TF32 off.
-  2. build    — the single nvcc command (ptxas -v output printed once).
+  2. build    — one nvcc -c per source, all at once, and one link
+                (ptxas -v output printed once).
   3. kernels  — K1-K4 against their plain PyTorch versions on the card in
                 bf16 at the main path's shapes (480x832, 17 frames: S=1950)
                 and the flagship's (81 frames: S=8190); error, kernel ms,
@@ -15,7 +16,9 @@ Phases, each printing its wall seconds:
                 Then K5 and K6a-c at the training shapes (self S=8190,
                 cross q 8190 x k 512), PyTorch's flash attention forward and
                 backward as their yardstick, and a flash_attention gradient
-                check against autograd of the plain attention.
+                check against autograd of the plain attention.  Then K7, K8
+                and K10 at the FLUX.1-dev 1024x1024 shapes (4608 tokens;
+                5632 with two EliGen entities).
   4. weights  — full-width Wan2.2-TI2V-5B DiT, UMT5-XXL and VAE38, made on
                 the card in bf16 from a seeded CUDA generator.
   5. requests — WanVideoPipeline answers two 480x832x17-frame, 4-step,
@@ -28,9 +31,15 @@ Phases, each printing its wall seconds:
                 K1 180, K2 180, K3 60, K4 60, K6a/b/c 60 each, K5 0).
   7. breakdown — each stage of a request alone, and one DiT sweep under
                 torch.profiler (device time by kernel, busy share).
-  8. reference — a tiny-width pipeline on the card (kernels, bf16) against
-                the same pipeline on the CPU (plain versions, fp32), and one
-                tiny LoRA training step likewise.
+  8. flux     — FLUX.1-dev at full width and depth (DiT 19 + 38 blocks,
+                T5 v1.1 XXL, CLIP-L, the FLUX VAE) from seeded bf16 weights:
+                two 1024x1024 4-step requests and one EliGen request with
+                exact launch counts of K1, K7, K8, K3 and K10, and one
+                profiled sweep.
+  9. reference — a tiny-width pipeline on the card (kernels, bf16) against
+                the same pipeline on the CPU (plain versions, fp32), one
+                tiny LoRA training step likewise, and a tiny head-dim-128
+                FLUX.1 DiT with and without EliGen likewise.
 Then the card line, one JSON line of kernel numbers and the result line.
 Any failure exits non-zero; past BUDGET_S seconds the run stops, naming
 the phase it was in.
@@ -102,6 +111,25 @@ def check_close(name, out, ref, rtol, atol):
           f"(tolerance |d| <= {atol} + {rtol}*|ref|)", flush=True)
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
     return max_abs
+
+
+def check_rotated(name, out, ref, normed):
+    """K7/K8 sum the per-head statistic in another order than their plain
+    versions, so a bf16 rounding of a normed value may flip; the rotation
+    then moves both outputs of its pair by up to about one bf16 ulp of the
+    pair's magnitude.  Holds |out - ref| to 2 bf16 ulps (2 x 2^-7) of
+    max(|y_2i|, |y_2i+1|) of the normed values, the CPU tests' bound."""
+    import torch
+
+    n = normed.float()
+    pair = torch.maximum(n[..., 0::2].abs(), n[..., 1::2].abs()).repeat_interleave(2, -1)
+    err = (out.float() - ref.float()).abs()
+    worst = (err / pair.clamp_min(1e-30)).max().item()
+    print(f"  {name}: max_abs_err {err.max().item():.3e}; largest error over its pair's "
+          f"magnitude {worst:.3e} (tolerance 2 x 2^-7 = 1.5625e-02)", flush=True)
+    if not bool((err <= 2 * 2 ** -7 * pair).all()):
+        raise RuntimeError(f"{name} disagrees with its plain version")
+    return err.max().item()
 
 
 def kernel_checks(S, grid, tag):
@@ -384,7 +412,8 @@ def main(argv):
     done("device", t0)
 
     t0 = phase("build")
-    print("  " + " ".join(_kernels.build_command(verbose=True)))
+    for cmd in _kernels.compile_commands(verbose=True) + [_kernels.link_command()]:
+        print("  " + " ".join(cmd))
     print(_kernels.build(verbose=True, force=True, timeout=300))
     _kernels.lib()
     done("build", t0)
@@ -393,6 +422,7 @@ def main(argv):
     smoke = kernel_checks(1950, (5, 15, 26), "S=1950")
     flagship = kernel_checks(8190, (21, 15, 26), "S=8190")
     train_k = train_kernel_checks()
+    flux_k = flux_kernel_checks()
     torch.cuda.synchronize()
     done("kernels", t0)
 
@@ -464,9 +494,16 @@ def main(argv):
         torch.cuda.empty_cache()
         done("breakdown", t0)
 
+        t0 = phase("flux")
+        flux_launches = flux_phase()
+        launches = {k: launches[k] + flux_launches[k] for k in launches}
+        print(f"  launches, serving, training and FLUX.1: {launches}", flush=True)
+        done("flux", t0)
+
         t0 = phase("reference")
         reference_check()
         reference_train_check()
+        reference_flux_check()
         done("reference", t0)
 
     sources = {"ln_modulate": ("csrc/ln_modulate.cu", "fairygen_tpu/ops/fused_norms.py:42"),
@@ -500,6 +537,18 @@ def main(argv):
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"], "cross_ms": c["ms"], "cross_plain_ms": c["plain_ms"],
             "cross_bound_ms": c["bound"][0], "cross_library_ms": c["library_ms"]})
+    flux_sources = {
+        "rms_rope_per_head": ("csrc/rms_rope.cu", "fairygen_tpu/ops/fused_qk.py:133"),
+        "rms_rope_joint": ("csrc/rms_rope.cu", "fairygen_tpu/ops/fused_qk.py:232"),
+        "flash_bias": ("csrc/flash_attention_bias.cu", "fairygen_tpu/ops/flash_attention.py:167")}
+    for k, (src, replaces) in flux_sources.items():
+        r = flux_k[k]
+        rows.append({
+            "name": k, "route": "cuda", "source": "fairygen_tpu_torch/" + src,
+            "replaces": replaces, "launches": None if expected is None else launches[k],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"]})
     timer.cancel()
     print(smi)
     print(json.dumps({"kernels": rows}))
@@ -507,9 +556,248 @@ def main(argv):
     return 0
 
 
+
+def flux_kernel_checks():
+    """K7, K8 and K10 against their plain versions on the card in bf16 at the
+    FLUX.1-dev 1024x1024 shapes: 4096 image and 512 text tokens, 24 heads of
+    128.  K7 gets the single blocks' q (S = 4608, a column slice of the
+    fused (4608, 7 x 3072) projection) -> (24, 5120, 128); K8 the double
+    blocks' two streams (slices of their (., 3 x 3072) projections) into one
+    (24, 5120, 128) buffer; K10 the EliGen attention over 2 x 512 entity +
+    512 prompt + 4096 image = 5632 tokens with its (1, 5632, 5632) fp32 bias
+    from two seeded rectangular regions plus a continuous 0.3 x randn term
+    on the allowed entries.  Bounds: bytes for K7/K8 (each input read and
+    each output written once, the fp32 tables as the (S, hd/2) cos and sin
+    pairs the rotation needs);
+    for K10 the larger of 4 x Sq x Sk x 128 x 24 flops and the bytes of
+    q, k, v, o and the bias read once.  K10's yardstick is
+    scaled_dot_product_attention with the same bias as a bf16 attn_mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from fairygen_tpu_torch.models.flux.dit import eligen_attention_bias
+    from fairygen_tpu_torch.ops import flash_attention as fa
+    from fairygen_tpu_torch.ops import fused_qk as fq
+
+    dev, bf = "cuda", torch.bfloat16
+    g = torch.Generator(dev).manual_seed(777)
+    N, hd, D, s_i, s_t = 24, 128, 3072, 4096, 512
+    res = {}
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
+
+    def tables(rows):
+        ang = torch.rand((rows, hd // 2), generator=g, device=dev) * 6.283
+        return torch.cos(ang), torch.sin(ang)
+
+    # K7: the single blocks' q
+    s = s_t + s_i
+    s_pad = fq._pad_for_flash(s)[0]
+    x = randn(1, s, 7 * D)[..., :D]
+    gamma = randn(hd, scale=hd ** -0.5 * 1.4427)
+    ff = fq.build_freqs_full_pairs(*tables(s))
+    out = fq.rms_rope_heads_major_per_head(x, gamma, ff, N, s_pad, eps=1e-6)
+    ref = fq.rms_rope_heads_major_per_head_plain(x, gamma, ff, N, s_pad, eps=1e-6)
+    ident = fq.build_freqs_full_pairs(torch.ones((s, hd // 2), device=dev),
+                                      torch.zeros((s, hd // 2), device=dev))
+    normed = fq.rms_rope_heads_major_per_head_plain(x, gamma, ident, N, s_pad, eps=1e-6)
+    err = check_rotated(f"K7 rms_rope_per_head S={s}", out, ref, normed)
+    if not torch.all(out[:, s:] == 0):
+        raise RuntimeError("K7 left a nonzero pad row")
+    nbytes = s * D * 2 + hd * 2 + s * hd * 4 + N * s_pad * hd * 2
+    res["rms_rope_per_head"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: fq.rms_rope_heads_major_per_head(x, gamma, ff, N, s_pad, eps=1e-6)),
+        plain_ms=time_ms(lambda: fq.rms_rope_heads_major_per_head_plain(x, gamma, ff, N, s_pad,
+                                                                        eps=1e-6), 5, 3),
+        bound=bound_ms(nbytes, 8 * s * D), library_ms=None)
+
+    # K8: the double blocks' two streams
+    i_pad = -(-s_i // 1024) * 1024
+    j_pad = i_pad + -(-s_t // 1024) * 1024
+    xi, xt = randn(1, s_i, 3 * D)[..., :D], randn(1, s_t, 3 * D)[..., :D]
+    gi, gt = randn(hd, scale=0.13), randn(hd, scale=0.13)
+    ffj = fq.build_freqs_full_joint(*tables(s_i), *tables(s_t), i_pad, j_pad)
+    out = fq.rms_rope_heads_major_joint(xi, xt, gi, gt, ffj, N, i_pad, j_pad, eps=1e-6)
+    ref = fq.rms_rope_heads_major_joint_plain(xi, xt, gi, gt, ffj, N, i_pad, j_pad, eps=1e-6)
+    ones = [torch.ones((n, hd // 2), device=dev) for n in (s_i, s_t)]
+    ident = fq.build_freqs_full_joint(ones[0], 0 * ones[0], ones[1], 0 * ones[1], i_pad, j_pad)
+    normed = fq.rms_rope_heads_major_joint_plain(xi, xt, gi, gt, ident, N, i_pad, j_pad,
+                                                 eps=1e-6)
+    err = check_rotated(f"K8 rms_rope_joint {s_i}+{s_t}", out, ref, normed)
+    if not (torch.all(out[:, s_i:i_pad] == 0) and torch.all(out[:, i_pad + s_t:] == 0)):
+        raise RuntimeError("K8 left a nonzero gap row")
+    nbytes = s * D * 2 + 2 * hd * 2 + (s_i + s_t) * hd * 4 + N * j_pad * hd * 2
+    res["rms_rope_joint"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: fq.rms_rope_heads_major_joint(xi, xt, gi, gt, ffj, N, i_pad, j_pad,
+                                                         eps=1e-6)),
+        plain_ms=time_ms(lambda: fq.rms_rope_heads_major_joint_plain(
+            xi, xt, gi, gt, ffj, N, i_pad, j_pad, eps=1e-6), 5, 3),
+        bound=bound_ms(nbytes, 8 * s * D), library_ms=None)
+    del x, xi, xt, out, ref, normed
+
+    # K10: EliGen attention, 2 entities
+    L = 3 * s_t + s_i
+    masks = torch.zeros((1, 2, 1, 128, 128), device=dev)
+    masks[:, 0, :, 10:70, 5:60] = 1
+    masks[:, 1, :, 50:120, 64:125] = 1
+    bias = eligen_attention_bias(masks, s_t, s_i)[:, 0].contiguous()
+    # a continuous term on the allowed entries, so the check sees the bias
+    # scaled by log2(e) and not only as a mask
+    allowed = bias > -1e29
+    bias = torch.where(allowed, bias + 0.3 * torch.randn(bias.shape, generator=g, device=dev),
+                       bias)
+    del allowed
+    q = randn(1, L, N, hd, scale=hd ** -0.5 * 1.4427)
+    k, v = randn(1, L, N, hd), randn(1, L, N, hd)
+    qh, kh, vh = (fa._heads_major(t, fa._pad_len(L, 64, False)) for t in (q, k, v))
+    out = fa.flash_attention_bias_heads_major(qh, kh, vh, bias, n=N, sq=L, sk=L)
+    ref = fa.flash_attention_bias_plain(qh, kh, vh, bias, n=N, sq=L, sk=L)
+    # p is rounded to bf16 against its key tile's running max, as in K5
+    err = check_close(f"K10 flash_bias L={L}", out[:, :L], ref[:, :L], rtol=2 ** -7,
+                      atol=2 ** -8)
+    del ref
+    mask16 = bias[None].to(bf)
+    qs, ks, vs = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask16,
+                                                         scale=0.6931471805599453), 5, 3)
+    nbytes = 4 * L * N * hd * 2 + L * L * 4
+    res["flash_bias"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: fa.flash_attention_bias_heads_major(qh, kh, vh, bias, n=N, sq=L, sk=L),
+                   5, 5),
+        plain_ms=time_ms(lambda: fa.flash_attention_bias_plain(qh, kh, vh, bias, n=N, sq=L,
+                                                               sk=L), 1, 3),
+        bound=bound_ms(nbytes, 4 * L * L * hd * N), library_ms=lib)
+    for name, r in res.items():
+        lib_s = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"  FLUX {name}: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+              f"{r['bound'][0]:.4f} ({r['bound'][1]}) library_ms {lib_s}", flush=True)
+    del q, k, v, qh, kh, vh, out, bias, mask16
+    torch.cuda.empty_cache()
+    return res
+
+
+FLUX_STEPS = 4
+FLUX_PER_SWEEP = {"ln_modulate": 4 * 19 + 38 + 1, "rms_rope_joint": 2 * 19,
+                  "rms_rope_per_head": 2 * 38, "flash_bounded": 19 + 38}
+FLUX_ELIGEN_PER_SWEEP = {"ln_modulate": 4 * 19 + 38 + 1, "flash_bias": 19 + 38}
+
+
+def flux_phase():
+    """FLUX.1-dev at full width and depth on the card: the DiT (19 + 38
+    blocks, dim 3072), T5 v1.1 XXL, CLIP-L and the FLUX AutoencoderKL from
+    seeded bf16 weights; two 1024x1024 text-to-image requests (512 T5
+    tokens, embedded guidance 3.5, cfg_scale 1, 4 steps) and one EliGen
+    request (2 entity prompts, seeded rectangles at latent resolution), each
+    with exact launch counts; then one sweep under torch.profiler.  Returns
+    the launches of the three requests."""
+    import torch
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.flux.dit import FluxDiTConfig, flux_dit_forward
+    from fairygen_tpu_torch.models.flux.text_encoders import UMT5Config, flux_clip_l_config
+    from fairygen_tpu_torch.models.sdxl.vae import AutoencoderKLConfig
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines.flux_image import FluxImagePipeline
+
+    bf = torch.bfloat16
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    dit_cfg, t5_cfg = FluxDiTConfig.flux1_dev(), UMT5Config.t5_v1_1_xxl()
+    clip_cfg, vae_cfg = flux_clip_l_config(), AutoencoderKLConfig.flux()
+    dit = convert.init_flux_dit_params(dit_cfg, "cuda", bf, seed=30)
+    t5 = convert.init_t5_params(t5_cfg, "cuda", bf, seed=31)
+    clip = convert.init_clip_text_params(clip_cfg, "cuda", bf, seed=32)
+    vae = convert.init_autoencoder_kl_params(vae_cfg, "cuda", bf, seed=33)
+    torch.cuda.synchronize()
+    print(f"  FLUX.1-dev weights in {time.perf_counter() - t1:.3f} s: DiT "
+          f"{convert.count_params(dit):,} T5 {convert.count_params(t5):,} CLIP-L "
+          f"{convert.count_params(clip):,} VAE {convert.count_params(vae):,}; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    pipe = FluxImagePipeline(dit, dit_cfg, vae, vae_cfg, clip, clip_cfg, t5, t5_cfg, bf, "cuda")
+
+    def prompt(seed):
+        gen = torch.Generator("cpu").manual_seed(seed)
+        t5_ids = torch.zeros((1, 512), dtype=torch.long)
+        n = int(torch.randint(32, 200, (1,), generator=gen))
+        t5_ids[0, :n] = torch.randint(2, t5_cfg.vocab, (n,), generator=gen)
+        t5_ids[0, n] = 1  # EOS, then pad id 0
+        clip_ids = torch.full((1, 77), clip_cfg.eos_token_id, dtype=torch.long)
+        clip_ids[0, 0] = 49406
+        clip_ids[0, 1:min(n, 75) + 1] = torch.randint(0, 49406, (min(n, 75),), generator=gen)
+        return pipe.encode_ids(t5_ids, clip_ids)
+
+    total = {k: 0 for k in _kernels.launches}
+
+    def request(label, want_per_sweep, **kw):
+        want = {k: want_per_sweep.get(k, 0) * FLUX_STEPS for k in _kernels.launches}
+        _kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        img = pipe(height=1024, width=1024, num_inference_steps=FLUX_STEPS,
+                   embedded_guidance=3.5, output_type="floatpoint", **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        got = dict(_kernels.launches)
+        finite = bool(torch.isfinite(img).all())
+        print(f"  {label}: {dt:.3f} s, output {tuple(img.shape)} {img.dtype}, all finite: "
+              f"{finite}, std {img.float().std().item():.4f}, max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+              f"{ {k: v for k, v in got.items() if v} }", flush=True)
+        if tuple(img.shape) != (1, 3, 1024, 1024) or not finite:
+            raise RuntimeError(f"{label}: output has the wrong shape or non-finite values")
+        if got != want:
+            raise RuntimeError(f"{label}: launch counts {got} != expected {want}")
+        for k, v in got.items():
+            total[k] += v
+
+    for seed in (41, 42):
+        emb, pooled = prompt(seed)
+        request(f"FLUX.1-dev request seed={seed}", FLUX_PER_SWEEP, prompt_emb=emb,
+                pooled_prompt_emb=pooled, seed=seed)
+    emb, pooled = prompt(43)
+    ent = torch.stack([prompt(44)[0], prompt(45)[0]], dim=1)  # (1, 2, 512, 4096)
+    masks = torch.zeros((1, 2, 1, 128, 128), device="cuda", dtype=bf)
+    gen = torch.Generator("cpu").manual_seed(46)
+    for i in range(2):
+        y0, x0 = (int(v) for v in torch.randint(0, 64, (2,), generator=gen))
+        h, w = (int(v) for v in torch.randint(24, 64, (2,), generator=gen))
+        masks[0, i, 0, y0:y0 + h, x0:x0 + w] = 1
+    request("FLUX.1-dev EliGen request (2 entities)", FLUX_ELIGEN_PER_SWEEP, prompt_emb=emb,
+            pooled_prompt_emb=pooled, seed=43, eligen_entity_prompts=ent,
+            eligen_entity_masks=masks)
+
+    # where a sweep's time goes
+    g = torch.Generator("cuda").manual_seed(47)
+    lat = torch.randn((1, 16, 128, 128), generator=g, device="cuda").to(bf)
+    t = torch.tensor([500.0], device="cuda")
+    guid = torch.tensor([3.5], device="cuda")
+    with torch.no_grad():
+        def sweep():
+            return flux_dit_forward(dit, dit_cfg, lat, t, emb, pooled, guid)
+
+        sweep()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t1 = time.perf_counter()
+            sweep()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+    device_table(prof, wall, "profiled FLUX.1-dev sweep (4608 tokens)", 14)
+    del pipe, dit, t5, clip, vae
+    torch.cuda.empty_cache()
+    return total
+
+
 TRAIN_PER_STEP = {"ln_modulate": 180, "rms_rope_heads_major": 180, "flash_bounded": 60,
                   "flash_small_kv": 60, "flash_fwd": 0, "flash_fwd_lse": 60,
-                  "flash_bwd_dq": 60, "flash_bwd_dkv": 60}
+                  "flash_bwd_dq": 60, "flash_bwd_dkv": 60, "rms_rope_per_head": 0,
+                  "rms_rope_joint": 0, "flash_bias": 0}
 
 
 def train_phase(pipe, serving_per_request):
@@ -930,6 +1218,61 @@ def reference_train_check():
             bad.append(name)
     if bad:
         raise RuntimeError(f"tiny LoRA step disagrees with the CPU reference: {bad}")
+
+
+def reference_flux_check():
+    """A tiny head-dim-128 FLUX.1 DiT (dim 256, 2 heads, 2 + 2 blocks), with
+    and without EliGen regions, on the card in bf16 (K1, K8, K7, K3/K4, or
+    K10) against the same weights and inputs on the CPU in fp32 and in bf16
+    (plain versions).  As the Wan check: the card's relative L2 error to
+    the CPU fp32 output must be at most twice the CPU bf16 run's + 1e-3."""
+    import torch
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.flux.dit import FluxDiTConfig, flux_dit_forward
+    from fairygen_tpu_torch.ops import _kernels
+
+    cfg = FluxDiTConfig(dim=256, num_heads=2, context_dim=64, pooled_dim=32,
+                        num_double_blocks=2, num_single_blocks=2)
+    params = convert.init_flux_dit_params(cfg, "cpu", torch.float32, seed=50)
+    g = torch.Generator("cpu").manual_seed(51)
+    # 48 x 48 latents: 576 image tokens; 64 text tokens (K8 buffer 1024 +
+    # 1024 rows with an image gap, so K3; the single blocks' 640 tokens fit
+    # one k tile, so K4)
+    inputs = (torch.randn(1, 16, 48, 48, generator=g), torch.tensor([700.0]),
+              torch.randn(1, 64, 64, generator=g), torch.randn(1, 32, generator=g),
+              torch.tensor([3.5]))
+    masks = torch.zeros((1, 2, 1, 48, 48))
+    masks[:, 0, :, 4:30, 2:20] = 1
+    masks[:, 1, :, 20:46, 16:44] = 1
+    eligen = dict(entity_prompt_emb=torch.randn(1, 2, 64, 64, generator=g), entity_masks=masks)
+    for label, kw, kernels in (("plain", {}, ("ln_modulate", "rms_rope_joint",
+                                               "rms_rope_per_head", "flash_bounded",
+                                               "flash_small_kv")),
+                               ("EliGen", eligen, ("ln_modulate", "flash_bias"))):
+        def run(dev, dt):
+            lat, t, emb, pooled, guid = inputs
+            # the timestep and guidance stay fp32, as the pipeline passes them
+            with torch.no_grad():
+                out = flux_dit_forward(to(params, dev, dt), cfg, lat.to(dev, dt), t.to(dev),
+                                       emb.to(dev, dt), pooled.to(dev, dt), guid.to(dev),
+                                       **{k: v.to(dev, dt) for k, v in kw.items()})
+            return out.float().cpu()
+
+        ref = run("cpu", torch.float32)
+        rel16 = ((run("cpu", torch.bfloat16) - ref).norm() / ref.norm()).item()
+        _kernels.reset_launches()
+        out = run("cuda", torch.bfloat16)
+        ran = {k: v for k, v in _kernels.launches.items() if v}
+        rel = ((out - ref).norm() / ref.norm()).item()
+        tol = 2 * rel16 + 1e-3
+        print(f"  tiny FLUX.1 DiT {label} {tuple(out.shape)}: relative L2 error to CPU fp32 "
+              f"{rel:.4e} (card bf16), {rel16:.4e} (CPU bf16); tolerance {tol:.4e}; kernel "
+              f"launches {ran}", flush=True)
+        if set(ran) != set(kernels):
+            raise RuntimeError(f"tiny FLUX.1 DiT {label}: kernels {sorted(ran)} != {kernels}")
+        if not rel <= tol:
+            raise RuntimeError(f"tiny FLUX.1 DiT {label} disagrees with the CPU reference")
 
 
 if __name__ == "__main__":

@@ -19,7 +19,11 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .core.params import Init, generator
 from .device import resolve_device
+from .models.flux.dit import init_flux_dit_params  # noqa: F401  (the FLUX.1 DiT's init)
+from .models.sdxl.clip import CLIPTextConfig
+from .models.sdxl.vae import AutoencoderKLConfig
 from .models.wan.dit import WanDiTConfig
 from .models.wan.text_encoder import UMT5Config
 from .models.wan.vae import VAE38_MEAN, VAE38_STD, WanVAEConfig
@@ -36,14 +40,18 @@ def _leaf(a, key, device, dtype):
     return t.contiguous().to(device)
 
 
+_STACKED = ("blocks", "double_blocks", "single_blocks")
+
+
 def _tree(node, device, dtype, key=None):
     if isinstance(node, dict):
         # LoRA leaves stay in their own dtype (fp32), whatever the base's
         out = {k: _tree(v, device, None if k == "lora" else dtype, k) for k, v in node.items()}
-        if isinstance(node.get("blocks"), dict):  # stacked DiT blocks -> list
-            stacked = out["blocks"]
-            n = len(next(iter(_leaves(stacked))))
-            out["blocks"] = [_index(stacked, i) for i in range(n)]
+        for key in _STACKED:  # stacked DiT blocks -> list
+            if isinstance(node.get(key), dict):
+                stacked = out[key]
+                n = len(next(iter(_leaves(stacked))))
+                out[key] = [_index(stacked, i) for i in range(n)]
         return out
     if isinstance(node, (list, tuple)):
         return [_tree(v, device, dtype, key) for v in node]
@@ -67,43 +75,19 @@ def _index(node, i):
 
 
 def from_jax_params(tree, device="cuda", dtype=None) -> Dict[str, Any]:
-    """A JAX-package param tree (numpy leaves) of the Wan DiT, UMT5 or
-    VAE38 -> port state on ``device`` (optionally cast to ``dtype``; LoRA
+    """A JAX-package param tree (numpy leaves) of the Wan DiT, UMT5, VAE38,
+    FLUX.1 DiT, T5, CLIP text tower or AutoencoderKL -> port state on
+    ``device`` (optionally cast to ``dtype``; LoRA
     subtrees keep their dtype)."""
     return _tree(tree, resolve_device(device), dtype)
 
 
 # ------------------------------------------------------------------ init
-class _Init:
-    def __init__(self, device, dtype, generator):
-        self.device, self.dtype, self.g = device, dtype, generator
-
-    def normal(self, shape, std):
-        t = torch.randn(shape, generator=self.g, device=self.device, dtype=self.dtype)
-        return t.mul_(std)
-
-    def zeros(self, shape):
-        return torch.zeros(shape, device=self.device, dtype=self.dtype)
-
-    def ones(self, shape):
-        return torch.ones(shape, device=self.device, dtype=self.dtype)
-
-    def dense(self, d_in, d_out, bias=True):
-        p = {"w": self.normal((d_in, d_out), d_in ** -0.5)}
-        if bias:
-            p["b"] = self.zeros((d_out,))
-        return p
-
-
-def _generator(device, seed):
-    return torch.Generator(device).manual_seed(int(seed))
-
-
 def init_dit_params(cfg: WanDiTConfig, device="cuda", dtype=torch.bfloat16, seed=0):
     """Random DiT params at the JAX package's ``init_dit_params`` scales:
     dense N(0, 1/d_in), zero biases, modulation N(0, 1/D), unit norms."""
     device = resolve_device(device)
-    r = _Init(device, dtype, _generator(device, seed))
+    r = Init(device, dtype, generator(device, seed))
     D = cfg.dim
     pt, ph, pw = cfg.patch_size
 
@@ -132,7 +116,7 @@ def init_umt5_params(cfg: UMT5Config, device="cuda", dtype=torch.bfloat16, seed=
     """Random UMT5 params: N(0, 1) token embedding and relative-position
     tables, bias-free dense N(0, 1/d_in), unit norms."""
     device = resolve_device(device)
-    r = _Init(device, dtype, _generator(device, seed))
+    r = Init(device, dtype, generator(device, seed))
     d, da, df = cfg.dim, cfg.dim_attn, cfg.dim_ffn
     return {
         "token_embedding": r.normal((cfg.vocab, d), 1.0),
@@ -155,7 +139,7 @@ def init_vae_params(cfg: WanVAEConfig, device="cuda", dtype=torch.bfloat16, seed
     conv weights N(0, 1/fan_in) instead of zeros, so that encode and
     decode carry signal through every layer."""
     device = resolve_device(device)
-    r = _Init(device, dtype, _generator(device, seed))
+    r = Init(device, dtype, generator(device, seed))
 
     def conv(cout, cin, *k):
         fan_in = cin * int(np.prod(k))
@@ -212,6 +196,109 @@ def init_vae_params(cfg: WanVAEConfig, device="cuda", dtype=torch.bfloat16, seed
         "latent_mean": torch.from_numpy(VAE38_MEAN[: cfg.z_dim]).to(device, dtype),
         "latent_std": torch.from_numpy(VAE38_STD[: cfg.z_dim]).to(device, dtype),
     }
+
+
+def init_t5_params(cfg: UMT5Config, device="cuda", dtype=torch.bfloat16, seed=0):
+    """Random T5 v1.1 encoder params (one shared relative-position table):
+    N(0, 1) token embedding and table, bias-free dense N(0, 1/d_in), unit
+    norms.  ``UMT5Config.t5_v1_1_xxl()`` is FLUX.1's second text encoder."""
+    if not cfg.shared_pos_bias:
+        raise ValueError("init_t5_params is the shared-table T5 v1.1; use init_umt5_params")
+    device = resolve_device(device)
+    r = Init(device, dtype, generator(device, seed))
+    d, da, df = cfg.dim, cfg.dim_attn, cfg.dim_ffn
+    return {
+        "token_embedding": r.normal((cfg.vocab, d), 1.0),
+        "pos_emb": r.normal((cfg.num_buckets, cfg.num_heads), 1.0),
+        "blocks": [
+            {"norm1": r.ones((d,)), "norm2": r.ones((d,)),
+             "attn": {"q": r.dense(d, da, False), "k": r.dense(d, da, False),
+                      "v": r.dense(d, da, False), "o": r.dense(da, d, False)},
+             "ffn": {"gate": r.dense(d, df, False), "fc1": r.dense(d, df, False),
+                     "fc2": r.dense(df, d, False)}}
+            for _ in range(cfg.num_layers)
+        ],
+        "norm": r.ones((d,)),
+    }
+
+
+def init_clip_text_params(cfg: CLIPTextConfig, device="cuda", dtype=torch.bfloat16, seed=0):
+    """Random CLIP text tower: N(0, 0.02) embeddings, dense N(0, 1/d_in)
+    with zero biases, unit LayerNorms."""
+    device = resolve_device(device)
+    r = Init(device, dtype, generator(device, seed))
+    c, f = cfg.hidden_size, cfg.intermediate_size
+
+    def ln():
+        return {"w": r.ones((c,)), "b": r.zeros((c,))}
+
+    params = {
+        "token_embedding": r.normal((cfg.vocab_size, c), 0.02),
+        "position_embedding": r.normal((cfg.max_position_embeddings, c), 0.02),
+        "layers": [{"ln1": ln(), "attn": {k: r.dense(c, c) for k in
+                                          ("q_proj", "k_proj", "v_proj", "out_proj")},
+                    "ln2": ln(), "fc1": r.dense(c, f), "fc2": r.dense(f, c)}
+                   for _ in range(cfg.num_layers)],
+        "final_layer_norm": ln(),
+    }
+    if cfg.projection_dim is not None:
+        params["text_projection"] = r.normal((c, cfg.projection_dim), c ** -0.5)
+    return params
+
+
+def init_autoencoder_kl_params(cfg: AutoencoderKLConfig, device="cuda", dtype=torch.bfloat16,
+                               seed=0):
+    """Random AutoencoderKL params in the tree of the JAX package's
+    ``init_autoencoder_kl_params`` (unit norm scales and zero biases as
+    there), with conv and dense weights N(0, 1/fan_in) instead of zeros so
+    that encode and decode carry signal through every layer."""
+    device = resolve_device(device)
+    r = Init(device, dtype, generator(device, seed))
+
+    def conv(i, o, k=3):
+        return {"w": r.normal((o, i, k, k), (i * k * k) ** -0.5), "b": r.zeros((o,))}
+
+    def norm(c):
+        return {"w": r.ones((c,)), "b": r.zeros((c,))}
+
+    def resnet(i, o):
+        p = {"norm1": norm(i), "conv1": conv(i, o), "norm2": norm(o), "conv2": conv(o, o)}
+        if i != o:
+            p["conv_shortcut"] = conv(i, o, 1)
+        return p
+
+    def mid(c):
+        return {"res1": resnet(c, c), "res2": resnet(c, c),
+                "attn": {"group_norm": norm(c),
+                         **{k: r.dense(c, c) for k in ("to_q", "to_k", "to_v", "to_out")}}}
+
+    bo, lc, n_res = cfg.block_out_channels, cfg.latent_channels, cfg.layers_per_block
+    downs, ch = [], bo[0]
+    for i, out in enumerate(bo):
+        st = {"resnets": [resnet(ch if j == 0 else out, out) for j in range(n_res)]}
+        if i != len(bo) - 1:
+            st["downsamplers"] = conv(out, out)
+        downs.append(st)
+        ch = out
+    dec = list(reversed(bo))
+    ups, ch = [], dec[0]
+    for i, out in enumerate(dec):
+        st = {"resnets": [resnet(ch if j == 0 else out, out) for j in range(n_res + 1)]}
+        if i != len(dec) - 1:
+            st["upsamplers"] = conv(out, out)
+        ups.append(st)
+        ch = out
+    params = {
+        "encoder": {"conv_in": conv(cfg.in_channels, bo[0]), "down_blocks": downs,
+                    "mid": mid(bo[-1]), "conv_norm_out": norm(bo[-1]),
+                    "conv_out": conv(bo[-1], 2 * lc)},
+        "decoder": {"conv_in": conv(lc, dec[0]), "mid": mid(dec[0]), "up_blocks": ups,
+                    "conv_norm_out": norm(dec[-1]), "conv_out": conv(dec[-1], cfg.out_channels)},
+    }
+    if cfg.use_quant_conv:
+        params["quant_conv"] = conv(2 * lc, 2 * lc, 1)
+        params["post_quant_conv"] = conv(lc, lc, 1)
+    return params
 
 
 def count_params(tree) -> int:

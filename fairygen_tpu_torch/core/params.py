@@ -1,0 +1,65 @@
+"""Numpy trees to port state: what the checkpoint converters of ``models/``
+share.  A converter builds a nested dict (and list) of numpy arrays in the
+port's layout; :func:`to_tensors` turns it into tensors on the device.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+
+
+def to_tensors(tree, device="cuda", dtype=None):
+    """Numpy leaves -> contiguous tensors on ``device``; floating leaves are
+    cast to ``dtype`` when it is given (the source dtype otherwise)."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v) for v in node]
+        t = torch.from_numpy(np.ascontiguousarray(node))
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.contiguous().to(dev)
+
+    return conv(tree)
+
+
+def linear(sd, name):
+    """A torch Linear as a dense dict: weight (out, in) -> ``w`` (in, out),
+    plus ``b`` when the state dict has the bias."""
+    p = {"w": np.asarray(sd[name + ".weight"]).T}
+    if name + ".bias" in sd:
+        p["b"] = np.asarray(sd[name + ".bias"])
+    return p
+
+
+class Init:
+    """Seeded random leaves made directly on a device in one dtype."""
+
+    def __init__(self, device, dtype, gen):
+        self.device, self.dtype, self.g = device, dtype, gen
+
+    def normal(self, shape, std):
+        t = torch.randn(shape, generator=self.g, device=self.device, dtype=self.dtype)
+        return t.mul_(std)
+
+    def zeros(self, shape):
+        return torch.zeros(shape, device=self.device, dtype=self.dtype)
+
+    def ones(self, shape):
+        return torch.ones(shape, device=self.device, dtype=self.dtype)
+
+    def dense(self, d_in, d_out, bias=True):
+        """N(0, 1/d_in) weight (d_in, d_out), zero bias."""
+        p = {"w": self.normal((d_in, d_out), d_in ** -0.5)}
+        if bias:
+            p["b"] = self.zeros((d_out,))
+        return p
+
+
+def generator(device, seed):
+    return torch.Generator(device).manual_seed(int(seed))

@@ -1,9 +1,9 @@
-"""Rectified-flow (flow matching) scheduler, Wan template (port of
-fairygen_tpu/diffusion/flow_match.py).
+"""Rectified-flow (flow matching) scheduler, Wan and FLUX.1 templates (port
+of fairygen_tpu/diffusion/flow_match.py).
 
 The schedule is a host-side float64 numpy table; steps are indexed by the
-integer step id.  Other templates (FLUX, Qwen-Image, Z-Image) are not on
-the ported path yet.
+integer step id.  Other templates (Qwen-Image, FLUX.2, Z-Image) are not on
+the ported paths yet.
 """
 from __future__ import annotations
 
@@ -27,12 +27,27 @@ def set_timesteps_wan(num_inference_steps=100, denoising_strength=1.0, shift=Non
     return sigmas, sigmas * 1000.0
 
 
+def set_timesteps_flux(num_inference_steps=100, denoising_strength=1.0, shift=None):
+    """linspace(σ_start, σ_min) with the endpoint, σ_min = 0.003/1.002,
+    then the rational shift (default 3)."""
+    shift = 3.0 if shift is None else shift
+    sigma_min = 0.003 / 1.002
+    sigma_start = sigma_min + (1.0 - sigma_min) * denoising_strength
+    sigmas = np.linspace(sigma_start, sigma_min, num_inference_steps, dtype=np.float64)
+    sigmas = shift * sigmas / (1 + (shift - 1) * sigmas)
+    return sigmas, sigmas * 1000.0
+
+
+_TEMPLATES = {"Wan": set_timesteps_wan, "FLUX.1": set_timesteps_flux}
+
+
 class FlowMatchScheduler:
     """Host-side schedule table + Euler step on tensors."""
 
     def __init__(self, template: str = "Wan"):
-        if template != "Wan":
+        if template not in _TEMPLATES:
             raise NotImplementedError(f"flow-match template {template!r} is not ported yet")
+        self.set_timesteps_fn = _TEMPLATES[template]
         self.sigmas: Optional[np.ndarray] = None
         self.timesteps: Optional[np.ndarray] = None
         self.training = False
@@ -40,7 +55,7 @@ class FlowMatchScheduler:
 
     def set_timesteps(self, num_inference_steps=100, denoising_strength=1.0, shift=None,
                       training=False):
-        self.sigmas, self.timesteps = set_timesteps_wan(
+        self.sigmas, self.timesteps = self.set_timesteps_fn(
             num_inference_steps, denoising_strength, shift)
         self.training = training
         if training:

@@ -53,10 +53,18 @@ def apply_adapter(base_out, x, p, mask=None):
     """The adapter update added to a dense layer's output ``base_out``.
     A, B and B2 are cast to x.dtype; each product accumulates in fp32 and is
     rounded to x.dtype; ``scale`` (default 1) multiplies in x.dtype.
-    ``mask``: (B, N, 1) 0/1 token gate.  A per-sample A of shape (B, in, r)
-    against x (B, N, in) applies one adapter per batch row (the products
-    batch over the leading axis)."""
+    ``mask``: (B, N, 1) 0/1 token gate.
+
+    Per-sample adapters: an A of shape (B, in, r) against x (B, N, in)
+    applies one adapter per batch row, ``(x·A)·B`` and the mask only — no
+    ``scale`` and no ``B2``, as the JAX package's per-sample branch (its
+    hot-LoRA slots carry their weights in A and B)."""
     ap = p["lora"]
+    if ap["A"].dim() == x.dim() == 3:
+        upd = torch.matmul(torch.matmul(x, ap["A"].to(x.dtype)), ap["B"].to(x.dtype))
+        if mask is not None:
+            upd = upd * mask.to(upd.dtype)
+        return base_out + upd
     if "mag" in ap:
         raise NotImplementedError("DoRA adapters ('mag') are not ported yet")
     scale = torch.as_tensor(ap.get("scale", 1.0), device=x.device).to(x.dtype)

@@ -23,11 +23,13 @@ import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..adapters import apply_adapter
+from ...core.params import linear, to_tensors
 from ...ops.attention import LOG2E, attention
 from ...ops.fused_norms import affine_rows, layer_norm_modulate
 from ...ops.fused_qk import build_freqs_full, fused_q_attention, fused_qk_attention
@@ -308,3 +310,53 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, timestep, context=None, 
         x = checkpoint(dit_block, *args, use_reentrant=False) if remat else dit_block(*args)
     x = head_forward(params["head"], x, t, cfg, seg=seg)
     return unpatchify(x, grid, cfg)
+
+
+# ------------------------------------------------------------------ converter
+def convert_dit_state_dict(sd: Dict[str, Any], cfg: WanDiTConfig, dtype=None, device="cuda"):
+    """Upstream (civitai layout) DiT state dict of numpy arrays -> port
+    params on ``device``: patch_embedding / text_embedding.{0,2} /
+    time_embedding.{0,2} / time_projection.1 / blocks.N.* / head.head, and
+    img_emb.proj.* for the image-input configs."""
+    def g(name):
+        return np.asarray(sd[name])
+
+    D = cfg.dim
+    pe_w = g("patch_embedding.weight")  # (D, C, pt, ph, pw)
+    params: Dict[str, Any] = {
+        "patch_embed": {"w": pe_w.transpose(1, 2, 3, 4, 0).reshape(-1, D),
+                        "b": g("patch_embedding.bias")},
+        "text_embed": {"fc1": linear(sd, "text_embedding.0"),
+                       "fc2": linear(sd, "text_embedding.2")},
+        "time_embed": {"fc1": linear(sd, "time_embedding.0"),
+                       "fc2": linear(sd, "time_embedding.2")},
+        "time_proj": linear(sd, "time_projection.1"),
+        "head": {**linear(sd, "head.head"), "modulation": g("head.modulation").reshape(2, D)},
+    }
+
+    def attn(prefix, img=False):
+        p = {k: linear(sd, f"{prefix}.{k}") for k in ("q", "k", "v", "o")}
+        p["norm_q"] = g(prefix + ".norm_q.weight")
+        p["norm_k"] = g(prefix + ".norm_k.weight")
+        if img:
+            p["k_img"] = linear(sd, prefix + ".k_img")
+            p["v_img"] = linear(sd, prefix + ".v_img")
+            p["norm_k_img"] = g(prefix + ".norm_k_img.weight")
+        return p
+
+    params["blocks"] = [
+        {"self_attn": attn(f"blocks.{i}.self_attn"),
+         "cross_attn": attn(f"blocks.{i}.cross_attn", img=cfg.has_image_input),
+         "norm3": {"w": g(f"blocks.{i}.norm3.weight"), "b": g(f"blocks.{i}.norm3.bias")},
+         "ffn": {"fc1": linear(sd, f"blocks.{i}.ffn.0"), "fc2": linear(sd, f"blocks.{i}.ffn.2")},
+         "modulation": g(f"blocks.{i}.modulation").reshape(6, D)}
+        for i in range(cfg.num_layers)
+    ]
+    if cfg.has_image_input:
+        params["img_emb"] = {
+            "norm1": {"w": g("img_emb.proj.0.weight"), "b": g("img_emb.proj.0.bias")},
+            "fc1": linear(sd, "img_emb.proj.1"),
+            "fc2": linear(sd, "img_emb.proj.3"),
+            "norm2": {"w": g("img_emb.proj.4.weight"), "b": g("img_emb.proj.4.bias")},
+        }
+    return to_tensors(params, device, dtype)

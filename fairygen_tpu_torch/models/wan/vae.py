@@ -25,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...core.params import to_tensors
+
 VAE38_MEAN = np.array([
     -0.2289, -0.0052, -0.1323, -0.2339, -0.2799, 0.0174, 0.1838, 0.1557,
     -0.1382, 0.0542, 0.2813, 0.0891, 0.1570, -0.0098, 0.0375, -0.1825,
@@ -380,3 +382,71 @@ def vae38_decode(params, cfg: WanVAEConfig, latents, clamp: bool = True):
     x = decoder38_forward(params["decoder"], cfg, x, CacheBank("full"))
     video = pixel_unpatchify(x, cfg.patch_size, cfg.in_channels)
     return video.clamp(-1, 1) if clamp else video
+
+
+# ------------------------------------------------------------------ converter
+def convert_vae38_state_dict(sd, cfg: WanVAEConfig, dtype=None, device="cuda"):
+    """Upstream VideoVAE38_ state dict of numpy arrays (optionally
+    'model.'-prefixed) -> port params on ``device``; conv weights keep the
+    checkpoint's (C_out, C_in, k...) layout."""
+    if any(k.startswith("model.") for k in sd):
+        sd = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
+
+    def conv(prefix):
+        return {"w": np.asarray(sd[prefix + ".weight"]), "b": np.asarray(sd[prefix + ".bias"])}
+
+    def gamma(prefix):
+        return np.asarray(sd[prefix + ".gamma"]).reshape(-1)
+
+    def res(prefix, has_shortcut):
+        p = {"norm1": gamma(prefix + ".residual.0"), "conv1": conv(prefix + ".residual.2"),
+             "norm2": gamma(prefix + ".residual.3"), "conv2": conv(prefix + ".residual.6")}
+        if has_shortcut:
+            p["shortcut"] = conv(prefix + ".shortcut")
+        return p
+
+    def attn(prefix):
+        return {"norm": gamma(prefix + ".norm"), "qkv": conv(prefix + ".to_qkv"),
+                "proj": conv(prefix + ".proj")}
+
+    def stages(root, dims, n_res, temporal):
+        out = []
+        for i in range(len(cfg.dim_mult)):
+            pre = f"{root}.{i}.{root.split('.')[-1]}"
+            blocks, in_dim = [], dims[i]
+            for j in range(n_res):
+                blocks.append(res(f"{pre}.{j}", in_dim != dims[i + 1]))
+                in_dim = dims[i + 1]
+            stage = {"blocks": blocks}
+            if i != len(cfg.dim_mult) - 1:
+                stage["resample"] = {"conv": conv(f"{pre}.{n_res}.resample.1")}
+                if temporal[i]:
+                    stage["resample"]["time_conv"] = conv(f"{pre}.{n_res}.time_conv")
+            out.append(stage)
+        return out
+
+    def middle(root):
+        return {"res1": res(root + ".0", False), "attn": attn(root + ".1"),
+                "res2": res(root + ".2", False)}
+
+    params = {
+        "encoder": {
+            "conv1": conv("encoder.conv1"),
+            "down": stages("encoder.downsamples", cfg.enc_dims, cfg.num_res_blocks,
+                           cfg.temperal_downsample),
+            "middle": middle("encoder.middle"),
+            "head": {"norm": gamma("encoder.head.0"), "conv": conv("encoder.head.2")},
+        },
+        "conv1": conv("conv1"),
+        "conv2": conv("conv2"),
+        "decoder": {
+            "conv1": conv("decoder.conv1"),
+            "middle": middle("decoder.middle"),
+            "up": stages("decoder.upsamples", cfg.dec_dims, cfg.num_res_blocks + 1,
+                         cfg.temperal_upsample),
+            "head": {"norm": gamma("decoder.head.0"), "conv": conv("decoder.head.2")},
+        },
+        "latent_mean": VAE38_MEAN[: cfg.z_dim].copy(),
+        "latent_std": VAE38_STD[: cfg.z_dim].copy(),
+    }
+    return to_tensors(params, device, dtype)

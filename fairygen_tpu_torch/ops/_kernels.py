@@ -2,10 +2,11 @@
 
 All sources under ``fairygen_tpu_torch/csrc/`` have a plain ``extern "C"``
 interface (device pointers, ints, the stream as ``void*``; each launcher
-returns ``cudaGetLastError()``).  One ``nvcc`` command compiles them for
-``sm_90a`` into ``build/fairygen_tpu_torch/libfairygen_kernels.so`` at the
-repository root, at first use; the library is loaded with ``ctypes``.  No
-source includes PyTorch's headers, so the build takes seconds.
+returns ``cudaGetLastError()``).  At first use one ``nvcc -c`` per source
+runs for ``sm_90a``, all at once, and one link makes
+``build/fairygen_tpu_torch/libfairygen_kernels.so`` at the repository root;
+the library is loaded with ``ctypes``.  No source includes PyTorch's
+headers, so the build takes seconds.
 
 ``launches`` counts, per kernel, the launches made through the wrappers in
 ``ops/`` since the last :func:`reset_launches`.
@@ -25,15 +26,19 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "fairygen_tpu_torch"
 LIB_NAME = "libfairygen_kernels.so"
-SOURCES = ("ln_modulate.cu", "rms_rope.cu", "flash_attention.cu", "flash_attention_train.cu")
+SOURCES = ("ln_modulate.cu", "rms_rope.cu", "flash_attention.cu", "flash_attention_train.cu",
+           "flash_attention_bias.cu")
+HEADERS = ("flash_common.cuh",)
 KERNELS = ("ln_modulate", "rms_rope_heads_major", "flash_bounded", "flash_small_kv",
-           "flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
+           "flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv",
+           "rms_rope_per_head", "rms_rope_joint", "flash_bias")
 
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "fg_ln_modulate": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
     "fg_rms_rope_heads_major": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -43,6 +48,9 @@ _SIGNATURES = {
     "fg_flash_fwd_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fg_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P],
     "fg_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "fg_rms_rope_per_head": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "fg_rms_rope_joint": [_P, _L, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "fg_flash_bias": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -64,34 +72,59 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()
 
 
-def build_command(verbose: bool = False):
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC"]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    return cmd + ["-o", str(BUILD_DIR / LIB_NAME)] + [str(CSRC / s) for s in SOURCES]
+def _flags():
+    return ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
+
+
+def compile_commands(verbose: bool = False):
+    """One ``nvcc -c`` per source, each into its object under BUILD_DIR."""
+    extra = ["-Xptxas", "-v"] if verbose else []
+    return [[_nvcc()] + _flags() + ["-Xcompiler", "-fPIC"] + extra +
+            ["-c", str(CSRC / s), "-o", str(BUILD_DIR / (s + ".o"))] for s in SOURCES]
+
+
+def link_command():
+    return [_nvcc()] + _flags() + ["-shared", "-o", str(BUILD_DIR / LIB_NAME)] + \
+        [str(BUILD_DIR / (s + ".o")) for s in SOURCES]
 
 
 def build(verbose: bool = False, force: bool = False, timeout: Optional[float] = None) -> str:
     """Compile every source into the shared library unless an up-to-date
-    build exists (or ``force``).  Returns the compiler's output ('' when
-    nothing ran)."""
+    build exists (or ``force``): all the ``nvcc -c`` at once, then one link.
+    Returns the compilers' output ('' when nothing ran)."""
     lib_path = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
     digest = _digest()
     if not force and lib_path.exists() and stamp.exists() and stamp.read_text() == digest:
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    r = subprocess.run(build_command(verbose), capture_output=True, text=True, timeout=timeout)
+    cmds = compile_commands(verbose)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs, failed = [], []
+    for cmd, p in zip(cmds, procs):
+        try:
+            out, _ = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+                q.wait()
+            raise
+        logs.append(out)
+        if p.returncode != 0:
+            failed.append(f"{cmd[cmd.index('-c') + 1]} ({p.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    r = subprocess.run(link_command(), capture_output=True, text=True, timeout=timeout)
     if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
+        raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
     stamp.write_text(digest)
-    return r.stdout + r.stderr
+    return "".join(logs) + r.stdout + r.stderr
 
 
 def lib() -> ctypes.CDLL:

@@ -2,14 +2,16 @@
 
 Convention: q, k, v are (B, S, N, D), output (B, S, N, D).  CUDA tensors go
 to the hand-written flash kernels of ``ops/flash_attention.py`` (as the JAX
-package sends accelerator arrays to Pallas); CPU tensors take
+package sends accelerator arrays to Pallas): a head-shared bias (B|1, 1,
+Sq, Sk) without ``kv_len`` to K10, no bias to K3-K6; any other bias takes
+the plain path, as the JAX package sends it to XLA.  CPU tensors take
 :func:`xla_attention`, the plain fp32-softmax path.
 """
 from __future__ import annotations
 
 import torch
 
-from .flash_attention import LOG2E, flash_attention
+from .flash_attention import LOG2E, flash_attention, flash_attention_bias
 
 
 def xla_attention(q, k, v, scale=None, prescaled=False, kv_len=None, bias=None):
@@ -39,12 +41,11 @@ def attention(q, k, v, scale=None, prescaled=False, kv_len=None, bias=None,
 
     ``bounded_logits``: q/k are rms-normed, so the no-gradient flash forward
     may skip the running max (ignored on the plain path, where the softmax
-    is exact either way).  A ``bias`` has no kernel on the card yet (the
-    JAX package's K10 is not ported) and is refused there."""
-    if q.is_cuda:
-        if bias is not None:
-            raise NotImplementedError("attention bias on CUDA needs K10 (_fa_bias_kernel), "
-                                      "which is not ported yet")
+    is exact either way, and with a bias, whose K10 keeps the max).
+    ``bias``: additive fp32 logits bias (B|1, N|1, Sq, Sk), natural log."""
+    if q.is_cuda and bias is None:
         return flash_attention(q, k, v, scale=scale, prescaled=prescaled, kv_len=kv_len,
                                bounded_logits=bounded_logits)
+    if q.is_cuda and kv_len is None and bias.dim() == 4 and bias.shape[1] == 1:
+        return flash_attention_bias(q, k, v, bias[:, 0], scale=scale, prescaled=prescaled)
     return xla_attention(q, k, v, scale=scale, prescaled=prescaled, kv_len=kv_len, bias=bias)

@@ -305,3 +305,65 @@ def flash_attention(q, k, v, scale=None, prescaled=False, kv_len=None, bounded_l
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, scale, prescaled, kv_len)
     return _flash_fwd_impl(q, k, v, scale, prescaled, kv_len, bounded_logits)
+
+
+# --------------------------------------------------------------------------
+# K10: attention with a head-shared additive bias (port of
+# ``flash_attention_bias`` and ``_fa_bias_kernel``), the EliGen path.  The
+# bias is fp32 (B|1, Sq, Sk) in the natural-log domain; padded query rows and
+# key columns take -1e30, as the JAX package pads it.
+
+_NEG_BIAS = -1e30
+
+
+def flash_attention_bias_plain(qh, kh, vh, bias, *, n, sq, sk):
+    """Plain version of K10, one head at a time: fp32 logits plus
+    bias·log2(e) (pads at -1e30), base-2 softmax with the row max, p
+    rounded to v's dtype before the p·v product, fp32 accumulation."""
+    sq_p, sk_p = qh.shape[1], kh.shape[1]
+    padded = bias.new_full((bias.shape[0], sq_p, sk_p), _NEG_BIAS)
+    padded[:, :sq, :sk] = bias
+    out = torch.empty_like(qh)
+    for bn in range(qh.shape[0]):
+        s = qh[bn].float() @ kh[bn].float().T + padded[0 if bias.shape[0] == 1 else bn // n] * LOG2E
+        p = torch.exp2(s - s.max(-1, keepdim=True).values)
+        l = p.sum(-1, keepdim=True)
+        out[bn] = ((p.to(vh.dtype).float() @ vh[bn].float()) / l).to(qh.dtype)
+    return out
+
+
+def flash_attention_bias_heads_major(qh, kh, vh, bias, *, n, sq, sk):
+    """K10 on head-major q/k/v (BN, S_pad, 128) (q prescaled, zero pad
+    rows) and an unpadded fp32 bias (B|1, sq, sk).  Returns head-major o."""
+    if not qh.is_cuda:
+        return flash_attention_bias_plain(qh, kh, vh, bias, n=n, sq=sq, sk=sk)
+    _check_heads_major(qh, kh, vh, sk)
+    _kernels.check_cuda(bias, "bias", torch.float32, 3)
+    bn = qh.shape[0]
+    if bn % n or bias.shape[0] not in (1, bn // n) or tuple(bias.shape[1:]) != (sq, sk) \
+            or not 1 <= sq <= qh.shape[1]:
+        raise ValueError(f"bias {tuple(bias.shape)} does not match BN {bn}, N {n}, sq {sq}, "
+                         f"sk {sk}")
+    out = torch.empty_like(qh)
+    _kernels.launch("flash_bias", "fg_flash_bias", qh.data_ptr(), kh.data_ptr(), vh.data_ptr(),
+                    bias.data_ptr(), out.data_ptr(), bn, n, bias.shape[0], sq, qh.shape[1], sk,
+                    kh.shape[1])
+    return out
+
+
+def flash_attention_bias(q, k, v, bias, scale=None, prescaled=False):
+    """Forward attention, (B, S, N, d) in and out, with a head-shared
+    additive bias (B|1, Sq, Sk) in the natural-log domain (the attn_mask of
+    scaled_dot_product_attention).  ``prescaled``: q already carries
+    scale·log2(e).  Lengths are padded to the kernel's 64 rows.  Forward
+    only, as the JAX kernel: raises NotImplementedError when a gradient
+    is asked for."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
+        raise NotImplementedError("flash_attention_bias has no backward (K10 is forward-only)")
+    b, sq, n, _ = q.shape
+    sk = k.shape[1]
+    qh = _heads_major(_prescale(q, scale, prescaled), _pad_len(sq, _ROW_TILE, False))
+    sk_p = _pad_len(sk, _ROW_TILE, False)
+    out = flash_attention_bias_heads_major(qh, _heads_major(k, sk_p), _heads_major(v, sk_p),
+                                           bias.float().contiguous(), n=n, sq=sq, sk=sk)
+    return _natural(out, b, n, sq)

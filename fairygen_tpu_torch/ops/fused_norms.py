@@ -3,7 +3,8 @@ fairygen_tpu/ops/fused_norms.py ``layer_norm_modulate`` / ``_ln_mod_kernel``).
 
 CUDA tensors go through the hand-written kernel ``csrc/ln_modulate.cu``
 (bf16); CPU tensors take :func:`layer_norm_modulate_plain`, the same
-formula in PyTorch.  The gradient differentiates the plain formula, as the
+formula in PyTorch.  :func:`ln_modulate` is the uniform one-row entry of the
+image DiTs over the same kernel.  The gradient differentiates the plain formula, as the
 JAX package's ``_ln_mod_bwd`` does: there is no backward kernel.
 """
 from __future__ import annotations
@@ -72,3 +73,21 @@ def affine_rows(weight, bias, batch: int):
     sc = (weight - 1.0)[None, None].expand(batch, 2, weight.shape[0]).contiguous()
     sh = bias[None, None].expand(batch, 2, bias.shape[0]).contiguous()
     return sh, sc
+
+
+def ln_modulate(x, shift, scale, eps: float = 1e-6):
+    """Uniform AdaLN, ``layer_norm(x) * (1 + scale) + shift`` with one
+    modulation row per sample, shift/scale (B, 1, D) or (B, D) (the FLUX.1
+    form).  The JAX package's gate: D % 128 == 0 and S >= 256 go to K1 (the
+    same row twice); anything else is the plain expression it runs off the
+    kernel, which rounds the normalized x to x.dtype before modulating."""
+    b, s, d = x.shape
+    if d % 128 == 0 and s >= 256:
+        sh = shift.reshape(shift.shape[0], 1, d).expand(b, 2, d).contiguous()
+        sc = scale.reshape(scale.shape[0], 1, d).expand(b, 2, d).contiguous()
+        return layer_norm_modulate(x, sh, sc, 0, eps)
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).pow(2).mean(-1, keepdim=True)
+    y = ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    return y * (1 + scale.reshape(-1, 1, d)) + shift.reshape(-1, 1, d)

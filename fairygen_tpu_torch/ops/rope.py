@@ -1,4 +1,5 @@
-"""3D rotary position embedding for video DiTs (port of fairygen_tpu/ops/rope.py).
+"""Rotary position embedding (port of fairygen_tpu/ops/rope.py): the 3D
+tables of the video DiTs and the interleaved-pair rotation of the image DiTs.
 
 Angle tables are built in fp64 on the host and kept as fp32 (cos, sin)
 tables, as the JAX package does (upstream multiplies in complex128).
@@ -53,3 +54,16 @@ def rope_apply(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
     o0 = x0 * cos - x1 * sin
     o1 = x0 * sin + x1 * cos
     return torch.stack([o0, o1], -1).reshape(b, s, n, d).to(x.dtype)
+
+
+def apply_interleaved_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Interleaved-pair RoPE of the image DiTs (FLUX.1): x (B, L, N, D) with
+    (even, odd) pairs, cos/sin (L, D/2) fp32 pair tables; the rotation runs
+    in fp32 and is cast back:
+    out[2i] = cos·x[2i] − sin·x[2i+1], out[2i+1] = sin·x[2i] + cos·x[2i+1]."""
+    xf = x.float().reshape(*x.shape[:-1], -1, 2)
+    c = cos[None, :, None, :]
+    s = sin[None, :, None, :]
+    out_e = c * xf[..., 0] - s * xf[..., 1]
+    out_o = s * xf[..., 0] + c * xf[..., 1]
+    return torch.stack([out_e, out_o], -1).reshape(x.shape).to(x.dtype)

@@ -1,14 +1,20 @@
 """Card-only tests of the port's CUDA kernels (marker ``cuda``): each kernel
 against its plain PyTorch version on the card, a tiny pipeline that must
 launch the four serving kernels, the flash-attention gradient against
-autograd of the plain attention, and a tiny LoRA train step that must
-launch K6a-c.  They skip here when no card is present; on a card:
+autograd of the plain attention, a tiny LoRA train step that must launch
+K6a-c, and a tiny FLUX.1 pipeline that must launch K1, K7, K8 and K3/K4,
+or K10 with EliGen regions.  They skip here when no card is present; on a card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: bf16 outputs, 1 bf16 ulp (<= 2^-7 relative) for K1/K2 and the
 same plus 1e-3 absolute for the attention kernels (p is rounded to bf16
-before the p·v product on both sides; sums run in other orders).  K6b/K6c
+before the p·v product on both sides; sums run in other orders).  K7/K8
+compute the per-head statistic in another order than the plain version,
+so a bf16 rounding of a normed value may flip, and the rotation moves both
+outputs of its pair by about one ulp of the pair's magnitude: 2 bf16 ulps
+of max(|y_2i|, |y_2i+1|), the bound of the CPU tests.  K10 rounds p against the running
+max of its key tile, as K5 does: 2^-7 relative + 2^-8 absolute.  K6b/K6c
 round P and dS to bf16 before their products on both sides, but at values
 that differ in the last fp32 bits (sums in another order), so a term may
 move by one bf16 ulp: their gradients are held to 2^-7 relative plus 1e-2
@@ -27,6 +33,14 @@ def card():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.Generator("cuda").manual_seed(0)
+
+
+def _close_rotated(out, ref, normed):
+    """|out - ref| <= 2 bf16 ulps (2 x 2^-7) of the rotated pair's magnitude
+    max(|y_2i|, |y_2i+1|) of the normed values (see the module note)."""
+    n = normed.float()
+    pair = torch.maximum(n[..., 0::2].abs(), n[..., 1::2].abs()).repeat_interleave(2, -1)
+    assert bool(((out.float() - ref.float()).abs() <= 2 * 2 ** -7 * pair).all())
 
 
 def _randn(g, *shape, scale=1.0):
@@ -109,7 +123,8 @@ def test_tiny_pipeline_launches_every_kernel(card):
                                  "flash_bounded": layers * sweeps,
                                  "flash_small_kv": layers * sweeps,
                                  "flash_fwd": 0, "flash_fwd_lse": 0, "flash_bwd_dq": 0,
-                                 "flash_bwd_dkv": 0}
+                                 "flash_bwd_dkv": 0, "rms_rope_per_head": 0,
+                                 "rms_rope_joint": 0, "flash_bias": 0}
 
 
 def _close_grad(out, ref):
@@ -216,3 +231,102 @@ def test_tiny_lora_train_step_launches_k6_and_moves_only_adapters(card):
             assert not torch.equal(t, before[path]), path
         elif "lora" not in path:
             assert torch.equal(t, before[path]), path
+
+
+@pytest.mark.parametrize("s", [300, 1100])
+def test_k7_matches_plain(card, s):
+    from fairygen_tpu_torch.ops import fused_qk as fq
+
+    n = 3
+    qkv = _randn(card, 1, s, 3 * n * 128)  # a column slice, as the DiT passes it
+    x, gamma = qkv[..., n * 128:2 * n * 128], _randn(card, 128)
+    ang = torch.rand((s, 64), generator=card, device="cuda") * 6.28
+    ff = fq.build_freqs_full_pairs(torch.cos(ang), torch.sin(ang))
+    s_pad = fq._pad_for_flash(s)[0]
+    out = fq.rms_rope_heads_major_per_head(x, gamma, ff, n, s_pad, eps=1e-6)
+    ref = fq.rms_rope_heads_major_per_head_plain(x, gamma, ff, n, s_pad, eps=1e-6)
+    ident = fq.build_freqs_full_pairs(torch.ones_like(ang), torch.zeros_like(ang))
+    _close_rotated(out, ref, fq.rms_rope_heads_major_per_head_plain(x, gamma, ident, n, s_pad,
+                                                                    eps=1e-6))
+    assert torch.all(out[:, s:] == 0)
+
+
+@pytest.mark.parametrize("s_t,s_i", [(77, 300), (512, 4096)])
+def test_k8_matches_plain(card, s_t, s_i):
+    from fairygen_tpu_torch.ops import fused_qk as fq
+
+    n = 2
+    xi, xt = _randn(card, 1, s_i, n * 128), _randn(card, 1, s_t, n * 128)
+    gi, gt = _randn(card, 128), _randn(card, 128)
+    i_pad = -(-s_i // 1024) * 1024
+    s_pad = i_pad + -(-s_t // 1024) * 1024
+    ai = torch.rand((s_i, 64), generator=card, device="cuda") * 6.28
+    at = torch.rand((s_t, 64), generator=card, device="cuda") * 6.28
+    ff = fq.build_freqs_full_joint(torch.cos(ai), torch.sin(ai), torch.cos(at), torch.sin(at),
+                                   i_pad, s_pad)
+    out = fq.rms_rope_heads_major_joint(xi, xt, gi, gt, ff, n, i_pad, s_pad, eps=1e-6)
+    ref = fq.rms_rope_heads_major_joint_plain(xi, xt, gi, gt, ff, n, i_pad, s_pad, eps=1e-6)
+    ident = fq.build_freqs_full_joint(torch.ones_like(ai), torch.zeros_like(ai),
+                                      torch.ones_like(at), torch.zeros_like(at), i_pad, s_pad)
+    _close_rotated(out, ref, fq.rms_rope_heads_major_joint_plain(xi, xt, gi, gt, ident, n, i_pad,
+                                                                 s_pad, eps=1e-6))
+    assert torch.all(out[:, s_i:i_pad] == 0) and torch.all(out[:, i_pad + s_t:] == 0)
+
+
+@pytest.mark.parametrize("b,bias_b,sq,sk", [(1, 1, 300, 300), (2, 1, 200, 333),
+                                            (1, 1, 1100, 1100), (2, 2, 700, 650)])
+def test_k10_matches_plain(card, b, bias_b, sq, sk):
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    n = 3
+    q = _randn(card, b, sq, n, 128, scale=128 ** -0.5 * 1.4427)
+    k, v = _randn(card, b, sk, n, 128), _randn(card, b, sk, n, 128)
+    allow = torch.rand((bias_b, sq, sk), generator=card, device="cuda") < 0.6
+    allow[:, :, 0] = True
+    bias = torch.where(allow, 0.3 * torch.randn((bias_b, sq, sk), generator=card, device="cuda"),
+                       torch.tensor(-1e30, device="cuda"))
+    qh = fa._heads_major(q, fa._pad_len(sq, 64, False))
+    kh, vh = (fa._heads_major(t, fa._pad_len(sk, 64, False)) for t in (k, v))
+    out = fa.flash_attention_bias_heads_major(qh, kh, vh, bias, n=n, sq=sq, sk=sk)
+    ref = fa.flash_attention_bias_plain(qh, kh, vh, bias, n=n, sq=sq, sk=sk)
+    torch.testing.assert_close(out[:, :sq].float(), ref[:, :sq].float(), rtol=2 ** -7,
+                               atol=2 ** -8)
+
+
+@pytest.mark.parametrize("eligen", [False, True])
+def test_tiny_flux_pipeline_launches_its_kernels(card, eligen):
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.flux.dit import FluxDiTConfig
+    from fairygen_tpu_torch.models.sdxl.vae import AutoencoderKLConfig
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines.flux_image import FluxImagePipeline
+
+    cfg = FluxDiTConfig(dim=256, num_heads=2, context_dim=64, pooled_dim=32,
+                        num_double_blocks=2, num_single_blocks=2)
+    vae_cfg = AutoencoderKLConfig(latent_channels=16, block_out_channels=(32, 32, 32, 32),
+                                  norm_num_groups=8, scaling_factor=0.3611,
+                                  shift_factor=0.1159, use_quant_conv=False)
+    pipe = FluxImagePipeline(convert.init_flux_dit_params(cfg), cfg,
+                             convert.init_autoencoder_kl_params(vae_cfg), vae_cfg)
+    kw = {}
+    if eligen:
+        masks = torch.zeros((1, 2, 1, 32, 32), device="cuda")
+        masks[:, 0, :, :16] = 1
+        masks[:, 1, :, :, 16:] = 1
+        kw = dict(eligen_entity_prompts=_randn(card, 1, 2, 40, 64), eligen_entity_masks=masks)
+    _kernels.reset_launches()
+    # 32 x 32 latents: 256 image tokens (K1's gate opens on the image
+    # stream, the 40 text tokens take the plain expression)
+    img = pipe(prompt_emb=_randn(card, 1, 40, 64), pooled_prompt_emb=_randn(card, 1, 32),
+               height=256, width=256, num_inference_steps=2, seed=1, **kw)
+    assert torch.isfinite(img).all() and img.shape == (1, 3, 256, 256)
+    sweeps, dbl, sgl = 2, 2, 2
+    got = {k: v for k, v in _kernels.launches.items() if v}
+    k1 = (2 * dbl + sgl + 1) * sweeps  # image stream x2 per double block, single, final
+    if eligen:
+        assert got == {"ln_modulate": k1, "flash_bias": (dbl + sgl) * sweeps}
+    else:
+        assert got["rms_rope_joint"] == 2 * dbl * sweeps
+        assert got["rms_rope_per_head"] == 2 * sgl * sweeps
+        assert got["ln_modulate"] == k1
+        assert got.get("flash_bounded", 0) + got.get("flash_small_kv", 0) == (dbl + sgl) * sweeps

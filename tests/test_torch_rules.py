@@ -2,8 +2,9 @@
 
 * No file of fairygen_tpu_torch/ and not chip_smoke.py imports jax or
   fairygen_tpu (AST scan).
-* An entry point called without ``device=`` on a machine with no card
-  raises instead of running on the CPU.
+* An entry point (pipelines, initialisers, converters) called without
+  ``device=`` on a machine with no card raises instead of running on the
+  CPU.
 * A kernel wrapper given a CUDA tensor launches its kernel or raises: its
   only branch to the plain version is on the tensor lying on the CPU, and
   it has no try/except around the launch.
@@ -17,11 +18,15 @@ import pytest
 import torch
 
 from fairygen_tpu_torch import convert
+from fairygen_tpu_torch.models.flux.dit import FluxDiTConfig, convert_flux_dit_state_dict
+from fairygen_tpu_torch.models.sdxl.clip import CLIPTextConfig
+from fairygen_tpu_torch.models.sdxl.vae import AutoencoderKLConfig
 from fairygen_tpu_torch.models.wan.dit import WanDiTConfig
-from fairygen_tpu_torch.models.wan.text_encoder import UMT5Config
+from fairygen_tpu_torch.models.wan.text_encoder import UMT5Config, convert_umt5_state_dict
 from fairygen_tpu_torch.models.wan.vae import WanVAEConfig
 from fairygen_tpu_torch.ops import _kernels
 from fairygen_tpu_torch.ops import flash_attention, fused_norms, fused_qk
+from fairygen_tpu_torch.pipelines.flux_image import FluxImagePipeline
 from fairygen_tpu_torch.pipelines.wan_video import WanVideoPipeline
 from fairygen_tpu_torch.training.train_step import make_wan_sft_train_step
 
@@ -47,11 +52,31 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 def test_the_scan_sees_the_whole_package():
     names = {p.name for p in PORT_FILES}
-    assert {"dit.py", "vae.py", "wan_video.py", "_kernels.py", "chip_smoke.py"} <= names
+    assert {"dit.py", "vae.py", "wan_video.py", "_kernels.py", "chip_smoke.py",
+            "flux_image.py", "clip.py", "text_encoders.py", "params.py"} <= names
+
+
+def _flux_sd(cfg):
+    """The smallest state dict convert_flux_dit_state_dict reads (no blocks)."""
+    dense = {"time_embedder.timestep_embedder.0": (cfg.dim, cfg.time_freq_dim),
+             "time_embedder.timestep_embedder.2": (cfg.dim, cfg.dim),
+             "pooled_text_embedder.0": (cfg.dim, cfg.pooled_dim),
+             "pooled_text_embedder.2": (cfg.dim, cfg.dim),
+             "context_embedder": (cfg.dim, cfg.context_dim), "x_embedder": (cfg.dim, cfg.in_dim),
+             "final_norm_out.linear": (2 * cfg.dim, cfg.dim),
+             "final_proj_out": (cfg.in_dim, cfg.dim),
+             "guidance_embedder.timestep_embedder.0": (cfg.dim, cfg.time_freq_dim),
+             "guidance_embedder.timestep_embedder.2": (cfg.dim, cfg.dim)}
+    return {k + ".weight": np.zeros(s, np.float32) for k, s in dense.items()}
+
+
+FLUX0 = FluxDiTConfig.tiny(num_double_blocks=0, num_single_blocks=0)
 
 
 @pytest.mark.parametrize("entry", ["pipeline", "from_jax_params", "init_dit", "init_umt5",
-                                   "init_vae", "train_step"])
+                                   "init_vae", "train_step", "flux_pipeline", "init_flux_dit",
+                                   "init_t5", "init_clip_text", "init_autoencoder_kl",
+                                   "convert_umt5", "convert_flux_dit"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
@@ -61,6 +86,16 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
         "init_umt5": lambda: convert.init_umt5_params(UMT5Config.tiny()),
         "init_vae": lambda: convert.init_vae_params(WanVAEConfig.tiny()),
         "train_step": lambda: make_wan_sft_train_step(WanDiTConfig(num_layers=1), None),
+        "flux_pipeline": lambda: FluxImagePipeline({}, FluxDiTConfig()),
+        "init_flux_dit": lambda: convert.init_flux_dit_params(FLUX0),
+        "init_t5": lambda: convert.init_t5_params(UMT5Config.tiny(shared_pos_bias=True)),
+        "init_clip_text": lambda: convert.init_clip_text_params(CLIPTextConfig.tiny()),
+        "init_autoencoder_kl": lambda: convert.init_autoencoder_kl_params(
+            AutoencoderKLConfig.tiny()),
+        "convert_umt5": lambda: convert_umt5_state_dict(
+            {"token_embedding.weight": np.zeros((4, 2)), "norm.weight": np.zeros(2)},
+            UMT5Config.tiny(num_layers=0)),
+        "convert_flux_dit": lambda: convert_flux_dit_state_dict(_flux_sd(FLUX0), FLUX0),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -68,7 +103,9 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
 
 WRAPPERS = [fused_norms.layer_norm_modulate, fused_qk.rms_rope_heads_major,
             flash_attention.flash_attention_heads_major, flash_attention.flash_fwd,
-            flash_attention.flash_bwd_dq, flash_attention.flash_bwd_dkv]
+            flash_attention.flash_bwd_dq, flash_attention.flash_bwd_dkv,
+            fused_qk.rms_rope_heads_major_per_head, fused_qk.rms_rope_heads_major_joint,
+            flash_attention.flash_attention_bias_heads_major]
 
 
 @pytest.mark.parametrize("fn", WRAPPERS, ids=lambda f: f.__name__)
@@ -82,6 +119,21 @@ def test_wrappers_take_the_plain_path_only_for_cpu_tensors(fn):
     test = ast.unparse(branches[0].test)
     assert test.startswith("not ") and test.endswith(".is_cuda"), test
     assert "_kernels.launch" in inspect.getsource(fn)
+
+
+@pytest.mark.parametrize("grad_of", ["q", "k", "v", "bias"])
+def test_bias_attention_refuses_a_gradient(grad_of):
+    """K10 is forward-only: asking it for a gradient raises instead of
+    silently dropping one; without a gradient it runs."""
+    g = torch.Generator().manual_seed(0)
+    ts = {name: torch.randn((1, 8, 2, 128) if name != "bias" else (1, 8, 8), generator=g)
+          for name in ("q", "k", "v", "bias")}
+    ts[grad_of].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        flash_attention.flash_attention_bias(ts["q"], ts["k"], ts["v"], ts["bias"])
+    with torch.no_grad():
+        out = flash_attention.flash_attention_bias(ts["q"], ts["k"], ts["v"], ts["bias"])
+    assert out.shape == (1, 8, 2, 128) and torch.isfinite(out).all()
 
 
 def test_launch_raises_on_a_kernel_error_and_does_not_count(monkeypatch):
@@ -107,12 +159,18 @@ def test_check_cuda_refuses_cpu_and_wrong_dtype():
 
 
 def test_build_command_is_one_plain_nvcc_for_sm90a(monkeypatch):
+    """One plain nvcc -c for sm_90a per source (they run at once), one link
+    of their objects into the library; no source includes PyTorch."""
     monkeypatch.setattr(_kernels, "_nvcc", lambda: "nvcc")
-    cmd = _kernels.build_command()
-    assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
-    assert [c for c in cmd if c.endswith(".cu")] == [
-        str(_kernels.CSRC / s) for s in _kernels.SOURCES]
-    assert cmd[cmd.index("-o") + 1].endswith("build/fairygen_tpu_torch/libfairygen_kernels.so")
+    cmds = _kernels.compile_commands()
+    assert [c[c.index("-c") + 1] for c in cmds] == [str(_kernels.CSRC / s)
+                                                   for s in _kernels.SOURCES]
+    link = _kernels.link_command()
+    for cmd in cmds + [link]:
+        assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
+    assert [c for c in link if c.endswith(".o")] == [c[c.index("-o") + 1] for c in cmds]
+    assert link[link.index("-o") + 1].endswith("build/fairygen_tpu_torch/libfairygen_kernels.so")
+    assert sorted(p.name for p in _kernels.CSRC.glob("*.cu")) == sorted(_kernels.SOURCES)
     for src in _kernels.CSRC.glob("*.cu"):
         text = src.read_text()
         assert "torch/extension.h" not in text and 'extern "C"' in text

@@ -2,8 +2,9 @@
 shared weights, and against the committed upstream goldens.
 
 Inputs and weights are made with numpy from a seed (or taken from the
-goldens), converted for JAX by the JAX package's own converters and for the
-port by ``convert.from_jax_params``.  Everything runs in fp32 on the CPU.
+goldens).  Golden checkpoints load through the port's own converters; trees
+shared with the JAX package go through its converters and, for the port,
+``convert.from_jax_params``.  Everything runs in fp32 on the CPU.
 Tolerances are stated per test; the usual reason for a nonzero one is that
 the two frameworks sum in different orders.
 """
@@ -39,10 +40,6 @@ def _t(a):
 
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
-
-
-def _port(tree):
-    return convert.from_jax_params(_np_tree(tree), device="cpu")
 
 
 # ------------------------------------------------------------------ ops
@@ -108,7 +105,8 @@ def _umt5_golden(g):
 
 def test_umt5_matches_golden(goldens):
     g = goldens("umt5")
-    params = _port(_umt5_golden(g))
+    params = tte.convert_umt5_state_dict({k[4:]: g[k] for k in g.files if k.startswith("sd::")},
+                                         tte.UMT5Config.tiny(), device="cpu")
     emb = tte.umt5_encode(params, tte.UMT5Config.tiny(), _t(g["ids"]), _t(g["mask"]))
     np.testing.assert_allclose(emb.numpy(), g["emb"], atol=2e-5, rtol=1e-4)
     masked = tte.mask_pad_tokens(emb, _t(g["mask"]))
@@ -136,9 +134,16 @@ VAE_CFG = jvae.WanVAEConfig.tiny()
 TVAE_CFG = tvae.WanVAEConfig.tiny()
 
 
+def _vae_golden_sd(g):
+    return {k[4:]: g[k] for k in g.files if k.startswith("sd::")}
+
+
 def _vae_golden_tree(g):
-    sd = {k[4:]: g[k] for k in g.files if k.startswith("sd::")}
-    return jvae.convert_vae38_state_dict(sd, VAE_CFG)
+    return jvae.convert_vae38_state_dict(_vae_golden_sd(g), VAE_CFG)
+
+
+def _vae_golden_port(g):
+    return tvae.convert_vae38_state_dict(_vae_golden_sd(g), TVAE_CFG, device="cpu")
 
 
 @pytest.mark.parametrize("which", ["encode", "decode", "roundtrip"])
@@ -146,7 +151,7 @@ def test_vae38_matches_golden(goldens, which):
     """Upstream streamed encode/decode goldens; the JAX package's own
     tolerances (tests/test_wan_vae.py)."""
     g = goldens("wan_vae")
-    params = _port(_vae_golden_tree(g))
+    params = _vae_golden_port(g)
     if which == "encode":
         out, ref, atol = tvae.vae38_encode(params, TVAE_CFG, _t(g["x"])), g["z"], 2e-4
     elif which == "decode":
@@ -202,7 +207,7 @@ def test_vae38_chunked_cache_matches_full_sequence(goldens):
     latent frame per step on decode) == the full-sequence program (fp32,
     1e-5)."""
     g = goldens("wan_vae")
-    params = _port(_vae_golden_tree(g))
+    params = _vae_golden_port(g)
     x = tvae.pixel_patchify(_t(g["x"]), TVAE_CFG.patch_size)
     full = tvae.encoder38_forward(params["encoder"], TVAE_CFG, x, tvae.CacheBank("full"))
     bank = tvae.CacheBank("init")
@@ -245,9 +250,8 @@ def test_dit_matches_golden(goldens, which):
     else:
         kw = dict(in_dim=8, seperated_timestep=True, require_clip_embedding=False,
                   require_vae_embedding=False, fuse_vae_embedding_in_latents=True)
-    jcfg = jdit.WanDiTConfig(**_GOLDEN_KW, **kw)
     tcfg = tdit.WanDiTConfig(**_GOLDEN_KW, **kw)
-    params = _port(jdit.convert_dit_state_dict(_golden_sd(g, which), jcfg))
+    params = tdit.convert_dit_state_dict(_golden_sd(g, which), tcfg, device="cpu")
     extra = {}
     if which == "std":
         extra = dict(clip_feature=_t(g["std_clip"]), y=_t(g["std_y"]))

@@ -1,6 +1,7 @@
 """The port's TI2V WanVideoPipeline against the JAX package's pipeline on
 the same converted weights, context, first image and torch-compatible
-noise, and against the committed upstream pipeline golden.  fp32 on the CPU.
+noise, and against the committed upstream pipeline golden (loaded through
+the port's own converters).  fp32 on the CPU.
 """
 import jax
 import jax.numpy as jnp
@@ -13,8 +14,8 @@ from fairygen_tpu.models.wan.vae import WanVAEConfig as JVAEConfig
 from fairygen_tpu.models.wan.vae import convert_vae38_state_dict
 from fairygen_tpu.pipelines.wan_video import WanVideoPipeline as JPipeline
 from fairygen_tpu_torch import convert
-from fairygen_tpu_torch.models.wan.dit import WanDiTConfig
-from fairygen_tpu_torch.models.wan.vae import WanVAEConfig
+from fairygen_tpu_torch.models.wan.dit import WanDiTConfig, convert_dit_state_dict
+from fairygen_tpu_torch.models.wan.vae import WanVAEConfig, convert_vae38_state_dict as t_vae38
 from fairygen_tpu_torch.pipelines.wan_video import WanVideoPipeline
 
 TI2V = dict(seperated_timestep=True, require_clip_embedding=False,
@@ -26,12 +27,15 @@ TINY128 = dict(dim=256, in_dim=4, ffn_dim=512, out_dim=4, text_dim=32, freq_dim=
                patch_size=(1, 2, 2), num_heads=2, num_layers=2, **TI2V)
 
 
+def _golden_sd(g, prefix):
+    return {k[len(prefix) + 2:]: g[k] for k in g.files if k.startswith(prefix + "::")}
+
+
 def _trees(g, dit_kw):
-    vae_sd = {k[5:]: g[k] for k in g.files if k.startswith("vae::")}
+    vae_sd = _golden_sd(g, "vae")
     vae = jax.tree.map(np.asarray, convert_vae38_state_dict(vae_sd, JVAEConfig.tiny()))
     if dit_kw is GOLDEN_DIT:
-        dit_sd = {k[5:]: g[k] for k in g.files if k.startswith("dit::")}
-        dit = jdit.convert_dit_state_dict(dit_sd, jdit.WanDiTConfig(**dit_kw))
+        dit = jdit.convert_dit_state_dict(_golden_sd(g, "dit"), jdit.WanDiTConfig(**dit_kw))
     else:
         dit = jdit.init_dit_params(jax.random.key(1), jdit.WanDiTConfig(**dit_kw))
         rng = np.random.default_rng(7)
@@ -58,8 +62,11 @@ def test_ti2v_matches_golden(goldens):
     """Upstream-composed TI2V denoise (tests/goldens/wan_pipeline.npz) with
     the JAX package's own tolerance (tests/test_wan_pipeline.py)."""
     g = goldens("wan_pipeline")
-    dit, vae = _trees(g, GOLDEN_DIT)
-    pipe = _port_pipe(dit, vae, GOLDEN_DIT)
+    pipe = WanVideoPipeline(
+        convert_dit_state_dict(_golden_sd(g, "dit"), WanDiTConfig(**GOLDEN_DIT), device="cpu"),
+        WanDiTConfig(**GOLDEN_DIT),
+        t_vae38(_golden_sd(g, "vae"), WanVAEConfig.tiny(), device="cpu"), WanVAEConfig.tiny(),
+        dtype=torch.float32, device="cpu")
     kw = dict(_kwargs(g, 32, 32), context=torch.from_numpy(g["ctx_p"]),
               negative_context=torch.from_numpy(g["ctx_n"]))
     lat = pipe(output_type="latents", **kw)
