@@ -18,7 +18,11 @@ Phases, each printing its wall seconds:
                 backward as their yardstick, and a flash_attention gradient
                 check against autograd of the plain attention.  Then K7, K8
                 and K10 at the FLUX.1-dev 1024x1024 shapes (4608 tokens;
-                5632 with two EliGen entities).
+                5632 with two EliGen entities).  Then K9 at the Z-Image-Turbo
+                1024x1024 shapes (4416, 4096 and 320 rows of 3840, with and
+                without scale) and K11 at two VAE38 shapes (399,360 x 256
+                and 7800 x 1024, with and without SiLU), F.rms_norm as their
+                yardstick.
   4. weights  — full-width Wan2.2-TI2V-5B DiT, UMT5-XXL and VAE38, made on
                 the card in bf16 from a seeded CUDA generator.
   5. requests — WanVideoPipeline answers two 480x832x17-frame, 4-step,
@@ -36,10 +40,17 @@ Phases, each printing its wall seconds:
                 two 1024x1024 4-step requests and one EliGen request with
                 exact launch counts of K1, K7, K8, K3 and K10, and one
                 profiled sweep.
-  9. reference — a tiny-width pipeline on the card (kernels, bf16) against
+  9. zimage   — Z-Image-Turbo at full width and depth (DiT 2 + 2 + 30
+                blocks, dim 3840; Qwen3-4B; the FLUX VAE) from seeded bf16
+                weights: a 300-id prompt through encode_ids, two 1024x1024
+                8-step requests and one image-to-image CFG request with
+                exact launch counts of K9, K7, K3 and K4, and one profiled
+                sweep.
+ 10. reference — a tiny-width pipeline on the card (kernels, bf16) against
                 the same pipeline on the CPU (plain versions, fp32), one
-                tiny LoRA training step likewise, and a tiny head-dim-128
-                FLUX.1 DiT with and without EliGen likewise.
+                tiny LoRA training step likewise, a tiny head-dim-128
+                FLUX.1 DiT with and without EliGen likewise, and a tiny
+                head-dim-128 Z-Image DiT and a tiny Qwen3 encoder likewise.
 Then the card line, one JSON line of kernel numbers and the result line.
 Any failure exits non-zero; past BUDGET_S seconds the run stops, naming
 the phase it was in.
@@ -57,6 +68,7 @@ PHASE = ["start"]
 
 H100_BYTES_PER_S = 3.35e12    # HBM3, NVIDIA H100 SXM data sheet
 H100_BF16_FLOP_PER_S = 989e12  # dense bf16 tensor cores, same source
+H100_FP32_FLOP_PER_S = 67e12   # fp32 outside the tensor cores, same source
 
 
 def _watchdog():
@@ -95,9 +107,9 @@ def time_ms(fn, inner=20, rounds=5):
     return times[len(times) // 2]
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, flop_per_s=H100_BF16_FLOP_PER_S):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_BF16_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -423,6 +435,7 @@ def main(argv):
     flagship = kernel_checks(8190, (21, 15, 26), "S=8190")
     train_k = train_kernel_checks()
     flux_k = flux_kernel_checks()
+    norm_k = norm_kernel_checks()
     torch.cuda.synchronize()
     done("kernels", t0)
 
@@ -500,10 +513,17 @@ def main(argv):
         print(f"  launches, serving, training and FLUX.1: {launches}", flush=True)
         done("flux", t0)
 
+        t0 = phase("zimage")
+        zimage_launches = zimage_phase()
+        launches = {k: launches[k] + zimage_launches[k] for k in launches}
+        print(f"  launches, serving, training, FLUX.1 and Z-Image: {launches}", flush=True)
+        done("zimage", t0)
+
         t0 = phase("reference")
         reference_check()
         reference_train_check()
         reference_flux_check()
+        reference_zimage_check()
         done("reference", t0)
 
     sources = {"ln_modulate": ("csrc/ln_modulate.cu", "fairygen_tpu/ops/fused_norms.py:42"),
@@ -549,6 +569,21 @@ def main(argv):
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"]})
+    norm_sources = {"rms_modulate": ("fairygen_tpu/ops/fused_norms.py:141", (4416, "no-scale")),
+                    "vae_rms_silu": ("fairygen_tpu/ops/fused_norms.py:224",
+                                     (399360, "no-silu"))}
+    for k, (replaces, main_shape) in norm_sources.items():
+        r = norm_k[k][main_shape]
+        rows.append({
+            "name": k, "route": "cuda", "source": "fairygen_tpu_torch/csrc/rms_modulate.cu",
+            "replaces": replaces, "launches": None if expected is None else launches[k],
+            "max_abs_err": max(v["max_abs_err"] for v in norm_k[k].values()), "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"],
+            "by_shape": {f"{n} {tag}": {"ms": v["ms"], "plain_ms": v["plain_ms"],
+                                        "bound_ms": v["bound"][0], "library_ms": v["library_ms"],
+                                        "differ": v["differ"]}
+                         for (n, tag), v in norm_k[k].items()}})
     timer.cancel()
     print(smi)
     print(json.dumps({"kernels": rows}))
@@ -797,7 +832,7 @@ def flux_phase():
 TRAIN_PER_STEP = {"ln_modulate": 180, "rms_rope_heads_major": 180, "flash_bounded": 60,
                   "flash_small_kv": 60, "flash_fwd": 0, "flash_fwd_lse": 60,
                   "flash_bwd_dq": 60, "flash_bwd_dkv": 60, "rms_rope_per_head": 0,
-                  "rms_rope_joint": 0, "flash_bias": 0}
+                  "rms_rope_joint": 0, "flash_bias": 0, "rms_modulate": 0, "vae_rms_silu": 0}
 
 
 def train_phase(pipe, serving_per_request):
@@ -1273,6 +1308,339 @@ def reference_flux_check():
             raise RuntimeError(f"tiny FLUX.1 DiT {label}: kernels {sorted(ran)} != {kernels}")
         if not rel <= tol:
             raise RuntimeError(f"tiny FLUX.1 DiT {label} disagrees with the CPU reference")
+
+
+def _k9_bracket(x, w, sc, eps):
+    """The plain K9 formula with its fp32 row statistic moved by -2^-14 and
+    +2^-14 (relative): (low, high) elementwise."""
+    xf = x.float()
+    r = xf.pow(2).mean(-1, keepdim=True).add(eps).rsqrt()
+    outs = []
+    for f in (1 - 2 ** -14, 1 + 2 ** -14):
+        y = (xf * (r * f)).to(x.dtype) * w.to(x.dtype)
+        if sc is not None:
+            y = y * sc.reshape(sc.shape[0], 1, -1).to(x.dtype)
+        outs.append(y.float())
+    return outs[0].minimum(outs[1]), outs[0].maximum(outs[1])
+
+
+def _k11_bracket(x, gamma, silu):
+    """The plain K11 formula with the fp32 row norm moved by -2^-14 and
+    +2^-14 (relative): (low, high) elementwise, widened by a few fp32 ulps
+    for fp32 SiLU outputs."""
+    import torch
+    import torch.nn.functional as F
+
+    xf = x.float()
+    n = (xf * xf).sum(-1, keepdim=True).sqrt()
+    outs = []
+    for f in (1 - 2 ** -14, 1 + 2 ** -14):
+        y = (xf / (n * f).clamp_min(1e-12) * (x.shape[-1] ** 0.5) * gamma.float()).to(x.dtype)
+        if silu:
+            y = F.silu(y.float()).to(x.dtype)
+        outs.append(y.float())
+    lo, hi = outs[0].minimum(outs[1]), outs[0].maximum(outs[1])
+    if silu and x.dtype == torch.float32:
+        # where SiLU's slope vanishes its fp32 rounding is not monotone: 2^-21
+        # (a few fp32 ulps) of slack
+        lo, hi = lo - 2 ** -21 * lo.abs(), hi + 2 ** -21 * hi.abs()
+    return lo, hi
+
+
+def check_bracketed(name, out, ref, lo, hi):
+    """K9/K11 sum a row's squares in another order than PyTorch's reduction
+    and otherwise round where the plain version rounds; each output is
+    monotone in the row statistic, so it must lie between the plain formula
+    with that statistic moved by -2^-14 and +2^-14 (relative), far more than
+    a summation order moves it and far less than one bf16 ulp.  Prints how
+    many outputs differ from the plain version at all."""
+    o, r = out.float(), ref.float()
+    inside = bool(((lo <= o) & (o <= hi)).all()) and bool(((lo <= r) & (r <= hi)).all())
+    err = (o - r).abs()
+    ndiff = int((o != r).sum())
+    print(f"  {name}: {ndiff} of {o.numel()} outputs differ from the plain version, "
+          f"max_abs_err {err.max().item():.3e}; all inside the plain formula at the "
+          f"statistic x (1 -/+ 2^-14): {inside}", flush=True)
+    if not inside:
+        raise RuntimeError(f"{name} disagrees with its plain version")
+    return err.max().item(), ndiff
+
+
+def norm_kernel_checks():
+    """K9 and K11 against their plain versions on the card.  K9 at the
+    Z-Image-Turbo 1024x1024 shapes (dim 3840): the unified stream (4416
+    tokens), the noise refiner (4096) and the caption refiner (320), each
+    with and without the (1, 1, 3840) scale.  K11 at two VAE38 shapes: one
+    4-frame chunk of the decoder's last stage at 480x832 (399,360 rows of
+    256 channels) and the mid block of a 17-frame 480x832 decode (7800 rows
+    of 1024), with and without SiLU.  Bounds: bytes (x read and out written
+    once, plus the weight and scale rows); the operations, a few fp32 flops
+    per element, take far less at the card's 67 TFLOP/s fp32 rate.  The
+    yardstick is torch.nn.functional.rms_norm at the same shape for the
+    forms it computes: K9 without scale, and K11 without SiLU (with eps
+    1e-12, as close as one call comes to F.normalize's max(|x|, 1e-12)):
+    their eps and rounding differ from the kernels'.  The forms with scale
+    or SiLU have no one-call counterpart."""
+    import torch
+    import torch.nn.functional as F
+
+    from fairygen_tpu_torch.ops import fused_norms as fn
+
+    dev, bf = "cuda", torch.bfloat16
+    g = torch.Generator(dev).manual_seed(909)
+    res = {"rms_modulate": {}, "vae_rms_silu": {}}
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
+
+    D = 3840
+    w = (1 + randn(D, scale=0.3))
+    sc = (1 + randn(1, 1, D, scale=0.3))
+    for s in (4416, 4096, 320):
+        x = randn(1, s, D)
+        for tag, scale in (("no-scale", None), ("scale", sc)):
+            out = fn.fused_rms_modulate(x, w, scale, 1e-5)
+            ref = fn.rms_modulate_plain(x, w, scale, 1e-5)
+            err, ndiff = check_bracketed(f"K9 rms_modulate S={s} {tag}", out, ref,
+                                         *_k9_bracket(x, w, scale, 1e-5))
+            nbytes = 2 * s * D * 2 + D * 2 + (0 if scale is None else D * 2)
+            res["rms_modulate"][(s, tag)] = dict(
+                max_abs_err=err, differ=ndiff,
+                ms=time_ms(lambda: fn.fused_rms_modulate(x, w, scale, 1e-5)),
+                plain_ms=time_ms(lambda: fn.rms_modulate_plain(x, w, scale, 1e-5), 5, 3),
+                bound=bound_ms(nbytes, 5 * s * D, H100_FP32_FLOP_PER_S),
+                library_ms=None if scale is not None else time_ms(
+                    lambda: F.rms_norm(x, (D,), w, 1e-5)))
+        del x, out, ref
+    for rows, c in ((399360, 256), (7800, 1024)):
+        x = randn(rows, c)
+        gamma = 1 + randn(c, scale=0.3)
+        for silu in (False, True):
+            tag = "silu" if silu else "no-silu"
+            out = fn.fused_vae_rms_silu(x, gamma, silu)
+            ref = fn.vae_rms_silu_plain(x, gamma, silu)
+            err, ndiff = check_bracketed(f"K11 vae_rms_silu {rows}x{c} {tag}", out, ref,
+                                         *_k11_bracket(x, gamma, silu))
+            res["vae_rms_silu"][(rows, tag)] = dict(
+                max_abs_err=err, differ=ndiff,
+                ms=time_ms(lambda: fn.fused_vae_rms_silu(x, gamma, silu)),
+                plain_ms=time_ms(lambda: fn.vae_rms_silu_plain(x, gamma, silu), 5, 3),
+                bound=bound_ms(2 * rows * c * 2 + c * 2, (10 if silu else 6) * rows * c,
+                               H100_FP32_FLOP_PER_S),
+                library_ms=None if silu else time_ms(
+                    lambda: F.rms_norm(x, (c,), gamma, 1e-12)))
+        del x, out, ref
+    for k, shapes in res.items():
+        for (n, tag), r in shapes.items():
+            lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            print(f"  {k} rows={n} {tag}: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+                  f"bound_ms {r['bound'][0]:.4f} ({r['bound'][1]}) library_ms {lib}", flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+ZIMAGE_STEPS = 8
+ZIMAGE_PROMPT_IDS = 300
+ZIMAGE_NEG_IDS = 64
+
+
+def zimage_per_sweep(cap_ids, img_tokens=4096, refiner=2, layers=30):
+    """Launches of one Z-Image DiT sweep at head dim 128 and dim 3840 (a
+    multiple of 128), from the gates of the code: the caption pads to a
+    multiple of 32; every block runs K7 twice (q, k), one attention and
+    four sandwich norms, which go to K9 when the stream has >= 256 rows;
+    the attention pads its stream to a multiple of 1024 and takes K4 when
+    that is one k tile of 1024, K3 otherwise.  Streams: the noise refiner
+    over the image, the caption refiner over the caption, the unified
+    blocks over both."""
+    cap = -(-cap_ids // 32) * 32
+    counts = {"rms_modulate": 0, "rms_rope_per_head": 0, "flash_bounded": 0,
+              "flash_small_kv": 0}
+    for rows, blocks in ((img_tokens, refiner), (cap, refiner), (img_tokens + cap, layers)):
+        counts["rms_modulate"] += 4 * blocks if rows >= 256 else 0
+        counts["rms_rope_per_head"] += 2 * blocks
+        one_tile = max(-(-rows // 1024) * 1024, 512) == 1024
+        counts["flash_small_kv" if one_tile else "flash_bounded"] += blocks
+    return counts
+
+
+def zimage_phase():
+    """Z-Image-Turbo at full width and depth on the card: the DiT (dim 3840,
+    30 heads, 2 + 2 refiner and 30 unified blocks), Qwen3-4B (36 layers, of
+    which the pipeline runs 35) and the FLUX AutoencoderKL from seeded bf16
+    weights; a seeded 300-id prompt through ``encode_ids``; two 1024x1024
+    requests at the Turbo defaults (8 steps, cfg_scale 1) and one
+    image-to-image request (a seeded 1024x1024 image, strength 0.6,
+    cfg_scale 2 with a seeded 64-id negative prompt), each with exact
+    launch counts of K9, K7, K3 and K4; then one sweep under torch.profiler.
+    Returns the launches of the three requests."""
+    import torch
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.qwen.text_encoder import QwenVLTextConfig
+    from fairygen_tpu_torch.models.sdxl.vae import AutoencoderKLConfig
+    from fairygen_tpu_torch.models.z_image.dit import ZImageDiTConfig, z_image_dit_forward
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines.z_image import ZImagePipeline
+
+    bf = torch.bfloat16
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    dit_cfg, te_cfg = ZImageDiTConfig.z_image(), QwenVLTextConfig.qwen3_4b()
+    vae_cfg = AutoencoderKLConfig.flux()
+    dit = convert.init_z_image_dit_params(dit_cfg, "cuda", bf, seed=60)
+    te = convert.init_qwen_text_params(te_cfg, "cuda", bf, seed=61)
+    vae = convert.init_autoencoder_kl_params(vae_cfg, "cuda", bf, seed=62)
+    torch.cuda.synchronize()
+    print(f"  Z-Image-Turbo weights in {time.perf_counter() - t1:.3f} s: DiT "
+          f"{convert.count_params(dit):,} Qwen3-4B {convert.count_params(te):,} VAE "
+          f"{convert.count_params(vae):,}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    pipe = ZImagePipeline(dit, dit_cfg, vae, vae_cfg, te, te_cfg, bf, "cuda")
+
+    def ids(seed, n):
+        gen = torch.Generator("cpu").manual_seed(seed)
+        return torch.randint(0, te_cfg.vocab, (1, n), generator=gen)
+
+    prompt_ids, neg_ids = ids(70, ZIMAGE_PROMPT_IDS), ids(71, ZIMAGE_NEG_IDS)
+    for label in ("first", "warm"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        emb = pipe.encode_ids(prompt_ids)
+        torch.cuda.synchronize()
+        print(f"  Qwen3-4B encode of {ZIMAGE_PROMPT_IDS} ids ({label}): "
+              f"{(time.perf_counter() - t1) * 1e3:.2f} ms, output {tuple(emb.shape)} "
+              f"{emb.dtype}, all finite: {bool(torch.isfinite(emb).all())}", flush=True)
+    if tuple(emb.shape) != (1, ZIMAGE_PROMPT_IDS, 2560) or not torch.isfinite(emb).all():
+        raise RuntimeError("the prompt embedding has the wrong shape or non-finite values")
+    neg = pipe.encode_ids(neg_ids)
+
+    total = {k: 0 for k in _kernels.launches}
+
+    def request(label, want, **kw):
+        want = {k: want.get(k, 0) for k in _kernels.launches}
+        _kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        img = pipe(height=1024, width=1024, num_inference_steps=ZIMAGE_STEPS,
+                   output_type="floatpoint", **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        got = dict(_kernels.launches)
+        finite = bool(torch.isfinite(img).all())
+        print(f"  {label}: {dt:.3f} s, output {tuple(img.shape)} {img.dtype}, all finite: "
+              f"{finite}, std {img.float().std().item():.4f}, max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+              f"{ {k: v for k, v in got.items() if v} }", flush=True)
+        if tuple(img.shape) != (1, 3, 1024, 1024) or not finite:
+            raise RuntimeError(f"{label}: output has the wrong shape or non-finite values")
+        if got != want:
+            raise RuntimeError(f"{label}: launch counts {got} != expected {want}")
+        for k, v in got.items():
+            total[k] += v
+
+    pos = zimage_per_sweep(ZIMAGE_PROMPT_IDS)
+    negs = zimage_per_sweep(ZIMAGE_NEG_IDS)
+    print(f"  expected launches per sweep: prompt {pos}, negative prompt {negs}", flush=True)
+    t2i = {k: v * ZIMAGE_STEPS for k, v in pos.items()}
+    for seed in (21, 22):
+        request(f"Z-Image-Turbo request seed={seed}", t2i, prompt_emb=emb, seed=seed)
+    request("Z-Image-Turbo img2img request (strength 0.6, cfg 2)",
+            {k: (pos[k] + negs[k]) * ZIMAGE_STEPS for k in pos}, prompt_emb=emb,
+            negative_prompt_emb=neg, cfg_scale=2.0, input_image=seeded_image(23, 1024, 1024),
+            denoising_strength=0.6, seed=23)
+
+    # where a sweep's time goes
+    g = torch.Generator("cuda").manual_seed(72)
+    lat = torch.randn((1, 16, 128, 128), generator=g, device="cuda").to(bf)
+    t = torch.tensor([0.5], device="cuda")
+    with torch.no_grad():
+        def sweep():
+            return z_image_dit_forward(dit, dit_cfg, lat, t, emb)
+
+        sweep()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t1 = time.perf_counter()
+            sweep()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+    device_table(prof, wall, "profiled Z-Image-Turbo sweep (4096 image + 320 caption tokens)",
+                 14)
+    del pipe, dit, te, vae, emb, neg, lat
+    torch.cuda.empty_cache()
+    return total
+
+
+def reference_zimage_check():
+    """A tiny head-dim-128 Z-Image DiT (dim 256, 2 heads, 1 + 1 refiner and
+    2 unified blocks) and a tiny Qwen3 encoder (head dim 128, GQA 4/2, q/k
+    norms) on the card in bf16 against the same weights and inputs on the
+    CPU in fp32 and in bf16 (plain versions).  A 64x64 latent gives 1024
+    image tokens (K9; K7; K4 at s_pad 1024), 40 caption tokens pad to 64
+    (the plain norm formula; K7; K4), the unified 1088 tokens K9, K7 and K3
+    (s_pad 2048).  As the FLUX check: the card's relative L2 error to the
+    CPU fp32 output must be at most twice the CPU bf16 run's + 1e-3."""
+    import torch
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.qwen.text_encoder import (QwenVLTextConfig,
+                                                             qwen_vl_text_encode)
+    from fairygen_tpu_torch.models.z_image.dit import ZImageDiTConfig, z_image_dit_forward
+    from fairygen_tpu_torch.ops import _kernels
+
+    cfg = ZImageDiTConfig(dim=256, num_heads=2, cap_feat_dim=64, num_layers=2,
+                          num_refiner_layers=1)
+    params = convert.init_z_image_dit_params(cfg, "cpu", torch.float32, seed=80)
+    g = torch.Generator("cpu").manual_seed(81)
+    lat, cap = torch.randn(1, 16, 64, 64, generator=g), torch.randn(1, 40, 64, generator=g)
+    t = torch.tensor([0.37])
+
+    def run(dev, dt):
+        # the timestep stays fp32, as the pipeline passes it
+        with torch.no_grad():
+            out = z_image_dit_forward(to(params, dev, dt), cfg, lat.to(dev, dt), t.to(dev),
+                                      cap.to(dev, dt))
+        return out.float().cpu()
+
+    ref = run("cpu", torch.float32)
+    rel16 = ((run("cpu", torch.bfloat16) - ref).norm() / ref.norm()).item()
+    _kernels.reset_launches()
+    out = run("cuda", torch.bfloat16)
+    ran = {k: v for k, v in _kernels.launches.items() if v}
+    rel = ((out - ref).norm() / ref.norm()).item()
+    tol = 2 * rel16 + 1e-3
+    print(f"  tiny Z-Image DiT {tuple(out.shape)}: relative L2 error to CPU fp32 {rel:.4e} "
+          f"(card bf16), {rel16:.4e} (CPU bf16); tolerance {tol:.4e}; kernel launches {ran}",
+          flush=True)
+    want = {"rms_modulate": 4 * 3, "rms_rope_per_head": 2 * 4, "flash_small_kv": 2,
+            "flash_bounded": 2}
+    if ran != want:
+        raise RuntimeError(f"tiny Z-Image DiT: kernel launches {ran} != {want}")
+    if not rel <= tol:
+        raise RuntimeError("tiny Z-Image DiT disagrees with the CPU reference")
+
+    qcfg = QwenVLTextConfig.tiny(vocab=1000, dim=256, num_layers=3, num_heads=4, num_kv_heads=2,
+                                 ffn_dim=512, head_dim_override=128, qk_norm=True,
+                                 attn_bias=False)
+    qparams = convert.init_qwen_text_params(qcfg, "cpu", torch.float32, seed=82)
+    ids = torch.randint(0, qcfg.vocab, (1, 50), generator=g)
+
+    def encode(dev, dt):
+        with torch.no_grad():
+            return qwen_vl_text_encode(to(qparams, dev, dt), qcfg, ids.to(dev),
+                                       hidden_state_index=-2).float().cpu()
+
+    ref = encode("cpu", torch.float32)
+    rel16 = ((encode("cpu", torch.bfloat16) - ref).norm() / ref.norm()).item()
+    rel = ((encode("cuda", torch.bfloat16) - ref).norm() / ref.norm()).item()
+    tol = 2 * rel16 + 1e-3
+    print(f"  tiny Qwen3 encoder (50 ids, penultimate state): relative L2 error to CPU fp32 "
+          f"{rel:.4e} (card bf16), {rel16:.4e} (CPU bf16); tolerance {tol:.4e}", flush=True)
+    if not rel <= tol:
+        raise RuntimeError("tiny Qwen3 encoder disagrees with the CPU reference")
 
 
 if __name__ == "__main__":

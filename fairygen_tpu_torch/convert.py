@@ -22,6 +22,8 @@ import torch
 from .core.params import Init, generator
 from .device import resolve_device
 from .models.flux.dit import init_flux_dit_params  # noqa: F401  (the FLUX.1 DiT's init)
+from .models.qwen.text_encoder import init_qwen_text_params  # noqa: F401  (Qwen3's init)
+from .models.z_image.dit import init_z_image_dit_params  # noqa: F401  (the Z-Image DiT's init)
 from .models.sdxl.clip import CLIPTextConfig
 from .models.sdxl.vae import AutoencoderKLConfig
 from .models.wan.dit import WanDiTConfig
@@ -40,7 +42,7 @@ def _leaf(a, key, device, dtype):
     return t.contiguous().to(device)
 
 
-_STACKED = ("blocks", "double_blocks", "single_blocks")
+_STACKED = ("blocks", "double_blocks", "single_blocks", "layers")
 
 
 def _tree(node, device, dtype, key=None):
@@ -76,7 +78,8 @@ def _index(node, i):
 
 def from_jax_params(tree, device="cuda", dtype=None) -> Dict[str, Any]:
     """A JAX-package param tree (numpy leaves) of the Wan DiT, UMT5, VAE38,
-    FLUX.1 DiT, T5, CLIP text tower or AutoencoderKL -> port state on
+    FLUX.1 DiT, T5, CLIP text tower, AutoencoderKL, Z-Image DiT or Qwen3
+    text encoder -> port state on
     ``device`` (optionally cast to ``dtype``; LoRA
     subtrees keep their dtype)."""
     return _tree(tree, resolve_device(device), dtype)

@@ -28,6 +28,15 @@ def to_tensors(tree, device="cuda", dtype=None):
     return conv(tree)
 
 
+def cast_tree(tree, dtype):
+    """Every leaf of a nested dict / list of tensors cast to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cast_tree(v, dtype) for v in tree]
+    return tree.to(dtype)
+
+
 def linear(sd, name):
     """A torch Linear as a dense dict: weight (out, in) -> ``w`` (in, out),
     plus ``b`` when the state dict has the bias."""

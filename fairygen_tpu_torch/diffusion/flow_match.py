@@ -1,9 +1,9 @@
-"""Rectified-flow (flow matching) scheduler, Wan and FLUX.1 templates (port
-of fairygen_tpu/diffusion/flow_match.py).
+"""Rectified-flow (flow matching) scheduler, Wan, FLUX.1 and Z-Image
+templates (port of fairygen_tpu/diffusion/flow_match.py).
 
 The schedule is a host-side float64 numpy table; steps are indexed by the
-integer step id.  Other templates (Qwen-Image, FLUX.2, Z-Image) are not on
-the ported paths yet.
+integer step id.  Other templates (Qwen-Image, FLUX.2) are not on the
+ported paths yet.
 """
 from __future__ import annotations
 
@@ -15,15 +15,19 @@ import torch
 __all__ = ["FlowMatchScheduler"]
 
 
-def _sigmas_shifted(num_steps, denoising_strength, shift):
-    """linspace(σ_start, 0) without the endpoint, then σ ← s·σ/(1+(s−1)σ)."""
-    sigmas = np.linspace(denoising_strength, 0.0, num_steps + 1, dtype=np.float64)[:-1]
+def _sigmas_shifted(num_steps, denoising_strength, shift, endpoint: bool):
+    """linspace(σ_start, 0) (with or without the endpoint), then
+    σ ← s·σ/(1+(s−1)σ)."""
+    if endpoint:
+        sigmas = np.linspace(denoising_strength, 0.0, num_steps, dtype=np.float64)
+    else:
+        sigmas = np.linspace(denoising_strength, 0.0, num_steps + 1, dtype=np.float64)[:-1]
     return shift * sigmas / (1 + (shift - 1) * sigmas)
 
 
 def set_timesteps_wan(num_inference_steps=100, denoising_strength=1.0, shift=None):
     shift = 5.0 if shift is None else shift
-    sigmas = _sigmas_shifted(num_inference_steps, denoising_strength, shift)
+    sigmas = _sigmas_shifted(num_inference_steps, denoising_strength, shift, endpoint=False)
     return sigmas, sigmas * 1000.0
 
 
@@ -38,7 +42,21 @@ def set_timesteps_flux(num_inference_steps=100, denoising_strength=1.0, shift=No
     return sigmas, sigmas * 1000.0
 
 
-_TEMPLATES = {"Wan": set_timesteps_wan, "FLUX.1": set_timesteps_flux}
+def set_timesteps_z_image(num_inference_steps=100, denoising_strength=1.0, shift=None,
+                          target_timesteps=None):
+    """Shift 3 without the endpoint; each of ``target_timesteps`` replaces
+    the timestep nearest to it (the sigmas stay)."""
+    shift = 3.0 if shift is None else shift
+    sigmas = _sigmas_shifted(num_inference_steps, denoising_strength, shift, endpoint=False)
+    timesteps = sigmas * 1000.0
+    if target_timesteps is not None:
+        for t in np.asarray(target_timesteps, dtype=np.float64):
+            timesteps[int(np.argmin(np.abs(timesteps - t)))] = t
+    return sigmas, timesteps
+
+
+_TEMPLATES = {"Wan": set_timesteps_wan, "FLUX.1": set_timesteps_flux,
+              "Z-Image": set_timesteps_z_image}
 
 
 class FlowMatchScheduler:
@@ -53,10 +71,12 @@ class FlowMatchScheduler:
         self.training = False
         self.linear_timesteps_weights: Optional[np.ndarray] = None
 
-    def set_timesteps(self, num_inference_steps=100, denoising_strength=1.0, shift=None,
-                      training=False):
+    def set_timesteps(self, num_inference_steps=100, denoising_strength=1.0, training=False,
+                      **template_kwargs):
+        """``template_kwargs``: the template's own (``shift``; Z-Image also
+        ``target_timesteps``)."""
         self.sigmas, self.timesteps = self.set_timesteps_fn(
-            num_inference_steps, denoising_strength, shift)
+            num_inference_steps, denoising_strength, **template_kwargs)
         self.training = training
         if training:
             self._set_training_weight()
@@ -82,3 +102,10 @@ class FlowMatchScheduler:
         coef = torch.tensor(float(sig[step_index + 1] - sig[step_index]),
                             dtype=torch.float32).to(sample.dtype)
         return sample + model_output.to(sample.dtype) * coef.to(sample.device)
+
+    def add_noise(self, original_samples, noise, step_index: int):
+        """(1 − σ)·x₀ + σ·ε at step ``step_index``, σ rounded to the
+        sample's dtype first as in the JAX package."""
+        sigma = torch.tensor(float(np.float32(self.sigmas[step_index])), dtype=torch.float32,
+                             device=original_samples.device).to(original_samples.dtype)
+        return (1 - sigma) * original_samples + sigma * noise

@@ -1,0 +1,1 @@
+"""Part of the fairygen_tpu_torch port (mirrors fairygen_tpu)."""

@@ -27,11 +27,11 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "fairygen_tpu_torch"
 LIB_NAME = "libfairygen_kernels.so"
 SOURCES = ("ln_modulate.cu", "rms_rope.cu", "flash_attention.cu", "flash_attention_train.cu",
-           "flash_attention_bias.cu")
+           "flash_attention_bias.cu", "rms_modulate.cu")
 HEADERS = ("flash_common.cuh",)
 KERNELS = ("ln_modulate", "rms_rope_heads_major", "flash_bounded", "flash_small_kv",
            "flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv",
-           "rms_rope_per_head", "rms_rope_joint", "flash_bias")
+           "rms_rope_per_head", "rms_rope_joint", "flash_bias", "rms_modulate", "vae_rms_silu")
 
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
@@ -51,6 +51,8 @@ _SIGNATURES = {
     "fg_rms_rope_per_head": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "fg_rms_rope_joint": [_P, _L, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "fg_flash_bias": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fg_rms_modulate": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "fg_vae_rms_silu": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -2,9 +2,9 @@
 entries built on them (port of fairygen_tpu/ops/fused_qk.py).
 
 K2 applies a row statistic computed outside (the Wan DiT); K7 computes the
-rms over each head's own 128 lanes (the FLUX.1 single blocks); K8 does K7
-for two streams, image then text, into one buffer with zero gap rows (the
-FLUX.1 double blocks' joint attention).
+rms over each head's own 128 lanes (the FLUX.1 single blocks and every
+Z-Image block); K8 does K7 for two streams, image then text, into one
+buffer with zero gap rows (the FLUX.1 double blocks' joint attention).
 
 The rotation of adjacent pairs (2i, 2i+1) uses full-width tables:
 ``cos_full[s, j] = cos[s, j // 2]`` and ``sin_sign[s, j] = ∓sin[s, j // 2]``
@@ -419,12 +419,15 @@ class _FusedJoint(torch.autograd.Function):
 
 def fused_qk_attention_per_head(xq, xk, v, gamma_q, gamma_k, cos, sin, n_heads: int,
                                 eps: float, fold_scale: bool = True):
-    """Self-attention of the FLUX.1 single blocks from raw q/k projections:
-    K7 on q and k, then the bounded attention (K3, or K4 for one k tile).
+    """Self-attention from raw q/k projections for the per-head-rms,
+    interleaved-RoPE image DiTs (the FLUX.1 single blocks, the Z-Image
+    blocks): K7 on q and k, then the bounded attention (K3, or K4 for one
+    k tile).
 
     xq/xk (B, S, N·hd), v (B, S, N, hd), gamma_q/k (hd,), cos/sin (S, hd/2)
-    pair tables.  ``fold_scale``: fold hd^-1/2·log2e into gamma_q here;
-    False when the converter already did.  Returns (B, S, N, hd).  The
+    pair tables.  ``fold_scale``: fold hd^-1/2·log2e into the raw gamma_q
+    here (Z-Image; FLUX.1 unless prescaled); False when the converter
+    already did.  Returns (B, S, N, hd).  The
     gradient differentiates the plain chain."""
     if _needs_grad(xq, xk, v, gamma_q, gamma_k):
         return _FusedPerHead.apply(xq, xk, v, gamma_q, gamma_k, cos, sin, n_heads, eps,

@@ -17,20 +17,13 @@ from typing import Any, Optional
 import torch
 
 from ..core.noise import generate_noise
+from ..core.params import cast_tree
 from ..device import resolve_device
 from ..diffusion.flow_match import FlowMatchScheduler
 from ..models.flux.dit import FluxDiTConfig, flux_dit_forward
 from ..models.flux.text_encoders import CLIPTextConfig, UMT5Config, flux_encode_prompt_clip
 from ..models.sdxl.vae import AutoencoderKLConfig, vae_decode
 from ..models.wan.text_encoder import umt5_encode
-
-
-def _to(tree, dtype):
-    if isinstance(tree, dict):
-        return {k: _to(v, dtype) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to(v, dtype) for v in tree]
-    return tree.to(dtype)
 
 
 class FluxImagePipeline:
@@ -132,4 +125,4 @@ class FluxImagePipeline:
             return x
         # fp32 decode of the (shift, scale)-normalized latents
         z = x.float() / self.vae_cfg.scaling_factor + self.vae_cfg.shift_factor
-        return vae_decode(_to(self.vae_params, torch.float32), self.vae_cfg, z)
+        return vae_decode(cast_tree(self.vae_params, torch.float32), self.vae_cfg, z)

@@ -2,8 +2,9 @@
 against its plain PyTorch version on the card, a tiny pipeline that must
 launch the four serving kernels, the flash-attention gradient against
 autograd of the plain attention, a tiny LoRA train step that must launch
-K6a-c, and a tiny FLUX.1 pipeline that must launch K1, K7, K8 and K3/K4,
-or K10 with EliGen regions.  They skip here when no card is present; on a card:
+K6a-c, a tiny FLUX.1 pipeline that must launch K1, K7, K8 and K3/K4, or
+K10 with EliGen regions, and a tiny Z-Image pipeline that must launch K9,
+K7 and K4.  They skip here when no card is present; on a card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 
@@ -18,7 +19,12 @@ max of its key tile, as K5 does: 2^-7 relative + 2^-8 absolute.  K6b/K6c
 round P and dS to bf16 before their products on both sides, but at values
 that differ in the last fp32 bits (sums in another order), so a term may
 move by one bf16 ulp: their gradients are held to 2^-7 relative plus 1e-2
-of the largest |gradient|.
+of the largest |gradient|.  K9 and K11 sum the squares of a row in another
+order than PyTorch's reduction, and the rest of their arithmetic is the
+plain version's, rounding for rounding; each output is monotone in the
+row's fp32 statistic, so it must lie between the plain formula evaluated
+with that statistic moved down and up by 2^-14 (relative), far more than a
+different summation order moves it and far less than one bf16 ulp.
 """
 import pytest
 import torch
@@ -124,7 +130,8 @@ def test_tiny_pipeline_launches_every_kernel(card):
                                  "flash_small_kv": layers * sweeps,
                                  "flash_fwd": 0, "flash_fwd_lse": 0, "flash_bwd_dq": 0,
                                  "flash_bwd_dkv": 0, "rms_rope_per_head": 0,
-                                 "rms_rope_joint": 0, "flash_bias": 0}
+                                 "rms_rope_joint": 0, "flash_bias": 0, "rms_modulate": 0,
+                                 "vae_rms_silu": 0}
 
 
 def _close_grad(out, ref):
@@ -330,3 +337,112 @@ def test_tiny_flux_pipeline_launches_its_kernels(card, eligen):
         assert got["rms_rope_per_head"] == 2 * sgl * sweeps
         assert got["ln_modulate"] == k1
         assert got.get("flash_bounded", 0) + got.get("flash_small_kv", 0) == (dbl + sgl) * sweeps
+
+
+def _k9_bracket(x, w, sc, eps):
+    """The plain K9 formula with its statistic moved by -2^-14 and +2^-14
+    (relative): (low, high) elementwise."""
+    xf = x.float()
+    r = torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
+    outs = []
+    for f in (1 - 2 ** -14, 1 + 2 ** -14):
+        y = (xf * (r * f)).to(x.dtype) * w.to(x.dtype)
+        if sc is not None:
+            y = y * sc.reshape(sc.shape[0], 1, -1).to(x.dtype)
+        outs.append(y.float())
+    return torch.minimum(*outs), torch.maximum(*outs)
+
+
+def _k11_bracket(x, gamma, silu):
+    """The plain K11 formula with the row norm moved by -2^-14 and +2^-14
+    (relative): (low, high) elementwise, widened by a few fp32 ulps for
+    fp32 SiLU outputs."""
+    xf = x.float()
+    n = torch.sqrt((xf * xf).sum(-1, keepdim=True))
+    outs = []
+    for f in (1 - 2 ** -14, 1 + 2 ** -14):
+        y = (xf / torch.clamp_min(n * f, 1e-12) * (x.shape[-1] ** 0.5) * gamma.float()).to(x.dtype)
+        if silu:
+            y = torch.nn.functional.silu(y.float()).to(x.dtype)
+        outs.append(y.float())
+    lo, hi = torch.minimum(*outs), torch.maximum(*outs)
+    if silu and x.dtype == torch.float32:
+        # where SiLU's slope vanishes its fp32 rounding is not monotone: 2^-21
+        # (a few fp32 ulps) of slack
+        lo, hi = lo - 2 ** -21 * lo.abs(), hi + 2 ** -21 * hi.abs()
+    return lo, hi
+
+
+def _inside(t, lo, hi):
+    return bool(((lo <= t.float()) & (t.float() <= hi)).all())
+
+
+@pytest.mark.parametrize("shape,dtype,with_scale", [
+    ((1, 4416, 3840), torch.bfloat16, True), ((1, 320, 3840), torch.bfloat16, False),
+    ((2, 300, 256), torch.bfloat16, True), ((2, 256, 3840), torch.float32, True),
+    ((1, 512, 384), torch.float32, False)])
+def test_k9_matches_plain(card, shape, dtype, with_scale):
+    from fairygen_tpu_torch.ops.fused_norms import fused_rms_modulate, rms_modulate_plain
+
+    b, _, d = shape
+    x = _randn(card, *shape).to(dtype)
+    w = _randn(card, d).to(dtype)
+    sc = (1 + _randn(card, b, 1, d, scale=0.3)).to(dtype) if with_scale else None
+    out = fused_rms_modulate(x, w, sc, 1e-5)
+    ref = rms_modulate_plain(x, w, sc, 1e-5)
+    assert out.dtype == dtype and out.shape == x.shape
+    lo, hi = _k9_bracket(x, w, sc, 1e-5)
+    assert _inside(ref, lo, hi) and _inside(out, lo, hi)
+
+
+@pytest.mark.parametrize("rows,c,dtype,silu", [
+    (6240, 256, torch.bfloat16, True), (7800, 1024, torch.bfloat16, True),
+    (7800, 1024, torch.bfloat16, False), (600, 512, torch.float32, True),
+    (512, 2048, torch.bfloat16, False)])
+def test_k11_matches_plain(card, rows, c, dtype, silu):
+    from fairygen_tpu_torch.ops.fused_norms import fused_vae_rms_silu, vae_rms_silu_plain
+
+    x = _randn(card, rows, c).to(dtype)
+    gamma = (1 + _randn(card, c, scale=0.3)).to(dtype)
+    out = fused_vae_rms_silu(x, gamma, silu)
+    ref = vae_rms_silu_plain(x, gamma, silu)
+    assert out.dtype == dtype and out.shape == x.shape
+    lo, hi = _k11_bracket(x, gamma, silu)
+    assert _inside(ref, lo, hi) and _inside(out, lo, hi)
+
+
+def test_k9_k11_refuse_what_they_do_not_take(card):
+    from fairygen_tpu_torch.ops.fused_norms import fused_rms_modulate, fused_vae_rms_silu
+
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        fused_rms_modulate(_randn(card, 1, 256, 128).half(), _randn(card, 128))
+    with pytest.raises(ValueError, match="C <= 2048"):
+        fused_vae_rms_silu(_randn(card, 512, 4096), _randn(card, 4096))
+
+
+def test_tiny_z_image_pipeline_launches_its_kernels(card):
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.sdxl.vae import AutoencoderKLConfig
+    from fairygen_tpu_torch.models.z_image.dit import ZImageDiTConfig
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines.z_image import ZImagePipeline
+
+    cfg = ZImageDiTConfig(dim=256, num_heads=2, cap_feat_dim=64, num_layers=2,
+                          num_refiner_layers=1)
+    vae_cfg = AutoencoderKLConfig(latent_channels=16, block_out_channels=(32, 32, 32, 32),
+                                  norm_num_groups=8, scaling_factor=0.3611,
+                                  shift_factor=0.1159, use_quant_conv=False)
+    pipe = ZImagePipeline(convert.init_z_image_dit_params(cfg), cfg,
+                          convert.init_autoencoder_kl_params(vae_cfg), vae_cfg)
+    _kernels.reset_launches()
+    # 32 x 32 latents: 256 image tokens; 40 caption tokens padded to 64
+    img = pipe(prompt_emb=_randn(card, 1, 40, 64), height=256, width=256,
+               num_inference_steps=2, seed=1, output_type="floatpoint")
+    assert torch.isfinite(img).all() and img.shape == (1, 3, 256, 256)
+    sweeps = 2
+    got = {k: v for k, v in _kernels.launches.items() if v}
+    # K9: 4 per block on the image (256 rows) and unified (320 rows) streams;
+    # the 64 caption rows take the plain formula.  Every stream pads to one
+    # k tile of 1024, so the attention is K4 throughout
+    assert got == {"rms_modulate": 4 * (1 + 2) * sweeps, "rms_rope_per_head": 2 * 4 * sweeps,
+                   "flash_small_kv": 4 * sweeps}

@@ -19,15 +19,18 @@ import torch
 
 from fairygen_tpu_torch import convert
 from fairygen_tpu_torch.models.flux.dit import FluxDiTConfig, convert_flux_dit_state_dict
+from fairygen_tpu_torch.models.qwen.text_encoder import QwenVLTextConfig
 from fairygen_tpu_torch.models.sdxl.clip import CLIPTextConfig
 from fairygen_tpu_torch.models.sdxl.vae import AutoencoderKLConfig
 from fairygen_tpu_torch.models.wan.dit import WanDiTConfig
 from fairygen_tpu_torch.models.wan.text_encoder import UMT5Config, convert_umt5_state_dict
 from fairygen_tpu_torch.models.wan.vae import WanVAEConfig
+from fairygen_tpu_torch.models.z_image.dit import ZImageDiTConfig
 from fairygen_tpu_torch.ops import _kernels
 from fairygen_tpu_torch.ops import flash_attention, fused_norms, fused_qk
 from fairygen_tpu_torch.pipelines.flux_image import FluxImagePipeline
 from fairygen_tpu_torch.pipelines.wan_video import WanVideoPipeline
+from fairygen_tpu_torch.pipelines.z_image import ZImagePipeline
 from fairygen_tpu_torch.training.train_step import make_wan_sft_train_step
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -53,7 +56,10 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 def test_the_scan_sees_the_whole_package():
     names = {p.name for p in PORT_FILES}
     assert {"dit.py", "vae.py", "wan_video.py", "_kernels.py", "chip_smoke.py",
-            "flux_image.py", "clip.py", "text_encoders.py", "params.py"} <= names
+            "flux_image.py", "clip.py", "text_encoders.py", "params.py", "z_image.py",
+            "text_encoder.py"} <= names
+    assert REPO / "fairygen_tpu_torch" / "models" / "z_image" / "dit.py" in PORT_FILES
+    assert REPO / "fairygen_tpu_torch" / "models" / "qwen" / "text_encoder.py" in PORT_FILES
 
 
 def _flux_sd(cfg):
@@ -76,7 +82,8 @@ FLUX0 = FluxDiTConfig.tiny(num_double_blocks=0, num_single_blocks=0)
 @pytest.mark.parametrize("entry", ["pipeline", "from_jax_params", "init_dit", "init_umt5",
                                    "init_vae", "train_step", "flux_pipeline", "init_flux_dit",
                                    "init_t5", "init_clip_text", "init_autoencoder_kl",
-                                   "convert_umt5", "convert_flux_dit"])
+                                   "convert_umt5", "convert_flux_dit", "zimage_pipeline",
+                                   "init_z_image_dit", "init_qwen_text"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
@@ -96,6 +103,10 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
             {"token_embedding.weight": np.zeros((4, 2)), "norm.weight": np.zeros(2)},
             UMT5Config.tiny(num_layers=0)),
         "convert_flux_dit": lambda: convert_flux_dit_state_dict(_flux_sd(FLUX0), FLUX0),
+        "zimage_pipeline": lambda: ZImagePipeline({}, ZImageDiTConfig()),
+        "init_z_image_dit": lambda: convert.init_z_image_dit_params(
+            ZImageDiTConfig.tiny(num_layers=0, num_refiner_layers=0)),
+        "init_qwen_text": lambda: convert.init_qwen_text_params(QwenVLTextConfig.tiny()),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -105,7 +116,8 @@ WRAPPERS = [fused_norms.layer_norm_modulate, fused_qk.rms_rope_heads_major,
             flash_attention.flash_attention_heads_major, flash_attention.flash_fwd,
             flash_attention.flash_bwd_dq, flash_attention.flash_bwd_dkv,
             fused_qk.rms_rope_heads_major_per_head, fused_qk.rms_rope_heads_major_joint,
-            flash_attention.flash_attention_bias_heads_major]
+            flash_attention.flash_attention_bias_heads_major, fused_norms.fused_rms_modulate,
+            fused_norms.fused_vae_rms_silu]
 
 
 @pytest.mark.parametrize("fn", WRAPPERS, ids=lambda f: f.__name__)
