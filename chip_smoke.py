@@ -22,6 +22,10 @@ Phases, each printing its wall seconds:
                 1024x1024 shapes (4416, 4096 and 320 rows of 3840, with and
                 without scale) and K11 at two VAE38 shapes (399,360 x 256
                 and 7800 x 1024, with and without SiLU), F.rms_norm as their
+                yardstick.  Then K4's max and masked forms and K5 at head dim
+                64 at the SDXL 1024x1024 CFG shapes (cross-attention to 77
+                text keys, 1024- and 4096-token self-attention), K4 at head
+                dim 128 and with a kv_len over non-zero keys, SDPA as their
                 yardstick.
   4. weights  — full-width Wan2.2-TI2V-5B DiT, UMT5-XXL and VAE38, made on
                 the card in bf16 from a seeded CUDA generator.
@@ -46,11 +50,20 @@ Phases, each printing its wall seconds:
                 8-step requests and one image-to-image CFG request with
                 exact launch counts of K9, K7, K3 and K4, and one profiled
                 sweep.
- 10. reference — a tiny-width pipeline on the card (kernels, bf16) against
+ 10. sdxl     — SDXL + BrushNet stylization at full width and depth (UNet,
+                BrushNet-SDXL, CLIP-L, OpenCLIP bigG, the SDXL VAE in fp32)
+                from seeded bf16 weights with a rank-32 Style DoRA loaded at
+                lora_scale 0.66: two 1024x1024, 50-step, CFG 7.5, BrushNet
+                0.7 requests on a seeded masked image with exact launch
+                counts (per step: K5 at head dim 64 10, K4 max form 61, K4
+                masked form 70), and one BrushNet + UNet step profiled.
+ 11. reference — a tiny-width pipeline on the card (kernels, bf16) against
                 the same pipeline on the CPU (plain versions, fp32), one
                 tiny LoRA training step likewise, a tiny head-dim-128
-                FLUX.1 DiT with and without EliGen likewise, and a tiny
-                head-dim-128 Z-Image DiT and a tiny Qwen3 encoder likewise.
+                FLUX.1 DiT with and without EliGen likewise, a tiny
+                head-dim-128 Z-Image DiT and a tiny Qwen3 encoder likewise,
+                and a tiny head-dim-64 SDXL + BrushNet + DoRA pipeline
+                likewise.
 Then the card line, one JSON line of kernel numbers and the result line.
 Any failure exits non-zero; past BUDGET_S seconds the run stops, naming
 the phase it was in.
@@ -436,6 +449,7 @@ def main(argv):
     train_k = train_kernel_checks()
     flux_k = flux_kernel_checks()
     norm_k = norm_kernel_checks()
+    sdxl_k = sdxl_kernel_checks()
     torch.cuda.synchronize()
     done("kernels", t0)
 
@@ -519,11 +533,18 @@ def main(argv):
         print(f"  launches, serving, training, FLUX.1 and Z-Image: {launches}", flush=True)
         done("zimage", t0)
 
+        t0 = phase("sdxl")
+        sdxl_launches = sdxl_phase()
+        launches = {k: launches[k] + sdxl_launches[k] for k in launches}
+        print(f"  launches, serving, training, FLUX.1, Z-Image and SDXL: {launches}", flush=True)
+        done("sdxl", t0)
+
         t0 = phase("reference")
         reference_check()
         reference_train_check()
         reference_flux_check()
         reference_zimage_check()
+        reference_sdxl_check()
         done("reference", t0)
 
     sources = {"ln_modulate": ("csrc/ln_modulate.cu", "fairygen_tpu/ops/fused_norms.py:42"),
@@ -584,6 +605,26 @@ def main(argv):
                                         "bound_ms": v["bound"][0], "library_ms": v["library_ms"],
                                         "differ": v["differ"]}
                          for (n, tag), v in norm_k[k].items()}})
+    sdxl_sources = {
+        "flash_small_kv_max": ("csrc/flash_small_kv.cu", "fairygen_tpu/ops/flash_attention.py:133",
+                               "self 40x1024"),
+        "flash_small_kv_masked": ("csrc/flash_small_kv.cu",
+                                  "fairygen_tpu/ops/flash_attention.py:133",
+                                  "cross 20x4096 q, 77 keys"),
+        "flash_fwd_d64": ("csrc/flash_attention_train.cu", "fairygen_tpu/ops/flash_attention.py:35",
+                          "self 20x4096")}
+    for k, (src, replaces, main_shape) in sdxl_sources.items():
+        r = sdxl_k[k][main_shape]
+        rows.append({
+            "name": k, "route": "cuda", "source": "fairygen_tpu_torch/" + src,
+            "replaces": replaces, "launches": None if expected is None else launches[k],
+            "max_abs_err": max(v["max_abs_err"] for v in sdxl_k[k].values()), "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"], "shape": main_shape,
+            "by_shape": {tag: {"ms": v["ms"], "plain_ms": v["plain_ms"],
+                               "bound_ms": v["bound"][0], "library_ms": v["library_ms"],
+                               "max_abs_err": v["max_abs_err"]}
+                         for tag, v in sdxl_k[k].items()}})
     timer.cancel()
     print(smi)
     print(json.dumps({"kernels": rows}))
@@ -832,7 +873,8 @@ def flux_phase():
 TRAIN_PER_STEP = {"ln_modulate": 180, "rms_rope_heads_major": 180, "flash_bounded": 60,
                   "flash_small_kv": 60, "flash_fwd": 0, "flash_fwd_lse": 60,
                   "flash_bwd_dq": 60, "flash_bwd_dkv": 60, "rms_rope_per_head": 0,
-                  "rms_rope_joint": 0, "flash_bias": 0, "rms_modulate": 0, "vae_rms_silu": 0}
+                  "rms_rope_joint": 0, "flash_bias": 0, "rms_modulate": 0, "vae_rms_silu": 0,
+                  "flash_small_kv_max": 0, "flash_small_kv_masked": 0, "flash_fwd_d64": 0}
 
 
 def train_phase(pipe, serving_per_request):
@@ -1048,7 +1090,8 @@ def breakdown(pipe, te_cfg):
 
 def device_table(prof, wall, label, top):
     """Device time by kernel name from a torch.profiler run, the device's
-    busy share of ``wall`` seconds, and the ``top`` busiest kernels."""
+    busy share of ``wall`` seconds, the number of kernels the device ran,
+    and the ``top`` busiest kernels."""
     import torch
 
     rows = []  # device-side events only: the kernels themselves
@@ -1058,7 +1101,7 @@ def device_table(prof, wall, label, top):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     print(f"  {label}: wall {wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms "
-          f"({100 * busy / wall:.1f}% busy)")
+          f"({100 * busy / wall:.1f}% busy), {sum(r[1] for r in rows)} kernels")
     for dev_us, count, key in rows[:top]:
         print(f"    {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:100]}")
 
@@ -1641,6 +1684,334 @@ def reference_zimage_check():
           f"{rel:.4e} (card bf16), {rel16:.4e} (CPU bf16); tolerance {tol:.4e}", flush=True)
     if not rel <= tol:
         raise RuntimeError("tiny Qwen3 encoder disagrees with the CPU reference")
+
+
+
+SDXL_STEPS = 50
+# per BrushNet + UNet step at 1024x1024, CFG batch 2 (checked on the CPU by
+# tests/test_torch_sdxl_kernels.py with the real block structure): the 10
+# transformer blocks at 64 x 64 latents (4096 tokens) self-attend through
+# K5; the 60 at 32 x 32 (1024 tokens, one k tile) and BrushNet's mid
+# attention through K4's max form; all 70 cross-attend to 77 text tokens
+# (one k tile of 128) through K4's masked form
+SDXL_PER_STEP = {"flash_fwd_d64": 10, "flash_small_kv_max": 61, "flash_small_kv_masked": 70}
+
+
+def sdxl_kernel_checks():
+    """K4's max and masked forms and K5 at head dim 64 against their plain
+    versions on the card in bf16 at the SDXL 1024x1024 CFG shapes (BN = 2 x
+    heads): cross-attention of 2 x 10 heads x 4096 queries and 2 x 20 x 1024
+    queries to 77 text keys (padded to 128: the masked form), self-attention
+    of 2 x 20 x 1024 (the max form), K5 over 2 x 10 x 4096; then K4 at head
+    dim 128 (24 x 2048 queries, 512 keys) and the masked form with a
+    kv_len of 250 of 320 keys whose cut rows are non-zero.  Tolerances: K4
+    rounds p against the same row max as its plain version, so 2^-7
+    relative + 1e-3 absolute (K3/K4's); K5 rounds p against its key tile's
+    running max, so 2^-7 relative + 2^-8 absolute (as at head dim 128).
+    Bounds count 4 x BN x Sq x Sk x d flops on the unpadded lengths (989
+    TFLOP/s) and q, k, v read and o written once (3.35 TB/s).  The library
+    yardstick is F.scaled_dot_product_attention on the unpadded heads
+    (scale ln 2: q carries hd^-1/2 x log2 e), timed here only."""
+    import torch
+    import torch.nn.functional as F
+
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator("cuda").manual_seed(777)
+    ln2 = 0.6931471805599453
+    res = {}
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
+
+    cases = [  # (counter, tag, BN, Sq, Sk_pad, sk_actual, d)
+        ("flash_small_kv_masked", "cross 20x4096 q, 77 keys", 20, 4096, 128, 77, 64),
+        ("flash_small_kv_masked", "cross 40x1024 q, 77 keys", 40, 1024, 128, 77, 64),
+        ("flash_small_kv_max", "self 40x1024", 40, 1024, 1024, 1024, 64),
+        ("flash_fwd_d64", "self 20x4096", 20, 4096, 4096, 4096, 64),
+        ("flash_small_kv_max", "d128 24x2048 q, 512 keys", 24, 2048, 512, 512, 128),
+        ("flash_small_kv_masked", "kv_len 250 of 320 non-zero keys", 20, 4096, 320, 250, 64),
+    ]
+    for name, tag, bn, sq, skp, ska, d in cases:
+        qh = randn(bn, sq, d, scale=d ** -0.5 * 1.4426950408889634)
+        kh, vh = randn(bn, skp, d), randn(bn, skp, d)
+        if name == "flash_fwd_d64":
+            def kern():
+                return fa.flash_fwd(qh, kh, vh, sk_actual=ska, with_lse=False)
+
+            def plain():
+                return fa.flash_fwd_plain(qh, kh, vh, sk_actual=ska, with_lse=False)
+            rtol, atol = 2 ** -7, 2 ** -8
+        else:
+            def kern():
+                return fa.flash_small_kv_max(qh, kh, vh, sk_actual=ska)
+
+            def plain():
+                return fa.flash_small_kv_max_plain(qh, kh, vh, sk_actual=ska)
+            rtol, atol = 2 ** -7, 1e-3
+        before = _kernels.launches[name]
+        out = kern()
+        if _kernels.launches[name] != before + 1:
+            raise RuntimeError(f"{tag}: the {name} counter did not count the launch")
+        err = check_close(f"{name} {tag} (d {d})", out, plain(), rtol=rtol, atol=atol)
+        q4, k4, v4 = (t.view(1, bn, -1, d)[:, :, :n].contiguous()
+                      for t, n in ((qh, sq), (kh, ska), (vh, ska)))
+        r = dict(max_abs_err=err, ms=time_ms(kern), plain_ms=time_ms(plain, 1, 3),
+                 bound=bound_ms((2 * sq + 2 * ska) * bn * d * 2, 4 * bn * sq * ska * d),
+                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                                             scale=ln2)))
+        res.setdefault(name, {})[tag] = r
+        print(f"  {name} {tag}: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+              f"{r['bound'][0]:.4f} ({r['bound'][1]}) library_ms {r['library_ms']:.4f}",
+              flush=True)
+        del qh, kh, vh, out, q4, k4, v4
+    torch.cuda.empty_cache()
+    return res
+
+
+def sdxl_inputs(size):
+    """A seeded (size, size, 3) image in [0, 1] with a centred elliptic
+    'character' blanked out, and its mask (1 = the character to keep)."""
+    import numpy as np
+
+    img = seeded_image(31, size, size).astype(np.float32) / 255.0
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    mask = ((((yy - 0.55) / 0.35) ** 2 + ((xx - 0.5) / 0.22) ** 2) < 1).astype(np.float32)
+    mask = mask[..., None]
+    return img * (1.0 - mask), mask
+
+
+def sdxl_ids(seed, n_words):
+    """Token ids of both SDXL tokenizers' layout, (1, 77) each: BOS 49406,
+    ``n_words`` seeded ids, EOS 49407, then padding (CLIP-L pads with EOS,
+    OpenCLIP bigG with 0)."""
+    import torch
+
+    gen = torch.Generator("cpu").manual_seed(seed)
+    words = torch.randint(1, 49406, (n_words,), generator=gen)
+    out = []
+    for pad in (49407, 0):
+        ids = torch.full((1, 77), pad, dtype=torch.long)
+        ids[0, 0], ids[0, n_words + 1] = 49406, 49407
+        ids[0, 1:n_words + 1] = words
+        out.append(ids)
+    return out
+
+
+def sdxl_phase():
+    """SDXL + BrushNet stylization at full width and depth on the card, as
+    examples/brushnet_stylize.py: the SDXL UNet, BrushNet-SDXL, CLIP-L,
+    OpenCLIP bigG and the SDXL VAE (fp32) from seeded weights (bf16), a
+    rank-32 Style DoRA on to_q/k/v/out of every transformer block (seeded
+    non-zero B and magnitudes off the column norms, through
+    sdxl_dora_state_dict and load_sdxl_dora_state_dict at lora_scale
+    0.66); seeded prompt ids through encode_ids; two 1024x1024 requests
+    (50 DPM-Solver++ steps, CFG 7.5, BrushNet scale 0.7) on a seeded
+    masked image, each with exact launch counts of K4's max and masked
+    forms and K5 at head dim 64 and none of the other kernels; then one
+    BrushNet + UNet step under torch.profiler.  Returns the launches."""
+    import numpy as np
+    import torch
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.core.imaging import postprocess_image
+    from fairygen_tpu_torch.models.sdxl.clip import CLIPTextConfig
+    from fairygen_tpu_torch.models.sdxl.unet2d import (UNet2DConfig, brushnet_forward,
+                                                       unet2d_forward)
+    from fairygen_tpu_torch.models.sdxl.vae import AutoencoderKLConfig
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines.sdxl_brushnet import SDXLBrushNetPipeline
+    from fairygen_tpu_torch.training.dora_trainer import (add_dora_to_sdxl_unet,
+                                                          load_sdxl_dora_state_dict,
+                                                          sdxl_dora_state_dict)
+
+    bf = torch.bfloat16
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    ucfg, bcfg = UNet2DConfig.sdxl_base(), UNet2DConfig.brushnet_sdxl()
+    te1_cfg, te2_cfg = CLIPTextConfig.sdxl_te1(), CLIPTextConfig.sdxl_te2()
+    vcfg = AutoencoderKLConfig.sdxl()
+    unet = convert.init_unet2d_params(ucfg, "cuda", bf, seed=90)
+    bn = convert.init_unet2d_params(bcfg, "cuda", bf, seed=91, brushnet=True)
+    te1 = convert.init_clip_text_params(te1_cfg, "cuda", bf, seed=92)
+    te2 = convert.init_clip_text_params(te2_cfg, "cuda", bf, seed=93)
+    vae = convert.init_autoencoder_kl_params(vcfg, "cuda", torch.float32, seed=94)
+    torch.cuda.synchronize()
+    print(f"  SDXL weights in {time.perf_counter() - t1:.3f} s: UNet "
+          f"{convert.count_params(unet):,} BrushNet {convert.count_params(bn):,} CLIP-L "
+          f"{convert.count_params(te1):,} OpenCLIP bigG {convert.count_params(te2):,} VAE "
+          f"{convert.count_params(vae):,} (fp32); max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    # a trained-looking style adapter, saved and loaded as the example does
+    t1 = time.perf_counter()
+    g = torch.Generator("cuda").manual_seed(95)
+    dora = sdxl_dora_state_dict(add_dora_to_sdxl_unet(unet, g, rank=32))
+    rng = np.random.default_rng(96)
+    for k, v in dora.items():
+        if k.endswith(".lora_B.weight"):
+            dora[k] = (0.02 * rng.standard_normal(v.shape)).astype(np.float32)
+        elif k.endswith(".lora_magnitude_vector.weight"):
+            dora[k] = (v * rng.uniform(0.9, 1.1, v.shape)).astype(np.float32)
+    unet, n = load_sdxl_dora_state_dict(unet, dora, scale=0.66)
+    torch.cuda.synchronize()
+    n_dora = sum(v.size for v in dora.values())
+    print(f"  Style DoRA: {n} adapters, {n_dora:,} fp32 parameters, made, saved and loaded "
+          f"at lora_scale 0.66 in {time.perf_counter() - t1:.3f} s", flush=True)
+    if n != 70 * 2 * 4:
+        raise RuntimeError(f"{n} DoRA adapters loaded, expected 560")
+    del dora
+
+    pipe = SDXLBrushNetPipeline(unet, ucfg, vae, vcfg, bn, bcfg, te1, te1_cfg, te2, te2_cfg,
+                                dtype=bf, device="cuda")
+    ids, neg_ids = sdxl_ids(97, 40), sdxl_ids(98, 0)
+    for label in ("first", "warm"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pe, ppe = pipe.encode_ids(*ids)
+        torch.cuda.synchronize()
+        print(f"  CLIP-L + OpenCLIP bigG encode ({label}): "
+              f"{(time.perf_counter() - t1) * 1e3:.2f} ms, prompt {tuple(pe.shape)} pooled "
+              f"{tuple(ppe.shape)}", flush=True)
+    if tuple(pe.shape) != (1, 77, 2048) or tuple(ppe.shape) != (1, 1280) \
+            or not (torch.isfinite(pe).all() and torch.isfinite(ppe).all()):
+        raise RuntimeError("the prompt embedding has the wrong shape or non-finite values")
+    npe, nppe = pipe.encode_ids(*neg_ids)
+    masked, mask = sdxl_inputs(1024)
+
+    want = {k: SDXL_PER_STEP.get(k, 0) * SDXL_STEPS for k in _kernels.launches}
+    total = {k: 0 for k in _kernels.launches}
+    for seed in (333, 334):
+        _kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        img = pipe(prompt_embeds=pe, pooled_embeds=ppe, negative_prompt_embeds=npe,
+                   negative_pooled_embeds=nppe, image=masked, mask=mask, height=1024,
+                   width=1024, num_inference_steps=SDXL_STEPS, guidance_scale=7.5,
+                   brushnet_conditioning_scale=0.7, seed=seed, output_type="np_pm1")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        got = dict(_kernels.launches)
+        finite = bool(torch.isfinite(img).all())
+        arr = postprocess_image(img[0].cpu().numpy())
+        print(f"  SDXL + BrushNet + DoRA request seed={seed}: {dt:.3f} s, output "
+              f"{tuple(img.shape)} {img.dtype} -> {arr.shape} {arr.dtype}, all finite: "
+              f"{finite}, std {img.std().item():.4f}, max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+              f"{ {k: v for k, v in got.items() if v} }", flush=True)
+        if tuple(img.shape) != (1, 3, 1024, 1024) or arr.shape != (1024, 1024, 3) or not finite:
+            raise RuntimeError("SDXL request output has the wrong shape or non-finite values")
+        if got != want:
+            raise RuntimeError(f"SDXL request launch counts {got} != expected {want}")
+        for k, v in got.items():
+            total[k] += v
+
+    # where a step's time goes: one BrushNet sweep and one UNet sweep at CFG
+    # batch 2, as the pipeline runs them at its first step
+    gen = torch.Generator("cuda").manual_seed(99)
+    x = torch.randn((2, 4, 128, 128), generator=gen, device="cuda").to(bf)
+    cond = torch.randn((2, 5, 128, 128), generator=gen, device="cuda").to(bf)
+    ehs = torch.cat([npe, pe]).to(bf)
+    kw = dict(text_embeds=torch.cat([nppe, ppe]).float(),
+              time_ids=torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]] * 2, device="cuda"))
+    t = torch.tensor(981.0, device="cuda")
+    with torch.no_grad():
+        def step():
+            down, mid, up = brushnet_forward(bn, bcfg, x, t, ehs, cond, conditioning_scale=0.7,
+                                             **kw)
+            return unet2d_forward(unet, ucfg, x, t, ehs, down_block_add_samples=down,
+                                  mid_block_add_sample=mid, up_block_add_samples=up, **kw)
+
+        step()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t1 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+    device_table(prof, wall, "profiled BrushNet + UNet step (1024x1024, CFG batch 2)", 18)
+    del pipe, unet, bn, te1, te2, vae, img, x, cond
+    torch.cuda.empty_cache()
+    return total
+
+
+def reference_sdxl_check():
+    """A tiny SDXL + BrushNet pipeline with a DoRA on the card (bf16,
+    kernels) against the same weights on the CPU in fp32 and in bf16 (plain
+    versions): channels (64, 128) at 1 and 2 heads (head dim 64; the
+    kernels take no smaller), one transformer block per attention, a
+    BrushNet mid attention of head dim 64, the 4-level VAE at width 32;
+    512x512 (64 x 64 latents: K5 over 4096 tokens, K4's max form over
+    1024, its masked form over 77 text keys), 4 steps at CFG 7.5, the same
+    CPU-drawn noise.  The card's relative L2 error of the final latents to
+    the CPU fp32 run must be at most twice the CPU bf16 run's + 1e-3."""
+    import torch
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.sdxl.unet2d import UNet2DConfig
+    from fairygen_tpu_torch.models.sdxl.vae import AutoencoderKLConfig
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines.sdxl_brushnet import SDXLBrushNetPipeline
+    from fairygen_tpu_torch.training.dora_trainer import (add_dora_to_sdxl_unet,
+                                                          load_sdxl_dora_state_dict,
+                                                          sdxl_dora_state_dict)
+
+    kw = dict(block_out_channels=(64, 128), num_attention_heads=(1, 2),
+              down_block_types=("CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+              up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D"),
+              transformer_layers_per_block=(1, 1), cross_attention_dim=64,
+              addition_time_embed_dim=8, projection_class_embeddings_input_dim=80)
+    ucfg = UNet2DConfig(**kw)
+    bcfg = UNet2DConfig(**{**kw, "down_block_types": ("DownBlock2D",) * 2,
+                           "up_block_types": ("UpBlock2D",) * 2,
+                           "mid_block_type": "UNetMidBlock2D", "attention_head_dim": 64,
+                           "conditioning_channels": 5})
+    vcfg = AutoencoderKLConfig(block_out_channels=(32, 32, 32, 32), norm_num_groups=8)
+    f32 = torch.float32
+    base = (convert.init_unet2d_params(ucfg, "cpu", f32, seed=100),
+            convert.init_unet2d_params(bcfg, "cpu", f32, seed=101, brushnet=True),
+            convert.init_autoencoder_kl_params(vcfg, "cpu", f32, seed=102))
+    dora = sdxl_dora_state_dict(add_dora_to_sdxl_unet(
+        base[0], torch.Generator("cpu").manual_seed(103), rank=8))
+    g = torch.Generator("cpu").manual_seed(104)
+    for k, v in dora.items():
+        if k.endswith(".lora_B.weight"):
+            dora[k] = (0.05 * torch.randn(v.shape, generator=g)).numpy()
+    masked, mask = sdxl_inputs(512)
+    call = dict(prompt_embeds=torch.randn(1, 77, 64, generator=g),
+                pooled_embeds=torch.randn(1, 32, generator=g),
+                negative_prompt_embeds=torch.randn(1, 77, 64, generator=g),
+                negative_pooled_embeds=torch.randn(1, 32, generator=g), image=masked, mask=mask,
+                height=512, width=512, num_inference_steps=4, guidance_scale=7.5,
+                brushnet_conditioning_scale=0.7, seed=105, torch_compat_noise=True,
+                output_type="latent")
+
+    def run(dev, dt):
+        unet, _ = load_sdxl_dora_state_dict(to(base[0], dev, dt), dora, scale=0.66)
+        pipe = SDXLBrushNetPipeline(unet, ucfg, to(base[2], dev, dt), vcfg,
+                                    to(base[1], dev, dt), bcfg, dtype=dt, device=dev)
+        return pipe(**call).float().cpu()
+
+    ref = run("cpu", f32)
+    rel16 = ((run("cpu", torch.bfloat16) - ref).norm() / ref.norm()).item()
+    _kernels.reset_launches()
+    out = run("cuda", torch.bfloat16)
+    ran = {k: v for k, v in _kernels.launches.items() if v}
+    rel = ((out - ref).norm() / ref.norm()).item()
+    tol = 2 * rel16 + 1e-3
+    print(f"  tiny SDXL + BrushNet + DoRA pipeline latents {tuple(out.shape)}: relative L2 "
+          f"error to CPU fp32 {rel:.4e} (card bf16), {rel16:.4e} (CPU bf16); tolerance "
+          f"{tol:.4e}; kernel launches {ran}", flush=True)
+    steps = 4  # per step: 2 + 3 blocks at 64 x 64, 2 + 1 + 3 and BrushNet's mid at 32 x 32
+    want = {"flash_fwd_d64": 5 * steps, "flash_small_kv_max": 7 * steps,
+            "flash_small_kv_masked": 11 * steps}
+    if ran != want:
+        raise RuntimeError(f"tiny SDXL pipeline: kernel launches {ran} != {want}")
+    if not rel <= tol:
+        raise RuntimeError("tiny SDXL pipeline disagrees with the CPU reference")
 
 
 if __name__ == "__main__":

@@ -23,6 +23,7 @@ from .core.params import Init, generator
 from .device import resolve_device
 from .models.flux.dit import init_flux_dit_params  # noqa: F401  (the FLUX.1 DiT's init)
 from .models.qwen.text_encoder import init_qwen_text_params  # noqa: F401  (Qwen3's init)
+from .models.sdxl.unet2d import init_unet2d_params  # noqa: F401  (the SDXL UNet's and BrushNet's)
 from .models.z_image.dit import init_z_image_dit_params  # noqa: F401  (the Z-Image DiT's init)
 from .models.sdxl.clip import CLIPTextConfig
 from .models.sdxl.vae import AutoencoderKLConfig
@@ -78,8 +79,9 @@ def _index(node, i):
 
 def from_jax_params(tree, device="cuda", dtype=None) -> Dict[str, Any]:
     """A JAX-package param tree (numpy leaves) of the Wan DiT, UMT5, VAE38,
-    FLUX.1 DiT, T5, CLIP text tower, AutoencoderKL, Z-Image DiT or Qwen3
-    text encoder -> port state on
+    FLUX.1 DiT, T5, CLIP text tower, AutoencoderKL, Z-Image DiT, Qwen3
+    text encoder, SDXL UNet or BrushNet (with their LoRA / DoRA adapters)
+    -> port state on
     ``device`` (optionally cast to ``dtype``; LoRA
     subtrees keep their dtype)."""
     return _tree(tree, resolve_device(device), dtype)

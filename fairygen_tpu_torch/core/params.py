@@ -38,9 +38,11 @@ def cast_tree(tree, dtype):
 
 
 def linear(sd, name):
-    """A torch Linear as a dense dict: weight (out, in) -> ``w`` (in, out),
-    plus ``b`` when the state dict has the bias."""
-    p = {"w": np.asarray(sd[name + ".weight"]).T}
+    """A torch Linear (or a 1x1 conv used as one) as a dense dict: weight
+    (out, in[, 1, 1]) -> ``w`` (in, out), plus ``b`` when the state dict has
+    the bias."""
+    w = np.asarray(sd[name + ".weight"])
+    p = {"w": (w[:, :, 0, 0] if w.ndim == 4 else w).T}
     if name + ".bias" in sd:
         p["b"] = np.asarray(sd[name + ".bias"])
     return p

@@ -1,6 +1,6 @@
 // K5, K6a, K6b, K6c: the generic flash attention with a running max, its
 // LSE-emitting forward, and the two backward kernels, on head-major bf16
-// q/k/v (B*N, S_pad, 128).
+// q/k/v (B*N, S_pad, D): D = 64 or 128 for K5, 128 for K6a-c.
 //
 // Replaces the TPU kernels fairygen_tpu/ops/flash_attention.py:
 //   K5  _fa_kernel          forward, online softmax (no-grad generic entry)
@@ -34,44 +34,36 @@
 
 namespace {
 
-// K5 (kLse = false) and K6a (kLse = true)
-template <bool kLse>
+// K5 (kLse = false; D = 64 or 128) and K6a (kLse = true; D = 128)
+template <bool kLse, int D>
 __global__ void __launch_bounds__(kThreads)
 fa_fwd_kernel(const bf16* __restrict__ qh, const bf16* __restrict__ kh,
               const bf16* __restrict__ vh, bf16* __restrict__ out, float* __restrict__ lse,
               int sq_pad, int sk_actual, int sk_pad) {
-  __shared__ __align__(16) bf16 Ks[kRowTile];
-  __shared__ __align__(16) bf16 Vt[kTTile];
+  __shared__ __align__(16) bf16 Ks[kTile * row_stride<D>()];
+  __shared__ __align__(16) bf16 Vt[D * kTStride];
   const int bn = blockIdx.y;
   const int q0 = blockIdx.x * kTile;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, tg = lane & 3;
 
-  uint32_t qa[8][4];
-  load_a(qa, qh + ((size_t)bn * sq_pad + q0 + warp * 16) * kD, kD, g, tg);
-  float o[16][4];
+  uint32_t qa[D / 16][4];
+  load_a(qa, qh + ((size_t)bn * sq_pad + q0 + warp * 16) * D, D, g, tg);
+  float o[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-  const bf16* kb = kh + (size_t)bn * sk_pad * kD;
-  const bf16* vb = vh + (size_t)bn * sk_pad * kD;
+  const bf16* kb = kh + (size_t)bn * sk_pad * D;
+  const bf16* vb = vh + (size_t)bn * sk_pad * D;
   for (int k0 = 0; k0 < sk_actual; k0 += kTile) {
     __syncthreads();  // the previous tile is consumed
-    load_rows(Ks, kb + (size_t)k0 * kD);
-    load_rows_t(Vt, vb + (size_t)k0 * kD);
+    load_rows<D>(Ks, kb + (size_t)k0 * D);
+    load_rows_t<D>(Vt, vb + (size_t)k0 * D);
     __syncthreads();
 
     float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < 8; ++ks) {
-        const bf16* kp = Ks + (nt * 8 + g) * kRowStride + ks * 16 + tg * 2;
-        mma_bf16(s[nt], qa[ks], ld32(kp), ld32(kp + 8));
-      }
-    }
+    tile_scores<D>(s, qa, Ks, g, tg);
     if (k0 + kTile > sk_actual) {  // the tile holding the end of the keys
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
@@ -95,7 +87,7 @@ fa_fwd_kernel(const bf16* __restrict__ qh, const bf16* __restrict__ kh,
     l0 *= a0;
     l1 *= a1;
 #pragma unroll
-    for (int dt = 0; dt < 16; ++dt) {
+    for (int dt = 0; dt < D / 8; ++dt) {
       o[dt][0] *= a0;
       o[dt][1] *= a0;
       o[dt][2] *= a1;
@@ -110,27 +102,18 @@ fa_fwd_kernel(const bf16* __restrict__ qh, const bf16* __restrict__ kh,
       l0 += s[nt][0] + s[nt][1];
       l1 += s[nt][2] + s[nt][3];
     }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4];
-      to_a(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dt = 0; dt < 16; ++dt) {
-        const bf16* vp = Vt + (dt * 8 + g) * kTStride + kk * 16 + tg * 2;
-        mma_bf16(o[dt], pa, ld32(vp), ld32(vp + 8));
-      }
-    }
+    tile_pv<D>(o, s, Vt, g, tg);
   }
 
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
   const size_t r0 = (size_t)bn * sq_pad + q0 + warp * 16 + g, r1 = r0 + 8;
 #pragma unroll
-  for (int dt = 0; dt < 16; ++dt) {
+  for (int dt = 0; dt < D / 8; ++dt) {
     const int col = dt * 8 + tg * 2;
-    *reinterpret_cast<uint32_t*>(out + r0 * kD + col) =
+    *reinterpret_cast<uint32_t*>(out + r0 * D + col) =
         pack_bf16(__fdiv_rn(o[dt][0], l0), __fdiv_rn(o[dt][1], l0));
-    *reinterpret_cast<uint32_t*>(out + r1 * kD + col) =
+    *reinterpret_cast<uint32_t*>(out + r1 * D + col) =
         pack_bf16(__fdiv_rn(o[dt][2], l1), __fdiv_rn(o[dt][3], l1));
   }
   if (kLse && tg == 0) {
@@ -349,15 +332,22 @@ int allow_smem(K kernel, int bytes) {
 }  // namespace
 
 // Shapes (checked by the Python wrappers): qh, doh, out, dq (BN, sq_pad,
-// 128) bf16; kh, vh, dk, dv (BN, sk_pad, 128) bf16; lse, delta (BN, sq_pad)
+// D) bf16; kh, vh, dk, dv (BN, sk_pad, D) bf16; lse, delta (BN, sq_pad)
 // fp32; sq_pad and sk_pad multiples of 64; 1 <= sk_actual <= sk_pad and
-// sq <= sq_pad.
+// sq <= sq_pad.  D is 64 or 128 for K5 (fg_flash_fwd), 128 for K6a-c.
 extern "C" int fg_flash_fwd(const void* qh, const void* kh, const void* vh, void* out, int BN,
-                            int sq_pad, int sk_actual, int sk_pad, void* stream) {
+                            int sq_pad, int sk_actual, int sk_pad, int d, void* stream) {
   dim3 grid(sq_pad / kTile, BN);
-  fa_fwd_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)qh, (const bf16*)kh, (const bf16*)vh, (bf16*)out, nullptr, sq_pad, sk_actual,
-      sk_pad);
+  if (d == 64)
+    fa_fwd_kernel<false, 64><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const bf16*)qh, (const bf16*)kh, (const bf16*)vh, (bf16*)out, nullptr, sq_pad,
+        sk_actual, sk_pad);
+  else if (d == 128)
+    fa_fwd_kernel<false, 128><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const bf16*)qh, (const bf16*)kh, (const bf16*)vh, (bf16*)out, nullptr, sq_pad,
+        sk_actual, sk_pad);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
@@ -365,7 +355,7 @@ extern "C" int fg_flash_fwd_lse(const void* qh, const void* kh, const void* vh, 
                                 void* lse, int BN, int sq_pad, int sk_actual, int sk_pad,
                                 void* stream) {
   dim3 grid(sq_pad / kTile, BN);
-  fa_fwd_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  fa_fwd_kernel<true, kD><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const bf16*)qh, (const bf16*)kh, (const bf16*)vh, (bf16*)out, (float*)lse, sq_pad,
       sk_actual, sk_pad);
   return (int)cudaGetLastError();

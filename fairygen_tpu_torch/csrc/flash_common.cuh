@@ -1,6 +1,9 @@
 // Shared by the mma.sync flash kernels (flash_attention_train.cu, K5/K6a-c,
-// and flash_attention_bias.cu, K10): tile sizes, the m16n8k16 bf16 product,
-// fragment loads and the shared-memory tile stagers.  Head dim 128.
+// flash_attention_bias.cu, K10, and flash_small_kv.cu, K4's max and masked
+// forms): tile sizes, the m16n8k16 bf16 product, fragment loads and the
+// shared-memory tile stagers.  The stagers take the head dim D as a template
+// argument (default 128, the only D of K6a-c and K10); the constants kD,
+// kRowStride, kRowTile and kTTile are those of D = 128.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,11 +40,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// A fragments (16 rows x 16 of d, 8 steps over d = 128) of rows p[0..16)
-__device__ __forceinline__ void load_a(uint32_t (&a)[8][4], const bf16* p, int stride, int g,
+// bf16 per row of a row-major smem tile of head dim D
+template <int D>
+__host__ __device__ constexpr int row_stride() { return D + 8; }
+
+// A fragments (16 rows x 16 of d, KS = D / 16 steps over d) of rows p[0..16)
+template <int KS>
+__device__ __forceinline__ void load_a(uint32_t (&a)[KS][4], const bf16* p, int stride, int g,
                                        int tg) {
 #pragma unroll
-  for (int ks = 0; ks < 8; ++ks) {
+  for (int ks = 0; ks < KS; ++ks) {
     a[ks][0] = ld32(p + g * stride + ks * 16 + tg * 2);
     a[ks][1] = ld32(p + (g + 8) * stride + ks * 16 + tg * 2);
     a[ks][2] = ld32(p + g * stride + ks * 16 + 8 + tg * 2);
@@ -58,25 +66,60 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
-// 64 rows of a (rows, 128) matrix -> smem [64][kRowStride]
+// 64 rows of a (rows, D) matrix -> smem [64][row_stride<D>()]
+template <int D = kD>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src) {
-  for (int i = threadIdx.x; i < kTile * (kD / 8); i += kThreads) {
-    const int r = i / (kD / 8), c = i % (kD / 8);
-    *reinterpret_cast<uint4*>(dst + r * kRowStride + c * 8) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * kD + c * 8);
+  for (int i = threadIdx.x; i < kTile * (D / 8); i += kThreads) {
+    const int r = i / (D / 8), c = i % (D / 8);
+    *reinterpret_cast<uint4*>(dst + r * row_stride<D>() + c * 8) =
+        *reinterpret_cast<const uint4*>(src + (size_t)r * D + c * 8);
   }
 }
 
-// 64 rows of a (rows, 128) matrix -> transposed smem [128][kTStride];
+// 64 rows of a (rows, D) matrix -> transposed smem [D][kTStride];
 // consecutive threads take consecutive rows, so the 2-byte stores of a
 // warp land on consecutive smem words
+template <int D = kD>
 __device__ __forceinline__ void load_rows_t(bf16* dst, const bf16* src) {
-  for (int i = threadIdx.x; i < kTile * (kD / 8); i += kThreads) {
+  for (int i = threadIdx.x; i < kTile * (D / 8); i += kThreads) {
     const int r = i % kTile, c = i / kTile;
-    uint4 val = *reinterpret_cast<const uint4*>(src + (size_t)r * kD + c * 8);
+    uint4 val = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c * 8);
     const bf16* e = reinterpret_cast<const bf16*>(&val);
 #pragma unroll
     for (int j = 0; j < 8; ++j) dst[(c * 8 + j) * kTStride + r] = e[j];
+  }
+}
+
+// S = Q K^T for one 64-key tile staged row-major in Ks: s[nt] holds keys
+// nt * 8 + 2 * tg + {0, 1} of the rows g (s[nt][0..1]) and g + 8 (s[nt][2..3])
+template <int D>
+__device__ __forceinline__ void tile_scores(float (&s)[8][4], uint32_t (&qa)[D / 16][4],
+                                            const bf16* Ks, int g, int tg) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const bf16* kp = Ks + (nt * 8 + g) * row_stride<D>() + ks * 16 + tg * 2;
+      mma_bf16(s[nt], qa[ks], ld32(kp), ld32(kp + 8));
+    }
+  }
+}
+
+// O += P V for one 64-key tile: P is s rounded to bf16 (the accumulators
+// become A fragments without a shuffle), V is staged transposed in Vt
+template <int D>
+__device__ __forceinline__ void tile_pv(float (&o)[D / 8][4], const float (&s)[8][4],
+                                        const bf16* Vt, int g, int tg) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t pa[4];
+    to_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      const bf16* vp = Vt + (dt * 8 + g) * kTStride + kk * 16 + tg * 2;
+      mma_bf16(o[dt], pa, ld32(vp), ld32(vp + 8));
+    }
   }
 }
 

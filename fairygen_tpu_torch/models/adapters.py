@@ -1,7 +1,10 @@
-"""LoRA adapters and the FairyGen two-stage motion-adapter scheme (port of
-fairygen_tpu/models/adapters.py, the LoRA part).
+"""LoRA / DoRA adapters and the FairyGen two-stage motion-adapter scheme
+(port of fairygen_tpu/models/adapters.py).
 
   * plain LoRA:  y = Wx + s·(x A) B
+  * DoRA:        y = Wx + [(m/‖W+sAB‖ − 1)·Wx + (m/‖W+sAB‖)·s·(xA)B], the
+                 SDXL style adapter; the column norm is taken in fp32 and
+                 carries no gradient
   * stage-1:     element dropout p=0.8 on B with 1/(1−p) rescale, as a
                  parameter transform before the forward pass
   * stage-2:     frozen A/B + zero-init B2 with dropout 0.5:
@@ -10,9 +13,8 @@ fairygen_tpu/models/adapters.py, the LoRA part).
 
 Adapter params live inside the dense layer's dict under ``"lora"``:
 ``{"w", "b", "lora": {"A": (in, r), "B": (r, out), "B2": optional,
-"scale": float}}``, one per block (the port keeps blocks as a list).  LoRA
-leaves are fp32, as in the JAX package.  DoRA (``"mag"``) is not ported:
-an adapter that carries it is refused.
+"mag": optional (out,), "scale": float}}``, one per block (the port keeps
+blocks as a list).  LoRA leaves are fp32, as in the JAX package.
 
 Paths: a parameter's path is the tuple of dict keys and list indices from
 the root, e.g. ``("blocks", 3, "self_attn", "q", "lora", "A")``.
@@ -65,13 +67,26 @@ def apply_adapter(base_out, x, p, mask=None):
         if mask is not None:
             upd = upd * mask.to(upd.dtype)
         return base_out + upd
-    if "mag" in ap:
-        raise NotImplementedError("DoRA adapters ('mag') are not ported yet")
-    scale = torch.as_tensor(ap.get("scale", 1.0), device=x.device).to(x.dtype)
+    scale_f = ap.get("scale", 1.0)
+    if torch.is_tensor(scale_f):
+        scale_f = scale_f.to(x.device, torch.float32)
+        scale = scale_f.to(x.dtype)
+    else:
+        # a python number stays on the host: a CUDA tensor made from it is a
+        # blocking copy, one stream sync for every adapted layer call
+        scale_f = float(scale_f)
+        scale = float(torch.tensor(scale_f).to(x.dtype))
     xa = torch.matmul(x, ap["A"].to(x.dtype))
     upd = torch.matmul(xa, ap["B"].to(x.dtype)) * scale
     if "B2" in ap:
         upd = upd + torch.matmul(xa, ap["B2"].to(x.dtype)) * scale
+    if "mag" in ap:
+        # DoRA: the column norm of W + s·AB in fp32, detached; magnitude
+        # rescale in x.dtype
+        w_eff = p["w"].float() + scale_f * (ap["A"].float() @ ap["B"].float())
+        norm = torch.linalg.vector_norm(w_eff, dim=0).detach()
+        mns = (ap["mag"].float() / norm).to(x.dtype)
+        upd = (mns - 1) * base_out + mns * upd
     if mask is not None:
         upd = upd * mask.to(upd.dtype)
     return base_out + upd
@@ -79,16 +94,23 @@ def apply_adapter(base_out, x, p, mask=None):
 
 # --------------------------------------------------------------------- init
 def init_lora(generator, d_in: int, d_out: int, rank: int, *, alpha: Optional[float] = None,
-              with_b2: bool = False, dtype=torch.float32) -> Dict[str, Any]:
+              dora: bool = False, base_w=None, with_b2: bool = False,
+              dtype=torch.float32) -> Dict[str, Any]:
     """Normal A scaled by d_in^-1/2, zero B (and B2); scale = alpha/rank
     (alpha defaults to rank, so scale 1 for the stage scripts' r=alpha=32).
-    Made on the generator's device."""
+    ``dora``: the magnitude ``mag`` = the fp32 column norm of ``base_w``
+    (d_in, d_out), so the adapter starts as the identity.  Made on the
+    generator's device."""
     dev = generator.device
     a = torch.randn((d_in, rank), generator=generator, device=dev, dtype=dtype)
     p = {"A": a.mul_((1.0 / d_in) ** 0.5), "B": torch.zeros((rank, d_out), device=dev, dtype=dtype),
          "scale": float((alpha if alpha is not None else rank) / rank)}
     if with_b2:
         p["B2"] = torch.zeros((rank, d_out), device=dev, dtype=dtype)
+    if dora:
+        if base_w is None:
+            raise ValueError("a DoRA adapter needs base_w for its magnitude")
+        p["mag"] = torch.linalg.vector_norm(base_w.float(), dim=0).to(dev, dtype)
     return p
 
 

@@ -1,4 +1,5 @@
-"""CLIP text tower (port of the text part of fairygen_tpu/models/sdxl/clip.py).
+"""CLIP text towers (port of the text part of fairygen_tpu/models/sdxl/clip.py):
+CLIP-L and SDXL's OpenCLIP bigG, and SDXL's dual-encoder prompt embedding.
 
 transformers' ``CLIPTextModel``: token + learned position embeddings, a
 pre-LN causal transformer, final LN, EOS pooling (argmax of the ids when
@@ -28,6 +29,17 @@ class CLIPTextConfig:
     hidden_act: str = "quick_gelu"  # CLIP-L; bigG uses "gelu"
     projection_dim: Optional[int] = None
     eos_token_id: int = 49407
+
+    @staticmethod
+    def sdxl_te1() -> "CLIPTextConfig":
+        """SDXL's first text encoder, CLIP-L/14."""
+        return CLIPTextConfig()
+
+    @staticmethod
+    def sdxl_te2() -> "CLIPTextConfig":
+        """SDXL's second text encoder, OpenCLIP bigG/14 with its projection."""
+        return CLIPTextConfig(hidden_size=1280, intermediate_size=5120, num_layers=32,
+                              num_heads=20, hidden_act="gelu", projection_dim=1280)
 
     @staticmethod
     def tiny(**over) -> "CLIPTextConfig":
@@ -94,6 +106,15 @@ def clip_text_encode(params, cfg: CLIPTextConfig, ids):
     if "text_projection" in params:
         out["text_embeds"] = pooled @ params["text_projection"].to(pooled.dtype)
     return out
+
+
+def sdxl_encode_prompt(te1, te1_cfg, te2, te2_cfg, ids1, ids2):
+    """SDXL's dual-encoder prompt embedding: the two penultimate hidden
+    states concatenated (768 + 1280 = 2048 wide), and the second encoder's
+    projected pooled output.  Returns (prompt_embeds, pooled_embeds)."""
+    o1 = clip_text_encode(te1, te1_cfg, ids1)
+    o2 = clip_text_encode(te2, te2_cfg, ids2)
+    return torch.cat([o1["hidden_states"][-2], o2["hidden_states"][-2]], -1), o2["text_embeds"]
 
 
 def clip_layer(sd, lp, names):

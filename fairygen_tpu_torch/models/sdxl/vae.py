@@ -38,6 +38,11 @@ class AutoencoderKLConfig:
         return 2 ** (len(self.block_out_channels) - 1)
 
     @staticmethod
+    def sdxl() -> "AutoencoderKLConfig":
+        """The SDXL VAE (sdxl-vae / sdxl-vae-fp16-fix), scaling factor 0.13025."""
+        return AutoencoderKLConfig()
+
+    @staticmethod
     def flux() -> "AutoencoderKLConfig":
         """The FLUX.1 16-channel VAE."""
         return AutoencoderKLConfig(latent_channels=16, scaling_factor=0.3611,

@@ -9,7 +9,10 @@ the library is loaded with ``ctypes``.  No source includes PyTorch's
 headers, so the build takes seconds.
 
 ``launches`` counts, per kernel, the launches made through the wrappers in
-``ops/`` since the last :func:`reset_launches`.
+``ops/`` since the last :func:`reset_launches`.  K4's three forms count
+apart (``flash_small_kv`` bounded, ``flash_small_kv_max``,
+``flash_small_kv_masked``), and K5 counts per head dim (``flash_fwd`` at
+128, ``flash_fwd_d64`` at 64).
 """
 from __future__ import annotations
 
@@ -27,11 +30,12 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "fairygen_tpu_torch"
 LIB_NAME = "libfairygen_kernels.so"
 SOURCES = ("ln_modulate.cu", "rms_rope.cu", "flash_attention.cu", "flash_attention_train.cu",
-           "flash_attention_bias.cu", "rms_modulate.cu")
+           "flash_attention_bias.cu", "rms_modulate.cu", "flash_small_kv.cu")
 HEADERS = ("flash_common.cuh",)
 KERNELS = ("ln_modulate", "rms_rope_heads_major", "flash_bounded", "flash_small_kv",
            "flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv",
-           "rms_rope_per_head", "rms_rope_joint", "flash_bias", "rms_modulate", "vae_rms_silu")
+           "rms_rope_per_head", "rms_rope_joint", "flash_bias", "rms_modulate", "vae_rms_silu",
+           "flash_small_kv_max", "flash_small_kv_masked", "flash_fwd_d64")
 
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
@@ -44,7 +48,7 @@ _SIGNATURES = {
     "fg_rms_rope_heads_major": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fg_flash_bounded": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fg_flash_small_kv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "fg_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fg_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fg_flash_fwd_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fg_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P],
     "fg_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -53,6 +57,7 @@ _SIGNATURES = {
     "fg_flash_bias": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fg_rms_modulate": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "fg_vae_rms_silu": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "fg_flash_small_kv_max": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -12,6 +12,9 @@ kh (B*N, Sk_pad, d) rows >= sk_actual are exact zeros, each adding exactly
 CUDA tensors go through ``csrc/flash_attention.cu`` (bf16, d = 128): K4
 when the keys are one TPU k tile (Sk_pad == bk), K3 otherwise.  CPU tensors
 take :func:`flash_attention_heads_major_plain`.
+
+The later sections hold the generic entry (K4's max and masked forms, K5,
+and K6a-c for its gradient) and K10, the attention with a bias.
 """
 from __future__ import annotations
 
@@ -74,19 +77,22 @@ def flash_attention_heads_major(qh, kh, v, *, b, n, sq, sk_actual, bq=2048,
 
 
 # --------------------------------------------------------------------------
-# K5 / K6a / K6b / K6c: the generic entry and its gradient (port of
-# ``flash_attention`` with its custom VJP, ``_flash_fwd_impl``,
-# ``_flash_fwd`` and ``_flash_bwd``).  The kernels take head-major bf16
-# (B*N, S_pad, 128) q/k/v, zero rows past the sequence, S_pad a multiple of
-# 64; lse and delta are one fp32 value per row.  CPU tensors take the
-# ``*_plain`` versions, which compute what the Pallas kernels compute on one
-# tile: fp32 logits, keys >= sk_actual masked, p rounded to the value dtype
-# before each product, fp32 accumulation.
+# K4 (max and masked forms) / K5 / K6a / K6b / K6c: the generic entry and its
+# gradient (port of ``flash_attention`` with its custom VJP,
+# ``_flash_fwd_impl``, ``_flash_fwd`` and ``_flash_bwd``).  The kernels take
+# head-major bf16 (B*N, S_pad, d) q/k/v, zero rows past the sequence, S_pad
+# a multiple of 64; d is 64 or 128 for K4 and K5, 128 for K6a-c.  lse and
+# delta are one fp32 value per row.  CPU tensors take the ``*_plain``
+# versions, which compute what the Pallas kernels compute on one tile: fp32
+# logits, keys >= sk_actual masked, p rounded to the value dtype before each
+# product, fp32 accumulation.
 
 DEFAULT_BQ = 1024
 DEFAULT_BK = 1024
 LOG2E = 1.4426950408889634
 _ROW_TILE = 64  # rows per CTA of the CUDA kernels
+_FWD_DIMS = (64, 128)  # head dims of the K4 max/masked and K5 kernels
+_TRAIN_DIMS = (128,)   # head dims of K6a-c (and K10)
 
 
 def _masked_logits(qh, kh, bn, sk_actual):
@@ -136,13 +142,13 @@ def flash_bwd_dkv_plain(qh, kh, vh, doh, lse, delta, *, sq, sk_actual):
     return dk, dv
 
 
-def _check_heads_major(qh, kh, vh, sk_actual, extra=()):
+def _check_heads_major(qh, kh, vh, sk_actual, extra=(), dims=_TRAIN_DIMS):
     for name, t in (("qh", qh), ("kh", kh), ("vh", vh)) + tuple(extra):
         _kernels.check_cuda(t, name, torch.bfloat16, 3)
-    if qh.shape[2] != 128 or kh.shape != vh.shape or kh.shape[0] != qh.shape[0] \
-            or kh.shape[2] != 128:
-        raise ValueError(f"flash kernels need (BN, S_pad, 128) q/k/v, got {tuple(qh.shape)} / "
-                         f"{tuple(kh.shape)} / {tuple(vh.shape)}")
+    if qh.shape[2] not in dims or kh.shape != vh.shape or kh.shape[0] != qh.shape[0] \
+            or kh.shape[2] != qh.shape[2]:
+        raise ValueError(f"this flash kernel needs (BN, S_pad, d) q/k/v with d in {dims}, got "
+                         f"{tuple(qh.shape)} / {tuple(kh.shape)} / {tuple(vh.shape)}")
     if qh.shape[1] % _ROW_TILE or kh.shape[1] % _ROW_TILE:
         raise ValueError("padded lengths must be multiples of 64")
     if not 1 <= sk_actual <= kh.shape[1]:
@@ -156,12 +162,12 @@ def _check_rows(t, name, shape):
 
 
 def flash_fwd(qh, kh, vh, *, sk_actual, with_lse=True):
-    """K6a (``with_lse``) or K5 on head-major q/k/v (see the section note).
-    Returns o, and lse with ``with_lse``."""
+    """K6a (``with_lse``, d = 128) or K5 (d = 64 or 128) on head-major
+    q/k/v (see the section note).  Returns o, and lse with ``with_lse``."""
     if not qh.is_cuda:
         return flash_fwd_plain(qh, kh, vh, sk_actual=sk_actual, with_lse=with_lse)
-    _check_heads_major(qh, kh, vh, sk_actual)
-    bn, sq_p, _ = qh.shape
+    _check_heads_major(qh, kh, vh, sk_actual, dims=_TRAIN_DIMS if with_lse else _FWD_DIMS)
+    bn, sq_p, d = qh.shape
     out = torch.empty_like(qh)
     if with_lse:
         lse = torch.empty((bn, sq_p), dtype=torch.float32, device=qh.device)
@@ -169,8 +175,34 @@ def flash_fwd(qh, kh, vh, *, sk_actual, with_lse=True):
                         vh.data_ptr(), out.data_ptr(), lse.data_ptr(), bn, sq_p,
                         int(sk_actual), kh.shape[1])
         return out, lse
-    _kernels.launch("flash_fwd", "fg_flash_fwd", qh.data_ptr(), kh.data_ptr(), vh.data_ptr(),
-                    out.data_ptr(), bn, sq_p, int(sk_actual), kh.shape[1])
+    _kernels.launch("flash_fwd" if d == 128 else "flash_fwd_d64", "fg_flash_fwd", qh.data_ptr(),
+                    kh.data_ptr(), vh.data_ptr(), out.data_ptr(), bn, sq_p, int(sk_actual),
+                    kh.shape[1], d)
+    return out
+
+
+def flash_small_kv_max_plain(qh, kh, vh, *, sk_actual):
+    """Plain version of K4's max and masked forms: K5's plain version
+    already takes each row's max over every key at once, then exp2(s - m),
+    the fp32 sum and p rounded to v's dtype before p·v."""
+    return flash_fwd_plain(qh, kh, vh, sk_actual=sk_actual, with_lse=False)
+
+
+def flash_small_kv_max(qh, kh, vh, *, sk_actual):
+    """K4's max form (sk_actual == Sk_pad) or masked form (keys >=
+    sk_actual masked) on head-major q/k/v (BN, S_pad, d), d = 64 or 128,
+    whose keys are one TPU k tile (Sk_pad <= 1024).  Returns head-major o."""
+    if not qh.is_cuda:
+        return flash_small_kv_max_plain(qh, kh, vh, sk_actual=sk_actual)
+    _check_heads_major(qh, kh, vh, sk_actual, dims=_FWD_DIMS)
+    bn, sq_p, d = qh.shape
+    sk_p = kh.shape[1]
+    if sk_p > DEFAULT_BK:
+        raise ValueError(f"K4 takes one k tile of at most {DEFAULT_BK} keys, got {sk_p}")
+    out = torch.empty_like(qh)
+    _kernels.launch("flash_small_kv_masked" if sk_actual < sk_p else "flash_small_kv_max",
+                    "fg_flash_small_kv_max", qh.data_ptr(), kh.data_ptr(), vh.data_ptr(),
+                    out.data_ptr(), bn, sq_p, int(sk_actual), sk_p, d)
     return out
 
 
@@ -249,9 +281,17 @@ def _layout(q, k, scale, prescaled, bq_default=DEFAULT_BQ):
 
 
 def _flash_fwd_impl(q, k, v, scale=None, prescaled=False, kv_len=None, bounded_logits=False):
-    """The no-gradient forward: with ``bounded_logits`` and no ``kv_len``,
-    K4 when the keys fit one tile and K3 otherwise (pad-correction form, on
-    zero-padded head-major q/k and natural v); every other call K5."""
+    """The no-gradient forward, dispatched as the JAX package's: with
+    ``bounded_logits`` and no ``kv_len``, K4's bounded form when the keys
+    fit one TPU k tile and K3 otherwise (pad-correction form, on
+    zero-padded head-major q/k and natural v); every other call K4's max
+    form (masked when keys are padded or cut by ``kv_len``) when the padded
+    keys fit one k tile (Sk_pad == bk, i.e. Sk <= 1024), K5 otherwise.
+
+    One divergence: with ``bounded_logits`` and a ``kv_len`` the JAX
+    package runs the bounded kernels with an explicit mask and no max; the
+    port runs K4's masked form or K5 (the same softmax, p rounded against
+    the row's max).  No ported model makes such a call."""
     b, sq, n, _ = q.shape
     sk = k.shape[1]
     qh, kh = _layout(q, k, scale, prescaled, 2048 if bounded_logits else DEFAULT_BQ)
@@ -262,7 +302,11 @@ def _flash_fwd_impl(q, k, v, scale=None, prescaled=False, kv_len=None, bounded_l
         return flash_attention_heads_major(qh, kh, v.contiguous(), b=b, n=n, sq=sq,
                                            sk_actual=sk, bq=qh.shape[1], bk=k_tile)
     sk_act = sk if kv_len is None else int(kv_len)
-    out = flash_fwd(qh, kh, _heads_major(v, sk_p), sk_actual=sk_act, with_lse=False)
+    vh = _heads_major(v, sk_p)
+    if sk <= DEFAULT_BK:  # the JAX package's sk_p == bk: one k tile
+        out = flash_small_kv_max(qh, kh, vh, sk_actual=sk_act)
+    else:
+        out = flash_fwd(qh, kh, vh, sk_actual=sk_act, with_lse=False)
     return _natural(out, b, n, sq)
 
 

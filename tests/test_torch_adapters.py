@@ -114,10 +114,16 @@ def test_apply_adapter_matches_jax(case):
 
 
 def test_dora_is_refused():
-    with pytest.raises(NotImplementedError, match="DoRA"):
-        tad.apply_adapter(torch.zeros(1, 2), torch.zeros(1, 2),
-                          {"lora": {"A": torch.zeros(2, 1), "B": torch.zeros(1, 2),
-                                    "mag": torch.ones(2)}})
+    """A DoRA adapter is refused only without the base weight its magnitude
+    comes from; with one it applies (the identity at init: B = 0 and mag =
+    the column norm of W)."""
+    with pytest.raises(ValueError, match="DoRA"):
+        tad.init_lora(torch.Generator().manual_seed(0), 2, 3, 1, dora=True)
+    w = torch.randn(2, 3, generator=torch.Generator().manual_seed(1))
+    lora = tad.init_lora(torch.Generator().manual_seed(0), 2, 3, 1, dora=True, base_w=w)
+    x = torch.randn(4, 2, generator=torch.Generator().manual_seed(2))
+    out = tad.apply_adapter(x @ w, x, {"w": w, "lora": lora})
+    torch.testing.assert_close(out, x @ w, rtol=1e-6, atol=1e-6)
 
 
 def _stage_dicts():

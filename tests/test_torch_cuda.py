@@ -4,7 +4,9 @@ launch the four serving kernels, the flash-attention gradient against
 autograd of the plain attention, a tiny LoRA train step that must launch
 K6a-c, a tiny FLUX.1 pipeline that must launch K1, K7, K8 and K3/K4, or
 K10 with EliGen regions, and a tiny Z-Image pipeline that must launch K9,
-K7 and K4.  They skip here when no card is present; on a card:
+K7 and K4, K4's max and masked forms and K5 at head dim 64 (and their
+refusals), and a tiny SDXL + BrushNet + DoRA pipeline that must launch
+them.  They skip here when no card is present; on a card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 
@@ -131,7 +133,8 @@ def test_tiny_pipeline_launches_every_kernel(card):
                                  "flash_fwd": 0, "flash_fwd_lse": 0, "flash_bwd_dq": 0,
                                  "flash_bwd_dkv": 0, "rms_rope_per_head": 0,
                                  "rms_rope_joint": 0, "flash_bias": 0, "rms_modulate": 0,
-                                 "vae_rms_silu": 0}
+                                 "vae_rms_silu": 0, "flash_small_kv_max": 0,
+                                 "flash_small_kv_masked": 0, "flash_fwd_d64": 0}
 
 
 def _close_grad(out, ref):
@@ -446,3 +449,118 @@ def test_tiny_z_image_pipeline_launches_its_kernels(card):
     # k tile of 1024, so the attention is K4 throughout
     assert got == {"rms_modulate": 4 * (1 + 2) * sweeps, "rms_rope_per_head": 2 * 4 * sweeps,
                    "flash_small_kv": 4 * sweeps}
+
+
+def _heads(card, bn, s, d, scale=1.0):
+    return _randn(card, bn, s, d, scale=scale)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk_pad,sk_actual", [(4096, 128, 77), (1024, 1024, 1024),
+                                                 (320, 320, 250)])
+def test_k4_max_and_masked_forms_match_plain(card, d, sq, sk_pad, sk_actual):
+    """K4's max form (sk_actual == Sk_pad) and masked form against the plain
+    version: p is rounded to bf16 against the same row max on both sides,
+    so outputs differ by sums in other orders only: 2^-7 relative + 1e-3
+    absolute, the tolerance of K3/K4's bounded form.  The masked key rows
+    hold non-zero values, as a caller's kv_len leaves them."""
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    bn = 4
+    qh = _heads(card, bn, sq, d, scale=d ** -0.5 * 1.4427)
+    kh, vh = _heads(card, bn, sk_pad, d), _heads(card, bn, sk_pad, d)
+    _kernels.reset_launches()
+    out = fa.flash_small_kv_max(qh, kh, vh, sk_actual=sk_actual)
+    form = "flash_small_kv_masked" if sk_actual < sk_pad else "flash_small_kv_max"
+    assert {k: v for k, v in _kernels.launches.items() if v} == {form: 1}
+    ref = fa.flash_small_kv_max_plain(qh, kh, vh, sk_actual=sk_actual)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+
+
+@pytest.mark.parametrize("sq,sk,kv_len", [(4096, 4096, None), (1100, 1100, 1050)])
+def test_k5_at_head_dim_64_matches_plain(card, sq, sk, kv_len):
+    """K5 rounds p against its key tile's running max: 2^-7 relative +
+    2^-8 absolute, as at head dim 128."""
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    bn, d = 4, 64
+    qh = _heads(card, bn, fa._pad_len(sq, 1024, True), d, scale=d ** -0.5 * 1.4427)
+    kh = _heads(card, bn, fa._pad_len(sk, 1024, True), d)
+    vh = _heads(card, bn, kh.shape[1], d)
+    ska = sk if kv_len is None else kv_len
+    _kernels.reset_launches()
+    out = fa.flash_fwd(qh, kh, vh, sk_actual=ska, with_lse=False)
+    assert {k: v for k, v in _kernels.launches.items() if v} == {"flash_fwd_d64": 1}
+    ref = fa.flash_fwd_plain(qh, kh, vh, sk_actual=ska, with_lse=False)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=2 ** -8)
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(card):
+    """No fallback on the card: fp32 or a head dim outside {64, 128} raises
+    for K4's max/masked forms and K5; K6a-c take head dim 128 only."""
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    def qkv(d, dtype=torch.bfloat16, s=128):
+        return [_heads(card, 2, s, d).to(dtype) for _ in range(3)]
+
+    for d, dtype in ((64, torch.float32), (96, torch.bfloat16), (128, torch.float32)):
+        with pytest.raises(ValueError):
+            fa.flash_small_kv_max(*qkv(d, dtype), sk_actual=100)
+        with pytest.raises(ValueError):
+            fa.flash_fwd(*qkv(d, dtype), sk_actual=128, with_lse=False)
+    with pytest.raises(ValueError, match="1024"):
+        fa.flash_small_kv_max(*qkv(64, s=1088), sk_actual=1088)
+    q, k, v = qkv(64)
+    rows = torch.zeros((2, 128), device="cuda")
+    with pytest.raises(ValueError, match="128"):
+        fa.flash_fwd(q, k, v, sk_actual=128)
+    with pytest.raises(ValueError, match="128"):
+        fa.flash_bwd_dq(q, k, v, q, rows, rows, sk_actual=128, dq_factor=1.0)
+    with pytest.raises(ValueError, match="128"):
+        fa.flash_bwd_dkv(q, k, v, q, rows, rows, sq=128, sk_actual=128)
+    with pytest.raises(ValueError):
+        fa.flash_attention(*(t.float().reshape(1, 256, 1, 64) for t in (q, k, v)))
+
+
+def test_tiny_sdxl_brushnet_pipeline_launches_its_kernels(card):
+    """Head dim 64 (channels 64 and 128 at 1 and 2 heads), 512x512: the
+    64x64 latent's 4096-token self-attention takes K5, the 32x32 one's
+    1024 tokens K4's max form (the BrushNet mid attention too), the 77 text
+    keys K4's masked form."""
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.sdxl.unet2d import UNet2DConfig
+    from fairygen_tpu_torch.models.sdxl.vae import AutoencoderKLConfig
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines.sdxl_brushnet import SDXLBrushNetPipeline
+    from fairygen_tpu_torch.training.dora_trainer import add_dora_to_sdxl_unet
+
+    kw = dict(block_out_channels=(64, 128), num_attention_heads=(1, 2),
+              down_block_types=("CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+              up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D"),
+              transformer_layers_per_block=(1, 1), cross_attention_dim=64,
+              addition_time_embed_dim=8, projection_class_embeddings_input_dim=80)
+    ucfg = UNet2DConfig(**kw)
+    bcfg = UNet2DConfig(**{**kw, "down_block_types": ("DownBlock2D",) * 2,
+                           "up_block_types": ("UpBlock2D",) * 2, "mid_block_type": "UNetMidBlock2D",
+                           "attention_head_dim": 64, "conditioning_channels": 5})
+    vcfg = AutoencoderKLConfig(block_out_channels=(32, 32, 32, 32), norm_num_groups=8)
+    unet = add_dora_to_sdxl_unet(convert.init_unet2d_params(ucfg, seed=1), card, rank=4)
+    pipe = SDXLBrushNetPipeline(unet, ucfg, convert.init_autoencoder_kl_params(vcfg, seed=2),
+                                vcfg, convert.init_unet2d_params(bcfg, seed=3, brushnet=True),
+                                bcfg, dtype=torch.bfloat16)
+    img = torch.rand((512, 512, 3), generator=card, device="cuda").cpu().numpy()
+    mask = (torch.rand((512, 512, 1), generator=card, device="cuda") > 0.5).float().cpu().numpy()
+    _kernels.reset_launches()
+    # pooled 32 + 6 time ids x 8 = the add embedding's 80 inputs
+    out = pipe(prompt_embeds=_randn(card, 1, 77, 64), pooled_embeds=_randn(card, 1, 32),
+               negative_prompt_embeds=_randn(card, 1, 77, 64),
+               negative_pooled_embeds=_randn(card, 1, 32), image=img, mask=mask, height=512,
+               width=512, num_inference_steps=2, output_type="np_pm1")
+    assert torch.isfinite(out).all() and out.shape == (1, 3, 512, 512)
+    steps = 2
+    # UNet: 2 + 3 transformer blocks at 64x64, 2 + 1 (mid) + 3 at 32x32
+    got = {k: v for k, v in _kernels.launches.items() if v}
+    assert got == {"flash_fwd_d64": 5 * steps, "flash_small_kv_max": (6 + 1) * steps,
+                   "flash_small_kv_masked": 11 * steps}

@@ -4,7 +4,7 @@ kernels run in interpret mode, as tests/test_flash_attention.py runs them,
 and its custom VJPs on the CPU.
 
 Inputs are made with numpy from a seed and handed to both packages, fp32,
-head dim 128.  Tolerances:
+head dim 128 (the no-gradient entry also at 64).  Tolerances:
   * forward output and LSE: atol 2e-5, rtol 1e-4 — sums in other orders;
   * flash-attention gradients: atol 5e-4, rtol 1e-3, the JAX suite's own
     bound for its backward kernels;
@@ -35,12 +35,12 @@ def _t(a, grad=False):
     return torch.from_numpy(np.array(a)).requires_grad_(grad)
 
 
-def _qkvw(sq, sk, n, seed):
+def _qkvw(sq, sk, n, seed, hd=HD):
     rng = np.random.default_rng(seed)
-    q = rng.standard_normal((1, sq, n, HD)).astype(np.float32)
-    k = rng.standard_normal((1, sk, n, HD)).astype(np.float32)
-    v = rng.standard_normal((1, sk, n, HD)).astype(np.float32)
-    w = rng.standard_normal((1, sq, n, HD)).astype(np.float32)
+    q = rng.standard_normal((1, sq, n, hd)).astype(np.float32)
+    k = rng.standard_normal((1, sk, n, hd)).astype(np.float32)
+    v = rng.standard_normal((1, sk, n, hd)).astype(np.float32)
+    w = rng.standard_normal((1, sq, n, hd)).astype(np.float32)
     return q, k, v, w
 
 
@@ -49,9 +49,13 @@ def _qkvw(sq, sk, n, seed):
 SHAPES = [(300, 300, 250), (200, 77, None), (130, 1100, 1050)]
 
 
+@pytest.mark.parametrize("hd", [128, 64])
 @pytest.mark.parametrize("sq,sk,kv_len", SHAPES)
-def test_k5_plain_matches_pallas(sq, sk, kv_len):
-    q, k, v, _ = _qkvw(sq, sk, 2, seed=0)
+def test_k5_plain_matches_pallas(sq, sk, kv_len, hd):
+    """The no-gradient generic entry: K4's max / masked form for the first
+    two shapes (keys in one k tile), K5 for the third, at head dim 128
+    and SDXL's 64."""
+    q, k, v, _ = _qkvw(sq, sk, 2, seed=0, hd=hd)
     with pltpu.force_tpu_interpret_mode():
         ref = jfa._flash_fwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                   kv_len=kv_len)

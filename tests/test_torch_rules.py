@@ -21,6 +21,7 @@ from fairygen_tpu_torch import convert
 from fairygen_tpu_torch.models.flux.dit import FluxDiTConfig, convert_flux_dit_state_dict
 from fairygen_tpu_torch.models.qwen.text_encoder import QwenVLTextConfig
 from fairygen_tpu_torch.models.sdxl.clip import CLIPTextConfig
+from fairygen_tpu_torch.models.sdxl.unet2d import UNet2DConfig, convert_unet2d_state_dict
 from fairygen_tpu_torch.models.sdxl.vae import AutoencoderKLConfig
 from fairygen_tpu_torch.models.wan.dit import WanDiTConfig
 from fairygen_tpu_torch.models.wan.text_encoder import UMT5Config, convert_umt5_state_dict
@@ -29,6 +30,7 @@ from fairygen_tpu_torch.models.z_image.dit import ZImageDiTConfig
 from fairygen_tpu_torch.ops import _kernels
 from fairygen_tpu_torch.ops import flash_attention, fused_norms, fused_qk
 from fairygen_tpu_torch.pipelines.flux_image import FluxImagePipeline
+from fairygen_tpu_torch.pipelines.sdxl_brushnet import SDXLBrushNetPipeline
 from fairygen_tpu_torch.pipelines.wan_video import WanVideoPipeline
 from fairygen_tpu_torch.pipelines.z_image import ZImagePipeline
 from fairygen_tpu_torch.training.train_step import make_wan_sft_train_step
@@ -57,7 +59,8 @@ def test_the_scan_sees_the_whole_package():
     names = {p.name for p in PORT_FILES}
     assert {"dit.py", "vae.py", "wan_video.py", "_kernels.py", "chip_smoke.py",
             "flux_image.py", "clip.py", "text_encoders.py", "params.py", "z_image.py",
-            "text_encoder.py"} <= names
+            "text_encoder.py", "unet2d.py", "sdxl_brushnet.py", "dpm_solver.py",
+            "dora_trainer.py"} <= names
     assert REPO / "fairygen_tpu_torch" / "models" / "z_image" / "dit.py" in PORT_FILES
     assert REPO / "fairygen_tpu_torch" / "models" / "qwen" / "text_encoder.py" in PORT_FILES
 
@@ -77,13 +80,18 @@ def _flux_sd(cfg):
 
 
 FLUX0 = FluxDiTConfig.tiny(num_double_blocks=0, num_single_blocks=0)
+UNET0 = UNet2DConfig(down_block_types=(), up_block_types=(), mid_block_type=None,
+                     addition_embed_type=None)
+UNET0_SD = {f"time_embedding.linear_{i}.{k}": np.zeros((2, 2) if k == "weight" else 2)
+            for i in (1, 2) for k in ("weight", "bias")}
 
 
 @pytest.mark.parametrize("entry", ["pipeline", "from_jax_params", "init_dit", "init_umt5",
                                    "init_vae", "train_step", "flux_pipeline", "init_flux_dit",
                                    "init_t5", "init_clip_text", "init_autoencoder_kl",
                                    "convert_umt5", "convert_flux_dit", "zimage_pipeline",
-                                   "init_z_image_dit", "init_qwen_text"])
+                                   "init_z_image_dit", "init_qwen_text", "sdxl_pipeline",
+                                   "init_unet2d", "convert_unet2d"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
@@ -107,6 +115,10 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
         "init_z_image_dit": lambda: convert.init_z_image_dit_params(
             ZImageDiTConfig.tiny(num_layers=0, num_refiner_layers=0)),
         "init_qwen_text": lambda: convert.init_qwen_text_params(QwenVLTextConfig.tiny()),
+        "sdxl_pipeline": lambda: SDXLBrushNetPipeline({}, UNet2DConfig(), {},
+                                                      AutoencoderKLConfig.sdxl()),
+        "init_unet2d": lambda: convert.init_unet2d_params(UNET0),
+        "convert_unet2d": lambda: convert_unet2d_state_dict(UNET0_SD, UNET0),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -117,7 +129,7 @@ WRAPPERS = [fused_norms.layer_norm_modulate, fused_qk.rms_rope_heads_major,
             flash_attention.flash_bwd_dq, flash_attention.flash_bwd_dkv,
             fused_qk.rms_rope_heads_major_per_head, fused_qk.rms_rope_heads_major_joint,
             flash_attention.flash_attention_bias_heads_major, fused_norms.fused_rms_modulate,
-            fused_norms.fused_vae_rms_silu]
+            fused_norms.fused_vae_rms_silu, flash_attention.flash_small_kv_max]
 
 
 @pytest.mark.parametrize("fn", WRAPPERS, ids=lambda f: f.__name__)
