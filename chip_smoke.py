@@ -7,12 +7,19 @@
 Phases, each printing its wall seconds:
   1. device   — card name/count, nvidia-smi name and power limit, TF32 off.
   2. build    — one nvcc -c per source, all at once, and one link
-                (ptxas -v output printed once).
+                (ptxas -v output printed once); K3's and K4's registers,
+                shared memory and spills, and their HGMMA (wgmma) and
+                UTMALDG (TMA load) counts from cuobjdump's SASS (a spill or
+                a count of 0 fails the run).
   3. kernels  — K1-K4 against their plain PyTorch versions on the card in
                 bf16 at the main path's shapes (480x832, 17 frames: S=1950)
                 and the flagship's (81 frames: S=8190); error, kernel ms,
                 plain ms, the bound, and scaled_dot_product_attention as a
-                yardstick for K3/K4 (timed here only; the port never calls it).
+                yardstick for K3/K4 (timed here only; the port never calls it);
+                K3 also at the FLUX.1-dev joint shape (24 heads, 4608 tokens in
+                5120 rows) and the Z-Image unified one (30 heads, 4416 in
+                5120), K4 at Z-Image's caption refiner (30 heads, 320 tokens
+                in 1024), SDPA at the real lengths beside them.
                 Then K5 and K6a-c at the training shapes (self S=8190,
                 cross q 8190 x k 512), PyTorch's flash attention forward and
                 backward as their yardstick, and a flash_attention gradient
@@ -157,10 +164,21 @@ def check_rotated(name, out, ref, normed):
     return err.max().item()
 
 
+def bounded_sdpa(qh, kh, v, n, sq, sk):
+    """One scaled_dot_product_attention call computing K3/K4's function on
+    the real lengths of head-major qh/kh (B*N, S_pad, hd) and natural v
+    (B, Lv, N, hd): q carries hd^-1/2*log2(e), so scale ln(2) gives exp2."""
+    import torch.nn.functional as F
+
+    q4 = qh.view(-1, n, *qh.shape[1:])[:, :, :sq]
+    k4 = kh.view(-1, n, *kh.shape[1:])[:, :, :sk]
+    v4 = v.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=0.6931471805599453)
+
+
 def kernel_checks(S, grid, tag):
     """K1-K4 at one shape set; returns {kernel: numbers}."""
     import torch
-    import torch.nn.functional as F
 
     from fairygen_tpu_torch.ops import fused_qk as fq
     from fairygen_tpu_torch.ops.flash_attention import (
@@ -211,13 +229,6 @@ def kernel_checks(S, grid, tag):
         plain_ms=time_ms(lambda: fq.rms_rope_heads_major_plain(xq, gq, rsq, ff, N, s_pad), 5, 3),
         bound=bound_ms(nbytes, 6 * S * D), library_ms=None)
 
-    def sdpa(q_h, k_h, v_nat, sq, sk):
-        # same function: q carries hd^-1/2*log2(e), so scale ln(2) gives exp2
-        q4 = q_h.view(1, N, -1, hd)[:, :, :sq]
-        k4 = k_h.view(1, N, -1, hd)[:, :, :sk]
-        return lambda: F.scaled_dot_product_attention(
-            q4, k4, v_nat.transpose(1, 2), scale=0.6931471805599453)
-
     # K3: self-attention, several k tiles
     v = randn(1, S, N, hd)
     out = flash_attention_heads_major(qh, kh, v, b=1, n=N, sq=S, sk_actual=S, bq=bq, bk=bk)
@@ -230,7 +241,7 @@ def kernel_checks(S, grid, tag):
         plain_ms=time_ms(lambda: flash_attention_heads_major_plain(qh, kh, v, b=1, n=N, sq=S,
                                                                    sk_actual=S), 2, 3),
         bound=bound_ms(4 * S * hd * N * 2, 4 * S * S * hd * N),
-        library_ms=time_ms(sdpa(qh, kh, v, S, S)))
+        library_ms=time_ms(bounded_sdpa(qh, kh, v, N, S, S)))
 
     # K4: text cross-attention, one k tile of Lk = 512
     kc = randn(1, lk, N, hd)
@@ -247,12 +258,123 @@ def kernel_checks(S, grid, tag):
         plain_ms=time_ms(lambda: flash_attention_heads_major_plain(qc, khc, vc, b=1, n=N, sq=S,
                                                                    sk_actual=lk), 2, 3),
         bound=bound_ms((2 * S + 2 * lk) * hd * N * 2, 4 * S * lk * hd * N),
-        library_ms=time_ms(sdpa(qc, khc, vc, S, lk)))
+        library_ms=time_ms(bounded_sdpa(qc, khc, vc, N, S, lk)))
     for k, r in res.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {tag} {k}: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
               f"bound_ms {r['bound'][0]:.4f} ({r['bound'][1]}) library_ms {lib}", flush=True)
     return res
+
+
+DIT_ATTENTION_SHAPES = (
+    # (kernel, shape, heads, tokens, rows padded to): the image DiTs' self
+    # attention as their call sites pad it, q and k to a multiple of 1024
+    ("flash_bounded", "FLUX.1 joint 24x4608 in 5120", 24, 4608, 5120),
+    ("flash_bounded", "Z-Image 30x4416 in 5120", 30, 4416, 5120),
+    # Z-Image's caption refiner: one 1024-key tile, so K4, whose key loop
+    # stops at 3 of 8 key tiles and whose last q tile is partial
+    ("flash_small_kv", "Z-Image caption 30x320 in 1024", 30, 320, 1024),
+)
+
+
+def dit_attention_checks():
+    """K3 and K4's bounded form at DIT_ATTENTION_SHAPES: q and k rms-normed
+    with zero rows past the sequence, q prescaled; against the plain
+    version, with scaled_dot_product_attention at the real lengths as the
+    yardstick.  Returns {kernel: {shape: numbers}}."""
+    import torch
+
+    from fairygen_tpu_torch.ops.flash_attention import (
+        flash_attention_heads_major, flash_attention_heads_major_plain)
+
+    dev, bf = "cuda", torch.bfloat16
+    g = torch.Generator(dev).manual_seed(4608)
+    hd = 128
+    res = {}
+
+    def normed(*shape, scale=1.0):
+        x = torch.randn(shape, generator=g, device=dev)
+        return (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + 1e-6) * scale).to(bf)
+
+    for kernel, tag, N, S, s_pad in DIT_ATTENTION_SHAPES:
+        qh = torch.zeros((N, s_pad, hd), dtype=bf, device=dev)
+        kh = torch.zeros((N, s_pad, hd), dtype=bf, device=dev)
+        qh[:, :S] = normed(N, S, hd, scale=hd ** -0.5 * 1.4426950408889634)
+        kh[:, :S] = normed(N, S, hd)
+        v = torch.randn((1, S, N, hd), generator=g, device=dev).to(bf)
+
+        def kern():
+            return flash_attention_heads_major(qh, kh, v, b=1, n=N, sq=S, sk_actual=S,
+                                               bq=1024, bk=1024)
+
+        def plain():
+            return flash_attention_heads_major_plain(qh, kh, v, b=1, n=N, sq=S, sk_actual=S)
+
+        err = check_close(f"{kernel} {tag}", kern(), plain(), rtol=2 ** -7, atol=1e-3)
+        r = res.setdefault(kernel, {})[tag] = dict(
+            max_abs_err=err, ms=time_ms(kern), plain_ms=time_ms(plain, 2, 3),
+            bound=bound_ms(4 * S * hd * N * 2, 4 * S * S * hd * N),
+            library_ms=time_ms(bounded_sdpa(qh, kh, v, N, S, S)))
+        print(f"  {tag} {kernel}: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+              f"bound_ms {r['bound'][0]:.4f} ({r['bound'][1]}) library_ms "
+              f"{r['library_ms']:.4f}", flush=True)
+    return res
+
+
+HOPPER_KERNELS = {"flash_bounded": "fa_bounded_kernel", "flash_small_kv": "fa_small_kv_kernel"}
+
+
+def hopper_build_report(log):
+    """K3's and K4's registers and spills from the build's ptxas -v, their
+    dynamic shared memory, and, where cuobjdump is present, their counts of
+    HGMMA (wgmma) and UTMALDG (TMA load) instructions.  Raises on a spill,
+    on a missing kernel, or on a count of 0."""
+    import re
+    import shutil
+
+    from fairygen_tpu_torch.ops import _kernels
+
+    props, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = next((k for k, f in HOPPER_KERNELS.items() if f in m.group(1)), None)
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            props.setdefault(current, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            props.setdefault(current, {})["registers"] = int(m.group(1))
+    smem = _kernels.lib().fg_flash_bounded_smem_bytes()
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = os.path.join(home, "bin", "cuobjdump")
+    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    if tool:
+        sass = subprocess.run([tool, "-sass", str(_kernels.BUILD_DIR / "flash_attention.cu.o")],
+                              capture_output=True, text=True, timeout=120).stdout
+        current = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                current = next((k for k, f in HOPPER_KERNELS.items() if f in m.group(1)), None)
+                if current:
+                    props.setdefault(current, {}).update(HGMMA=0, UTMALDG=0)
+            elif current:
+                props[current]["HGMMA"] += len(re.findall(r"\bHGMMA\.", line))
+                props[current]["UTMALDG"] += len(re.findall(r"\bUTMALDG\b", line))
+    for k in HOPPER_KERNELS:
+        p = props.get(k, {})
+        print(f"  {k} ({HOPPER_KERNELS[k]}): registers {p.get('registers')}, dynamic shared "
+              f"memory {smem} bytes, spill bytes {p.get('spill_bytes')}; SASS: HGMMA "
+              f"{p.get('HGMMA', 'no cuobjdump')}, UTMALDG {p.get('UTMALDG', 'no cuobjdump')}",
+              flush=True)
+        if p.get("registers") is None or p.get("spill_bytes") != 0:
+            raise RuntimeError(f"{k}: ptxas -v shows spills or no such kernel: {p}")
+        if tool and not (p["HGMMA"] and p["UTMALDG"]):
+            raise RuntimeError(f"{k}: no HGMMA or UTMALDG instruction in its SASS: {p}")
 
 
 def train_kernel_checks():
@@ -439,13 +561,16 @@ def main(argv):
     t0 = phase("build")
     for cmd in _kernels.compile_commands(verbose=True) + [_kernels.link_command()]:
         print("  " + " ".join(cmd))
-    print(_kernels.build(verbose=True, force=True, timeout=300))
+    build_log = _kernels.build(verbose=True, force=True, timeout=300)
+    print(build_log)
     _kernels.lib()
+    hopper_build_report(build_log)
     done("build", t0)
 
     t0 = phase("kernels")
     smoke = kernel_checks(1950, (5, 15, 26), "S=1950")
     flagship = kernel_checks(8190, (21, 15, 26), "S=8190")
+    dit_attn = dit_attention_checks()
     train_k = train_kernel_checks()
     flux_k = flux_kernel_checks()
     norm_k = norm_kernel_checks()
@@ -564,6 +689,13 @@ def main(argv):
             "library_ms": r["library_ms"], "flagship_ms": f["ms"],
             "flagship_plain_ms": f["plain_ms"], "flagship_bound_ms": f["bound"][0],
             "flagship_library_ms": f["library_ms"]})
+        if k in dit_attn:
+            rows[-1]["max_abs_err"] = max([rows[-1]["max_abs_err"]] +
+                                          [v["max_abs_err"] for v in dit_attn[k].values()])
+            rows[-1]["by_shape"] = {tag: {"ms": v["ms"], "plain_ms": v["plain_ms"],
+                                          "bound_ms": v["bound"][0], "library_ms": v["library_ms"],
+                                          "max_abs_err": v["max_abs_err"]}
+                                    for tag, v in dit_attn[k].items()}
     train_sources = {"flash_fwd": "fairygen_tpu/ops/flash_attention.py:35",
                      "flash_fwd_lse": "fairygen_tpu/ops/flash_attention.py:253",
                      "flash_bwd_dq": "fairygen_tpu/ops/flash_attention.py:295",

@@ -31,7 +31,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "fairygen_tp
 LIB_NAME = "libfairygen_kernels.so"
 SOURCES = ("ln_modulate.cu", "rms_rope.cu", "flash_attention.cu", "flash_attention_train.cu",
            "flash_attention_bias.cu", "rms_modulate.cu", "flash_small_kv.cu")
-HEADERS = ("flash_common.cuh",)
+HEADERS = ("flash_common.cuh", "hopper_common.cuh")
 KERNELS = ("ln_modulate", "rms_rope_heads_major", "flash_bounded", "flash_small_kv",
            "flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv",
            "rms_rope_per_head", "rms_rope_joint", "flash_bias", "rms_modulate", "vae_rms_silu",
@@ -58,6 +58,7 @@ _SIGNATURES = {
     "fg_rms_modulate": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "fg_vae_rms_silu": [_P, _P, _P, _I, _I, _I, _I, _P],
     "fg_flash_small_kv_max": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "fg_flash_bounded_smem_bytes": [],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -4,14 +4,21 @@ fairygen_tpu/ops/flash_attention.py ``flash_attention_heads_major`` with
 ``_fa_small_kv_kernel``).
 
 Contract: qh (B*N, Sq_pad, d) carries the hd^-1/2·log2e prescale; q and k
-are rms-normed, so softmax == exp2(s) / Σ exp2(s) without a running max;
-kh (B*N, Sk_pad, d) rows >= sk_actual are exact zeros, each adding exactly
-1 to the row sum, which ``l -= Sk_pad - sk_actual`` removes.  v is
-(B, Lv, N, d) in its natural layout.  The output is (B, sq, N, d).
+are rms-normed, so softmax == exp2(s) / Σ exp2(s) without a running max.
+v is (B, Lv, N, d) in its natural layout, sk_actual <= Lv <= Sk_pad, and
+every row of kh (B*N, Sk_pad, d) at or past Lv is an exact zero: self and
+per-head attention (Lv = S), cross attention (Lv = Lk), FLUX.1's joint
+layout (Lv = i_pad + s_t) and the generic entry (Lv = Sk) all pad so.  A
+zero key row adds exactly exp2(0) = 1 to the row sum and, where its v row
+is zero, nothing to the output, so the count correction ``l -= keys
+computed - sk_actual`` removes every zero key: the plain version computes
+all Sk_pad keys, the CUDA kernels only Lv rounded up to their 128-key tile
+(zero gap rows inside [0, Lv), the joint layout's, are computed and counted
+by both).  The output is (B, sq, N, d).
 
-CUDA tensors go through ``csrc/flash_attention.cu`` (bf16, d = 128): K4
-when the keys are one TPU k tile (Sk_pad == bk), K3 otherwise.  CPU tensors
-take :func:`flash_attention_heads_major_plain`.
+CUDA tensors go through ``csrc/flash_attention.cu`` (bf16, d = 128; TMA,
+mbarriers and wgmma): K4 when the keys are one TPU k tile (Sk_pad == bk),
+K3 otherwise.  CPU tensors take :func:`flash_attention_heads_major_plain`.
 
 The later sections hold the generic entry (K4's max and masked forms, K5,
 and K6a-c for its gradient) and K10, the attention with a bias.
@@ -62,8 +69,9 @@ def flash_attention_heads_major(qh, kh, v, *, b, n, sq, sk_actual, bq=2048,
     if d != 128 or qh.shape[0] != b * n or kh.shape[0] != b * n or kh.shape[2] != d:
         raise ValueError(f"attention kernels need (B*N, S_pad, 128) q/k, got "
                          f"{tuple(qh.shape)} / {tuple(kh.shape)}")
-    if v.shape != (b, lv, n, d) or lv > sk_p or sk_actual > sk_p or sq > sq_p:
-        raise ValueError(f"v {tuple(v.shape)} does not match b={b} n={n} sk_pad={sk_p}")
+    if v.shape != (b, lv, n, d) or not 1 <= sk_actual <= lv <= sk_p or sq > sq_p:
+        raise ValueError(f"v {tuple(v.shape)} does not match b={b} n={n} sk_pad={sk_p} "
+                         f"sk_actual={sk_actual}")
     if sq_p % 64 or sk_p % 64:
         raise ValueError("padded lengths must be multiples of 64")
     out = torch.empty((b, sq, n, d), dtype=qh.dtype, device=qh.device)

@@ -82,13 +82,18 @@ def test_k2_matches_plain_exactly(card, s, rope):
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("sq,sk", [(300, 300), (1100, 1100), (300, 77), (1950, 512)])
-def test_k3_k4_match_plain(card, sq, sk):
+def _normed(card, *shape, scale=1.0):
+    x = torch.randn(shape, generator=card, device="cuda")
+    return (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + 1e-6) * scale).to(torch.bfloat16)
+
+
+def _k3_k4_heads_major(card, b, n, sq, sk):
+    """K2-normed q/k padded as the DiT call sites pad them, through the
+    bounded entry; returns (out, plain)."""
     from fairygen_tpu_torch.ops import fused_qk as fq
     from fairygen_tpu_torch.ops.flash_attention import (flash_attention_heads_major,
                                                          flash_attention_heads_major_plain)
 
-    b, n = 1, 3
     xq, xk = _randn(card, b, sq, n * 128), _randn(card, b, sk, n * 128)
     gq = _randn(card, n * 128, scale=128 ** -0.5 * 1.4427)
     gk = _randn(card, n * 128)
@@ -101,8 +106,80 @@ def test_k3_k4_match_plain(card, sq, sk):
         k_pad = bk = max(128, -(-sk // 128) * 128)
     kh = fq.rms_rope_heads_major(xk, gk, fq._rowscale(xk, 1e-6), None, n, k_pad, rope=False)
     out = flash_attention_heads_major(qh, kh, v, b=b, n=n, sq=sq, sk_actual=sk, bq=bq, bk=bk)
-    ref = flash_attention_heads_major_plain(qh, kh, v, b=b, n=n, sq=sq, sk_actual=sk)
-    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+    return out, flash_attention_heads_major_plain(qh, kh, v, b=b, n=n, sq=sq, sk_actual=sk)
+
+
+def _k3_k4_generic(card, b, n, sq, sk):
+    """``flash_attention(..., bounded_logits=True)``: the card pads q and k
+    to 64 rows, so a 128-row tile of the kernel reaches past them; the same
+    call on the CPU takes the plain version."""
+    from fairygen_tpu_torch.ops.flash_attention import flash_attention
+
+    q = _normed(card, b, sq, n, 128, scale=128 ** -0.5 * 1.4426950408889634)
+    k, v = _normed(card, b, sk, n, 128), _randn(card, b, sk, n, 128)
+    out = flash_attention(q, k, v, prescaled=True, bounded_logits=True)
+    return out, flash_attention(q.cpu(), k.cpu(), v.cpu(), prescaled=True,
+                                bounded_logits=True)
+
+
+def _k3_k4_joint(card, b, n, s_i, s_t, monkeypatch):
+    """FLUX.1's joint layout through ``fused_qk_attention_joint``: the image
+    rows pad to 3072, so a zero gap of 972 keys (more than one key tile)
+    sits inside [0, Lv); the bounded call it makes is held against the plain
+    version on the same inputs."""
+    from fairygen_tpu_torch.ops import fused_qk as fq
+    from fairygen_tpu_torch.ops.flash_attention import (flash_attention_heads_major,
+                                                         flash_attention_heads_major_plain)
+
+    pairs = []
+
+    def spy(qh, kh, v, **kw):
+        out = flash_attention_heads_major(qh, kh, v, **kw)
+        kw.pop("bq"), kw.pop("bk")
+        pairs.append((out, flash_attention_heads_major_plain(qh, kh, v, **kw)))
+        return out
+
+    monkeypatch.setattr(fq, "flash_attention_heads_major", spy)
+
+    def tables(s):
+        ang = torch.rand((s, 64), generator=card, device="cuda") * 6.283
+        return torch.cos(ang), torch.sin(ang)
+
+    d = n * 128
+    fq.fused_qk_attention_joint(
+        _randn(card, b, s_t, d), _randn(card, b, s_t, d), _randn(card, b, s_t, n, 128),
+        _randn(card, b, s_i, d), _randn(card, b, s_i, d), _randn(card, b, s_i, n, 128),
+        _randn(card, 128, scale=0.13), _randn(card, 128), _randn(card, 128, scale=0.13),
+        _randn(card, 128), *tables(s_t), *tables(s_i), n, 1e-6)
+    assert len(pairs) == 1
+    return pairs[0]
+
+
+@pytest.mark.parametrize("case", [
+    pytest.param(("heads_major", 1, 3, 300, 300), id="300-300"),
+    pytest.param(("heads_major", 1, 3, 1100, 1100), id="1100-1100"),
+    pytest.param(("heads_major", 1, 3, 300, 77), id="300-77"),
+    pytest.param(("heads_major", 1, 3, 1950, 512), id="1950-512"),
+    pytest.param(("heads_major", 2, 3, 1500, 1500), id="b2-lv1500-of-2048"),
+    pytest.param(("generic", 1, 2, 300, 300), id="generic-64-row-remainder-k4"),
+    pytest.param(("generic", 2, 2, 300, 1100), id="generic-64-row-remainder-k3"),
+    pytest.param(("heads_major", 1, 30, 320, 320), id="z-image-caption-320"),
+    pytest.param(("joint", 1, 2, 2100, 512), id="flux-joint-gap-972"),
+])
+def test_k3_k4_match_plain(card, case, monkeypatch):
+    """K3/K4 against the plain version: four DiT shapes at B = 1, two
+    batches whose Lv stops short of the padded keys, q and key lengths
+    padded to 64 rows (a 128-row tile of the kernel reaches past them), the
+    Z-Image caption refiner's 320 tokens in one 1024-key tile, and the
+    FLUX.1 joint layout with a zero gap longer than one key tile."""
+    kind, b, n, sq, sk = case
+    if kind == "heads_major":
+        out, ref = _k3_k4_heads_major(card, b, n, sq, sk)
+    elif kind == "generic":
+        out, ref = _k3_k4_generic(card, b, n, sq, sk)
+    else:
+        out, ref = _k3_k4_joint(card, b, n, sq, sk, monkeypatch)
+    torch.testing.assert_close(out.float().cpu(), ref.float().cpu(), rtol=2 ** -7, atol=1e-3)
 
 
 def test_tiny_pipeline_launches_every_kernel(card):

@@ -198,3 +198,23 @@ def test_build_command_is_one_plain_nvcc_for_sm90a(monkeypatch):
     for src in _kernels.CSRC.glob("*.cu"):
         text = src.read_text()
         assert "torch/extension.h" not in text and 'extern "C"' in text
+
+
+def test_every_header_is_in_the_build_digest(tmp_path, monkeypatch):
+    """Each csrc/*.cuh is listed in HEADERS, so an edit to any header changes
+    the digest that decides whether the library is rebuilt."""
+    assert sorted(p.name for p in _kernels.CSRC.glob("*.cuh")) == sorted(_kernels.HEADERS)
+    for src in _kernels.CSRC.glob("*.cu"):
+        for inc in src.read_text().split("#include")[1:]:
+            name = inc.split()[0].strip('"<>')
+            if name.endswith(".cuh"):
+                assert name in _kernels.HEADERS, f"{src.name} includes {name}"
+    fake = tmp_path / "csrc"
+    fake.mkdir()
+    for name in _kernels.SOURCES + _kernels.HEADERS:
+        (fake / name).write_bytes((_kernels.CSRC / name).read_bytes())
+    monkeypatch.setattr(_kernels, "CSRC", fake)
+    for name in _kernels.HEADERS:
+        before = _kernels._digest()
+        (fake / name).write_text((fake / name).read_text() + "\n// edited\n")
+        assert _kernels._digest() != before, name
