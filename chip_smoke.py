@@ -7,10 +7,12 @@
 Phases, each printing its wall seconds:
   1. device   — card name/count, nvidia-smi name and power limit, TF32 off.
   2. build    — one nvcc -c per source, all at once, and one link
-                (ptxas -v output printed once); K3's and K4's registers,
-                shared memory and spills, and their HGMMA (wgmma) and
-                UTMALDG (TMA load) counts from cuobjdump's SASS (a spill or
-                a count of 0 fails the run).
+                (ptxas -v output printed once); the registers, shared
+                memory and spills of the TMA + wgmma kernels (K3, K4
+                bounded, K5 at head dim 64, K10, each form), and their HGMMA
+                (wgmma) and UTMALDG (TMA load) counts from cuobjdump's SASS
+                of their own object files (a spill or a count of 0 fails
+                the run).
   3. kernels  — K1-K4 against their plain PyTorch versions on the card in
                 bf16 at the main path's shapes (480x832, 17 frames: S=1950)
                 and the flagship's (81 frames: S=8190); error, kernel ms,
@@ -50,7 +52,7 @@ Phases, each printing its wall seconds:
                 T5 v1.1 XXL, CLIP-L, the FLUX VAE) from seeded bf16 weights:
                 two 1024x1024 4-step requests and one EliGen request with
                 exact launch counts of K1, K7, K8, K3 and K10, and one
-                profiled sweep.
+                profiled sweep without regions and one with them.
   9. zimage   — Z-Image-Turbo at full width and depth (DiT 2 + 2 + 30
                 blocks, dim 3840; Qwen3-4B; the FLUX VAE) from seeded bf16
                 weights: a 300-id prompt through encode_ids, two 1024x1024
@@ -321,24 +323,44 @@ def dit_attention_checks():
     return res
 
 
-HOPPER_KERNELS = {"flash_bounded": "fa_bounded_kernel", "flash_small_kv": "fa_small_kv_kernel"}
+# the TMA + wgmma kernel functions: (counter and form, kernel function, the
+# object file that holds it, its dynamic shared memory from the library)
+HOPPER_KERNELS = (
+    ("flash_bounded", "fa_bounded_kernel", "flash_attention.cu.o",
+     lambda lib: lib.fg_flash_bounded_smem_bytes()),
+    ("flash_small_kv", "fa_small_kv_kernel", "flash_attention.cu.o",
+     lambda lib: lib.fg_flash_bounded_smem_bytes()),
+    ("flash_fwd_d64", "fa_online_d64_kernel", "flash_attention_online.cu.o",
+     lambda lib: lib.fg_flash_online_smem_bytes(64)),
+    ("flash_fwd_d64 ragged", "fa_online_d64_ragged_kernel", "flash_attention_online.cu.o",
+     lambda lib: lib.fg_flash_online_smem_bytes(64)),
+    ("flash_bias", "fa_online_bias_kernel", "flash_attention_online.cu.o",
+     lambda lib: lib.fg_flash_online_smem_bytes(128)),
+    ("flash_bias ragged", "fa_online_bias_ragged_kernel", "flash_attention_online.cu.o",
+     lambda lib: lib.fg_flash_online_smem_bytes(128)),
+)
 
 
 def hopper_build_report(log):
-    """K3's and K4's registers and spills from the build's ptxas -v, their
-    dynamic shared memory, and, where cuobjdump is present, their counts of
-    HGMMA (wgmma) and UTMALDG (TMA load) instructions.  Raises on a spill,
-    on a missing kernel, or on a count of 0."""
+    """Each TMA + wgmma kernel's registers and spills from the build's ptxas
+    -v, its dynamic shared memory and, where cuobjdump is present, its
+    counts of HGMMA (wgmma) and UTMALDG (TMA load) instructions from its own
+    object file.  Raises on a spill, on a missing kernel, or on a count of 0.
+    A function is matched by its name followed by 'E' (the end of the name
+    in the mangled symbol), so no name matches another it begins."""
     import re
     import shutil
 
     from fairygen_tpu_torch.ops import _kernels
 
+    def which(symbol):
+        return next((k for k, f, _, _ in HOPPER_KERNELS if f + "E" in symbol), None)
+
     props, current = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            current = next((k for k, f in HOPPER_KERNELS.items() if f in m.group(1)), None)
+            current = which(m.group(1))
             continue
         if current is None:
             continue
@@ -348,27 +370,27 @@ def hopper_build_report(log):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             props.setdefault(current, {})["registers"] = int(m.group(1))
-    smem = _kernels.lib().fg_flash_bounded_smem_bytes()
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     tool = os.path.join(home, "bin", "cuobjdump")
     tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
     if tool:
-        sass = subprocess.run([tool, "-sass", str(_kernels.BUILD_DIR / "flash_attention.cu.o")],
-                              capture_output=True, text=True, timeout=120).stdout
-        current = None
-        for line in sass.splitlines():
-            m = re.search(r"Function : (\S+)", line)
-            if m:
-                current = next((k for k, f in HOPPER_KERNELS.items() if f in m.group(1)), None)
-                if current:
-                    props.setdefault(current, {}).update(HGMMA=0, UTMALDG=0)
-            elif current:
-                props[current]["HGMMA"] += len(re.findall(r"\bHGMMA\.", line))
-                props[current]["UTMALDG"] += len(re.findall(r"\bUTMALDG\b", line))
-    for k in HOPPER_KERNELS:
+        for obj in sorted({o for _, _, o, _ in HOPPER_KERNELS}):
+            sass = subprocess.run([tool, "-sass", str(_kernels.BUILD_DIR / obj)],
+                                  capture_output=True, text=True, timeout=120).stdout
+            current = None
+            for line in sass.splitlines():
+                m = re.search(r"Function : (\S+)", line)
+                if m:
+                    current = which(m.group(1))
+                    if current:
+                        props.setdefault(current, {}).update(HGMMA=0, UTMALDG=0)
+                elif current:
+                    props[current]["HGMMA"] += len(re.findall(r"\bHGMMA\.", line))
+                    props[current]["UTMALDG"] += len(re.findall(r"\bUTMALDG\b", line))
+    for k, fn, obj, smem in HOPPER_KERNELS:
         p = props.get(k, {})
-        print(f"  {k} ({HOPPER_KERNELS[k]}): registers {p.get('registers')}, dynamic shared "
-              f"memory {smem} bytes, spill bytes {p.get('spill_bytes')}; SASS: HGMMA "
+        print(f"  {k} ({fn}, {obj}): registers {p.get('registers')}, dynamic shared memory "
+              f"{smem(_kernels.lib())} bytes, spill bytes {p.get('spill_bytes')}; SASS: HGMMA "
               f"{p.get('HGMMA', 'no cuobjdump')}, UTMALDG {p.get('UTMALDG', 'no cuobjdump')}",
               flush=True)
         if p.get("registers") is None or p.get("spill_bytes") != 0:
@@ -713,7 +735,8 @@ def main(argv):
     flux_sources = {
         "rms_rope_per_head": ("csrc/rms_rope.cu", "fairygen_tpu/ops/fused_qk.py:133"),
         "rms_rope_joint": ("csrc/rms_rope.cu", "fairygen_tpu/ops/fused_qk.py:232"),
-        "flash_bias": ("csrc/flash_attention_bias.cu", "fairygen_tpu/ops/flash_attention.py:167")}
+        "flash_bias": ("csrc/flash_attention_online.cu",
+                       "fairygen_tpu/ops/flash_attention.py:167")}
     for k, (src, replaces) in flux_sources.items():
         r = flux_k[k]
         rows.append({
@@ -743,8 +766,8 @@ def main(argv):
         "flash_small_kv_masked": ("csrc/flash_small_kv.cu",
                                   "fairygen_tpu/ops/flash_attention.py:133",
                                   "cross 20x4096 q, 77 keys"),
-        "flash_fwd_d64": ("csrc/flash_attention_train.cu", "fairygen_tpu/ops/flash_attention.py:35",
-                          "self 20x4096")}
+        "flash_fwd_d64": ("csrc/flash_attention_online.cu",
+                          "fairygen_tpu/ops/flash_attention.py:35", "self 20x4096")}
     for k, (src, replaces, main_shape) in sdxl_sources.items():
         r = sdxl_k[k][main_shape]
         rows.append({
@@ -900,8 +923,9 @@ def flux_phase():
     seeded bf16 weights; two 1024x1024 text-to-image requests (512 T5
     tokens, embedded guidance 3.5, cfg_scale 1, 4 steps) and one EliGen
     request (2 entity prompts, seeded rectangles at latent resolution), each
-    with exact launch counts; then one sweep under torch.profiler.  Returns
-    the launches of the three requests."""
+    with exact launch counts; then one sweep without regions and one with
+    the EliGen request's under torch.profiler.  Returns the launches of the
+    three requests."""
     import torch
 
     from fairygen_tpu_torch import convert
@@ -979,24 +1003,28 @@ def flux_phase():
             pooled_prompt_emb=pooled, seed=43, eligen_entity_prompts=ent,
             eligen_entity_masks=masks)
 
-    # where a sweep's time goes
+    # where a sweep's time goes, without regions and with the EliGen request's
+    # two (5632 tokens: K10 in place of K7, K8 and K3)
     g = torch.Generator("cuda").manual_seed(47)
     lat = torch.randn((1, 16, 128, 128), generator=g, device="cuda").to(bf)
     t = torch.tensor([500.0], device="cuda")
     guid = torch.tensor([3.5], device="cuda")
-    with torch.no_grad():
-        def sweep():
-            return flux_dit_forward(dit, dit_cfg, lat, t, emb, pooled, guid)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for label, kw in (("FLUX.1-dev sweep (4608 tokens)", {}),
+                      ("FLUX.1-dev EliGen sweep (5632 tokens, 2 regions)",
+                       dict(entity_prompt_emb=ent, entity_masks=masks))):
+        with torch.no_grad():
+            def sweep():
+                return flux_dit_forward(dit, dit_cfg, lat, t, emb, pooled, guid, **kw)
 
-        sweep()
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t1 = time.perf_counter()
             sweep()
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t1
-    device_table(prof, wall, "profiled FLUX.1-dev sweep (4608 tokens)", 14)
+            with torch.profiler.profile(activities=acts) as prof:
+                t1 = time.perf_counter()
+                sweep()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+        device_table(prof, wall, "profiled " + label, 14)
     del pipe, dit, t5, clip, vae
     torch.cuda.empty_cache()
     return total
@@ -1223,7 +1251,7 @@ def breakdown(pipe, te_cfg):
 def device_table(prof, wall, label, top):
     """Device time by kernel name from a torch.profiler run, the device's
     busy share of ``wall`` seconds, the number of kernels the device ran,
-    and the ``top`` busiest kernels."""
+    and the ``top`` busiest kernels with their shares of the busy time."""
     import torch
 
     rows = []  # device-side events only: the kernels themselves
@@ -1235,7 +1263,8 @@ def device_table(prof, wall, label, top):
     print(f"  {label}: wall {wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms "
           f"({100 * busy / wall:.1f}% busy), {sum(r[1] for r in rows)} kernels")
     for dev_us, count, key in rows[:top]:
-        print(f"    {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:100]}")
+        print(f"    {dev_us / 1e3:9.3f} ms {100 * dev_us / 1e6 / busy:5.1f}%  x{count:<5d} "
+              f"{key[:100]}")
 
 
 def to(tree, dev, dt):

@@ -80,37 +80,6 @@ constexpr int kSmemBytes = kBarOff + kNumBars * 8 + 1024;  // + slack for the 10
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// S (64 x 128 keys) = Q rows of this warpgroup · K^T over the 128-wide head:
-// 8 k-steps of 16, four in each 64-column half (32 bytes apart in a row)
-__device__ __forceinline__ void tile_scores(float* s, uint32_t q_base, uint32_t k_base) {
-#pragma unroll
-  for (int ks = 0; ks < kD / 16; ++ks) {
-    const uint32_t off = (ks / 4) * kHalf + (ks % 4) * 32;
-    wgmma_m64n128k16_ss(s, desc_sw128(q_base + off, 16, 1024),
-                        desc_sw128(k_base + off, 16, 1024), ks > 0);
-  }
-}
-
-// O (64 x 128) += P (64 x 128 keys, registers) · V (128 keys x 128): V's
-// 16 keys of k-step ks are 16 rows (2048 bytes) on; its two 64-column
-// halves are kHalf apart (the MN-block stride)
-__device__ __forceinline__ void tile_pv(float* o, const uint32_t* p, uint32_t v_base) {
-#pragma unroll
-  for (int ks = 0; ks < kBN / 16; ++ks)
-    wgmma_m64n128k16_rs_tb(o, p + 4 * ks, desc_sw128(v_base + ks * 2048, kHalf, 1024));
-}
-
 // p = exp2(s) in place; the unrounded p summed into the two rows' partials
 __device__ __forceinline__ void exp2_rows(float* s, float& l0, float& l1) {
 #pragma unroll
@@ -120,33 +89,6 @@ __device__ __forceinline__ void exp2_rows(float* s, float& l0, float& l1) {
     l0 += s[4 * j] + s[4 * j + 1];
     l1 += s[4 * j + 2] + s[4 * j + 3];
   }
-}
-
-// the S accumulator as the bf16 A fragments of the 8 k-steps of P V
-__device__ __forceinline__ void to_a_fragments(const float* s, uint32_t* p) {
-#pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk) {
-    p[4 * kk + 0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-    p[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-    p[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-    p[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-  }
-}
-
-template <int kN, typename T>
-__device__ __forceinline__ void fence_regs(T* r) {
-#pragma unroll
-  for (int i = 0; i < kN; ++i) fence_reg(r[i]);
-}
-
-// o / d correctly rounded in fp32, as __fdiv_rn gives it, from inv = 1 / d
-// correctly rounded: the residual o - q d is exact in an fma, and one
-// correction of q = o * inv with it rounds to the nearest quotient
-// (Markstein's theorem; the row sum d and o lie far from over- and
-// underflow).  Two fmas an element in place of __fdiv_rn's range checks.
-__device__ __forceinline__ float div_rn(float o, float d, float inv) {
-  const float q = __fmul_rn(o, inv);
-  return __fmaf_rn(__fmaf_rn(-q, d, o), inv, q);
 }
 
 // one work item: 128 q rows (q tile qt) of head bn = b * N + n
@@ -291,7 +233,7 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
     mbar_wait(&q_full[0], 0);
     mbar_wait(&k_full[0], 0);
     wgmma_fence();
-    tile_scores(sacc, q_rows, base + kKOff);
+    tile_scores<kD>(sacc, q_rows, base + kKOff);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs<64>(sacc);
@@ -315,10 +257,10 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
       fence_regs<64>(o);
       fence_regs<32>(p);
       wgmma_fence();
-      tile_scores(sacc, q_rows + qb * kTileBytes, base + kKOff + s * kTileBytes);
+      tile_scores<kD>(sacc, q_rows + qb * kTileBytes, base + kKOff + s * kTileBytes);
       wgmma_commit();
       mbar_wait(&v_full[sp], php);
-      tile_pv(o, p, base + kVOff + sp * kTileBytes);
+      tile_pv<kD>(o, p, base + kVOff + sp * kTileBytes);
       wgmma_commit();
       wgmma_wait<1>();  // S of tile t is in; P V of tile t-1 still runs
       fence_regs<64>(sacc);
@@ -346,7 +288,7 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
     fence_regs<64>(o);
     fence_regs<32>(p);
     wgmma_fence();
-    tile_pv(o, p, base + kVOff + sl * kTileBytes);
+    tile_pv<kD>(o, p, base + kVOff + sl * kTileBytes);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs<64>(o);
@@ -377,21 +319,10 @@ typedef void (*AttendKernel)(const CUtensorMap, const CUtensorMap, const CUtenso
                              const CUtensorMap, int, int, int, int, float);
 
 // the kernel's shared-memory limit, set once per kernel (a static in each
-// entry), and the card's SM count, read once; 0 or a cudaError_t value
+// entry); 0 or a cudaError_t value
 int allow_smem(AttendKernel kernel) {
   return (int)cudaFuncSetAttribute((const void*)kernel,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-}
-
-int sm_count() {
-  static int sms = [] {
-    int dev = 0, n = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      return 0;
-    return n;
-  }();
-  return sms;
 }
 
 int launch(AttendKernel kernel, int smem_rc, const void* qh, const void* kh, const void* v,

@@ -1,6 +1,7 @@
-// K5, K6a, K6b, K6c: the generic flash attention with a running max, its
-// LSE-emitting forward, and the two backward kernels, on head-major bf16
-// q/k/v (B*N, S_pad, D): D = 64 or 128 for K5, 128 for K6a-c.
+// K5 at head dim 128, K6a, K6b, K6c: the generic flash attention with a
+// running max, its LSE-emitting forward, and the two backward kernels, on
+// head-major bf16 q/k/v (B*N, S_pad, 128).  K5 at head dim 64 is the Hopper
+// kernel of flash_attention_online.cu.
 //
 // Replaces the TPU kernels fairygen_tpu/ops/flash_attention.py:
 //   K5  _fa_kernel          forward, online softmax (no-grad generic entry)
@@ -34,7 +35,7 @@
 
 namespace {
 
-// K5 (kLse = false; D = 64 or 128) and K6a (kLse = true; D = 128)
+// K5 at head dim 128 (kLse = false) and K6a (kLse = true)
 template <bool kLse, int D>
 __global__ void __launch_bounds__(kThreads)
 fa_fwd_kernel(const bf16* __restrict__ qh, const bf16* __restrict__ kh,
@@ -334,20 +335,13 @@ int allow_smem(K kernel, int bytes) {
 // Shapes (checked by the Python wrappers): qh, doh, out, dq (BN, sq_pad,
 // D) bf16; kh, vh, dk, dv (BN, sk_pad, D) bf16; lse, delta (BN, sq_pad)
 // fp32; sq_pad and sk_pad multiples of 64; 1 <= sk_actual <= sk_pad and
-// sq <= sq_pad.  D is 64 or 128 for K5 (fg_flash_fwd), 128 for K6a-c.
+// sq <= sq_pad.  D is 128 (K5 at head dim 64 is fg_flash_fwd_d64).
 extern "C" int fg_flash_fwd(const void* qh, const void* kh, const void* vh, void* out, int BN,
-                            int sq_pad, int sk_actual, int sk_pad, int d, void* stream) {
+                            int sq_pad, int sk_actual, int sk_pad, void* stream) {
   dim3 grid(sq_pad / kTile, BN);
-  if (d == 64)
-    fa_fwd_kernel<false, 64><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const bf16*)qh, (const bf16*)kh, (const bf16*)vh, (bf16*)out, nullptr, sq_pad,
-        sk_actual, sk_pad);
-  else if (d == 128)
-    fa_fwd_kernel<false, 128><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const bf16*)qh, (const bf16*)kh, (const bf16*)vh, (bf16*)out, nullptr, sq_pad,
-        sk_actual, sk_pad);
-  else
-    return (int)cudaErrorInvalidValue;
+  fa_fwd_kernel<false, kD><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const bf16*)qh, (const bf16*)kh, (const bf16*)vh, (bf16*)out, nullptr, sq_pad,
+      sk_actual, sk_pad);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,9 @@
-// Shared by the mma.sync flash kernels (flash_attention_train.cu, K5/K6a-c,
-// flash_attention_bias.cu, K10, and flash_small_kv.cu, K4's max and masked
-// forms): tile sizes, the m16n8k16 bf16 product, fragment loads and the
+// Shared by the mma.sync flash kernels (flash_attention_train.cu, K5 at
+// head dim 128 and K6a-c, and flash_small_kv.cu, K4's max and masked forms):
+// tile sizes, the m16n8k16 bf16 product, fragment loads and the
 // shared-memory tile stagers.  The stagers take the head dim D as a template
-// argument (default 128, the only D of K6a-c and K10); the constants kD,
-// kRowStride, kRowTile and kTTile are those of D = 128.
+// argument (default 128, the only D of K5 here and of K6a-c); the constants
+// kD, kRowStride, kRowTile and kTTile are those of D = 128.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,19 +1,24 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels (K3 and
-// K4's bounded form in flash_attention.cu):
-//   - host: bf16 tensor maps with the 128-byte swizzle, encoded through
-//     cuTensorMapEncodeTiled, which is reached with
+// K4's bounded form in flash_attention.cu; K5 at head dim 64 and K10 in
+// flash_attention_online.cu):
+//   - host: bf16 and fp32 tensor maps with the 128-byte swizzle, encoded
+//     through cuTensorMapEncodeTiled, which is reached with
 //     cudaGetDriverEntryPointByVersion (CUDA >= 12.5) so that the library
-//     needs no -lcuda;
+//     needs no -lcuda; the card's SM count;
 //   - device: mbarrier init / predicated arrive / arrive with expected
 //     bytes / parity wait, TMA tile loads that complete on an mbarrier, TMA
-//     tile stores in bulk groups, the async-proxy fence and named barriers,
-//     the wgmma shared-memory descriptor of a 128-byte-swizzled tile, the
-//     m64n128k16 bf16 products (A from shared memory or from registers),
-//     wgmma fence / commit / wait, and setmaxnreg.
+//     tile stores in bulk groups, the async-proxy fence and named barriers
+//     (a predicated arrival too), the wgmma shared-memory descriptor of a
+//     128-byte-swizzled tile, the m64n128k16 bf16 products (A from shared
+//     memory or from registers) and the m64n64k16 one with A from
+//     registers, wgmma fence / commit / wait, setmaxnreg, and the small
+//     arithmetic the attention kernels share (bf16 packing, ex2, the
+//     correctly rounded quotient from a reciprocal).
 // A 128-byte-swizzled tile holds rows of 64 bf16 (128 bytes); the swizzle
 // repeats every 8 rows (1024 bytes), so every tile starts 1024-byte aligned.
 #pragma once
 #include <cuda.h>  // CUtensorMap and the driver's enums: types only, no -lcuda
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -38,19 +43,35 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first; `strides` in bytes for
-// dims 1..rank-1), `box` elements a dim, 128-byte swizzle; a box that
-// reaches past a dim reads zeros there.  Returns a cudaError_t value.
-inline int make_map_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                         const cuuint64_t* strides, const cuuint32_t* box) {
+// A tensor map of `rank` dims (innermost first; `strides` in bytes for dims
+// 1..rank-1), `box` elements a dim, 128-byte swizzle; a box that reaches
+// past a dim reads zeros there.  Returns a cudaError_t value.
+inline int make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                    const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-                  const_cast<void*>(base), dims, strides, box, elem_strides,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box,
+                  elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+inline int make_map_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                         const cuuint64_t* strides, const cuuint32_t* box) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box);
+}
+
+// the card's SM count, read once (0 when it cannot be read)
+inline int sm_count() {
+  static int sms = [] {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 0;
+    return n;
+  }();
+  return sms;
 }
 
 // -------------------------------------------------------------- device side
@@ -120,6 +141,15 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
 }
 
 // TMA tile loads into shared memory; completion is counted in bytes on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2) {
   asm volatile(
@@ -171,6 +201,19 @@ __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
+// an arrival (no wait) on barrier `id` by the threads whose `pred` is
+// non-zero, predicated inside the asm like mbar_arrive_if
+__device__ __forceinline__ void named_bar_arrive_if(int id, int threads, int pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "setp.ne.b32 P1, %2, 0;\n"
+      "@P1 bar.arrive %0, %1;\n"
+      "}\n" ::"r"(id),
+      "r"(threads), "r"(pred)
+      : "memory");
+}
+
 // wgmma descriptor of a 128-byte-swizzled operand at shared address `saddr`.
 // K-major (rows of 64 bf16 along K): sbo = 1024 (8 rows), lbo unused (16).
 // MN-major: lbo = the distance between 64-wide MN blocks, sbo = 1024 (8 K
@@ -194,6 +237,11 @@ __device__ __forceinline__ void wgmma_wait() {
 // keeps the compiler from moving a register that an in-flight wgmma owns
 __device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
 __device__ __forceinline__ void fence_reg(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+template <int kN, typename T>
+__device__ __forceinline__ void fence_regs(T* r) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) fence_reg(r[i]);
+}
 
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {
@@ -210,6 +258,7 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 #define HP_D64(d)                                                                          \
   HP_D8(d, 0), HP_D8(d, 8), HP_D8(d, 16), HP_D8(d, 24), HP_D8(d, 32), HP_D8(d, 40), \
       HP_D8(d, 48), HP_D8(d, 56)
+#define HP_D32(d) HP_D8(d, 0), HP_D8(d, 8), HP_D8(d, 16), HP_D8(d, 24)
 #define HP_R64                                                              \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
@@ -251,8 +300,93 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float* d, const uint32_t*
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d (64 x 64, fp32) += A (64 x 16, bf16 in registers) · B (16 x 64), B
+// MN-major in shared memory (one 64-wide block): the m64n128k16 form's
+// accumulator layout, columns 8j + 2(lane % 4) + {0,1} for j < 8
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float* d, const uint32_t* a,
+                                                      uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : HP_D32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 #undef HP_D8
+#undef HP_D32
 #undef HP_D64
 #undef HP_R64
+
+// ------------------------------------------------- attention arithmetic
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ------------------------------------- attention tiles of 128 q rows x 128 keys
+// Q (two consumer warpgroups of 64 rows), K and V tiles are 128 rows of D
+// bf16, 128-byte swizzled, in 64-column boxes of 128 rows (16 KB) each.
+
+// S (64 x 128 keys) = the Q rows of one warpgroup · K^T: D/16 k-steps of
+// 16, four in each 64-column box (32 bytes apart in a 128-byte row)
+template <int D>
+__device__ __forceinline__ void tile_scores(float* s, uint32_t q_base, uint32_t k_base) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint32_t off = (ks / 4) * (128 * 128) + (ks % 4) * 32;
+    wgmma_m64n128k16_ss(s, desc_sw128(q_base + off, 16, 1024),
+                        desc_sw128(k_base + off, 16, 1024), ks > 0);
+  }
+}
+
+// O (64 x D) += P (64 x 128 keys, registers) · V (128 keys x D): the 16
+// keys of k-step ks are 16 rows (2048 bytes) on; V's 64-column boxes are
+// 16 KB apart (the MN-block stride); m64n128k16 at D = 128, m64n64k16 at 64
+template <int D>
+__device__ __forceinline__ void tile_pv(float* o, const uint32_t* p, uint32_t v_base) {
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    const uint64_t desc = desc_sw128(v_base + ks * 2048, 128 * 128, 1024);
+    if constexpr (D == 128)
+      wgmma_m64n128k16_rs_tb(o, p + 4 * ks, desc);
+    else
+      wgmma_m64n64k16_rs_tb(o, p + 4 * ks, desc);
+  }
+}
+
+// a 64 x 128 S accumulator (wgmma layout) as the bf16 A fragments of the 8
+// k-steps of P V
+__device__ __forceinline__ void to_a_fragments(const float* s, uint32_t* p) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    p[4 * kk + 0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    p[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// o / d correctly rounded in fp32, as __fdiv_rn gives it, from inv = 1 / d
+// correctly rounded: the residual o - q d is exact in an fma, and one
+// correction of q = o * inv with it rounds to the nearest quotient
+// (Markstein's theorem; the row sum d and o lie far from over- and
+// underflow).  Two fmas an element in place of __fdiv_rn's range checks.
+__device__ __forceinline__ float div_rn(float o, float d, float inv) {
+  const float q = __fmul_rn(o, inv);
+  return __fmaf_rn(__fmaf_rn(-q, d, o), inv, q);
+}
 
 }  // namespace hopper

@@ -12,7 +12,7 @@ headers, so the build takes seconds.
 ``ops/`` since the last :func:`reset_launches`.  K4's three forms count
 apart (``flash_small_kv`` bounded, ``flash_small_kv_max``,
 ``flash_small_kv_masked``), and K5 counts per head dim (``flash_fwd`` at
-128, ``flash_fwd_d64`` at 64).
+128, ``flash_fwd_d64`` at 64: two kernels of different designs).
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "fairygen_tpu_torch"
 LIB_NAME = "libfairygen_kernels.so"
 SOURCES = ("ln_modulate.cu", "rms_rope.cu", "flash_attention.cu", "flash_attention_train.cu",
-           "flash_attention_bias.cu", "rms_modulate.cu", "flash_small_kv.cu")
+           "flash_attention_online.cu", "rms_modulate.cu", "flash_small_kv.cu")
 HEADERS = ("flash_common.cuh", "hopper_common.cuh")
 KERNELS = ("ln_modulate", "rms_rope_heads_major", "flash_bounded", "flash_small_kv",
            "flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv",
@@ -48,7 +48,8 @@ _SIGNATURES = {
     "fg_rms_rope_heads_major": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fg_flash_bounded": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fg_flash_small_kv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "fg_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "fg_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fg_flash_fwd_d64": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fg_flash_fwd_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fg_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P],
     "fg_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -59,6 +60,7 @@ _SIGNATURES = {
     "fg_vae_rms_silu": [_P, _P, _P, _I, _I, _I, _I, _P],
     "fg_flash_small_kv_max": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fg_flash_bounded_smem_bytes": [],
+    "fg_flash_online_smem_bytes": [_I],
 }
 
 _lib: Optional[ctypes.CDLL] = None

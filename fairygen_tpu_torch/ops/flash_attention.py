@@ -171,7 +171,10 @@ def _check_rows(t, name, shape):
 
 def flash_fwd(qh, kh, vh, *, sk_actual, with_lse=True):
     """K6a (``with_lse``, d = 128) or K5 (d = 64 or 128) on head-major
-    q/k/v (see the section note).  Returns o, and lse with ``with_lse``."""
+    q/k/v (see the section note).  Returns o, and lse with ``with_lse``.
+    On the card K5 at d 64 is the TMA + wgmma kernel of
+    ``csrc/flash_attention_online.cu``; d 128 stays beside K6a in
+    ``csrc/flash_attention_train.cu``."""
     if not qh.is_cuda:
         return flash_fwd_plain(qh, kh, vh, sk_actual=sk_actual, with_lse=with_lse)
     _check_heads_major(qh, kh, vh, sk_actual, dims=_TRAIN_DIMS if with_lse else _FWD_DIMS)
@@ -183,9 +186,10 @@ def flash_fwd(qh, kh, vh, *, sk_actual, with_lse=True):
                         vh.data_ptr(), out.data_ptr(), lse.data_ptr(), bn, sq_p,
                         int(sk_actual), kh.shape[1])
         return out, lse
-    _kernels.launch("flash_fwd" if d == 128 else "flash_fwd_d64", "fg_flash_fwd", qh.data_ptr(),
-                    kh.data_ptr(), vh.data_ptr(), out.data_ptr(), bn, sq_p, int(sk_actual),
-                    kh.shape[1], d)
+    kernel, fn = ("flash_fwd", "fg_flash_fwd") if d == 128 else ("flash_fwd_d64",
+                                                                 "fg_flash_fwd_d64")
+    _kernels.launch(kernel, fn, qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(), bn,
+                    sq_p, int(sk_actual), kh.shape[1])
     return out
 
 
@@ -363,7 +367,9 @@ def flash_attention(q, k, v, scale=None, prescaled=False, kv_len=None, bounded_l
 # K10: attention with a head-shared additive bias (port of
 # ``flash_attention_bias`` and ``_fa_bias_kernel``), the EliGen path.  The
 # bias is fp32 (B|1, Sq, Sk) in the natural-log domain; padded query rows and
-# key columns take -1e30, as the JAX package pads it.
+# key columns take -1e30, as the JAX package pads it.  CUDA tensors go
+# through ``csrc/flash_attention_online.cu`` (TMA, mbarriers and wgmma; the
+# bias read by each thread into its score registers, so any Sk works).
 
 _NEG_BIAS = -1e30
 

@@ -6,7 +6,10 @@ K6a-c, a tiny FLUX.1 pipeline that must launch K1, K7, K8 and K3/K4, or
 K10 with EliGen regions, and a tiny Z-Image pipeline that must launch K9,
 K7 and K4, K4's max and masked forms and K5 at head dim 64 (and their
 refusals), and a tiny SDXL + BrushNet + DoRA pipeline that must launch
-them.  They skip here when no card is present; on a card:
+them.  K10 and K5 at head dim 64 are also held at ragged tile edges
+(sq = 129 with an odd Sk = 4097; sq = 300 with sk_actual = 4000 over
+non-zero keys) and K10 where a q tile's first key tiles are fully
+masked.  They skip here when no card is present; on a card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 
@@ -380,6 +383,53 @@ def test_k10_matches_plain(card, b, bias_b, sq, sk):
                                atol=2 ** -8)
 
 
+def _k10_case(card, b, bias_b, sq, sk, n, bias):
+    """K10 through the head-major entry on q/k/v padded to 64 rows, against
+    the plain version on the rows < sq; exactly one launch, counted under
+    flash_bias.  Tolerance as test_k10_matches_plain's."""
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    q = _randn(card, b, sq, n, 128, scale=128 ** -0.5 * 1.4427)
+    k, v = _randn(card, b, sk, n, 128), _randn(card, b, sk, n, 128)
+    qh = fa._heads_major(q, fa._pad_len(sq, 64, False))
+    kh, vh = (fa._heads_major(t, fa._pad_len(sk, 64, False)) for t in (k, v))
+    _kernels.reset_launches()
+    out = fa.flash_attention_bias_heads_major(qh, kh, vh, bias, n=n, sq=sq, sk=sk)
+    assert {name: c for name, c in _kernels.launches.items() if c} == {"flash_bias": 1}
+    ref = fa.flash_attention_bias_plain(qh, kh, vh, bias, n=n, sq=sq, sk=sk)
+    torch.testing.assert_close(out[:, :sq].float(), ref[:, :sq].float(), rtol=2 ** -7,
+                               atol=2 ** -8)
+
+
+def test_k10_ragged_edges_match_plain(card):
+    """sq = 129 (a q tile of one real row past the first) and Sk = 4097: odd,
+    so no bias row starts 16-byte aligned and the last key tile holds one
+    real key."""
+    sq, sk = 129, 4097
+    allow = torch.rand((1, sq, sk), generator=card, device="cuda") < 0.6
+    allow[:, :, 0] = True
+    bias = torch.where(allow, 0.3 * torch.randn((1, sq, sk), generator=card, device="cuda"),
+                       torch.tensor(-1e30, device="cuda"))
+    _k10_case(card, 1, 1, sq, sk, 3, bias)
+
+
+@pytest.mark.parametrize("s", [640, 600])
+def test_k10_fully_masked_first_key_tiles_match_plain(card, s):
+    """A batch-2 bias in which, as for EliGen's prompt rows, the q rows
+    128..255 of the second batch row see nothing (-1e30) in the first three
+    key tiles: their running max starts at -1.44e30 and jumps at the fourth
+    tile.  s = 640 takes the aligned form (whole tiles; the bias by TMA),
+    600 the ragged one."""
+    allow = torch.rand((2, s, s), generator=card, device="cuda") < 0.6
+    allow[:, :, 0] = True
+    allow[1, 128:256, :384] = False
+    allow[1, 128:256, 384] = True
+    bias = torch.where(allow, 0.3 * torch.randn((2, s, s), generator=card, device="cuda"),
+                       torch.tensor(-1e30, device="cuda"))
+    _k10_case(card, 2, 2, s, s, 3, bias)
+
+
 @pytest.mark.parametrize("eligen", [False, True])
 def test_tiny_flux_pipeline_launches_its_kernels(card, eligen):
     from fairygen_tpu_torch import convert
@@ -571,6 +621,24 @@ def test_k5_at_head_dim_64_matches_plain(card, sq, sk, kv_len):
     out = fa.flash_fwd(qh, kh, vh, sk_actual=ska, with_lse=False)
     assert {k: v for k, v in _kernels.launches.items() if v} == {"flash_fwd_d64": 1}
     ref = fa.flash_fwd_plain(qh, kh, vh, sk_actual=ska, with_lse=False)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=2 ** -8)
+
+
+def test_k5_at_head_dim_64_ragged_edges_match_plain(card):
+    """sq = 300 (padded to 320: a half q tile) and sk_actual = 4000 of 4096
+    non-zero keys: the keys past sk_actual in the last tile are real values
+    and must be masked, not counted as zero rows.  One launch, counted
+    under flash_fwd_d64; tolerance as at head dim 128."""
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    bn, d = 4, 64
+    qh = _heads(card, bn, fa._pad_len(300, 64, True), d, scale=d ** -0.5 * 1.4427)
+    kh, vh = _heads(card, bn, 4096, d), _heads(card, bn, 4096, d)
+    _kernels.reset_launches()
+    out = fa.flash_fwd(qh, kh, vh, sk_actual=4000, with_lse=False)
+    assert {k: v for k, v in _kernels.launches.items() if v} == {"flash_fwd_d64": 1}
+    ref = fa.flash_fwd_plain(qh, kh, vh, sk_actual=4000, with_lse=False)
     torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=2 ** -8)
 
 
