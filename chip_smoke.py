@@ -9,10 +9,11 @@ Phases, each printing its wall seconds:
   2. build    — one nvcc -c per source, all at once, and one link
                 (ptxas -v output printed once); the registers, shared
                 memory and spills of the TMA + wgmma kernels (K3, K4
-                bounded, K5 at head dim 64, K10, each form), and their HGMMA
-                (wgmma) and UTMALDG (TMA load) counts from cuobjdump's SASS
-                of their own object files (a spill or a count of 0 fails
-                the run).
+                bounded, K5 at head dim 64, K10, K6b, K6c, each form), and
+                their HGMMA (wgmma) and UTMALDG (TMA load) counts from
+                cuobjdump's SASS of their own object files (a spill, a
+                count of 0 or wgmma that ptxas serialized, C7512 / C7520,
+                fails the run).
   3. kernels  — K1-K4 against their plain PyTorch versions on the card in
                 bf16 at the main path's shapes (480x832, 17 frames: S=1950)
                 and the flagship's (81 frames: S=8190); error, kernel ms,
@@ -24,14 +25,15 @@ Phases, each printing its wall seconds:
                 in 1024), SDPA at the real lengths beside them.
                 Then K5 and K6a-c at the training shapes (self S=8190,
                 cross q 8190 x k 512), PyTorch's flash attention forward and
-                backward as their yardstick, and a flash_attention gradient
-                check against autograd of the plain attention.  Then K7, K8
-                and K10 at the FLUX.1-dev 1024x1024 shapes (4608 tokens;
-                5632 with two EliGen entities).  Then K9 at the Z-Image-Turbo
-                1024x1024 shapes (4416, 4096 and 320 rows of 3840, with and
-                without scale) and K11 at two VAE38 shapes (399,360 x 256
-                and 7800 x 1024, with and without SiLU), F.rms_norm as their
-                yardstick.  Then K4's max and masked forms and K5 at head dim
+                backward as their yardstick, K6b and K6c run twice at the
+                self shape (bit for bit the same), and a flash_attention
+                gradient check against autograd of the plain attention.
+                Then K7, K8 and K10 at the FLUX.1-dev 1024x1024 shapes
+                (4608 tokens; 5632 with two EliGen entities).  Then K9 at
+                the Z-Image-Turbo 1024x1024 shapes (4416, 4096 and 320 rows
+                of 3840, with and without scale) and K11 at two VAE38
+                shapes (399,360 x 256 and 7800 x 1024, with and without
+                SiLU), F.rms_norm as their yardstick.  Then K4's max and masked forms and K5 at head dim
                 64 at the SDXL 1024x1024 CFG shapes (cross-attention to 77
                 text keys, 1024- and 4096-token self-attention), K4 at head
                 dim 128 and with a kv_len over non-zero keys, SDPA as their
@@ -338,6 +340,12 @@ HOPPER_KERNELS = (
      lambda lib: lib.fg_flash_online_smem_bytes(128)),
     ("flash_bias ragged", "fa_online_bias_ragged_kernel", "flash_attention_online.cu.o",
      lambda lib: lib.fg_flash_online_smem_bytes(128)),
+    ("flash_bwd_dq", "fa_dq_wgmma_kernel", "flash_attention_bwd.cu.o",
+     lambda lib: lib.fg_flash_bwd_smem_bytes(0)),
+    ("flash_bwd_dq ragged", "fa_dq_wgmma_ragged_kernel", "flash_attention_bwd.cu.o",
+     lambda lib: lib.fg_flash_bwd_smem_bytes(0)),
+    ("flash_bwd_dkv", "fa_dkv_wgmma_kernel", "flash_attention_bwd.cu.o",
+     lambda lib: lib.fg_flash_bwd_smem_bytes(1)),
 )
 
 
@@ -345,7 +353,8 @@ def hopper_build_report(log):
     """Each TMA + wgmma kernel's registers and spills from the build's ptxas
     -v, its dynamic shared memory and, where cuobjdump is present, its
     counts of HGMMA (wgmma) and UTMALDG (TMA load) instructions from its own
-    object file.  Raises on a spill, on a missing kernel, or on a count of 0.
+    object file.  Raises on a spill, on a missing kernel, on a count of 0,
+    or where ptxas says it serialized the kernel's wgmma (C7512, C7520).
     A function is matched by its name followed by 'E' (the end of the name
     in the mangled symbol), so no name matches another it begins."""
     import re
@@ -358,6 +367,9 @@ def hopper_build_report(log):
 
     props, current = {}, None
     for line in log.splitlines():
+        m = re.search(r"\((C7512|C7520)\).*'(\S+)'", line)
+        if m and which(m.group(2)):
+            raise RuntimeError(f"{which(m.group(2))}: ptxas serialized its wgmma: {line}")
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             current = which(m.group(1))
@@ -407,8 +419,10 @@ def train_kernel_checks():
     (K6c) x BN x Sq x Sk x 128 flops on the unpadded lengths, and each input
     read and output written once.  The library yardstick is PyTorch's flash
     attention: its forward (which also returns the LSE) for K5/K6a, its
-    backward for K6b and K6c together.  Then a small gradient check of
-    flash_attention against fp32 autograd of the plain attention."""
+    backward for K6b and K6c together.  At the self shape K6b and K6c run a
+    second time and must give the same bits (no atomics).  Then a small
+    gradient check of flash_attention against fp32 autograd of the plain
+    attention."""
     import torch
 
     from fairygen_tpu_torch.ops import flash_attention as fa
@@ -462,6 +476,15 @@ def train_kernel_checks():
                     check_close(f"K6c flash_bwd_dkv dv {tag}", dv, dv_ref, rtol=2 ** -7,
                                 atol=1e-2 * dv_ref.float().abs().max().item()))
         del o_ref, dq_ref, dk_ref, dv_ref
+        if tag == "self":
+            dq2 = fa.flash_bwd_dq(qh, kh, vh, doh, lse_ref, delta, sk_actual=ska, dq_factor=f)
+            dk2, dv2 = fa.flash_bwd_dkv(qh, kh, vh, doh, lse_ref, delta, sq=S, sk_actual=ska)
+            same = [torch.equal(a, b) for a, b in ((dq, dq2), (dk, dk2), (dv, dv2))]
+            print(f"  K6b / K6c run twice at the self shape: dq, dk, dv bit for bit equal "
+                  f"{same}", flush=True)
+            if not all(same):
+                raise RuntimeError(f"K6b / K6c are not deterministic: {same}")
+            del dq2, dk2, dv2
 
         qs, ks, vs = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
         sdpa = torch.ops.aten._scaled_dot_product_flash_attention
@@ -724,9 +747,10 @@ def main(argv):
                      "flash_bwd_dkv": "fairygen_tpu/ops/flash_attention.py:329"}
     for k, replaces in train_sources.items():
         r, c = train_k[k]["self"], train_k[k]["cross"]
+        src = "flash_attention_bwd.cu" if k.startswith("flash_bwd") else "flash_attention_train.cu"
         rows.append({
             "name": k, "route": "cuda",
-            "source": "fairygen_tpu_torch/csrc/flash_attention_train.cu", "replaces": replaces,
+            "source": "fairygen_tpu_torch/csrc/" + src, "replaces": replaces,
             "launches": None if expected is None else launches[k],
             "max_abs_err": max(r["max_abs_err"], c["max_abs_err"]), "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
@@ -1087,7 +1111,7 @@ def train_phase(pipe, serving_per_request):
             torch.cuda.synchronize()
             dt = time.perf_counter() - t1
         if profile:
-            device_table(prof, dt, f"{label} under torch.profiler", 16)
+            device_table(prof, dt, f"{label} under torch.profiler", 24)
         got = dict(_kernels.launches)
         print(f"  {label}: {dt:.3f} s, loss {loss:.6f}, max_memory_allocated "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {got}", flush=True)

@@ -1,9 +1,8 @@
 // Shared by the mma.sync flash kernels (flash_attention_train.cu, K5 at
-// head dim 128 and K6a-c, and flash_small_kv.cu, K4's max and masked forms):
+// head dim 128 and K6a, and flash_small_kv.cu, K4's max and masked forms):
 // tile sizes, the m16n8k16 bf16 product, fragment loads and the
-// shared-memory tile stagers.  The stagers take the head dim D as a template
-// argument (default 128, the only D of K5 here and of K6a-c); the constants
-// kD, kRowStride, kRowTile and kTTile are those of D = 128.
+// shared-memory tile stagers, which take the head dim D as a template
+// argument.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -15,11 +14,7 @@ namespace {
 constexpr int kD = 128;
 constexpr int kTile = 64;            // rows per CTA and rows per loop tile
 constexpr int kThreads = 128;        // 4 warps x 16 rows
-constexpr int kRowStride = kD + 8;   // bf16 per row of a row-major smem tile
 constexpr int kTStride = kTile + 8;  // bf16 per row of a transposed smem tile
-constexpr int kRowTile = kTile * kRowStride;
-constexpr int kTTile = kD * kTStride;
-constexpr float kInvLog2e = 0.6931471805599453f;
 
 typedef __nv_bfloat16 bf16;
 
@@ -67,7 +62,7 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&c0)[4],
 }
 
 // 64 rows of a (rows, D) matrix -> smem [64][row_stride<D>()]
-template <int D = kD>
+template <int D>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src) {
   for (int i = threadIdx.x; i < kTile * (D / 8); i += kThreads) {
     const int r = i / (D / 8), c = i % (D / 8);
@@ -79,7 +74,7 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src) {
 // 64 rows of a (rows, D) matrix -> transposed smem [D][kTStride];
 // consecutive threads take consecutive rows, so the 2-byte stores of a
 // warp land on consecutive smem words
-template <int D = kD>
+template <int D>
 __device__ __forceinline__ void load_rows_t(bf16* dst, const bf16* src) {
   for (int i = threadIdx.x; i < kTile * (D / 8); i += kThreads) {
     const int r = i % kTile, c = i / kTile;

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels (K3 and
 // K4's bounded form in flash_attention.cu; K5 at head dim 64 and K10 in
-// flash_attention_online.cu):
-//   - host: bf16 and fp32 tensor maps with the 128-byte swizzle, encoded
+// flash_attention_online.cu; K6b and K6c in flash_attention_bwd.cu):
+//   - host: bf16 and fp32 tensor maps (128-byte swizzle, or none), encoded
 //     through cuTensorMapEncodeTiled, which is reached with
 //     cudaGetDriverEntryPointByVersion (CUDA >= 12.5) so that the library
 //     needs no -lcuda; the card's SM count;
@@ -9,11 +9,11 @@
 //     bytes / parity wait, TMA tile loads that complete on an mbarrier, TMA
 //     tile stores in bulk groups, the async-proxy fence and named barriers
 //     (a predicated arrival too), the wgmma shared-memory descriptor of a
-//     128-byte-swizzled tile, the m64n128k16 bf16 products (A from shared
-//     memory or from registers) and the m64n64k16 one with A from
-//     registers, wgmma fence / commit / wait, setmaxnreg, and the small
-//     arithmetic the attention kernels share (bf16 packing, ex2, the
-//     correctly rounded quotient from a reciprocal).
+//     128-byte-swizzled tile, the m64n128k16 and m64n64k16 bf16 products
+//     (A from shared memory or from registers), wgmma fence / commit /
+//     wait, setmaxnreg, and the small arithmetic the attention kernels
+//     share (bf16 packing, ex2, the correctly rounded quotient from a
+//     reciprocal).
 // A 128-byte-swizzled tile holds rows of 64 bf16 (128 bytes); the swizzle
 // repeats every 8 rows (1024 bytes), so every tile starts 1024-byte aligned.
 #pragma once
@@ -44,15 +44,17 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A tensor map of `rank` dims (innermost first; `strides` in bytes for dims
-// 1..rank-1), `box` elements a dim, 128-byte swizzle; a box that reaches
-// past a dim reads zeros there.  Returns a cudaError_t value.
+// 1..rank-1), `box` elements a dim, 128-byte swizzle unless `swizzle` says
+// otherwise (a swizzled box row holds at most 128 bytes); a box that
+// reaches past a dim reads zeros there.  Returns a cudaError_t value.
 inline int make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
-                    const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+                    const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
   CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box,
-                  elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
@@ -284,6 +286,23 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float* d, uint64_t desc_a, u
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d (64 x 64, fp32) = [d +] A (64 x 16) · B (16 x 64); A and B K-major in
+// shared memory: the m64n128k16 form's accumulator layout for j < 8
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HP_D32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // d (64 x 128, fp32) += A (64 x 16, bf16 in registers: the m16n8k16 A
 // fragment of each warp's 16 rows) · B (16 x 128), B MN-major in shared
 // memory (the transposed-B form).
@@ -367,11 +386,12 @@ __device__ __forceinline__ void tile_pv(float* o, const uint32_t* p, uint32_t v_
   }
 }
 
-// a 64 x 128 S accumulator (wgmma layout) as the bf16 A fragments of the 8
-// k-steps of P V
+// a 64 x 16KS S accumulator (wgmma layout; 64 x 128 by default) as the
+// bf16 A fragments of the KS k-steps of P V
+template <int KS = 8>
 __device__ __forceinline__ void to_a_fragments(const float* s, uint32_t* p) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     p[4 * kk + 0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
     p[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
     p[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);

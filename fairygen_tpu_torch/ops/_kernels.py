@@ -30,7 +30,8 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "fairygen_tpu_torch"
 LIB_NAME = "libfairygen_kernels.so"
 SOURCES = ("ln_modulate.cu", "rms_rope.cu", "flash_attention.cu", "flash_attention_train.cu",
-           "flash_attention_online.cu", "rms_modulate.cu", "flash_small_kv.cu")
+           "flash_attention_online.cu", "rms_modulate.cu", "flash_small_kv.cu",
+           "flash_attention_bwd.cu")
 HEADERS = ("flash_common.cuh", "hopper_common.cuh")
 KERNELS = ("ln_modulate", "rms_rope_heads_major", "flash_bounded", "flash_small_kv",
            "flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv",
@@ -61,6 +62,7 @@ _SIGNATURES = {
     "fg_flash_small_kv_max": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fg_flash_bounded_smem_bytes": [],
     "fg_flash_online_smem_bytes": [_I],
+    "fg_flash_bwd_smem_bytes": [_I],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -93,7 +93,9 @@ def flash_attention_heads_major(qh, kh, v, *, b, n, sq, sk_actual, bq=2048,
 # delta are one fp32 value per row.  CPU tensors take the ``*_plain``
 # versions, which compute what the Pallas kernels compute on one tile: fp32
 # logits, keys >= sk_actual masked, p rounded to the value dtype before each
-# product, fp32 accumulation.
+# product, fp32 accumulation.  On the card K6b and K6c are the TMA + wgmma
+# kernels of ``csrc/flash_attention_bwd.cu``; K5 at d 128 and K6a stay on
+# ``mma.sync`` in ``csrc/flash_attention_train.cu``.
 
 DEFAULT_BQ = 1024
 DEFAULT_BK = 1024
@@ -219,7 +221,8 @@ def flash_small_kv_max(qh, kh, vh, *, sk_actual):
 
 
 def flash_bwd_dq(qh, kh, vh, doh, lse, delta, *, sk_actual, dq_factor):
-    """K6b: dQ (BN, Sq_pad, 128) from the forward's lse and delta."""
+    """K6b: dQ (BN, Sq_pad, 128) from the forward's lse and delta; every row
+    below Sq_pad is written."""
     if not qh.is_cuda:
         return flash_bwd_dq_plain(qh, kh, vh, doh, lse, delta, sk_actual=sk_actual,
                                   dq_factor=dq_factor)
@@ -237,7 +240,8 @@ def flash_bwd_dq(qh, kh, vh, doh, lse, delta, *, sk_actual, dq_factor):
 
 
 def flash_bwd_dkv(qh, kh, vh, doh, lse, delta, *, sq, sk_actual):
-    """K6c: (dK, dV), each (BN, Sk_pad, 128); queries >= sq are skipped."""
+    """K6c: (dK, dV), each (BN, Sk_pad, 128); queries >= sq are skipped and
+    key rows >= sk_actual come out exactly 0."""
     if not qh.is_cuda:
         return flash_bwd_dkv_plain(qh, kh, vh, doh, lse, delta, sq=sq, sk_actual=sk_actual)
     _check_heads_major(qh, kh, vh, sk_actual, (("doh", doh),))
@@ -368,8 +372,11 @@ def flash_attention(q, k, v, scale=None, prescaled=False, kv_len=None, bounded_l
 # ``flash_attention_bias`` and ``_fa_bias_kernel``), the EliGen path.  The
 # bias is fp32 (B|1, Sq, Sk) in the natural-log domain; padded query rows and
 # key columns take -1e30, as the JAX package pads it.  CUDA tensors go
-# through ``csrc/flash_attention_online.cu`` (TMA, mbarriers and wgmma; the
-# bias read by each thread into its score registers, so any Sk works).
+# through ``csrc/flash_attention_online.cu`` (TMA, mbarriers and wgmma).
+# Where sq = Sq_pad and sk = Sk_pad are multiples of 128 (the aligned form)
+# the bias comes into shared memory by TMA too; at other lengths (a TMA map
+# needs Sk % 4 == 0) each thread reads its entries into its score registers,
+# so any Sk works.
 
 _NEG_BIAS = -1e30
 

@@ -9,7 +9,10 @@ refusals), and a tiny SDXL + BrushNet + DoRA pipeline that must launch
 them.  K10 and K5 at head dim 64 are also held at ragged tile edges
 (sq = 129 with an odd Sk = 4097; sq = 300 with sk_actual = 4000 over
 non-zero keys) and K10 where a q tile's first key tiles are fully
-masked.  They skip here when no card is present; on a card:
+masked; K6b and K6c likewise (sq = 129 / Sk = 4097, sq = 300 with
+sk_actual = 4000, one partial key tile at sk = 77), and two of their runs
+must give the same bits.  They skip here when no card is present; on a
+card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 
@@ -223,19 +226,27 @@ def _close_grad(out, ref):
                                atol=1e-2 * ref.abs().max().item())
 
 
+def _k6_inputs(g, sq, sk, n):
+    """Seeded head-major q (prescaled), k, v and dO of n heads, zero-padded
+    as the gradient path pads them."""
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    q = _randn(g, 1, sq, n, 128, scale=128 ** -0.5 * 1.4427)
+    k, v, do = _randn(g, 1, sk, n, 128), _randn(g, 1, sk, n, 128), _randn(g, 1, sq, n, 128)
+    bq, bk = fa._tiles(sq, sk)
+    qh = fa._heads_major(q, fa._pad_len(sq, bq, True))
+    kh, vh = (fa._heads_major(t, fa._pad_len(sk, bk, True)) for t in (k, v))
+    doh = fa._heads_major(do, qh.shape[1])
+    return qh, kh, vh, doh
+
+
 @pytest.mark.parametrize("sq,sk,kv_len", [(300, 300, None), (1100, 1100, None),
                                           (300, 77, None), (1950, 512, None),
                                           (700, 700, 650)])
 def test_k5_k6_match_plain(card, sq, sk, kv_len):
     from fairygen_tpu_torch.ops import flash_attention as fa
 
-    n = 3
-    q = _randn(card, 1, sq, n, 128, scale=128 ** -0.5 * 1.4427)
-    k, v, do = _randn(card, 1, sk, n, 128), _randn(card, 1, sk, n, 128), _randn(card, 1, sq, n, 128)
-    bq, bk = fa._tiles(sq, sk)
-    qh = fa._heads_major(q, fa._pad_len(sq, bq, True))
-    kh, vh = (fa._heads_major(t, fa._pad_len(sk, bk, True)) for t in (k, v))
-    doh = fa._heads_major(do, qh.shape[1])
+    qh, kh, vh, doh = _k6_inputs(card, sq, sk, 3)
     ska = sk if kv_len is None else kv_len
     o, lse = fa.flash_fwd(qh, kh, vh, sk_actual=ska)
     o_ref, lse_ref = fa.flash_fwd_plain(qh, kh, vh, sk_actual=ska)
@@ -256,6 +267,58 @@ def test_k5_k6_match_plain(card, sq, sk, kv_len):
     _close_grad(dk, dk_ref)
     _close_grad(dv, dv_ref)
     assert torch.all(dk[:, ska:] == 0) and torch.all(dv[:, ska:] == 0)
+
+
+@pytest.mark.parametrize("sq,sk,kv_len", [(129, 4097, None), (300, 4097, 4000), (1950, 77, None)])
+def test_k6b_k6c_ragged_edges_match_plain(card, sq, sk, kv_len):
+    """K6b and K6c at the edges of their tiles.  sq = 129 pads to Sq_pad =
+    192, so K6b's second 128-row item reaches past Sq_pad and K6c's last
+    64-query tile holds one real query; Sk = 4097 (Sk_pad 5120) leaves one
+    real key in the last 128-key tile.  sq = 300 with kv_len 4000 of 4097
+    keys: the keys past sk_actual hold non-zero values and must be masked,
+    not counted as zero rows, and K6c's key items at or past 4096 store
+    zeros.  sq = 1950, sk = 77: one partial key tile.  One launch on each
+    counter; tolerances as in test_k5_k6_match_plain."""
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    qh, kh, vh, doh = _k6_inputs(card, sq, sk, 2)
+    ska = sk if kv_len is None else kv_len
+    o_ref, lse = fa.flash_fwd_plain(qh, kh, vh, sk_actual=ska)
+    delta = (doh.float() * o_ref.float()).sum(-1)
+    _kernels.reset_launches()
+    dq = fa.flash_bwd_dq(qh, kh, vh, doh, lse, delta, sk_actual=ska, dq_factor=0.5)
+    dk, dv = fa.flash_bwd_dkv(qh, kh, vh, doh, lse, delta, sq=sq, sk_actual=ska)
+    assert {k: v for k, v in _kernels.launches.items() if v} == {"flash_bwd_dq": 1,
+                                                                  "flash_bwd_dkv": 1}
+    _close_grad(dq, fa.flash_bwd_dq_plain(qh, kh, vh, doh, lse, delta, sk_actual=ska,
+                                          dq_factor=0.5))
+    dk_ref, dv_ref = fa.flash_bwd_dkv_plain(qh, kh, vh, doh, lse, delta, sq=sq, sk_actual=ska)
+    _close_grad(dk, dk_ref)
+    _close_grad(dv, dv_ref)
+    assert torch.all(dk[:, ska:] == 0) and torch.all(dv[:, ska:] == 0)
+
+
+def test_k6b_k6c_are_deterministic(card):
+    """No atomics: each output element is written by one CTA, so two calls
+    at 2 heads x 1100 (kv_len 1050 over non-zero keys) give dq, dk and dv
+    bit for bit equal, and the dk and dv rows >= sk_actual are exactly 0."""
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    qh, kh, vh, doh = _k6_inputs(card, 1100, 1100, 2)
+    o_ref, lse = fa.flash_fwd_plain(qh, kh, vh, sk_actual=1050)
+    delta = (doh.float() * o_ref.float()).sum(-1)
+    _kernels.reset_launches()
+    runs = [(fa.flash_bwd_dq(qh, kh, vh, doh, lse, delta, sk_actual=1050, dq_factor=0.5),)
+            + fa.flash_bwd_dkv(qh, kh, vh, doh, lse, delta, sq=1100, sk_actual=1050)
+            for _ in range(2)]
+    assert {k: v for k, v in _kernels.launches.items() if v} == {"flash_bwd_dq": 2,
+                                                                  "flash_bwd_dkv": 2}
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    dk, dv = runs[0][1:]
+    assert torch.all(dk[:, 1050:] == 0) and torch.all(dv[:, 1050:] == 0)
 
 
 @pytest.mark.parametrize("prescaled,kv_len", [(True, None), (False, None), (True, 450)])
