@@ -9,11 +9,14 @@ Phases, each printing its wall seconds:
   2. build    — one nvcc -c per source, all at once, and one link
                 (ptxas -v output printed once); the registers, shared
                 memory and spills of the TMA + wgmma kernels (K3, K4
-                bounded, K5 at head dim 64, K10, K6b, K6c, each form), and
+                bounded, K5 at head dims 64 and 128, K6a, K10, K6b, K6c,
+                each form), and
                 their HGMMA (wgmma) and UTMALDG (TMA load) counts from
                 cuobjdump's SASS of their own object files (a spill, a
                 count of 0 or wgmma that ptxas serialized, C7512 / C7520,
-                fails the run).
+                fails the run); beside them nvcc builds a copy of
+                csrc/flash_attention_online.cu in which K5 and K6a at head
+                dim 128 run without the consumers' turns.
   3. kernels  — K1-K4 against their plain PyTorch versions on the card in
                 bf16 at the main path's shapes (480x832, 17 frames: S=1950)
                 and the flagship's (81 frames: S=8190); error, kernel ms,
@@ -24,10 +27,14 @@ Phases, each printing its wall seconds:
                 5120), K4 at Z-Image's caption refiner (30 heads, 320 tokens
                 in 1024), SDPA at the real lengths beside them.
                 Then K5 and K6a-c at the training shapes (self S=8190,
-                cross q 8190 x k 512), PyTorch's flash attention forward and
-                backward as their yardstick, K6b and K6c run twice at the
+                cross q 8190 x k 512), PyTorch's flash attention forward
+                (and cuDNN's, with its log-sum-exp) and backward as their
+                yardstick, K5's output bit for bit K6a's, K6a's relative
+                L2 error within 2^-8, K6a, K6b and K6c run twice at the
                 self shape (bit for bit the same), and a flash_attention
-                gradient check against autograd of the plain attention.
+                gradient check against autograd of the plain attention;
+                then K5 and K6a with and without the turns, timed in
+                alternation (the same bits required).
                 Then K7, K8 and K10 at the FLUX.1-dev 1024x1024 shapes
                 (4608 tokens; 5632 with two EliGen entities).  Then K9 at
                 the Z-Image-Turbo 1024x1024 shapes (4416, 4096 and 320 rows
@@ -333,13 +340,21 @@ HOPPER_KERNELS = (
     ("flash_small_kv", "fa_small_kv_kernel", "flash_attention.cu.o",
      lambda lib: lib.fg_flash_bounded_smem_bytes()),
     ("flash_fwd_d64", "fa_online_d64_kernel", "flash_attention_online.cu.o",
-     lambda lib: lib.fg_flash_online_smem_bytes(64)),
+     lambda lib: lib.fg_flash_online_smem_bytes(0)),
     ("flash_fwd_d64 ragged", "fa_online_d64_ragged_kernel", "flash_attention_online.cu.o",
-     lambda lib: lib.fg_flash_online_smem_bytes(64)),
+     lambda lib: lib.fg_flash_online_smem_bytes(0)),
+    ("flash_fwd", "fa_online_d128_kernel", "flash_attention_online.cu.o",
+     lambda lib: lib.fg_flash_online_smem_bytes(1)),
+    ("flash_fwd ragged", "fa_online_d128_ragged_kernel", "flash_attention_online.cu.o",
+     lambda lib: lib.fg_flash_online_smem_bytes(1)),
+    ("flash_fwd_lse", "fa_online_lse_kernel", "flash_attention_online.cu.o",
+     lambda lib: lib.fg_flash_online_smem_bytes(1)),
+    ("flash_fwd_lse ragged", "fa_online_lse_ragged_kernel", "flash_attention_online.cu.o",
+     lambda lib: lib.fg_flash_online_smem_bytes(1)),
     ("flash_bias", "fa_online_bias_kernel", "flash_attention_online.cu.o",
-     lambda lib: lib.fg_flash_online_smem_bytes(128)),
+     lambda lib: lib.fg_flash_online_smem_bytes(2)),
     ("flash_bias ragged", "fa_online_bias_ragged_kernel", "flash_attention_online.cu.o",
-     lambda lib: lib.fg_flash_online_smem_bytes(128)),
+     lambda lib: lib.fg_flash_online_smem_bytes(1)),
     ("flash_bwd_dq", "fa_dq_wgmma_kernel", "flash_attention_bwd.cu.o",
      lambda lib: lib.fg_flash_bwd_smem_bytes(0)),
     ("flash_bwd_dq ragged", "fa_dq_wgmma_ragged_kernel", "flash_attention_bwd.cu.o",
@@ -419,10 +434,13 @@ def train_kernel_checks():
     (K6c) x BN x Sq x Sk x 128 flops on the unpadded lengths, and each input
     read and output written once.  The library yardstick is PyTorch's flash
     attention: its forward (which also returns the LSE) for K5/K6a, its
-    backward for K6b and K6c together.  At the self shape K6b and K6c run a
-    second time and must give the same bits (no atomics).  Then a small
-    gradient check of flash_attention against fp32 autograd of the plain
-    attention."""
+    backward for K6b and K6c together; beside the forward also cuDNN's with
+    its log-sum-exp, and K5/K6a's library_ms is the faster of the two
+    (a cuDNN call that raises is printed and leaves the flash figure).
+    K5's output must equal K6a's bit for bit (one kernel template but for
+    the lse store).  At the self shape K6a, K6b and K6c run a second time
+    and must give the same bits (no atomics).  Then a small gradient check
+    of flash_attention against fp32 autograd of the plain attention."""
     import torch
 
     from fairygen_tpu_torch.ops import flash_attention as fa
@@ -459,6 +477,25 @@ def train_kernel_checks():
         check_close(f"K6a flash_fwd_lse lse {tag}", lse, lse_ref, rtol=1e-5, atol=1e-4)
         o5 = fa.flash_fwd(qh, kh, vh, sk_actual=ska, with_lse=False)
         e5 = check_close(f"K5 flash_fwd {tag}", o5, o_ref, rtol=2 ** -7, atol=2 ** -8)
+        # tighter than the elementwise bound, which allows about a fifth of
+        # |o|'s rms here; the emulated tile rounding of
+        # tests/test_torch_online_tiles.py stays near half of it
+        rel_l2 = ((o.float() - o_ref.float()).norm() / o_ref.float().norm()).item()
+        print(f"  K6a o {tag}: relative L2 error {rel_l2:.3e} (bound 2^-8)", flush=True)
+        if not rel_l2 < 2 ** -8:
+            raise RuntimeError(f"K6a's o at the {tag} shape: relative L2 error {rel_l2:.3e}")
+        print(f"  K5 o bit for bit K6a's ({tag}): {torch.equal(o5, o)}", flush=True)
+        if not torch.equal(o5, o):
+            raise RuntimeError(f"K5's output differs from K6a's at the {tag} shape")
+        if tag == "self":
+            o2, lse2 = fa.flash_fwd(qh, kh, vh, sk_actual=ska)
+            same = [torch.equal(o, o2), torch.equal(lse, lse2)]
+            print(f"  K6a run twice at the self shape: o, lse bit for bit equal {same}",
+                  flush=True)
+            if not all(same):
+                raise RuntimeError(f"K6a is not deterministic: {same}")
+            del o2, lse2
+        del o5
         delta = (doh.float() * o_ref.float()).sum(-1)
         f = 1 / 1.4426950408889634
         dq = fa.flash_bwd_dq(qh, kh, vh, doh, lse_ref, delta, sk_actual=ska, dq_factor=f)
@@ -496,7 +533,12 @@ def train_kernel_checks():
                 dos, qs, ks, vs, fw[0], fw[1], fw[2], fw[3], fw[4], fw[5], 0.0, False,
                 fw[6], fw[7], scale=ln2)
 
-        lib_fwd = time_ms(lambda: sdpa(qs, ks, vs, 0.0, False, False, scale=ln2))
+        lib_flash = time_ms(lambda: sdpa(qs, ks, vs, 0.0, False, False, scale=ln2))
+        lib_cudnn = cudnn_fwd_ms(qs, ks, vs, ln2, tag)
+        lib_fwd = lib_flash if lib_cudnn is None else min(lib_flash, lib_cudnn)
+        cudnn_txt = "raised" if lib_cudnn is None else f"{lib_cudnn:.4f}"
+        print(f"  {tag} forward yardsticks: SDPA flash {lib_flash:.4f} ms, cuDNN (with its "
+              f"log-sum-exp) {cudnn_txt} ms", flush=True)
         lib_bwd = time_ms(sdpa_bwd, 10, 5)
         work = N * S * ska * hd
         rows = N * S
@@ -524,6 +566,8 @@ def train_kernel_checks():
         for name, (err, flop_mult, kern, plain, lib) in calls.items():
             r = dict(max_abs_err=err, ms=time_ms(kern, 10, 5), plain_ms=time_ms(plain, 1, 3),
                      bound=bound_ms(nb[name], flop_mult * work), library_ms=lib)
+            if name.startswith("flash_fwd"):
+                r.update(library_flash_ms=lib_flash, library_cudnn_ms=lib_cudnn)
             res.setdefault(name, {})[tag] = r
             print(f"  {tag} {name}: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
                   f"bound_ms {r['bound'][0]:.4f} ({r['bound'][1]}) library_ms {lib:.4f}"
@@ -548,6 +592,127 @@ def train_kernel_checks():
     if not max(rels) < 1e-2:
         raise RuntimeError(f"flash_attention gradient disagrees: {rels}")
     return res
+
+
+TURNS_LINE = "constexpr bool kTurns = !kBias;"
+
+
+def start_turns_off_build():
+    """Start nvcc on a copy of csrc/flash_attention_online.cu in which K5
+    and K6a at head dim 128 run without the consumers' turns (FA3's
+    ping-pong), for turns_ab.  Returns the process and the library it
+    makes."""
+    from fairygen_tpu_torch.ops import _kernels
+
+    src = (_kernels.CSRC / "flash_attention_online.cu").read_text()
+    if src.count(TURNS_LINE) != 1:
+        raise RuntimeError(f"flash_attention_online.cu holds '{TURNS_LINE}' "
+                           f"{src.count(TURNS_LINE)} times, not once")
+    out = _kernels.BUILD_DIR.parent / "turns_off"
+    out.mkdir(parents=True, exist_ok=True)
+    copy = out / "flash_attention_online.cu"
+    copy.write_text(src.replace(TURNS_LINE, "constexpr bool kTurns = !kBias && D == 64;"))
+    lib = out / "libturns_off.so"
+    cmd = [_kernels._nvcc()] + _kernels._flags() + [
+        "-Xcompiler", "-fPIC", "-shared", "-I", str(_kernels.CSRC), "-o", str(lib), str(copy)]
+    print("  " + " ".join(cmd), flush=True)
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True), lib
+
+
+def turns_ab(lib_path):
+    """K6a and K5 at head dim 128 with the consumers taking turns (the
+    library) and without (start_turns_off_build's copy) at the training
+    shapes (24 heads, q 8190 in 8192 rows; self: 8190 keys in 8192 rows,
+    the ragged form; cross: 512 keys, the aligned form).  Both must give
+    the same bits.  Each is timed six times, on, off, off, on, on, off,
+    through the C functions (no launch counted).  Returns {shape: {kernel:
+    {"on": median ms, "off": median ms}}}."""
+    import ctypes
+    import statistics
+
+    import torch
+
+    from fairygen_tpu_torch.ops import _kernels
+
+    off = ctypes.CDLL(str(lib_path))
+    for fn in ("fg_flash_fwd", "fg_flash_fwd_lse"):
+        getattr(off, fn).argtypes = _kernels._SIGNATURES[fn]
+        getattr(off, fn).restype = ctypes.c_int
+    libs = {"on": _kernels.lib(), "off": off}
+    g = torch.Generator("cuda").manual_seed(7)
+    bn, d, sq, sq_pad = 24, 128, 8190, 8192
+
+    def rows(s_pad, s, scale=1.0):
+        x = torch.zeros((bn, s_pad, d), dtype=torch.bfloat16, device="cuda")
+        x[:, :s] = (torch.randn((bn, s, d), generator=g, device="cuda") * scale).to(x.dtype)
+        return x
+
+    def checked(rc, fn):
+        if rc:
+            raise RuntimeError(f"{fn}: cudaError {rc}")
+
+    qh = rows(sq_pad, sq, d ** -0.5 * 1.4426950408889634)
+    res = {}
+    for tag, sk, sk_pad in (("self", sq, sq_pad), ("cross", 512, 512)):
+        kh, vh = rows(sk_pad, sk), rows(sk_pad, sk)
+        outs, calls = {}, {}
+        for t, lib in libs.items():
+            o, o5 = torch.empty_like(qh), torch.empty_like(qh)
+            lse = torch.empty((bn, sq_pad), dtype=torch.float32, device="cuda")
+
+            def k6a(lib=lib, o=o, lse=lse):
+                checked(lib.fg_flash_fwd_lse(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(),
+                                             o.data_ptr(), lse.data_ptr(), bn, sq_pad, sk,
+                                             sk_pad, torch.cuda.current_stream().cuda_stream),
+                        "fg_flash_fwd_lse")
+
+            def k5(lib=lib, o5=o5):
+                checked(lib.fg_flash_fwd(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(),
+                                         o5.data_ptr(), bn, sq_pad, sk, sk_pad,
+                                         torch.cuda.current_stream().cuda_stream),
+                        "fg_flash_fwd")
+
+            k6a()
+            k5()
+            torch.cuda.synchronize()
+            outs[t], calls[t] = (o, lse, o5), {"K6a": k6a, "K5": k5}
+        same = [torch.equal(a, b) for a, b in zip(outs["on"], outs["off"])]
+        print(f"  turns {tag}: on and off give the same o, lse, K5 o {same}", flush=True)
+        if not all(same):
+            raise RuntimeError(f"turns on and off disagree at the {tag} shape: {same}")
+        for kern in ("K6a", "K5"):
+            ms = {"on": [], "off": []}
+            for t in ("on", "off", "off", "on", "on", "off"):
+                ms[t].append(time_ms(calls[t][kern], 20, 7))
+            res.setdefault(tag, {})[kern] = {t: statistics.median(v) for t, v in ms.items()}
+            print(f"  turns {tag} {kern} ms, on: " + " / ".join(f"{m:.4f}" for m in ms["on"]) +
+                  "; off: " + " / ".join(f"{m:.4f}" for m in ms["off"]), flush=True)
+        del kh, vh, outs, calls
+    del qh
+    torch.cuda.empty_cache()
+    return res
+
+
+def cudnn_fwd_ms(qs, ks, vs, scale, tag):
+    """ms of cuDNN's attention forward with its log-sum-exp on (B, N, S, d)
+    q/k/v, a yardstick beside K5/K6a; None, with the error printed on a
+    line of its own, where the torch build's call raises."""
+    import torch
+
+    cudnn = torch.ops.aten._scaled_dot_product_cudnn_attention
+
+    def call():
+        return cudnn(qs, ks, vs, None, True, 0.0, False, False, scale=scale)
+
+    try:
+        call()
+        torch.cuda.synchronize()
+    except RuntimeError as e:  # the yardstick only: the port never calls it
+        msg = " ".join(str(e).split())[:300]
+        print(f"  cuDNN attention forward ({tag}) raised {type(e).__name__}: {msg}", flush=True)
+        return None
+    return time_ms(call)
 
 
 def seeded_prompt(seed, vocab, length=512):
@@ -606,10 +771,20 @@ def main(argv):
     t0 = phase("build")
     for cmd in _kernels.compile_commands(verbose=True) + [_kernels.link_command()]:
         print("  " + " ".join(cmd))
-    build_log = _kernels.build(verbose=True, force=True, timeout=300)
-    print(build_log)
-    _kernels.lib()
-    hopper_build_report(build_log)
+    turns_proc, turns_lib = start_turns_off_build()
+    try:
+        build_log = _kernels.build(verbose=True, force=True, timeout=300)
+        print(build_log)
+        _kernels.lib()
+        hopper_build_report(build_log)
+        turns_log, _ = turns_proc.communicate(timeout=300)
+    finally:
+        if turns_proc.poll() is None:
+            turns_proc.kill()
+            turns_proc.wait()
+    if turns_proc.returncode:
+        raise RuntimeError(f"nvcc of the copy without turns failed ({turns_proc.returncode}):\n"
+                           f"{turns_log}")
     done("build", t0)
 
     t0 = phase("kernels")
@@ -617,6 +792,7 @@ def main(argv):
     flagship = kernel_checks(8190, (21, 15, 26), "S=8190")
     dit_attn = dit_attention_checks()
     train_k = train_kernel_checks()
+    turns = turns_ab(turns_lib)
     flux_k = flux_kernel_checks()
     norm_k = norm_kernel_checks()
     sdxl_k = sdxl_kernel_checks()
@@ -747,7 +923,7 @@ def main(argv):
                      "flash_bwd_dkv": "fairygen_tpu/ops/flash_attention.py:329"}
     for k, replaces in train_sources.items():
         r, c = train_k[k]["self"], train_k[k]["cross"]
-        src = "flash_attention_bwd.cu" if k.startswith("flash_bwd") else "flash_attention_train.cu"
+        src = "flash_attention_bwd.cu" if k.startswith("flash_bwd") else "flash_attention_online.cu"
         rows.append({
             "name": k, "route": "cuda",
             "source": "fairygen_tpu_torch/csrc/" + src, "replaces": replaces,
@@ -756,6 +932,13 @@ def main(argv):
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"], "cross_ms": c["ms"], "cross_plain_ms": c["plain_ms"],
             "cross_bound_ms": c["bound"][0], "cross_library_ms": c["library_ms"]})
+        if k.startswith("flash_fwd"):
+            kern = "K6a" if k == "flash_fwd_lse" else "K5"
+            rows[-1].update(library_flash_ms=r["library_flash_ms"],
+                            library_cudnn_ms=r["library_cudnn_ms"],
+                            cross_library_flash_ms=c["library_flash_ms"],
+                            cross_library_cudnn_ms=c["library_cudnn_ms"],
+                            turns_ab_ms={tag: turns[tag][kern] for tag in turns})
     flux_sources = {
         "rms_rope_per_head": ("csrc/rms_rope.cu", "fairygen_tpu/ops/fused_qk.py:133"),
         "rms_rope_joint": ("csrc/rms_rope.cu", "fairygen_tpu/ops/fused_qk.py:232"),

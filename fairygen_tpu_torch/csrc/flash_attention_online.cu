@@ -1,15 +1,18 @@
-// K5 at head dim 64 and K10: flash attention with a running max (online
-// softmax) on head-major bf16 q/k/v (B*N, S_pad, D), for Hopper (sm_90a).
+// K5, K6a and K10: flash attention with a running max (online softmax) on
+// head-major bf16 q/k/v (B*N, S_pad, D), for Hopper (sm_90a).
 //
 // Replaces the TPU kernels fairygen_tpu/ops/flash_attention.py:
-//   K5  _fa_kernel       the generic no-gradient forward (entry flash_fwd
-//                        with with_lse=False), here at head dim 64; head dim
-//                        128 stays on fa_fwd_kernel (flash_attention_train.cu)
-//                        beside K6a, whose output it equals bit for bit
-//   K10 _fa_bias_kernel  the same with a head-shared additive bias (entry
-//                        flash_attention_bias), head dim 128: FLUX.1's EliGen
-// Contract: q carries hd^-1/2 * log2(e).  K5: s = q.k, key columns >=
-// sk_actual get -inf.  K10: s = q.k + bias * log2(e), added as
+//   K5  _fa_kernel          the generic no-gradient forward (entry flash_fwd
+//                           with with_lse=False), at head dims 64 and 128
+//   K6a _fa_fwd_lse_kernel  the forward of the gradient path (flash_fwd with
+//                           with_lse=True), head dim 128: K5 at d 128 plus
+//                           lse = m + log2(l), one fp32 value a row; its o
+//                           equals K5's bit for bit (one instantiation but
+//                           for the lse store)
+//   K10 _fa_bias_kernel     the same with a head-shared additive bias (entry
+//                           flash_attention_bias), head dim 128: FLUX.1's EliGen
+// Contract: q carries hd^-1/2 * log2(e).  K5, K6a: s = q.k, key columns >=
+// sk_actual get -inf (P = 0 exactly).  K10: s = q.k + bias * log2(e), added as
 // __fadd_rn(s, __fmul_rn(b, log2 e)) like the plain version; the bias is
 // fp32 (B|1, sq, sk) in the natural log (the attn_mask of
 // scaled_dot_product_attention), row bn / N for head bn (row 0 when it has
@@ -18,8 +21,8 @@
 // plain version), so even a row masked everywhere matches it.  Online
 // softmax in base 2 with a running max m: p = exp2(s - m) rounded to bf16
 // before P V (against its key tile's running max), l summed in fp32 from
-// the unrounded p, o = O / l.  Every row of the head-major output below
-// sq_pad is written.
+// the unrounded p, o = O / l.  Every row of the head-major output (and of
+// K6a's lse) below sq_pad is written.
 //
 // Bounds on the H100 (989 TFLOP/s bf16):
 //   - K5 at SDXL's 20 x 4096 x 4096 x 64: 4 Sq Sk d flops a head, 0.0869
@@ -28,6 +31,13 @@
 //     GHz) is 0.080-0.090 ms.  So the two consumer warpgroups take turns
 //     (one's exp2 runs under the other's wgmma), and the masking select is
 //     compiled only into the ragged form (sk_actual not a multiple of 128).
+//   - K6a (and K5) at the training shapes, 24 x 8190 x 8190 x 128 and 24 x
+//     8190 x 512 x 128: 0.833 and 0.0521 ms (operations); exp2 (1.6e9 at
+//     the self shape, 0.39-0.44 ms) is about half of the products.  On
+//     the card the turns tie with their absence at the self shape and
+//     gain 2-3% at the cross shape, so they stay (chip_smoke.py times a
+//     copy of this file built without them).  The self shape is ragged
+//     (8190 keys in 8192 rows), the cross shape aligned.
 //   - K10 at FLUX.1's EliGen 24 x 5632 x 5632: 0.394 ms (operations), exp2
 //     about half of that.  The bias is 127 MB of fp32, more than the 50 MB
 //     L2, and every one of the 24 heads reads it: 3.0 GB a call go through
@@ -39,7 +49,8 @@
 // Design (K3's in csrc/flash_attention.cu, plus the running max):
 //   - persistent: one CTA of 384 threads on each SM walks the items
 //     blockIdx.x, blockIdx.x + gridDim.x, ...; an item is 128 q rows of one
-//     head.  K5's items put the q tile innermost (neighbouring CTAs share a
+//     head.  K5's and K6a's items put the q tile innermost (neighbouring
+//     CTAs share a
 //     head's K and V in L2); K10's put the head innermost, so the CTAs that
 //     run together hold the 24 heads of a few q tiles and read that tile's
 //     bias rows (128 x 5632 x 4 B = 2.9 MB) from DRAM about once and from L2
@@ -62,10 +73,10 @@
 //     finite): the same multiply zeroes the finished item's O after it is
 //     stored and restarts l.  The loop runs over all of a CTA's tiles,
 //     items in a row, so an item's first S overlaps the last P V before it;
-//   - K5's two consumers take turns through two named barriers (FA3's
-//     ping-pong): each waits for its turn before issuing its products and
-//     hands the turn over after, so one's softmax runs under the other's
-//     wgmma;
+//   - K5's and K6a's two consumers take turns through two named barriers
+//     (FA3's ping-pong): each waits for its turn before issuing its
+//     products and hands the turn over after, so one's softmax runs under
+//     the other's wgmma;
 //   - K10's bias, 64 KB a 128 x 128 tile, does not fit beside two Q buffers
 //     and the K/V ring (224 KB at d 128).  Of the three ways (consumers load
 //     it into S's layout, a 64-key tile, TMA multicast across a cluster)
@@ -87,9 +98,11 @@
 //     added;
 //   - when an item is done each consumer stores its two rows a thread, O / l
 //     (the fp32 quotient correctly rounded) rounded once to bf16, from
-//     registers (rows >= sq_pad skipped);
+//     registers (rows >= sq_pad skipped); K6a's lse from one thread of each
+//     quad, with the finished item's max kept beside its sum (the running
+//     max restarts before the store);
 //   - only real work: ceil(sq_pad / 128) q tiles and ceil(sk_actual / 128)
-//     (K5) or ceil(sk / 128) (K10) key tiles;
+//     (K5, K6a) or ceil(sk / 128) (K10) key tiles;
 //   - no branch and no loop the compiler can see sits between a wgmma's
 //     issue and its wait (mbarrier waits loop inside their asm, arrivals,
 //     turn hand-overs and bias loads are predicated in asm), else ptxas
@@ -136,7 +149,8 @@ struct Params {
   int N, n_qt, n_items, n_kt;
   int sq_pad;
   void* out;           // (BN, sq_pad, D) bf16
-  int sk_actual;       // K5: key columns >= sk_actual are masked (ragged form)
+  float* lse;          // K6a: (BN, sq_pad) fp32
+  int sk_actual;       // K5, K6a: key columns >= sk_actual are masked (ragged form)
   const float* bias;   // K10: (bias_rows, sq, sk) fp32
   int bias_rows, sq, sk, sk_pad;
 };
@@ -263,7 +277,8 @@ __device__ __forceinline__ void row_max(const float* s, int h, float& mx0, float
   }
 }
 
-// K5's ragged form: columns >= sk_actual (lim = sk_actual - k0 - 2tg) get -inf
+// K5's and K6a's ragged form: columns >= sk_actual (lim = sk_actual - k0 -
+// 2tg) get -inf
 __device__ __forceinline__ void mask_keys(float* s, int lim) {
 #pragma unroll
   for (int jj = 0; jj < 16; ++jj)
@@ -304,10 +319,11 @@ __device__ __forceinline__ void softmax_rows(float* s, float mx0, float mx1, flo
 }
 
 // the warpgroup's rows qr and qr + 8 of the item = O / l, rounded once to
-// bf16, stored from registers (once an item); rows >= sq_pad are skipped
-template <int D>
+// bf16, stored from registers (once an item), and with kLse (K6a) their lse
+// = m + log2(l); rows >= sq_pad are skipped
+template <int D, bool kLse>
 __device__ __forceinline__ void store_rows(const Params& pr, const float* o, float l0, float l1,
-                                           const Item& it, int qr, int tg) {
+                                           float m0, float m1, const Item& it, int qr, int tg) {
   // the four threads of a quad hold disjoint columns of the same two rows
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
@@ -329,16 +345,24 @@ __device__ __forceinline__ void store_rows(const Params& pr, const float* o, flo
       dst[8 * (D / 2) + 4 * j] =
           pack_bf16(div_rn(o[4 * j + 2], l1, inv1), div_rn(o[4 * j + 3], l1, inv1));
   }
+  if constexpr (kLse) {
+    // one thread of each quad (all four hold the rows' m and summed l)
+    float* lse = pr.lse + (size_t)it.bn * pr.sq_pad + row;
+    if (tg == 0 && row < pr.sq_pad) lse[0] = m0 + log2f(l0);
+    if (tg == 0 && row + 8 < pr.sq_pad) lse[8] = m1 + log2f(l1);
+  }
 }
 
-template <int D, bool kBias, bool kRagged>
+template <int D, bool kBias, bool kRagged, bool kLse>
 __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap* tk,
                                        const CUtensorMap* tv, const CUtensorMap* tb,
                                        const Params& pr) {
   constexpr bool kBiasSmem = kBias && !kRagged;  // the aligned form's shared bias tile
-  // K5 at d 64: the consumers take turns, one's exp2 under the other's
-  // wgmma (faster on the card than without); for K10 the turns cost more
-  // than they give (its softmax, with the bias, outlasts the other's wgmma)
+  // K5 and K6a: the consumers take turns, one's exp2 under the other's
+  // wgmma (at d 64 faster on the card than without, at d 128 a tie or
+  // better); for K10 the turns cost more than they give (its softmax, with
+  // the bias, outlasts the other's wgmma).  chip_smoke.py finds this line
+  // by its text to build the copy without the d-128 turns.
   constexpr bool kTurns = !kBias;
   using L = Smem<D, kBiasSmem>;
   constexpr int kStages = L::kStages;
@@ -450,9 +474,9 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
 #pragma unroll
     for (int k = 0; k < D / 2; ++k) o[k] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, a0, a1;
-    float l0_done = 0.f, l1_done = 0.f;
+    float l0_done = 0.f, l1_done = 0.f, m0_done = 0.f, m1_done = 0.f;
     const int total = mine * n_kt;
-    const int lim0 = pr.sk_actual - 2 * tg;  // K5's key limit, less 2tg
+    const int lim0 = pr.sk_actual - 2 * tg;  // K5's and K6a's key limit, less 2tg
     BiasTile bt = {};
     // K10 ragged: the first half of tile t's bias into registers
     auto load_regs = [&](int t) {
@@ -465,7 +489,7 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
     // half of the bias from the shared tile, released to the producer once
     // the warp has read it; K10 ragged: from registers (the first half
     // arrived under S; the second is loaded into the same registers here);
-    // K5 ragged: keys past sk_actual masked.
+    // K5, K6a ragged: keys past sk_actual masked.
     auto scores_to_p = [&](int t, int lim) {
       float mx0 = m0, mx1 = m1;
       if constexpr (kBiasSmem) {
@@ -540,18 +564,21 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
       fence_regs<64>(sacc);
       mbar_arrive_if(&k_empty[s], lane == 0);
       mbar_arrive_if(&q_empty[qb], lane == 0 && j == n_kt - 1);
-      // a new item: the sums so far are the finished item's, and its
-      // running max restarts (alpha = 0 below)
+      // a new item: the sums and maxima so far are the finished item's, and
+      // its running max restarts (alpha = 0 below)
       l0_done = j == 0 ? l0 : l0_done;
       l1_done = j == 0 ? l1 : l1_done;
+      m0_done = j == 0 ? m0 : m0_done;
+      m1_done = j == 0 ? m1 : m1_done;
       m0 = j == 0 ? -INFINITY : m0;
       m1 = j == 0 ? -INFINITY : m1;
-      // K5's ragged form masks only the item's last tile (lim >= 128 before)
+      // the ragged form masks only the item's last tile (lim > 121 before)
       scores_to_p(t, lim0 - j * kBN);
       wgmma_wait<0>();
       fence_regs<D / 2>(o);
       mbar_arrive_if(&v_empty[sp], lane == 0);
-      if (j == 0) store_rows<D>(pr, o, l0_done, l1_done, item(i - 1), qr, tg);
+      if (j == 0)
+        store_rows<D, kLse>(pr, o, l0_done, l1_done, m0_done, m1_done, item(i - 1), qr, tg);
 #pragma unroll
       for (int k = 0; k < D / 8; ++k) {
         o[4 * k] *= a0;
@@ -573,7 +600,7 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
     pass_turn(cw == 0);  // warpgroup 2's last hand-over would have no taker
     wgmma_wait<0>();
     fence_regs<D / 2>(o);
-    store_rows<D>(pr, o, l0, l1, item(mine - 1), qr, tg);
+    store_rows<D, kLse>(pr, o, l0, l1, m0, m1, item(mine - 1), qr, tg);
   }
 }
 
@@ -582,7 +609,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 fa_online_d64_kernel(const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
     const __grid_constant__ CUtensorMap tb, const Params pr) {
-  attend<64, false, false>(&tq, &tk, &tv, &tb, pr);
+  attend<64, false, false, false>(&tq, &tk, &tv, &tb, pr);
 }
 
 // K5 at head dim 64, keys >= sk_actual masked in the last tile
@@ -590,7 +617,41 @@ __global__ void __launch_bounds__(kThreads, 1)
 fa_online_d64_ragged_kernel(const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
     const __grid_constant__ CUtensorMap tb, const Params pr) {
-  attend<64, false, true>(&tq, &tk, &tv, &tb, pr);
+  attend<64, false, true, false>(&tq, &tk, &tv, &tb, pr);
+}
+
+// K5 at head dim 128, sk_actual a multiple of 128 (the training cross
+// shape's 512 keys)
+__global__ void __launch_bounds__(kThreads, 1)
+fa_online_d128_kernel(const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tb, const Params pr) {
+  attend<128, false, false, false>(&tq, &tk, &tv, &tb, pr);
+}
+
+// K5 at head dim 128, keys >= sk_actual masked in the last tile (the
+// training self shape: 8190 keys)
+__global__ void __launch_bounds__(kThreads, 1)
+fa_online_d128_ragged_kernel(const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tb, const Params pr) {
+  attend<128, false, true, false>(&tq, &tk, &tv, &tb, pr);
+}
+
+// K6a: K5 at head dim 128 plus the lse, aligned
+__global__ void __launch_bounds__(kThreads, 1)
+fa_online_lse_kernel(const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tb, const Params pr) {
+  attend<128, false, false, true>(&tq, &tk, &tv, &tb, pr);
+}
+
+// K6a, ragged
+__global__ void __launch_bounds__(kThreads, 1)
+fa_online_lse_ragged_kernel(const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tb, const Params pr) {
+  attend<128, false, true, true>(&tq, &tk, &tv, &tb, pr);
 }
 
 // K10, sq = sq_pad and sk = sk_pad multiples of 128 (FLUX.1's 5632): the
@@ -599,7 +660,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 fa_online_bias_kernel(const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
     const __grid_constant__ CUtensorMap tb, const Params pr) {
-  attend<128, true, false>(&tq, &tk, &tv, &tb, pr);
+  attend<128, true, false, false>(&tq, &tk, &tv, &tb, pr);
 }
 
 // K10 at any other lengths (odd Sk included): predicated loads and pads
@@ -607,7 +668,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 fa_online_bias_ragged_kernel(const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
     const __grid_constant__ CUtensorMap tb, const Params pr) {
-  attend<128, true, true>(&tq, &tk, &tv, &tb, pr);
+  attend<128, true, true, false>(&tq, &tk, &tv, &tb, pr);
 }
 
 typedef void (*OnlineKernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap,
@@ -658,7 +719,43 @@ int launch(OnlineKernel kernel, int smem_rc, const void* qh, const void* kh, con
   return (int)cudaGetLastError();
 }
 
+// K5 and K6a: the fields the launch does not set
+Params fwd_params(void* out, void* lse, int sk_actual) {
+  Params pr = {};
+  pr.N = 1;
+  pr.n_kt = (sk_actual + kBN - 1) / kBN;
+  pr.out = out;
+  pr.lse = (float*)lse;
+  pr.sk_actual = sk_actual;
+  return pr;
+}
+
 }  // namespace
+
+// K5 at head dim 128 (lse null) and K6a.  qh, out: (BN, sq_pad, 128) bf16;
+// kh, vh: (BN, sk_pad, 128) bf16; lse: (BN, sq_pad) fp32; 1 <= sk_actual <=
+// sk_pad; sq_pad and sk_pad multiples of 64; every pointer 16-byte aligned
+// (checked by the Python wrapper).
+extern "C" int fg_flash_fwd(const void* qh, const void* kh, const void* vh, void* out, int BN,
+                            int sq_pad, int sk_actual, int sk_pad, void* stream) {
+  static int rc_even = allow_smem<128, false>(fa_online_d128_kernel);
+  static int rc_ragged = allow_smem<128, false>(fa_online_d128_ragged_kernel);
+  const bool ragged = sk_actual % kBN != 0;
+  return launch<128, false>(ragged ? fa_online_d128_ragged_kernel : fa_online_d128_kernel,
+                            ragged ? rc_ragged : rc_even, qh, kh, vh, BN, sq_pad, sk_pad,
+                            fwd_params(out, nullptr, sk_actual), stream);
+}
+
+extern "C" int fg_flash_fwd_lse(const void* qh, const void* kh, const void* vh, void* out,
+                                void* lse, int BN, int sq_pad, int sk_actual, int sk_pad,
+                                void* stream) {
+  static int rc_even = allow_smem<128, false>(fa_online_lse_kernel);
+  static int rc_ragged = allow_smem<128, false>(fa_online_lse_ragged_kernel);
+  const bool ragged = sk_actual % kBN != 0;
+  return launch<128, false>(ragged ? fa_online_lse_ragged_kernel : fa_online_lse_kernel,
+                            ragged ? rc_ragged : rc_even, qh, kh, vh, BN, sq_pad, sk_pad,
+                            fwd_params(out, lse, sk_actual), stream);
+}
 
 // K5 at head dim 64.  qh, out: (BN, sq_pad, 64) bf16; kh, vh: (BN, sk_pad,
 // 64) bf16; 1 <= sk_actual <= sk_pad; sq_pad and sk_pad multiples of 64;
@@ -667,15 +764,10 @@ extern "C" int fg_flash_fwd_d64(const void* qh, const void* kh, const void* vh, 
                                 int BN, int sq_pad, int sk_actual, int sk_pad, void* stream) {
   static int rc_even = allow_smem<64, false>(fa_online_d64_kernel);
   static int rc_ragged = allow_smem<64, false>(fa_online_d64_ragged_kernel);
-  Params pr = {};
-  pr.N = 1;
-  pr.n_kt = (sk_actual + kBN - 1) / kBN;
-  pr.out = out;
-  pr.sk_actual = sk_actual;
   const bool ragged = sk_actual % kBN != 0;
   return launch<64, false>(ragged ? fa_online_d64_ragged_kernel : fa_online_d64_kernel,
-                           ragged ? rc_ragged : rc_even, qh, kh, vh, BN, sq_pad, sk_pad, pr,
-                           stream);
+                           ragged ? rc_ragged : rc_even, qh, kh, vh, BN, sq_pad, sk_pad,
+                           fwd_params(out, nullptr, sk_actual), stream);
 }
 
 // K10.  qh, out: (BN, sq_pad, 128) bf16; kh, vh: (BN, sk_pad, 128) bf16;
@@ -703,8 +795,10 @@ extern "C" int fg_flash_bias(const void* qh, const void* kh, const void* vh, con
                             sk_pad, pr, stream);
 }
 
-// dynamic shared memory of the kernels: K5 at head dim 64 (d = 64), K10's
-// aligned form (d = 128), in bytes (printed by chip_smoke.py)
-extern "C" int fg_flash_online_smem_bytes(int d) {
-  return d == 64 ? Smem<64, false>::kBytes : Smem<128, true>::kBytes;
+// dynamic shared memory of the kernels in bytes (printed by chip_smoke.py):
+// which 0, K5 at head dim 64; 1, K5 at 128, K6a and K10's ragged form; 2,
+// K10's aligned form (the bias tile in the second Q buffer's room)
+extern "C" int fg_flash_online_smem_bytes(int which) {
+  return which == 0 ? Smem<64, false>::kBytes
+                    : which == 1 ? Smem<128, false>::kBytes : Smem<128, true>::kBytes;
 }

@@ -1,5 +1,4 @@
-// Shared by the mma.sync flash kernels (flash_attention_train.cu, K5 at
-// head dim 128 and K6a, and flash_small_kv.cu, K4's max and masked forms):
+// The mma.sync helpers of flash_small_kv.cu (K4's max and masked forms):
 // tile sizes, the m16n8k16 bf16 product, fragment loads and the
 // shared-memory tile stagers, which take the head dim D as a template
 // argument.
@@ -11,7 +10,6 @@
 
 namespace {
 
-constexpr int kD = 128;
 constexpr int kTile = 64;            // rows per CTA and rows per loop tile
 constexpr int kThreads = 128;        // 4 warps x 16 rows
 constexpr int kTStride = kTile + 8;  // bf16 per row of a transposed smem tile

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels (K3 and
-// K4's bounded form in flash_attention.cu; K5 at head dim 64 and K10 in
+// K4's bounded form in flash_attention.cu; K5, K6a and K10 in
 // flash_attention_online.cu; K6b and K6c in flash_attention_bwd.cu):
 //   - host: bf16 and fp32 tensor maps (128-byte swizzle, or none), encoded
 //     through cuTensorMapEncodeTiled, which is reached with

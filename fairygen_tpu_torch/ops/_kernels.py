@@ -12,7 +12,7 @@ headers, so the build takes seconds.
 ``ops/`` since the last :func:`reset_launches`.  K4's three forms count
 apart (``flash_small_kv`` bounded, ``flash_small_kv_max``,
 ``flash_small_kv_masked``), and K5 counts per head dim (``flash_fwd`` at
-128, ``flash_fwd_d64`` at 64: two kernels of different designs).
+128, ``flash_fwd_d64`` at 64: two instantiations of one template).
 """
 from __future__ import annotations
 
@@ -29,9 +29,8 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "fairygen_tpu_torch"
 LIB_NAME = "libfairygen_kernels.so"
-SOURCES = ("ln_modulate.cu", "rms_rope.cu", "flash_attention.cu", "flash_attention_train.cu",
-           "flash_attention_online.cu", "rms_modulate.cu", "flash_small_kv.cu",
-           "flash_attention_bwd.cu")
+SOURCES = ("ln_modulate.cu", "rms_rope.cu", "flash_attention.cu", "flash_attention_online.cu",
+           "rms_modulate.cu", "flash_small_kv.cu", "flash_attention_bwd.cu")
 HEADERS = ("flash_common.cuh", "hopper_common.cuh")
 KERNELS = ("ln_modulate", "rms_rope_heads_major", "flash_bounded", "flash_small_kv",
            "flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv",

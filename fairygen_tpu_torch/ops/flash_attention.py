@@ -93,9 +93,11 @@ def flash_attention_heads_major(qh, kh, v, *, b, n, sq, sk_actual, bq=2048,
 # delta are one fp32 value per row.  CPU tensors take the ``*_plain``
 # versions, which compute what the Pallas kernels compute on one tile: fp32
 # logits, keys >= sk_actual masked, p rounded to the value dtype before each
-# product, fp32 accumulation.  On the card K6b and K6c are the TMA + wgmma
-# kernels of ``csrc/flash_attention_bwd.cu``; K5 at d 128 and K6a stay on
-# ``mma.sync`` in ``csrc/flash_attention_train.cu``.
+# product, fp32 accumulation.  On the card K5 (d 64 and 128) and K6a are the
+# TMA + wgmma kernels of ``csrc/flash_attention_online.cu`` (a running max,
+# 128-key tiles: p is rounded against its tile's running max, not the row's
+# final max), K6b and K6c those of ``csrc/flash_attention_bwd.cu``; K4's max
+# and masked forms stay on ``mma.sync`` in ``csrc/flash_small_kv.cu``.
 
 DEFAULT_BQ = 1024
 DEFAULT_BK = 1024
@@ -174,9 +176,9 @@ def _check_rows(t, name, shape):
 def flash_fwd(qh, kh, vh, *, sk_actual, with_lse=True):
     """K6a (``with_lse``, d = 128) or K5 (d = 64 or 128) on head-major
     q/k/v (see the section note).  Returns o, and lse with ``with_lse``.
-    On the card K5 at d 64 is the TMA + wgmma kernel of
-    ``csrc/flash_attention_online.cu``; d 128 stays beside K6a in
-    ``csrc/flash_attention_train.cu``."""
+    On the card both are the TMA + wgmma kernels of
+    ``csrc/flash_attention_online.cu``; at d 128 K5's o equals K6a's bit
+    for bit."""
     if not qh.is_cuda:
         return flash_fwd_plain(qh, kh, vh, sk_actual=sk_actual, with_lse=with_lse)
     _check_heads_major(qh, kh, vh, sk_actual, dims=_TRAIN_DIMS if with_lse else _FWD_DIMS)

@@ -9,9 +9,11 @@ refusals), and a tiny SDXL + BrushNet + DoRA pipeline that must launch
 them.  K10 and K5 at head dim 64 are also held at ragged tile edges
 (sq = 129 with an odd Sk = 4097; sq = 300 with sk_actual = 4000 over
 non-zero keys) and K10 where a q tile's first key tiles are fully
-masked; K6b and K6c likewise (sq = 129 / Sk = 4097, sq = 300 with
-sk_actual = 4000, one partial key tile at sk = 77), and two of their runs
-must give the same bits.  They skip here when no card is present; on a
+masked; K5 at head dim 128 and K6a with a kv_len inside the last 128-key
+tile (1030 of 1100), K6a's lse fed to K6b and K6c, and one launch each;
+K6b and K6c likewise (sq = 129 / Sk = 4097, sq = 300 with sk_actual =
+4000, one partial key tile at sk = 77), and two of their runs must give
+the same bits.  They skip here when no card is present; on a
 card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -242,7 +244,7 @@ def _k6_inputs(g, sq, sk, n):
 
 @pytest.mark.parametrize("sq,sk,kv_len", [(300, 300, None), (1100, 1100, None),
                                           (300, 77, None), (1950, 512, None),
-                                          (700, 700, 650)])
+                                          (700, 700, 650), (1100, 1100, 1030)])
 def test_k5_k6_match_plain(card, sq, sk, kv_len):
     from fairygen_tpu_torch.ops import flash_attention as fa
 
@@ -267,6 +269,39 @@ def test_k5_k6_match_plain(card, sq, sk, kv_len):
     _close_grad(dk, dk_ref)
     _close_grad(dv, dv_ref)
     assert torch.all(dk[:, ska:] == 0) and torch.all(dv[:, ska:] == 0)
+
+
+@pytest.mark.parametrize("sq,sk,kv_len", [(300, 300, None), (1100, 1100, 1030)])
+def test_k6a_lse_feeds_k6b_k6c(card, sq, sk, kv_len):
+    """The gradient path as it runs: K6a's own o and lse fed to K6b and K6c
+    give dq, dk and dv within _close_grad of the same kernels fed the plain
+    version's o and lse (K6a's lse is within 1e-5 / 1e-4 of it)."""
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    qh, kh, vh, doh = _k6_inputs(card, sq, sk, 2)
+    ska = sk if kv_len is None else kv_len
+    grads = []
+    for o, lse in (fa.flash_fwd(qh, kh, vh, sk_actual=ska),
+                   fa.flash_fwd_plain(qh, kh, vh, sk_actual=ska)):
+        delta = (doh.float() * o.float()).sum(-1)
+        grads.append((fa.flash_bwd_dq(qh, kh, vh, doh, lse, delta, sk_actual=ska,
+                                      dq_factor=0.5),)
+                     + fa.flash_bwd_dkv(qh, kh, vh, doh, lse, delta, sq=sq, sk_actual=ska))
+    for got, ref in zip(*grads):
+        _close_grad(got, ref)
+
+
+def test_k5_k6a_at_head_dim_128_launch_one_kernel(card):
+    """One flash_fwd call at head dim 128 launches K5 once and nothing else;
+    with the lse, K6a once and nothing else."""
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    qh, kh, vh, _ = _k6_inputs(card, 300, 300, 2)
+    for with_lse, want in ((False, {"flash_fwd": 1}), (True, {"flash_fwd_lse": 1})):
+        _kernels.reset_launches()
+        fa.flash_fwd(qh, kh, vh, sk_actual=300, with_lse=with_lse)
+        assert {k: v for k, v in _kernels.launches.items() if v} == want
 
 
 @pytest.mark.parametrize("sq,sk,kv_len", [(129, 4097, None), (300, 4097, 4000), (1950, 77, None)])
