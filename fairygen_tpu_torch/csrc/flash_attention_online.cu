@@ -1,7 +1,14 @@
 // K5, K6a and K10: flash attention with a running max (online softmax) on
-// head-major bf16 q/k/v (B*N, S_pad, D), for Hopper (sm_90a).
+// head-major bf16 q/k/v (B*N, S_pad, D), for Hopper (sm_90a); and K4's max
+// and masked forms, which round p against each row's max over every key.
 //
 // Replaces the TPU kernels fairygen_tpu/ops/flash_attention.py:
+//   K4  _fa_small_kv_kernel with bounded=False (entry flash_small_kv_max):
+//                           the generic forward where the keys fit one TPU k
+//                           tile (at most 1024), head dims 64 and 128; the
+//                           max form, and the masked form (key columns >=
+//                           sk_actual set to -1e30 first; those key and value
+//                           rows may hold non-zero values)
 //   K5  _fa_kernel          the generic no-gradient forward (entry flash_fwd
 //                           with with_lse=False), at head dims 64 and 128
 //   K6a _fa_fwd_lse_kernel  the forward of the gradient path (flash_fwd with
@@ -22,9 +29,18 @@
 // softmax in base 2 with a running max m: p = exp2(s - m) rounded to bf16
 // before P V (against its key tile's running max), l summed in fp32 from
 // the unrounded p, o = O / l.  Every row of the head-major output (and of
-// K6a's lse) below sq_pad is written.
+// K6a's lse) below sq_pad is written.  K4: m is each row's max over every
+// key, p = exp2(s - m) once, l summed in fp32 from the unrounded p, p
+// rounded to bf16 before P V, o = pv / l (the Pallas kernel's rounding);
+// masked keys take -inf, which gives the same exact zeros as -1e30.
 //
 // Bounds on the H100 (989 TFLOP/s bf16):
+//   - K4 max at SDXL's 40 x 1024 x 1024 x 64: 0.0109 ms (operations), at
+//     24 x 2048 x 512 x 128 0.0130; the row-max pre-pass adds every S
+//     product once more (1.5x the bound's count).  K4 masked at SDXL's
+//     cross-attention (20 x 4096 and 40 x 1024 queries, 77 keys, d 64):
+//     0.0064 and 0.0034 ms (bytes: q in, o out; a head's 16 KB K and V
+//     tiles come from L2).
 //   - K5 at SDXL's 20 x 4096 x 4096 x 64: 4 Sq Sk d flops a head, 0.0869
 //     ms (operations).  At d 64 exp2 costs about as much as the products:
 //     20 x 4096^2 = 3.4e8 exp2 on 132 SMs x 16 MUFU a clock (1.755-1.98
@@ -73,6 +89,24 @@
 //     finite): the same multiply zeroes the finished item's O after it is
 //     stored and restarts l.  The loop runs over all of a CTA's tiles,
 //     items in a row, so an item's first S overlaps the last P V before it;
+//   - K4 with one key tile (SDXL's 77 text keys) is K5's kernel: a running
+//     max over one tile is the row's max, so K5's loop rounds p as K4
+//     does, with one S product an item.  Such an item is short, and its
+//     softmax, P V and store form the chain that bounds it, so at d 64 and
+//     at most 80 keys (CLIP's 77-token context) a form of the loop takes
+//     only the tile's first 80 keys (kCols): S on m64n80k16, 40 exp2 a
+//     thread in place of 64, five P V k-steps in place of eight;
+//   - K4 with more key tiles (kRowMax; SDXL's 1024-token self-attention):
+//     a pre-pass streams each item's K tiles through the K ring ahead of
+//     its K/V stream and keeps each row's max of S = Q K^T (keys >=
+//     sk_actual masked); then the loop runs with that max and no running
+//     one.  The loop's S are the pre-pass's bits (the same wgmma on the
+//     same operands), so s - m <= 0; nothing is rescaled, and O and l
+//     restart where an item does (O zeroed once it is stored).  Tried on
+//     the card and no faster: an item's K tiles held from the pre-pass to
+//     the loop (d 64, eight 16 KB stages), a head's K/V tile held across
+//     one-tile items of one CTA, four Q buffers, exp2 predicated off for
+//     masked key columns;
 //   - K5's and K6a's two consumers take turns through two named barriers
 //     (FA3's ping-pong): each waits for its turn before issuing its
 //     products and hands the turn over after, so one's softmax runs under
@@ -102,7 +136,9 @@
 //     quad, with the finished item's max kept beside its sum (the running
 //     max restarts before the store);
 //   - only real work: ceil(sq_pad / 128) q tiles and ceil(sk_actual / 128)
-//     (K5, K6a) or ceil(sk / 128) (K10) key tiles;
+//     (K4, K5, K6a) or ceil(sk / 128) (K10) key tiles.  A 128-key box past
+//     sk_pad reads zero keys (s = 0), so the mask is on whenever sk_actual
+//     is not a multiple of 128 (the ragged form), K4's max form too;
 //   - no branch and no loop the compiler can see sits between a wgmma's
 //     issue and its wait (mbarrier waits loop inside their asm, arrivals,
 //     turn hand-overs and bias loads are predicated in asm), else ptxas
@@ -150,7 +186,7 @@ struct Params {
   int sq_pad;
   void* out;           // (BN, sq_pad, D) bf16
   float* lse;          // K6a: (BN, sq_pad) fp32
-  int sk_actual;       // K5, K6a: key columns >= sk_actual are masked (ragged form)
+  int sk_actual;       // K4, K5, K6a: key columns >= sk_actual are masked (ragged form)
   const float* bias;   // K10: (bias_rows, sq, sk) fp32
   int bias_rows, sq, sk, sk_pad;
 };
@@ -277,11 +313,22 @@ __device__ __forceinline__ void row_max(const float* s, int h, float& mx0, float
   }
 }
 
-// K5's and K6a's ragged form: columns >= sk_actual (lim = sk_actual - k0 -
-// 2tg) get -inf
+// the two rows' maxima over columns 0 .. 8NJ - 1 (this thread's entries)
+template <int NJ>
+__device__ __forceinline__ void row_max_cols(const float* s, float& mx0, float& mx1) {
+#pragma unroll
+  for (int jj = 0; jj < NJ; ++jj) {
+    mx0 = fmaxf(mx0, fmaxf(s[4 * jj], s[4 * jj + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * jj + 2], s[4 * jj + 3]));
+  }
+}
+
+// the ragged form: of columns 0 .. 8NJ - 1, those >= sk_actual (lim =
+// sk_actual - k0 - 2tg) get -inf
+template <int NJ>
 __device__ __forceinline__ void mask_keys(float* s, int lim) {
 #pragma unroll
-  for (int jj = 0; jj < 16; ++jj)
+  for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const bool out = 8 * jj + e >= lim;
@@ -290,23 +337,37 @@ __device__ __forceinline__ void mask_keys(float* s, int lim) {
     }
 }
 
-// from the maxima of this thread's entries: the rows' new maxima (across the
-// quad that shares them), alpha = exp2(m_old - m_new), p = exp2(s - m_new)
-// in place and l = l alpha + sum p (this thread's partial sums)
-__device__ __forceinline__ void softmax_rows(float* s, float mx0, float mx1, float& m0,
-                                             float& m1, float& l0, float& l1, float& a0,
-                                             float& a1) {
+// the two rows' maxima across the quad that shares them
+__device__ __forceinline__ void quad_max(float& mx0, float& mx1) {
   mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
   mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
   mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
   mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-  a0 = ex2(m0 - mx0);
-  a1 = ex2(m1 - mx1);
-  m0 = mx0;
-  m1 = mx1;
+}
+
+// from the maxima of this thread's entries: the rows' new maxima (across the
+// quad that shares them), alpha = exp2(m_old - m_new), p = exp2(s - m_new)
+// in place and l = l alpha + sum p (this thread's partial sums).  K4
+// (kRowMax): mx0 and mx1 are already the rows' max over every key (m0, m1),
+// so nothing is rescaled (alpha is left unset): p = exp2(s - m), and l
+// restarts where an item does.  Columns 0 .. 8NJ - 1 only
+template <bool kRowMax, int NJ>
+__device__ __forceinline__ void softmax_rows(float* s, float mx0, float mx1, float& m0,
+                                             float& m1, float& l0, float& l1, float& a0,
+                                             float& a1, bool restart) {
+  if constexpr (kRowMax) {
+    l0 = restart ? 0.f : l0;
+    l1 = restart ? 0.f : l1;
+  } else {
+    quad_max(mx0, mx1);
+    a0 = ex2(m0 - mx0);
+    a1 = ex2(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+  }
   float r0 = 0.f, r1 = 0.f;
 #pragma unroll
-  for (int jj = 0; jj < 16; ++jj) {
+  for (int jj = 0; jj < NJ; ++jj) {
     s[4 * jj] = ex2(s[4 * jj] - mx0);
     s[4 * jj + 1] = ex2(s[4 * jj + 1] - mx0);
     s[4 * jj + 2] = ex2(s[4 * jj + 2] - mx1);
@@ -314,8 +375,13 @@ __device__ __forceinline__ void softmax_rows(float* s, float mx0, float mx1, flo
     r0 += s[4 * jj] + s[4 * jj + 1];
     r1 += s[4 * jj + 2] + s[4 * jj + 3];
   }
-  l0 = l0 * a0 + r0;
-  l1 = l1 * a1 + r1;
+  if constexpr (kRowMax) {
+    l0 += r0;
+    l1 += r1;
+  } else {
+    l0 = l0 * a0 + r0;
+    l1 = l1 * a1 + r1;
+  }
 }
 
 // the warpgroup's rows qr and qr + 8 of the item = O / l, rounded once to
@@ -353,7 +419,7 @@ __device__ __forceinline__ void store_rows(const Params& pr, const float* o, flo
   }
 }
 
-template <int D, bool kBias, bool kRagged, bool kLse>
+template <int D, bool kBias, bool kRagged, bool kLse, bool kRowMax, int kCols = kBN>
 __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap* tk,
                                        const CUtensorMap* tv, const CUtensorMap* tb,
                                        const Params& pr) {
@@ -364,6 +430,11 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
   // the bias, outlasts the other's wgmma).  chip_smoke.py finds this line
   // by its text to build the copy without the d-128 turns.
   constexpr bool kTurns = !kBias;
+  // the key columns of a tile that S, the softmax and P V take: all 128,
+  // or, for one key tile of at most kCols keys, the first kCols (80: an S
+  // accumulator of 40 floats a thread, every one of them read, or ptxas
+  // serializes the wgmma for want of registers, C7511)
+  constexpr int kNJ = kCols / 8;
   using L = Smem<D, kBiasSmem>;
   constexpr int kStages = L::kStages;
   constexpr int kQBufs = L::kQBufs;
@@ -386,6 +457,11 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
   const int n_kt = pr.n_kt;
   const int wg = threadIdx.x / 128;
   auto item = [&](int i) { return item_of<kBias>(blockIdx.x + i * gridDim.x, pr); };
+  // the place in the K stream (and ring) of the loop's tile t of item i,
+  // and of the pre-pass's tile j: K4 reads each item's tiles twice, the
+  // pre-pass's n_kt first; the other forms each tile once, in the loop
+  auto k_loop = [&](int t, int i) { return kRowMax ? t + (i + 1) * n_kt : t; };
+  auto k_pre = [&](int i, int j) { return 2 * i * n_kt + j; };
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
@@ -424,19 +500,28 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
         for (int h = 0; h < D / 64; ++h)
           tma_load_3d(q + h * kHalf, tq, &q_full[qb], 64 * h, it.q0, it.bn);
       };
+      // key tile j of head bn, the kc-th tile of the K stream, into its
+      // stage of the K ring
+      auto load_k = [&](int j, int bn, int kc) {
+        const int s = kc % kStages;
+        uint8_t* kt = smem + L::kK + s * L::kTile;
+        mbar_wait(&k_empty[s], ((kc / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&k_full[s], L::kTile);
+        for (int h = 0; h < D / 64; ++h)
+          tma_load_3d(kt + h * kHalf, tk, &k_full[s], 64 * h, j * kBN, bn);
+      };
       load_q(0);
       int t = 0;
       for (int i = 0; i < mine; ++i) {
         const Item it = item(i);
+        // K4: the row-max pre-pass reads the item's key tiles first
+        if constexpr (kRowMax)
+          for (int j = 0; j < n_kt; ++j) load_k(j, it.bn, k_pre(i, j));
         for (int j = 0; j < n_kt; ++j, ++t) {
           const int s = t % kStages;
           const uint32_t ph = (t / kStages) & 1;
-          uint8_t* kt = smem + L::kK + s * L::kTile;
           uint8_t* vt = smem + L::kV + s * L::kTile;
-          mbar_wait(&k_empty[s], ph ^ 1);
-          mbar_arrive_expect_tx(&k_full[s], L::kTile);
-          for (int h = 0; h < D / 64; ++h)
-            tma_load_3d(kt + h * kHalf, tk, &k_full[s], 64 * h, j * kBN, it.bn);
+          load_k(j, it.bn, k_loop(t, i));
           mbar_wait(&v_empty[s], ph ^ 1);
           mbar_arrive_expect_tx(&v_full[s], L::kTile);
           for (int h = 0; h < D / 64; ++h)
@@ -476,7 +561,7 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, a0, a1;
     float l0_done = 0.f, l1_done = 0.f, m0_done = 0.f, m1_done = 0.f;
     const int total = mine * n_kt;
-    const int lim0 = pr.sk_actual - 2 * tg;  // K5's and K6a's key limit, less 2tg
+    const int lim0 = pr.sk_actual - 2 * tg;  // K4, K5 and K6a: the key limit, less 2tg
     BiasTile bt = {};
     // K10 ragged: the first half of tile t's bias into registers
     auto load_regs = [&](int t) {
@@ -489,8 +574,8 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
     // half of the bias from the shared tile, released to the producer once
     // the warp has read it; K10 ragged: from registers (the first half
     // arrived under S; the second is loaded into the same registers here);
-    // K5, K6a ragged: keys past sk_actual masked.
-    auto scores_to_p = [&](int t, int lim) {
+    // K4, K5, K6a ragged: keys past sk_actual masked.
+    auto scores_to_p = [&](int t, int lim, bool restart) {
       float mx0 = m0, mx1 = m1;
       if constexpr (kBiasSmem) {
 #pragma unroll
@@ -508,11 +593,30 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
         add_bias(sacc, b, 1);
         row_max(sacc, 1, mx0, mx1);
       } else {
-        if constexpr (kRagged) mask_keys(sacc, lim);
-        row_max(sacc, 0, mx0, mx1);
-        row_max(sacc, 1, mx0, mx1);
+        if constexpr (kRagged) mask_keys<kNJ>(sacc, lim);
+        if constexpr (!kRowMax) row_max_cols<kNJ>(sacc, mx0, mx1);
       }
-      softmax_rows(sacc, mx0, mx1, m0, m1, l0, l1, a0, a1);
+      softmax_rows<kRowMax, kNJ>(sacc, mx0, mx1, m0, m1, l0, l1, a0, a1, restart);
+    };
+    // K4: each row's max over every key tile of the item whose Q is in
+    // buffer qb (keys >= sk_actual masked); no other wgmma is in flight
+    float pm0 = -INFINITY, pm1 = -INFINITY;
+    auto prepass = [&](int i, int qb) {
+      pm0 = -INFINITY;
+      pm1 = -INFINITY;
+      for (int j = 0; j < n_kt; ++j) {
+        const int kc = k_pre(i, j), s = kc % kStages;
+        mbar_wait(&k_full[s], (kc / kStages) & 1);
+        wgmma_fence();
+        tile_scores<D>(sacc, q_rows + qb * L::kTile, base + L::kK + s * L::kTile);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<64>(sacc);
+        mbar_arrive_if(&k_empty[s], lane == 0);
+        if constexpr (kRagged) mask_keys<16>(sacc, lim0 - j * kBN);
+        row_max_cols<16>(sacc, pm0, pm1);
+      }
+      quad_max(pm0, pm1);
     };
     if constexpr (kBias && kRagged) load_regs(0);
     // the turns: warpgroup 2 hands warpgroup 1 the first
@@ -525,18 +629,24 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
     if constexpr (kTurns) named_bar_arrive_if(kTurnBar, 256, cw == 1);
 
     mbar_wait(&q_full[0], 0);
-    mbar_wait(&k_full[0], 0);
+    if constexpr (kRowMax) {
+      prepass(0, 0);
+      m0 = pm0;
+      m1 = pm1;
+    }
+    const int kc0 = k_loop(0, 0), s0 = kc0 % kStages;
+    mbar_wait(&k_full[s0], (kc0 / kStages) & 1);
     wait_turn();
     wgmma_fence();
-    tile_scores<D>(sacc, q_rows, base + L::kK);
+    tile_scores<D, kCols>(sacc, q_rows, base + L::kK + s0 * L::kTile);
     wgmma_commit();
     pass_turn(1);
     wgmma_wait<0>();
-    fence_regs<64>(sacc);
-    mbar_arrive_if(&k_empty[0], lane == 0);
+    fence_regs<kNJ * 4>(sacc);
+    mbar_arrive_if(&k_empty[s0], lane == 0);
     mbar_arrive_if(&q_empty[0], lane == 0 && n_kt == 1);
-    scores_to_p(0, lim0);
-    to_a_fragments(sacc, p);
+    scores_to_p(0, lim0, true);
+    to_a_fragments<kNJ / 2>(sacc, p);
     if constexpr (kBias && kRagged) load_regs(1);
 
     int i = 0, j = 0;
@@ -545,57 +655,69 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
         j = 0;
         ++i;
       }
-      const int s = t % kStages, sp = (t - 1) % kStages;
-      const uint32_t ph = (t / kStages) & 1, php = ((t - 1) / kStages) & 1;
       const int qb = i % kQBufs;
-      if (j == 0) mbar_wait(&q_full[qb], (i / kQBufs) & 1);
+      if (j == 0) {
+        mbar_wait(&q_full[qb], (i / kQBufs) & 1);
+        if constexpr (kRowMax) prepass(i, qb);
+      }
+      const int kc = k_loop(t, i);
+      const int s = kc % kStages, sp = (t - 1) % kStages;
+      const uint32_t ph = (kc / kStages) & 1, php = ((t - 1) / kStages) & 1;
       mbar_wait(&k_full[s], ph);
       wait_turn();
       fence_regs<D / 2>(o);
-      fence_regs<32>(p);
+      fence_regs<kNJ * 2>(p);
       wgmma_fence();
-      tile_scores<D>(sacc, q_rows + qb * L::kTile, base + L::kK + s * L::kTile);
+      tile_scores<D, kCols>(sacc, q_rows + qb * L::kTile, base + L::kK + s * L::kTile);
       wgmma_commit();
       mbar_wait(&v_full[sp], php);
-      tile_pv<D>(o, p, base + L::kV + sp * L::kTile);
+      tile_pv<D, kNJ / 2>(o, p, base + L::kV + sp * L::kTile);
       wgmma_commit();
       pass_turn(1);
       wgmma_wait<1>();  // S of tile t is in; P V of tile t-1 still runs
-      fence_regs<64>(sacc);
+      fence_regs<kNJ * 4>(sacc);
       mbar_arrive_if(&k_empty[s], lane == 0);
       mbar_arrive_if(&q_empty[qb], lane == 0 && j == n_kt - 1);
       // a new item: the sums and maxima so far are the finished item's, and
-      // its running max restarts (alpha = 0 below)
+      // its running max restarts (alpha = 0 below); K4's starts from the
+      // pre-pass's maxima
       l0_done = j == 0 ? l0 : l0_done;
       l1_done = j == 0 ? l1 : l1_done;
       m0_done = j == 0 ? m0 : m0_done;
       m1_done = j == 0 ? m1 : m1_done;
-      m0 = j == 0 ? -INFINITY : m0;
-      m1 = j == 0 ? -INFINITY : m1;
+      m0 = j == 0 ? (kRowMax ? pm0 : -INFINITY) : m0;
+      m1 = j == 0 ? (kRowMax ? pm1 : -INFINITY) : m1;
       // the ragged form masks only the item's last tile (lim > 121 before)
-      scores_to_p(t, lim0 - j * kBN);
+      scores_to_p(t, lim0 - j * kBN, j == 0);
       wgmma_wait<0>();
       fence_regs<D / 2>(o);
       mbar_arrive_if(&v_empty[sp], lane == 0);
-      if (j == 0)
+      if (j == 0) {
         store_rows<D, kLse>(pr, o, l0_done, l1_done, m0_done, m1_done, item(i - 1), qr, tg);
+        if constexpr (kRowMax) {
 #pragma unroll
-      for (int k = 0; k < D / 8; ++k) {
-        o[4 * k] *= a0;
-        o[4 * k + 1] *= a0;
-        o[4 * k + 2] *= a1;
-        o[4 * k + 3] *= a1;
+          for (int k = 0; k < D / 2; ++k) o[k] = 0.f;
+        }
       }
-      to_a_fragments(sacc, p);
+      if constexpr (!kRowMax) {
+#pragma unroll
+        for (int k = 0; k < D / 8; ++k) {
+          o[4 * k] *= a0;
+          o[4 * k + 1] *= a0;
+          o[4 * k + 2] *= a1;
+          o[4 * k + 3] *= a1;
+        }
+      }
+      to_a_fragments<kNJ / 2>(sacc, p);
       if constexpr (kBias && kRagged) load_regs(t + 1);
     }
     const int sl = (total - 1) % kStages;
     mbar_wait(&v_full[sl], ((total - 1) / kStages) & 1);
     wait_turn();
     fence_regs<D / 2>(o);
-    fence_regs<32>(p);
+    fence_regs<kNJ * 2>(p);
     wgmma_fence();
-    tile_pv<D>(o, p, base + L::kV + sl * L::kTile);
+    tile_pv<D, kNJ / 2>(o, p, base + L::kV + sl * L::kTile);
     wgmma_commit();
     pass_turn(cw == 0);  // warpgroup 2's last hand-over would have no taker
     wgmma_wait<0>();
@@ -609,7 +731,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 fa_online_d64_kernel(const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
     const __grid_constant__ CUtensorMap tb, const Params pr) {
-  attend<64, false, false, false>(&tq, &tk, &tv, &tb, pr);
+  attend<64, false, false, false, false>(&tq, &tk, &tv, &tb, pr);
 }
 
 // K5 at head dim 64, keys >= sk_actual masked in the last tile
@@ -617,7 +739,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 fa_online_d64_ragged_kernel(const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
     const __grid_constant__ CUtensorMap tb, const Params pr) {
-  attend<64, false, true, false>(&tq, &tk, &tv, &tb, pr);
+  attend<64, false, true, false, false>(&tq, &tk, &tv, &tb, pr);
 }
 
 // K5 at head dim 128, sk_actual a multiple of 128 (the training cross
@@ -626,7 +748,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 fa_online_d128_kernel(const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
     const __grid_constant__ CUtensorMap tb, const Params pr) {
-  attend<128, false, false, false>(&tq, &tk, &tv, &tb, pr);
+  attend<128, false, false, false, false>(&tq, &tk, &tv, &tb, pr);
 }
 
 // K5 at head dim 128, keys >= sk_actual masked in the last tile (the
@@ -635,7 +757,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 fa_online_d128_ragged_kernel(const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
     const __grid_constant__ CUtensorMap tb, const Params pr) {
-  attend<128, false, true, false>(&tq, &tk, &tv, &tb, pr);
+  attend<128, false, true, false, false>(&tq, &tk, &tv, &tb, pr);
 }
 
 // K6a: K5 at head dim 128 plus the lse, aligned
@@ -643,7 +765,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 fa_online_lse_kernel(const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
     const __grid_constant__ CUtensorMap tb, const Params pr) {
-  attend<128, false, false, true>(&tq, &tk, &tv, &tb, pr);
+  attend<128, false, false, true, false>(&tq, &tk, &tv, &tb, pr);
 }
 
 // K6a, ragged
@@ -651,7 +773,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 fa_online_lse_ragged_kernel(const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
     const __grid_constant__ CUtensorMap tb, const Params pr) {
-  attend<128, false, true, true>(&tq, &tk, &tv, &tb, pr);
+  attend<128, false, true, true, false>(&tq, &tk, &tv, &tb, pr);
 }
 
 // K10, sq = sq_pad and sk = sk_pad multiples of 128 (FLUX.1's 5632): the
@@ -660,7 +782,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 fa_online_bias_kernel(const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
     const __grid_constant__ CUtensorMap tb, const Params pr) {
-  attend<128, true, false, false>(&tq, &tk, &tv, &tb, pr);
+  attend<128, true, false, false, false>(&tq, &tk, &tv, &tb, pr);
 }
 
 // K10 at any other lengths (odd Sk included): predicated loads and pads
@@ -668,7 +790,49 @@ __global__ void __launch_bounds__(kThreads, 1)
 fa_online_bias_ragged_kernel(const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
     const __grid_constant__ CUtensorMap tb, const Params pr) {
-  attend<128, true, true, false>(&tq, &tk, &tv, &tb, pr);
+  attend<128, true, true, false, false>(&tq, &tk, &tv, &tb, pr);
+}
+
+// K4 over one tile of at most 80 keys at head dim 64 (SDXL's 77 text keys,
+// CLIP's context): K5's loop on the tile's first 80 columns
+__global__ void __launch_bounds__(kThreads, 1)
+fa_online_d64_k80_kernel(const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tb, const Params pr) {
+  attend<64, false, true, false, false, 80>(&tq, &tk, &tv, &tb, pr);
+}
+
+// K4's max and masked forms over more than one key tile at head dim 64,
+// sk_actual a multiple of 128 (SDXL's 1024-token self-attention)
+__global__ void __launch_bounds__(kThreads, 1)
+fa_row_max_d64_kernel(const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tb, const Params pr) {
+  attend<64, false, false, false, true>(&tq, &tk, &tv, &tb, pr);
+}
+
+// K4 over more than one key tile at head dim 64, keys >= sk_actual masked
+__global__ void __launch_bounds__(kThreads, 1)
+fa_row_max_d64_ragged_kernel(const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tb, const Params pr) {
+  attend<64, false, true, false, true>(&tq, &tk, &tv, &tb, pr);
+}
+
+// K4 over more than one key tile at head dim 128, sk_actual a multiple of 128
+__global__ void __launch_bounds__(kThreads, 1)
+fa_row_max_d128_kernel(const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tb, const Params pr) {
+  attend<128, false, false, false, true>(&tq, &tk, &tv, &tb, pr);
+}
+
+// K4 over more than one key tile at head dim 128, keys >= sk_actual masked
+__global__ void __launch_bounds__(kThreads, 1)
+fa_row_max_d128_ragged_kernel(const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tb, const Params pr) {
+  attend<128, false, true, false, true>(&tq, &tk, &tv, &tb, pr);
 }
 
 typedef void (*OnlineKernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap,
@@ -719,7 +883,7 @@ int launch(OnlineKernel kernel, int smem_rc, const void* qh, const void* kh, con
   return (int)cudaGetLastError();
 }
 
-// K5 and K6a: the fields the launch does not set
+// K4, K5 and K6a: the fields the launch does not set
 Params fwd_params(void* out, void* lse, int sk_actual) {
   Params pr = {};
   pr.N = 1;
@@ -770,6 +934,38 @@ extern "C" int fg_flash_fwd_d64(const void* qh, const void* kh, const void* vh, 
                            fwd_params(out, nullptr, sk_actual), stream);
 }
 
+// K4's max form (sk_actual == sk_pad) and masked form (sk_actual < sk_pad)
+// at head dim d = 64 or 128.  qh, out: (BN, sq_pad, d) bf16; kh, vh: (BN,
+// sk_pad, d) bf16; 1 <= sk_actual <= sk_pad <= 1024; sq_pad and sk_pad
+// multiples of 64; every pointer 16-byte aligned (checked by the Python
+// wrapper).  One key tile (sk_actual <= 128) runs K5's kernels (at d 64 and
+// at most 80 keys, on the tile's first 80 columns), more the row-max
+// kernels; the ragged kernels mask keys >= sk_actual.
+extern "C" int fg_flash_small_kv_max(const void* qh, const void* kh, const void* vh, void* out,
+                                     int BN, int sq_pad, int sk_actual, int sk_pad, int d,
+                                     void* stream) {
+  // [one key tile: K5's kernels; more: the row-max kernels][d 128][ragged]
+  static const OnlineKernel kernels[2][2][2] = {
+      {{fa_online_d64_kernel, fa_online_d64_ragged_kernel},
+       {fa_online_d128_kernel, fa_online_d128_ragged_kernel}},
+      {{fa_row_max_d64_kernel, fa_row_max_d64_ragged_kernel},
+       {fa_row_max_d128_kernel, fa_row_max_d128_ragged_kernel}}};
+  static const int rc80 = allow_smem<64, false>(fa_online_d64_k80_kernel);
+  static const int rc[2][2][2] = {
+      {{allow_smem<64, false>(kernels[0][0][0]), allow_smem<64, false>(kernels[0][0][1])},
+       {allow_smem<128, false>(kernels[0][1][0]), allow_smem<128, false>(kernels[0][1][1])}},
+      {{allow_smem<64, false>(kernels[1][0][0]), allow_smem<64, false>(kernels[1][0][1])},
+       {allow_smem<128, false>(kernels[1][1][0]), allow_smem<128, false>(kernels[1][1][1])}}};
+  if (d != 64 && d != 128) return (int)cudaErrorInvalidValue;
+  const Params pr = fwd_params(out, nullptr, sk_actual);
+  const int many = pr.n_kt > 1, wide = d == 128, ragged = sk_actual % kBN != 0;
+  const bool narrow = !wide && sk_actual <= 80;
+  OnlineKernel kernel = narrow ? fa_online_d64_k80_kernel : kernels[many][wide][ragged];
+  const int smem_rc = narrow ? rc80 : rc[many][wide][ragged];
+  return wide ? launch<128, false>(kernel, smem_rc, qh, kh, vh, BN, sq_pad, sk_pad, pr, stream)
+              : launch<64, false>(kernel, smem_rc, qh, kh, vh, BN, sq_pad, sk_pad, pr, stream);
+}
+
 // K10.  qh, out: (BN, sq_pad, 128) bf16; kh, vh: (BN, sk_pad, 128) bf16;
 // bias: (bias_rows, sq, sk) fp32 contiguous, bias_rows 1 or BN / N; 1 <= sq
 // <= sq_pad, 1 <= sk <= sk_pad, both pads multiples of 64; every pointer
@@ -796,7 +992,8 @@ extern "C" int fg_flash_bias(const void* qh, const void* kh, const void* vh, con
 }
 
 // dynamic shared memory of the kernels in bytes (printed by chip_smoke.py):
-// which 0, K5 at head dim 64; 1, K5 at 128, K6a and K10's ragged form; 2,
+// which 0, K4 and K5 at head dim 64; 1, K4 and K5 at 128, K6a and K10's
+// ragged form; 2,
 // K10's aligned form (the bias tile in the second Q buffer's room)
 extern "C" int fg_flash_online_smem_bytes(int which) {
   return which == 0 ? Smem<64, false>::kBytes

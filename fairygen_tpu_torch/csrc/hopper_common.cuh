@@ -303,6 +303,24 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t desc_a, ui
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d (64 x 80, fp32) = [d +] A (64 x 16) · B (16 x 80); A and B K-major in
+// shared memory: the m64n128k16 form's accumulator layout for j < 10
+__device__ __forceinline__ void wgmma_m64n80k16_ss(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}"
+      ", %40, %41, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HP_D32(d), HP_D8(d, 32)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // d (64 x 128, fp32) += A (64 x 16, bf16 in registers: the m16n8k16 A
 // fragment of each warp's 16 rows) · B (16 x 128), B MN-major in shared
 // memory (the transposed-B form).
@@ -359,25 +377,32 @@ __device__ __forceinline__ float ex2(float x) {
 // Q (two consumer warpgroups of 64 rows), K and V tiles are 128 rows of D
 // bf16, 128-byte swizzled, in 64-column boxes of 128 rows (16 KB) each.
 
-// S (64 x 128 keys) = the Q rows of one warpgroup · K^T: D/16 k-steps of
-// 16, four in each 64-column box (32 bytes apart in a 128-byte row)
-template <int D>
+// S (64 x N keys; N = 128, or the first 80 keys of the tile) = the Q rows
+// of one warpgroup · K^T: D/16 k-steps of 16, four in each 64-column box
+// (32 bytes apart in a 128-byte row)
+template <int D, int N = 128>
 __device__ __forceinline__ void tile_scores(float* s, uint32_t q_base, uint32_t k_base) {
+  static_assert(N == 128 || N == 80, "S is 128 or 80 keys wide");
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks) {
     const uint32_t off = (ks / 4) * (128 * 128) + (ks % 4) * 32;
-    wgmma_m64n128k16_ss(s, desc_sw128(q_base + off, 16, 1024),
-                        desc_sw128(k_base + off, 16, 1024), ks > 0);
+    const uint64_t da = desc_sw128(q_base + off, 16, 1024);
+    const uint64_t db = desc_sw128(k_base + off, 16, 1024);
+    if constexpr (N == 128)
+      wgmma_m64n128k16_ss(s, da, db, ks > 0);
+    else
+      wgmma_m64n80k16_ss(s, da, db, ks > 0);
   }
 }
 
-// O (64 x D) += P (64 x 128 keys, registers) · V (128 keys x D): the 16
-// keys of k-step ks are 16 rows (2048 bytes) on; V's 64-column boxes are
-// 16 KB apart (the MN-block stride); m64n128k16 at D = 128, m64n64k16 at 64
-template <int D>
+// O (64 x D) += P (64 x 16KS keys, registers; 128 by default) · V (16KS
+// keys x D): the 16 keys of k-step ks are 16 rows (2048 bytes) on; V's
+// 64-column boxes are 16 KB apart (the MN-block stride); m64n128k16 at D =
+// 128, m64n64k16 at 64
+template <int D, int KS = 8>
 __device__ __forceinline__ void tile_pv(float* o, const uint32_t* p, uint32_t v_base) {
 #pragma unroll
-  for (int ks = 0; ks < 8; ++ks) {
+  for (int ks = 0; ks < KS; ++ks) {
     const uint64_t desc = desc_sw128(v_base + ks * 2048, 128 * 128, 1024);
     if constexpr (D == 128)
       wgmma_m64n128k16_rs_tb(o, p + 4 * ks, desc);

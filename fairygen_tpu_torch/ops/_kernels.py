@@ -30,8 +30,8 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "fairygen_tpu_torch"
 LIB_NAME = "libfairygen_kernels.so"
 SOURCES = ("ln_modulate.cu", "rms_rope.cu", "flash_attention.cu", "flash_attention_online.cu",
-           "rms_modulate.cu", "flash_small_kv.cu", "flash_attention_bwd.cu")
-HEADERS = ("flash_common.cuh", "hopper_common.cuh")
+           "rms_modulate.cu", "flash_attention_bwd.cu")
+HEADERS = ("hopper_common.cuh",)
 KERNELS = ("ln_modulate", "rms_rope_heads_major", "flash_bounded", "flash_small_kv",
            "flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv",
            "rms_rope_per_head", "rms_rope_joint", "flash_bias", "rms_modulate", "vae_rms_silu",

@@ -93,16 +93,17 @@ def flash_attention_heads_major(qh, kh, v, *, b, n, sq, sk_actual, bq=2048,
 # delta are one fp32 value per row.  CPU tensors take the ``*_plain``
 # versions, which compute what the Pallas kernels compute on one tile: fp32
 # logits, keys >= sk_actual masked, p rounded to the value dtype before each
-# product, fp32 accumulation.  On the card K5 (d 64 and 128) and K6a are the
-# TMA + wgmma kernels of ``csrc/flash_attention_online.cu`` (a running max,
-# 128-key tiles: p is rounded against its tile's running max, not the row's
-# final max), K6b and K6c those of ``csrc/flash_attention_bwd.cu``; K4's max
-# and masked forms stay on ``mma.sync`` in ``csrc/flash_small_kv.cu``.
+# product, fp32 accumulation.  On the card K4's max and masked forms, K5 (d
+# 64 and 128) and K6a are the TMA + wgmma kernels of
+# ``csrc/flash_attention_online.cu`` on 128-key tiles: K5 and K6a round p
+# against its tile's running max, K4 against the row's max over every key
+# (a pre-pass over the key tiles after the first finds it), as the Pallas
+# kernel does; K6b and K6c are those of ``csrc/flash_attention_bwd.cu``.
 
 DEFAULT_BQ = 1024
 DEFAULT_BK = 1024
 LOG2E = 1.4426950408889634
-_ROW_TILE = 64  # rows per CTA of the CUDA kernels
+_ROW_TILE = 64  # the CUDA kernels take padded lengths that are multiples of this
 _FWD_DIMS = (64, 128)  # head dims of the K4 max/masked and K5 kernels
 _TRAIN_DIMS = (128,)   # head dims of K6a-c (and K10)
 
@@ -207,7 +208,9 @@ def flash_small_kv_max_plain(qh, kh, vh, *, sk_actual):
 def flash_small_kv_max(qh, kh, vh, *, sk_actual):
     """K4's max form (sk_actual == Sk_pad) or masked form (keys >=
     sk_actual masked) on head-major q/k/v (BN, S_pad, d), d = 64 or 128,
-    whose keys are one TPU k tile (Sk_pad <= 1024).  Returns head-major o."""
+    whose keys are one TPU k tile (Sk_pad <= 1024).  Returns head-major o.
+    On the card: the TMA + wgmma kernels of ``csrc/flash_attention_online.cu``
+    with each row's max taken before its first p (see the section note)."""
     if not qh.is_cuda:
         return flash_small_kv_max_plain(qh, kh, vh, sk_actual=sk_actual)
     _check_heads_major(qh, kh, vh, sk_actual, dims=_FWD_DIMS)

@@ -9,8 +9,13 @@ refusals), and a tiny SDXL + BrushNet + DoRA pipeline that must launch
 them.  K10 and K5 at head dim 64 are also held at ragged tile edges
 (sq = 129 with an odd Sk = 4097; sq = 300 with sk_actual = 4000 over
 non-zero keys) and K10 where a q tile's first key tiles are fully
-masked; K5 at head dim 128 and K6a with a kv_len inside the last 128-key
-tile (1030 of 1100), K6a's lse fed to K6b and K6c, and one launch each;
+masked; K4's max and masked forms also at a half q tile, at 192 keys (a
+key box past Sk_pad), at 80 and 64 keys (the 80-column form at head dim
+64) and at a kv_len of 1000 of 1024, within a relative
+L2 error of 2^-10, over 40 heads of one key tile (several items a CTA),
+and two of their runs must give the same bits; K5 at head dim 128 and
+K6a with a kv_len inside the last 128-key tile (1030 of 1100), K6a's lse
+fed to K6b and K6c, and one launch each;
 K6b and K6c likewise (sq = 129 / Sk = 4097, sq = 300 with sk_actual =
 4000, one partial key tile at sk = 77), and two of their runs must give
 the same bits.  They skip here when no card is present; on a
@@ -680,27 +685,75 @@ def _heads(card, bn, s, d, scale=1.0):
     return _randn(card, bn, s, d, scale=scale)
 
 
+def _k4_inputs(card, bn, sq, sk_pad, d):
+    """Head-major q (sq rows, zero-padded to a multiple of 64) and k, v of
+    sk_pad non-zero rows: the masked key rows hold values, as a caller's
+    kv_len leaves them."""
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    qh = torch.zeros((bn, fa._pad_len(sq, 64, True), d), dtype=torch.bfloat16, device="cuda")
+    qh[:, :sq] = _heads(card, bn, sq, d, scale=d ** -0.5 * 1.4427)
+    return qh, _heads(card, bn, sk_pad, d), _heads(card, bn, sk_pad, d)
+
+
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("sq,sk_pad,sk_actual", [(4096, 128, 77), (1024, 1024, 1024),
-                                                 (320, 320, 250)])
+                                                 (320, 320, 250), (300, 128, 77),
+                                                 (1024, 192, 192), (1024, 1024, 1000),
+                                                 (1024, 128, 80), (300, 64, 64)])
 def test_k4_max_and_masked_forms_match_plain(card, d, sq, sk_pad, sk_actual):
     """K4's max form (sk_actual == Sk_pad) and masked form against the plain
     version: p is rounded to bf16 against the same row max on both sides,
     so outputs differ by sums in other orders only: 2^-7 relative + 1e-3
-    absolute, the tolerance of K3/K4's bounded form.  The masked key rows
-    hold non-zero values, as a caller's kv_len leaves them."""
+    absolute, the tolerance of K3/K4's bounded form, and a relative L2
+    error of o below 2^-10, which a kernel rounding p against a running
+    max exceeds (tests/test_torch_small_kv_tiles.py).  The masked key rows
+    hold non-zero values, as a caller's kv_len leaves them.  sq 300 pads to
+    320 (a half q tile); at 192 keys the second 128-key box reads 64 zero
+    rows past Sk_pad, which must not enter the max or the sum; 80 and 64
+    keys take the 80-column form at head dim 64 (64: a box past Sk_pad)."""
     from fairygen_tpu_torch.ops import _kernels
     from fairygen_tpu_torch.ops import flash_attention as fa
 
-    bn = 4
-    qh = _heads(card, bn, sq, d, scale=d ** -0.5 * 1.4427)
-    kh, vh = _heads(card, bn, sk_pad, d), _heads(card, bn, sk_pad, d)
+    qh, kh, vh = _k4_inputs(card, 4, sq, sk_pad, d)
     _kernels.reset_launches()
     out = fa.flash_small_kv_max(qh, kh, vh, sk_actual=sk_actual)
     form = "flash_small_kv_masked" if sk_actual < sk_pad else "flash_small_kv_max"
     assert {k: v for k, v in _kernels.launches.items() if v} == {form: 1}
     ref = fa.flash_small_kv_max_plain(qh, kh, vh, sk_actual=sk_actual)
     torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+    rel_l2 = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    assert rel_l2 < 2 ** -10, f"relative L2 error of o {rel_l2:.3e}"
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sk_pad,sk_actual", [(128, 77), (128, 128)])
+def test_k4_one_key_tile_over_many_heads_matches_plain(card, d, sk_pad, sk_actual):
+    """One key tile (SDXL's 77 text keys; 128 keys, the max form) over 40
+    heads of 1024 queries: 320 items, more than the card's SMs, so a CTA
+    runs two or three items in a row, each item's store under the next
+    one's products.  Tolerances as above."""
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    qh, kh, vh = _k4_inputs(card, 40, 1024, sk_pad, d)
+    out = fa.flash_small_kv_max(qh, kh, vh, sk_actual=sk_actual)
+    ref = fa.flash_small_kv_max_plain(qh, kh, vh, sk_actual=sk_actual)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+    rel_l2 = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    assert rel_l2 < 2 ** -10, f"relative L2 error of o {rel_l2:.3e}"
+
+
+@pytest.mark.parametrize("d,bn,sq,sk_pad,sk_actual", [(64, 4, 1024, 1024, 1000),
+                                                      (128, 4, 300, 512, 512),
+                                                      (64, 40, 1024, 128, 77)])
+def test_k4_two_launches_give_the_same_bits(card, d, bn, sq, sk_pad, sk_actual):
+    """K4 sums in a fixed order (no atomics): two launches on the same
+    inputs give the same bits."""
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    qh, kh, vh = _k4_inputs(card, bn, sq, sk_pad, d)
+    first = fa.flash_small_kv_max(qh, kh, vh, sk_actual=sk_actual)
+    assert torch.equal(first, fa.flash_small_kv_max(qh, kh, vh, sk_actual=sk_actual))
 
 
 @pytest.mark.parametrize("sq,sk,kv_len", [(4096, 4096, None), (1100, 1100, 1050)])
