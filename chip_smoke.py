@@ -21,8 +21,9 @@ Phases, each printing its wall seconds:
   3. kernels  — K1-K4 against their plain PyTorch versions on the card in
                 bf16 at the main path's shapes (480x832, 17 frames: S=1950)
                 and the flagship's (81 frames: S=8190); error, kernel ms,
-                plain ms, the bound, and scaled_dot_product_attention as a
-                yardstick for K3/K4 (timed here only; the port never calls it);
+                plain ms, the bound (K1, K2 also by device time), and
+                scaled_dot_product_attention as a yardstick for K3/K4 (timed
+                here only; the port never calls it);
                 K3 also at the FLUX.1-dev joint shape (24 heads, 4608 tokens in
                 5120 rows) and the Z-Image unified one (30 heads, 4416 in
                 5120), K4 at Z-Image's caption refiner (30 heads, 320 tokens
@@ -53,7 +54,29 @@ Phases, each printing its wall seconds:
                 the card in bf16 from a seeded CUDA generator.
   5. requests — WanVideoPipeline answers two 480x832x17-frame, 4-step,
                 CFG 5 text+image-to-video requests; launch counts of K1-K4
-                are checked exactly (per DiT sweep: 90, 90, 30, 30).
+                are checked exactly (per DiT sweep: 90, 90, 30, 30), and of
+                K11 (the VAE38's norm + SiLU: 21 in the first-frame encode,
+                29 in the decode).
+  5b. flagship — the flagship request as examples/wan_inference.py makes
+                it: 480x832, 81 frames, 50 steps, CFG 5, the streamed
+                VAE38 decode (S = 8190): its wall time, the wall of the
+                100 DiT sweeps, peak device memory, exact launch counts
+                (K1 9000, K2 9000, K3 3000, K4 3000, K11 21 + 21 x 29,
+                every other kernel 0)
+                and finite output of 81 480x832 frames; then K11 against
+                its plain version at every (rows, C) the request gave it
+                (recorded during the request); then on its latents
+                the streamed decode alone (wall, peak memory, device busy
+                share of one profiled chunk), the one-tile tiled decode
+                (bit for bit the streamed one), the decode with its
+                channel RMS norm + SiLU through K11 (channels-last out)
+                beside the plain chain and K11 transposed back (in turns,
+                twice; each within a relative L2 error of 2^-5 of the
+                port's decode),
+                one profiled DiT sweep at S = 8190, and the requests
+                phase's 17-frame latents decoded streamed against
+                full-sequence (max abs error, and relative L2 error over
+                the clip and in its worst frame).
   6. train    — two-stage LoRA training of the full-width DiT at
                 480x832x81 frames (S=8190): three stage-1 steps, the adapter
                 through safetensors, one stage-2 step, merge + fuse, one
@@ -80,7 +103,10 @@ Phases, each printing its wall seconds:
                 counts (per step: K5 at head dim 64 10, K4 max form 61, K4
                 masked form 70), and one BrushNet + UNet step profiled.
  11. reference — a tiny-width pipeline on the card (kernels, bf16) against
-                the same pipeline on the CPU (plain versions, fp32), one
+                the same pipeline on the CPU (plain versions, fp32), a tiny
+                pipeline loaded by from_pretrained(hints=...) from
+                safetensors written in a temporary directory, with a hot
+                LoRA loaded and then cleared, likewise, one
                 tiny LoRA training step likewise, a tiny head-dim-128
                 FLUX.1 DiT with and without EliGen likewise, a tiny
                 head-dim-128 Z-Image DiT and a tiny Qwen3 encoder likewise,
@@ -241,6 +267,7 @@ def kernel_checks(S, grid, tag):
     nbytes = 2 * S * D * 2 + 2 * 2 * D * 2
     res["ln_modulate"] = dict(
         max_abs_err=err, ms=time_ms(lambda: layer_norm_modulate(x, sh, sc, seg, 1e-6)),
+        device_ms=device_ms(lambda: layer_norm_modulate(x, sh, sc, seg, 1e-6)),
         plain_ms=time_ms(lambda: layer_norm_modulate_plain(x, sh, sc, seg, 1e-6)),
         bound=bound_ms(nbytes, 8 * S * D), library_ms=None)
 
@@ -263,6 +290,7 @@ def kernel_checks(S, grid, tag):
     nbytes = S * D * 2 + S * 4 + D * 2 + 2 * S * hd * 4 + N * s_pad * hd * 2
     res["rms_rope_heads_major"] = dict(
         max_abs_err=err, ms=time_ms(lambda: fq.rms_rope_heads_major(xq, gq, rsq, ff, N, s_pad)),
+        device_ms=device_ms(lambda: fq.rms_rope_heads_major(xq, gq, rsq, ff, N, s_pad)),
         plain_ms=time_ms(lambda: fq.rms_rope_heads_major_plain(xq, gq, rsq, ff, N, s_pad), 5, 3),
         bound=bound_ms(nbytes, 6 * S * D), library_ms=None)
 
@@ -298,7 +326,8 @@ def kernel_checks(S, grid, tag):
         library_ms=time_ms(bounded_sdpa(qc, khc, vc, N, S, lk)))
     for k, r in res.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"  {tag} {k}: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+        dev = f" device_ms {r['device_ms']:.4f}" if "device_ms" in r else ""
+        print(f"  {tag} {k}: ms {r['ms']:.4f}{dev} plain_ms {r['plain_ms']:.4f} "
               f"bound_ms {r['bound'][0]:.4f} ({r['bound'][1]}) library_ms {lib}", flush=True)
     return res
 
@@ -862,7 +891,7 @@ def main(argv):
     torch.cuda.synchronize()
     done("kernels", t0)
 
-    expected = None
+    expected, k11_main = None, {}
     if not kernels_only:
         from fairygen_tpu_torch import convert
         from fairygen_tpu_torch.models.wan.dit import WanDiTConfig
@@ -889,9 +918,12 @@ def main(argv):
         per_sweep = {"ln_modulate": 90, "rms_rope_heads_major": 90,
                      "flash_bounded": 30, "flash_small_kv": 30}
         per_request = {k: v * steps * sweeps for k, v in per_sweep.items()}
+        enc_norms, dec_norms = vae_norm_silu_calls(vae_cfg)
+        per_request["vae_rms_silu"] = enc_norms + dec_norms  # one frame in, one decode
         expected = {k: 2 * per_request.get(k, 0) for k in _kernels.launches}
         torch.cuda.reset_peak_memory_stats()
         _kernels.reset_launches()
+        req_latents = capture_latents(pipe)
         for seed in (11, 12):
             ids, mask, nids, nmask = seeded_prompt(seed, te_cfg.vocab)
             before = dict(_kernels.launches)
@@ -916,12 +948,17 @@ def main(argv):
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         if launches != expected:
             raise RuntimeError(f"launch counts {launches} != expected {expected}")
+        del pipe._decode_output  # the class's again
         done("requests", t0)
+
+        t0 = phase("flagship")
+        flagship_launches, k11_main = flagship_phase(pipe, te_cfg, req_latents[-1], flagship)
+        done("flagship", t0)
 
         t0 = phase("train")
         trained = train_phase(pipe, per_request)
-        launches = {k: launches[k] + trained[k] for k in launches}
-        print(f"  launches, serving and training: {launches}", flush=True)
+        launches = {k: launches[k] + trained[k] + flagship_launches[k] for k in launches}
+        print(f"  launches, serving, the flagship request and training: {launches}", flush=True)
         done("train", t0)
 
         t0 = phase("breakdown")
@@ -950,6 +987,7 @@ def main(argv):
 
         t0 = phase("reference")
         reference_check()
+        reference_from_pretrained_check()
         reference_train_check()
         reference_flux_check()
         reference_zimage_check()
@@ -973,6 +1011,8 @@ def main(argv):
             "library_ms": r["library_ms"], "flagship_ms": f["ms"],
             "flagship_plain_ms": f["plain_ms"], "flagship_bound_ms": f["bound"][0],
             "flagship_library_ms": f["library_ms"]})
+        if "device_ms" in r:
+            rows[-1].update(device_ms=r["device_ms"], flagship_device_ms=f["device_ms"])
         if k in dit_attn:
             rows[-1]["max_abs_err"] = max([rows[-1]["max_abs_err"]] +
                                           [v["max_abs_err"] for v in dit_attn[k].values()])
@@ -1030,6 +1070,13 @@ def main(argv):
                                         "bound_ms": v["bound"][0], "library_ms": v["library_ms"],
                                         "differ": v["differ"]}
                          for (n, tag), v in norm_k[k].items()}})
+        if k == "vae_rms_silu" and k11_main:
+            rows[-1]["max_abs_err"] = max([rows[-1]["max_abs_err"]] +
+                                          [v["max_abs_err"] for v in k11_main.values()])
+            rows[-1]["main_path_shapes"] = {
+                tag: {"calls": v["calls"], "ms": v["ms"], "plain_ms": v["plain_ms"],
+                      "bound_ms": v["bound"][0], "max_abs_err": v["max_abs_err"],
+                      "differ": v["differ"]} for tag, v in k11_main.items()}
     sdxl_sources = {
         "flash_small_kv_max": ("csrc/flash_attention_online.cu",
                                "fairygen_tpu/ops/flash_attention.py:133", "self 40x1024"),
@@ -1544,6 +1591,488 @@ def device_table(prof, wall, label, top, also=()):
         if i < top or any(a in key for a in also):
             print(f"    {dev_us / 1e3:9.3f} ms {100 * dev_us / 1e6 / busy:5.1f}%  x{count:<5d} "
                   f"{key[:100]}")
+
+
+FLAGSHIP_PER_SWEEP = {"ln_modulate": 90, "rms_rope_heads_major": 90, "flash_bounded": 30,
+                      "flash_small_kv": 30}
+# streamed against full-sequence decode, bf16 on the card: the JAX package
+# holds the two to 1e-5 in fp32 (tests/test_wan_vae.py, test_streaming_
+# matches_full); scaled by bf16's unit roundoff over fp32's, 2^-8 / 2^-24
+STREAM_VS_FULL_ATOL = 1e-5 * 2 ** 16
+# that max-abs bound is near the size of a pixel in [-1, 1], so the two are
+# also held to a relative L2 error over the 17 frames and in the worst
+# frame: bf16 rounding through the decoder's 30-odd convolutions, whose
+# cuDNN algorithms differ between 1-frame chunks and the whole clip, stays
+# near 1e-2; a broken cache hand-off at a chunk seam moves whole frames, a
+# relative error near 1 (tests/test_torch_wan_streaming.py,
+# test_a_broken_cache_hand_off_breaks_the_card_bounds)
+STREAM_VS_FULL_REL_L2 = 2 ** -5
+STREAM_VS_FULL_FRAME_REL_L2 = 2 ** -4
+# the decode with the plain norm + SiLU chain (or K11 transposed back)
+# against the port's: the same bf16 decoder, each norm output within one
+# rounding of the other, so the same bound as streamed against full
+K11_DECODE_REL_L2 = 2 ** -5
+
+
+def vae_norm_silu_calls(cfg):
+    """K11 launches of one VAE38 encoder pass and one decoder pass: the
+    channel norm + SiLU of each residual block (two), of the two middle
+    blocks and of the head."""
+    stages = len(cfg.dim_mult)
+    return stages * cfg.num_res_blocks * 2 + 5, stages * (cfg.num_res_blocks + 1) * 2 + 5
+
+
+def capture_latents(pipe):
+    """Keep the latents of each of the pipeline's decodes: an instance
+    attribute over the class's ``_decode_output`` (``del`` it to undo).
+    Returns the list they go to."""
+    kept = []
+    decode = pipe._decode_output
+
+    def keep(latents, **kw):
+        kept.append(latents)
+        return decode(latents, **kw)
+
+    pipe._decode_output = keep
+    return kept
+
+
+def wrap_timed(pipe, name, walls):
+    """Time each call of the pipeline's method ``name`` (host clock around
+    synchronised work) into ``walls[name]``; ``del pipe.<name>`` undoes it."""
+    import torch
+
+    fn = getattr(pipe, name)
+
+    def run(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t
+        return out
+
+    setattr(pipe, name, run)
+
+
+def rel_l2(a, b, dims=None):
+    """Relative L2 error of ``a`` against ``b``; with ``dims``, the largest
+    over the slices left after summing over ``dims``."""
+    d, r = a.float() - b.float(), b.float()
+    if dims is None:
+        return (d.norm() / r.norm()).item()
+    return (d.pow(2).sum(dims).sqrt() / r.pow(2).sum(dims).sqrt()).max().item()
+
+
+def record_k11_shapes(wvae):
+    """Count the shapes the VAE38 hands K11 (through the name its module
+    calls); returns (the {shape: calls} dict, a function that undoes it)."""
+    shapes, k11 = {}, wvae.fused_vae_rms_silu
+
+    def recorded(x, gamma, silu=True):
+        shapes[tuple(x.shape)] = shapes.get(tuple(x.shape), 0) + 1
+        return k11(x, gamma, silu)
+
+    wvae.fused_vae_rms_silu = recorded
+
+    def undo():
+        wvae.fused_vae_rms_silu = k11
+
+    return shapes, undo
+
+
+def k11_main_path_checks(shapes):
+    """K11 against its plain version at each channel-last shape of the
+    main path (bf16, SiLU on, gamma in bf16 as the VAE38's weights), held
+    by ``check_bracketed``; with K11's time, its plain version's and its
+    bound at each."""
+    import torch
+
+    from fairygen_tpu_torch.ops import fused_norms as fn
+
+    g = torch.Generator("cuda").manual_seed(919)
+    res = {}
+    for shape, calls in sorted(shapes.items()):
+        c = shape[-1]
+        x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        gamma = (1 + 0.3 * torch.randn(c, generator=g, device="cuda")).to(torch.bfloat16)
+        rows = x.numel() // c
+        out = fn.fused_vae_rms_silu(x, gamma)
+        ref = fn.vae_rms_silu_plain(x, gamma)
+        tag = "x".join(map(str, shape))
+        err, ndiff = check_bracketed(f"K11 at the main path's {tag} ({rows} rows, {calls} calls)",
+                                     out, ref, *_k11_bracket(x, gamma, True))
+        res[tag] = dict(
+            calls=calls, max_abs_err=err, differ=ndiff,
+            ms=time_ms(lambda: fn.fused_vae_rms_silu(x, gamma)),
+            plain_ms=time_ms(lambda: fn.vae_rms_silu_plain(x, gamma), 5, 3),
+            bound=bound_ms(2 * x.numel() * 2 + c * 2, 10 * x.numel(), H100_FP32_FLOP_PER_S))
+        del x, out, ref
+    torch.cuda.empty_cache()
+    for tag, r in res.items():
+        print(f"  K11 main path {tag} x{r['calls']}: ms {r['ms']:.4f} plain_ms "
+              f"{r['plain_ms']:.4f} bound_ms {r['bound'][0]:.4f} ({r['bound'][1]})", flush=True)
+    return res
+
+
+def flagship_phase(pipe, te_cfg, latents17, k8190):
+    """The flagship request, 480x832x81 frames, 50 steps, CFG 5, streamed
+    decode, as examples/wan_inference.py calls the pipeline (prompt
+    embeddings made before, as in the requests phase: the card has no
+    tokenizer files).  Then the decode alone and its variants on the
+    request's latents, one profiled DiT sweep at S = 8190, and the 17-frame
+    latents of the requests phase decoded streamed and full-sequence.
+    Returns the request's launches and K11's checks at the shapes it ran."""
+    import torch
+    import torch.nn.functional as F
+
+    from fairygen_tpu_torch.core.imaging import postprocess_video
+    from fairygen_tpu_torch.models.wan import vae as wvae
+    from fairygen_tpu_torch.models.wan.dit import precompute_cross_kv, wan_dit_forward
+    from fairygen_tpu_torch.models.wan.vae_tiling import vae38_tiled_decode
+    from fairygen_tpu_torch.ops import _kernels
+
+    steps, gib = 50, 2 ** 30
+    want = {k: FLAGSHIP_PER_SWEEP.get(k, 0) * 2 * steps for k in _kernels.launches}
+    enc_norms, dec_norms = vae_norm_silu_calls(pipe.vae_cfg)
+    want["vae_rms_silu"] = enc_norms + 21 * dec_norms  # the first frame; 21 decode chunks
+    ids, mask, nids, nmask = seeded_prompt(31, te_cfg.vocab)
+    ctx, nctx = pipe.encode_ids(ids, mask), pipe.encode_ids(nids, nmask)
+    walls = {}
+    kept = capture_latents(pipe)
+    wrap_timed(pipe, "_denoise", walls)
+    k11_shapes, unrecord = record_k11_shapes(wvae)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    try:
+        t = time.perf_counter()
+        video = pipe(context=ctx, negative_context=nctx, input_image=seeded_image(31, 480, 832),
+                     seed=31, height=480, width=832, num_frames=81, cfg_scale=5.0,
+                     num_inference_steps=steps, streaming_vae=True, output_type="floatpoint")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        unrecord()
+    peak = torch.cuda.max_memory_allocated() / gib
+    got = dict(_kernels.launches)
+    del pipe._denoise, pipe._decode_output
+    frames = postprocess_video(video.float().cpu().numpy())
+    finite = bool(torch.isfinite(video).all())
+    sweeps = walls["_denoise"]
+    print(f"  flagship request (480x832x81, {steps} steps, CFG 5, streamed decode): "
+          f"{wall:.3f} s; the {2 * steps} DiT sweeps and steps {sweeps:.3f} s "
+          f"({sweeps / (2 * steps) * 1e3:.2f} ms a sweep); the rest (first-frame encode, "
+          f"cross k/v, decode) {wall - sweeps:.3f} s; max_memory_allocated {peak:.2f} GiB; "
+          f"output {tuple(video.shape)} {video.dtype}, all finite: {finite}, "
+          f"{len(frames)} frames of {frames[0].shape}; launches {got}", flush=True)
+    if (tuple(video.shape) != (1, 3, 81, 480, 832) or not finite or len(frames) != 81
+            or frames[0].shape != (480, 832, 3)):
+        raise RuntimeError("the flagship request's output has the wrong shape or non-finite "
+                           "values")
+    if got != want:
+        raise RuntimeError(f"flagship launch counts {got} != expected {want}")
+    if sum(k11_shapes.values()) != want["vae_rms_silu"]:
+        raise RuntimeError(f"K11 calls recorded by shape {k11_shapes} do not add up to "
+                           f"{want['vae_rms_silu']}")
+    print(f"  K11 shapes of the request (channels-last, calls): {k11_shapes}", flush=True)
+    k11_main = k11_main_path_checks(k11_shapes)
+    kernel_s = sum(want[k] * (k8190[k].get("device_ms", k8190[k]["ms"])) for k in
+                   FLAGSHIP_PER_SWEEP) / 1e3
+    print(f"  K1-K4 at their S = 8190 times x launches: {kernel_s:.3f} s, "
+          f"{100 * kernel_s / wall:.1f}% of the request, {100 * kernel_s / sweeps:.1f}% "
+          "of the sweeps", flush=True)
+
+    lat = kept[0]
+    params, cfg = pipe.vae_params, pipe.vae_cfg
+
+    def decode_alone(label, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        out = wvae.vae38_decode(params, cfg, lat, streaming=True, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        top = torch.cuda.max_memory_allocated()
+        print(f"  {label}: {dt:.3f} s; max_memory_allocated {top / gib:.2f} GiB, "
+              f"{(top - base) / gib:.2f} GiB above the {base / gib:.2f} GiB held before",
+              flush=True)
+        return out, dt
+
+    with torch.no_grad():
+        streamed, dec_s = decode_alone("streamed decode alone, 21 latent frames")
+        if not torch.equal(streamed, video):
+            print("  (the decode alone differs from the request's in "
+                  f"{int((streamed != video).sum())} values)", flush=True)
+        t = time.perf_counter()
+        tiled = vae38_tiled_decode(params, cfg, lat)
+        torch.cuda.synchronize()
+        same = torch.equal(tiled, streamed.float())
+        print(f"  tiled decode, tile (30, 52) stride (15, 26): one tile, "
+              f"{time.perf_counter() - t:.3f} s, bit for bit the streamed decode: {same}",
+              flush=True)
+        if not same:
+            raise RuntimeError("the one-tile tiled decode differs from the streamed decode")
+
+        # the decoder's channel RMS norm + SiLU: the port's (K11, output left
+        # channels-last) against the plain chain and K11 transposed back
+        ported_norm_silu = wvae._norm_silu
+
+        def plain_chain(gamma, x):
+            return F.silu(wvae.vae_rms_norm(x, gamma).float()).to(x.dtype)
+
+        def k11_transposed(gamma, x):
+            return ported_norm_silu(gamma, x).contiguous()
+
+        k11 = {}
+        try:
+            for rep in (1, 2):  # in turns, twice
+                for label, fn in (("K11, channels-last (the port's)", ported_norm_silu),
+                                  ("plain chain", plain_chain),
+                                  ("K11, transposed back", k11_transposed)):
+                    wvae._norm_silu = fn
+                    out, dt = decode_alone(f"streamed decode, norm + SiLU: {label} (run {rep})")
+                    r = k11.setdefault(label, dict(s=[]))
+                    r["s"].append(dt)
+                    r.update(max_abs_diff=(out.float() - streamed.float()).abs().max().item(),
+                             rel_l2=rel_l2(out, streamed))
+                    print(f"    against the port's decode: max abs diff {r['max_abs_diff']:.3e}, "
+                          f"relative L2 {r['rel_l2']:.3e} (tolerance {K11_DECODE_REL_L2:.4f})",
+                          flush=True)
+                    if not r["rel_l2"] <= K11_DECODE_REL_L2:
+                        raise RuntimeError(f"the decode with {label} disagrees with the port's: "
+                                           f"relative L2 {r['rel_l2']:.3e}")
+        finally:
+            wvae._norm_silu = ported_norm_silu
+
+        # one profiled chunk of the streamed decode (a steady chunk, 1 frame)
+        p = params
+        shape = (1, -1, 1, 1, 1)
+        z = (lat[:, :, :2] * p["latent_std"].to(lat.dtype).reshape(shape)
+             + p["latent_mean"].to(lat.dtype).reshape(shape))
+        x = wvae.causal_conv3d(p["conv2"], z, wvae.CacheBank("full"), t_pad=0)
+        first_fn, step_fn = wvae._chunk_fns("dec")
+        _, entries = first_fn(p, cfg, x[:, :, :1])
+        step_fn(p, cfg, x[:, :, 1:2], entries)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t = time.perf_counter()
+            step_fn(p, cfg, x[:, :, 1:2], entries)
+            torch.cuda.synchronize()
+            chunk_wall = time.perf_counter() - t
+        device_table(prof, chunk_wall, "profiled decode chunk (1 latent frame -> 4 frames)", 10)
+
+        # one profiled DiT sweep at the flagship's S = 8190
+        g = torch.Generator("cuda").manual_seed(31)
+        lat_s = torch.randn((1, 48, 21, 30, 52), generator=g, device="cuda").to(torch.bfloat16)
+        kv = precompute_cross_kv(pipe.dit_params, pipe.dit_cfg, ctx)
+        tt = torch.tensor([500.0], device="cuda")
+
+        def sweep():
+            return wan_dit_forward(pipe.dit_params, pipe.dit_cfg, lat_s, tt, cross_kv=kv,
+                                   fuse_vae_embedding_in_latents=True)
+
+        sweep()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t = time.perf_counter()
+            sweep()
+            torch.cuda.synchronize()
+            sweep_wall = time.perf_counter() - t
+        device_table(prof, sweep_wall, "profiled DiT sweep (S=8190)", 12,
+                     also=("ln_mod", "rms_rope", "fa_"))
+
+        # the requests phase's 17-frame latents, streamed against full-sequence
+        full = wvae.vae38_decode(params, cfg, latents17, clamp=False)
+        stream17 = wvae.vae38_decode(params, cfg, latents17, streaming=True, clamp=False)
+        err = (stream17.float() - full.float()).abs().max().item()
+        rel, rel_frame = rel_l2(stream17, full), rel_l2(stream17, full, (0, 1, 3, 4))
+        print(f"  17 frames, streamed against full-sequence decode: max abs diff {err:.3e} "
+              f"(tolerance {STREAM_VS_FULL_ATOL:.4f}), relative L2 {rel:.3e} (tolerance "
+              f"{STREAM_VS_FULL_REL_L2:.4f}), in the worst frame {rel_frame:.3e} (tolerance "
+              f"{STREAM_VS_FULL_FRAME_REL_L2:.4f})", flush=True)
+        if not (err <= STREAM_VS_FULL_ATOL and rel <= STREAM_VS_FULL_REL_L2
+                and rel_frame <= STREAM_VS_FULL_FRAME_REL_L2):
+            raise RuntimeError(f"streamed and full-sequence decode disagree: max abs {err:.3e}, "
+                               f"relative L2 {rel:.3e}, worst frame {rel_frame:.3e}")
+    print("flagship: " + json.dumps({
+        "request_s": wall, "sweeps_s": sweeps, "sweep_ms": sweeps / (2 * steps) * 1e3,
+        "peak_gib": peak, "decode_s": dec_s, "k1_k4_s": kernel_s, "k11_ab": k11,
+        "decode_chunk_wall_ms": chunk_wall * 1e3, "sweep_wall_ms": sweep_wall * 1e3,
+        "stream_vs_full_max_abs": err, "stream_vs_full_rel_l2": rel,
+        "stream_vs_full_worst_frame_rel_l2": rel_frame}), flush=True)
+    return got, k11_main
+
+
+def upstream_wan_state_dicts(dit, dit_cfg, vae, vae_cfg, te, te_cfg):
+    """Upstream-layout numpy state dicts (what ``from_pretrained`` reads) of
+    port param trees, so that the port's converters give the trees back:
+    the DiT's and UMT5's dense (in, out) weights transposed to (out, in);
+    the VAE38's keys found by running its converter over key indices."""
+    import numpy as np
+    import torch
+
+    from fairygen_tpu_torch.models.adapters import leaves_with_path
+    from fairygen_tpu_torch.models.wan.vae import convert_vae38_state_dict
+
+    def a(t):
+        return t.detach().float().cpu().numpy()
+
+    def dense(sd, name, p):
+        sd[name + ".weight"] = a(p["w"]).T
+        if "b" in p:
+            sd[name + ".bias"] = a(p["b"])
+
+    D = dit_cfg.dim
+    dsd = {"patch_embedding.weight": a(dit["patch_embed"]["w"]).reshape(
+               dit_cfg.in_dim, *dit_cfg.patch_size, D).transpose(4, 0, 1, 2, 3),
+           "patch_embedding.bias": a(dit["patch_embed"]["b"]),
+           "head.modulation": a(dit["head"]["modulation"]).reshape(1, 2, D)}
+    for name, p in (("text_embedding.0", dit["text_embed"]["fc1"]),
+                    ("text_embedding.2", dit["text_embed"]["fc2"]),
+                    ("time_embedding.0", dit["time_embed"]["fc1"]),
+                    ("time_embedding.2", dit["time_embed"]["fc2"]),
+                    ("time_projection.1", dit["time_proj"]), ("head.head", dit["head"])):
+        dense(dsd, name, p)
+    for i, blk in enumerate(dit["blocks"]):
+        pre = f"blocks.{i}"
+        for sub in ("self_attn", "cross_attn"):
+            for k in ("q", "k", "v", "o"):
+                dense(dsd, f"{pre}.{sub}.{k}", blk[sub][k])
+            for k in ("norm_q", "norm_k"):
+                dsd[f"{pre}.{sub}.{k}.weight"] = a(blk[sub][k])
+        dsd[f"{pre}.norm3.weight"] = a(blk["norm3"]["w"])
+        dsd[f"{pre}.norm3.bias"] = a(blk["norm3"]["b"])
+        dense(dsd, f"{pre}.ffn.0", blk["ffn"]["fc1"])
+        dense(dsd, f"{pre}.ffn.2", blk["ffn"]["fc2"])
+        dsd[f"{pre}.modulation"] = a(blk["modulation"]).reshape(1, 6, D)
+
+    tsd = {"token_embedding.weight": a(te["token_embedding"]), "norm.weight": a(te["norm"])}
+    for i, blk in enumerate(te["blocks"]):
+        pre = f"blocks.{i}"
+        tsd[pre + ".norm1.weight"], tsd[pre + ".norm2.weight"] = a(blk["norm1"]), a(blk["norm2"])
+        tsd[pre + ".pos_embedding.embedding.weight"] = a(blk["pos_emb"])
+        for k in ("q", "k", "v", "o"):
+            tsd[f"{pre}.attn.{k}.weight"] = a(blk["attn"][k]["w"]).T
+        for k, name in (("gate", "gate.0"), ("fc1", "fc1"), ("fc2", "fc2")):
+            tsd[f"{pre}.ffn.{name}.weight"] = a(blk["ffn"][k]["w"]).T
+
+    class KeyIndex(dict):
+        """Hands the converter each key's index as a 0-d array."""
+
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __getitem__(self, key):
+            self.names.append(key)
+            return np.array(float(len(self.names) - 1))
+
+    index = KeyIndex()
+    tree = convert_vae38_state_dict(index, vae_cfg, device="cpu")
+    ports = dict(leaves_with_path(vae))
+    vsd = {}
+    for path, leaf in leaves_with_path(tree):
+        if path[0] in ("latent_mean", "latent_std"):
+            continue
+        vsd[index.names[int(leaf.reshape(-1)[0])]] = a(ports[path])
+    return dsd, vsd, tsd
+
+
+def reference_from_pretrained_check():
+    """A tiny TI2V pipeline (head dim 128, so every serving kernel runs)
+    loaded by ``from_pretrained(hints=...)`` from upstream-layout
+    safetensors written in a temporary directory, on the card in bf16 and
+    on the CPU in fp32 and bf16, with a seeded rank-4 LoRA hot-loaded, then
+    cleared.  Each state's 2-step CFG request (latents) is held to the
+    reference phase's bound: the card's relative L2 error to the CPU fp32
+    run at most twice the CPU bf16 run's plus 1e-3."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.core.io import save_safetensors
+    from fairygen_tpu_torch.models.wan.dit import WanDiTConfig
+    from fairygen_tpu_torch.models.wan.text_encoder import UMT5Config
+    from fairygen_tpu_torch.models.wan.vae import WanVAEConfig
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines.wan_video import WanVideoPipeline
+
+    dit_cfg = WanDiTConfig(dim=256, in_dim=4, ffn_dim=512, out_dim=4, text_dim=64, freq_dim=64,
+                           num_heads=2, num_layers=2, seperated_timestep=True,
+                           require_vae_embedding=False, require_clip_embedding=False,
+                           fuse_vae_embedding_in_latents=True)
+    vae_cfg, te_cfg = WanVAEConfig.tiny(), UMT5Config.tiny(dim=64, dim_attn=64)
+    f32 = torch.float32
+    sds = upstream_wan_state_dicts(
+        convert.init_dit_params(dit_cfg, "cpu", f32, seed=8), dit_cfg,
+        convert.init_vae_params(vae_cfg, "cpu", f32, seed=9), vae_cfg,
+        convert.init_umt5_params(te_cfg, "cpu", f32, seed=10), te_cfg)
+    rng = np.random.default_rng(11)
+    lora = {}
+    for i in range(2):
+        for layer, (d_in, d_out) in (("self_attn.q", (256, 256)), ("cross_attn.o", (256, 256)),
+                                     ("ffn.0", (256, 512))):
+            pre = f"blocks.{i}.{layer}"
+            lora[pre + ".lora_A.default.weight"] = (0.05 * rng.standard_normal((4, d_in))
+                                                    ).astype(np.float32)
+            lora[pre + ".lora_B.default.weight"] = (0.05 * rng.standard_normal((d_out, 4))
+                                                    ).astype(np.float32)
+    g = torch.Generator("cpu").manual_seed(12)
+    ids = torch.randint(2, te_cfg.vocab, (1, 24), generator=g)
+    mask = torch.ones((1, 24), dtype=torch.long)
+    nids, nmask = torch.zeros_like(ids), torch.zeros_like(mask)
+    nids[0, 0], nmask[0, 0] = 1, 1
+    kw = dict(input_image=seeded_image(13, 512, 512), seed=14, height=512, width=512,
+              num_frames=17, cfg_scale=5.0, num_inference_steps=2, output_type="latents",
+              torch_compat_noise=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        hints = {}
+        for (name, cfg), sd in zip((("wan_video_dit", dit_cfg), ("wan_video_vae", vae_cfg),
+                                    ("wan_video_text_encoder", te_cfg)), sds):
+            path = os.path.join(tmp, name + ".safetensors")
+            save_safetensors(path, sd)
+            hints[path] = (name, dataclasses.asdict(cfg))
+        pipes = {(dev, dt): WanVideoPipeline.from_pretrained(list(hints), dtype=dt, hints=hints,
+                                                             device=dev)
+                 for dev, dt in (("cpu", f32), ("cpu", torch.bfloat16),
+                                 ("cuda", torch.bfloat16))}
+    outs = {}
+    for stage in ("hot LoRA", "cleared"):
+        for pipe in pipes.values():
+            if stage == "hot LoRA":
+                pipe.load_lora(lora, alpha=0.8, hotload=True)
+            else:
+                pipe.clear_lora()
+        res = {}
+        for (dev, dt), pipe in pipes.items():
+            before = dict(_kernels.launches)
+            res[dev, dt] = pipe(context=pipe.encode_ids(ids, mask),
+                                negative_context=pipe.encode_ids(nids, nmask), **kw).float().cpu()
+            if dev == "cuda":
+                ran = {k: _kernels.launches[k] - before[k] for k in before}
+        ref = res["cpu", f32]
+        rel = rel_l2(res["cuda", torch.bfloat16], ref)
+        rel16 = rel_l2(res["cpu", torch.bfloat16], ref)
+        tol = 2 * rel16 + 1e-3
+        print(f"  from_pretrained tiny pipeline, {stage}: relative L2 error to CPU fp32 "
+              f"{rel:.4e} (card bf16), {rel16:.4e} (CPU bf16); tolerance {tol:.4e}; kernel "
+              f"launches {ran}", flush=True)
+        if not all(ran[k] for k in FLAGSHIP_PER_SWEEP):
+            raise RuntimeError(f"a kernel did not run in the from_pretrained pipeline: {ran}")
+        if not rel <= tol:
+            raise RuntimeError(f"the from_pretrained pipeline ({stage}) disagrees with the CPU "
+                               f"reference: {rel:.4e}")
+        outs[stage] = ref
+    moved = rel_l2(outs["hot LoRA"], outs["cleared"])
+    print(f"  the hot LoRA moved the CPU fp32 latents by a relative L2 of {moved:.4e}", flush=True)
+    if not moved > 1e-3:
+        raise RuntimeError("the hot LoRA did not change the request")
 
 
 def to(tree, dev, dt):

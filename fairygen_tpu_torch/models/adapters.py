@@ -10,6 +10,8 @@
   * stage-2:     frozen A/B + zero-init B2 with dropout 0.5:
                  y = Wx + s·(xA)B + s·(xA)B2
   * merge tools: B = B1 + B2; fuse-at-load W += α·(B@A)ᵀ.
+  * hot LoRA:    unfused runtime adapters, α folded into B, stacked by
+                 rank concatenation, removed by ``clear_hot_lora``.
 
 Adapter params live inside the dense layer's dict under ``"lora"``:
 ``{"w", "b", "lora": {"A": (in, r), "B": (r, out), "B2": optional,
@@ -60,7 +62,9 @@ def apply_adapter(base_out, x, p, mask=None):
     Per-sample adapters: an A of shape (B, in, r) against x (B, N, in)
     applies one adapter per batch row, ``(x·A)·B`` and the mask only — no
     ``scale`` and no ``B2``, as the JAX package's per-sample branch (its
-    hot-LoRA slots carry their weights in A and B)."""
+    hot-LoRA slots carry their weights in A and B).  A hot adapter
+    (:func:`hot_lora_into_wan_dit`) is 2-D at any concatenated rank, so it
+    takes the shared branch with ``scale`` 1."""
     ap = p["lora"]
     if ap["A"].dim() == x.dim() == 3:
         upd = torch.matmul(torch.matmul(x, ap["A"].to(x.dtype)), ap["B"].to(x.dtype))
@@ -281,3 +285,59 @@ def set_lora_weights(params, lora_state_dict):
             ap["A"].copy_(torch.as_tensor(np.asarray(down).T))
             ap["B"].copy_(torch.as_tensor(np.asarray(up).T))
     return len(pairs)
+
+
+# ------------------------------------------------------------- hot (unfused)
+def hot_lora_into_wan_dit(params, lora_state_dict, alpha: float = 1.0, dtype=None):
+    """Attach a (torch-layout) Wan-DiT LoRA as runtime adapters, unfused:
+    each layer the LoRA names gets ``{"A": (in, r), "B": (r, out)}`` with
+    ``alpha`` folded into B, cast to ``dtype`` (default: the layer's weight
+    dtype); the layers it does not name are left as they are.  A second
+    call concatenates along the rank where a layer already carries a hot
+    adapter: sum_i a_i B_i A_i x is one pair of the total rank.  A layer
+    that carries a training adapter (keys beyond A and B) refuses a hot
+    one.  ``clear_hot_lora`` removes them.
+
+    Returns (new params, number of LoRA targets attached); the input tree
+    is not modified and base tensors are shared."""
+    pairs = _lora_pairs(lora_state_dict)
+    blocks = list(params["blocks"])
+    for (i, sub, proj), (down, up) in pairs.items():
+        layer = dict(blocks[i][sub][proj])
+        w = layer["w"]
+        dt = dtype or w.dtype
+        a = torch.as_tensor(np.asarray(down, np.float32).T).to(w.device, dt)
+        b = torch.as_tensor(alpha * np.asarray(up, np.float32).T).to(w.device, dt)
+        if "lora" in layer:
+            old = layer["lora"]
+            extra = set(old) - {"A", "B"}
+            if extra:
+                raise ValueError(f"{sub}.{proj} already carries a training adapter (keys "
+                                 f"{sorted(extra)}); fuse it first (load_lora(hotload="
+                                 "False)): hot LoRAs cannot stack on it")
+            a = torch.cat([old["A"].to(dt), a], dim=-1)
+            b = torch.cat([old["B"].to(dt), b], dim=-2)
+        layer["lora"] = {"A": a, "B": b}
+        blocks[i] = _with_layer(blocks[i], sub, proj, layer)
+    return {**params, "blocks": blocks}, len(pairs)
+
+
+def clear_hot_lora(params):
+    """Strip every ``"lora"`` entry carrying an ``A`` from a tree of dicts
+    and lists.  Returns (new params, number cleared)."""
+    cleared = [0]
+
+    def walk(node):
+        if isinstance(node, dict):
+            out = {}
+            for k, v in node.items():
+                if k == "lora" and isinstance(v, dict) and "A" in v:
+                    cleared[0] += 1
+                    continue
+                out[k] = walk(v)
+            return out
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return node
+
+    return walk(params), cleared[0]

@@ -1,16 +1,27 @@
 """Wan text+image-to-video pipeline, TI2V path (port of
 fairygen_tpu/pipelines/wan_video.py ``WanVideoPipeline``).
 
-The call: noise (``core.noise``), VAE38 encode of the first frame pinned
-into latent frame 0, flow-match Euler steps with two batch-1 DiT sweeps for
-CFG and a re-pin of frame 0 after each step, VAE38 decode.  The per-prompt
-cross-attention (k, v) are computed once per call.  Prompts arrive as
-encoded ``context`` / ``negative_context`` (:func:`encode_ids` runs UMT5 on
-token ids); the tokenizer needs files the repository does not hold.
+The call: prompt strings through the UMT5 tokenizer and encoder (or
+encoded ``context`` / ``negative_context``), noise (``core.noise``), VAE38
+encode of the first frame pinned into latent frame 0, flow-match Euler
+steps with CFG as two batch-1 DiT sweeps (or one batch-2 sweep with
+``cfg_merge``) and a re-pin of frame 0 after each step, then the VAE38
+decode: full-sequence, streamed chunk by chunk (``streaming_vae``) or in
+spatial tiles (``tiled``).  ``sliding_window_size``/``_stride`` denoise
+overlapping temporal windows and blend them.  The per-prompt
+cross-attention (k, v) are computed once per call, but for the sliding
+window, whose sweeps take the context as the JAX package's do.
+
+``from_pretrained`` finds the DiT, the VAE38 and UMT5 among checkpoint
+files by their key hash (``core.model_pool``).  LoRAs load fused into the
+DiT weights or hot (``load_lora(hotload=True)``, cleared by
+``clear_lora``).  The JAX pipeline's other paths (VACE, S2V, camera,
+animate, VAP, LongCat, TeaCache, the I2V and two-expert models,
+video-to-video, W8A8) are not ported: their keywords raise.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +34,22 @@ from ..models.wan.dit import WanDiTConfig, precompute_cross_kv, wan_dit_forward
 from ..models.wan.text_encoder import UMT5Config, mask_pad_tokens, umt5_encode
 from ..models.wan.vae import WanVAEConfig, vae38_decode, vae38_encode
 
+_VARIANTS = "ROADMAP.md Queue 1 item 6, the other Wan variants"
+# keywords of the JAX pipeline's __call__ whose paths are not ported -> (the
+# JAX default, which asks for nothing, and the ROADMAP item that ports it)
+_UNPORTED = {name: (None, _VARIANTS) for name in (
+    "end_image", "input_video", "motion_bucket_id", "vace_video", "vace_video_mask",
+    "vace_reference_image", "audio_embeds", "input_audio", "longcat_video", "s2v_pose_video",
+    "s2v_pose_latents", "motion_video", "camera_control_direction", "reference_image",
+    "animate_pose_video", "animate_face_video", "animate_inpaint_video", "animate_mask_video",
+    "vap_video", "context_vap", "negative_context_vap")}
+_UNPORTED.update(
+    switch_dit_boundary=(0.875, _VARIANTS), vace_scale=(1.0, _VARIANTS),
+    audio_sample_rate=(16000, _VARIANTS), camera_control_speed=(1 / 54, _VARIANTS),
+    vap_prompt=(" ", _VARIANTS), negative_vap_prompt=(" ", _VARIANTS),
+    tea_cache_l1_thresh=(None, "ROADMAP.md Queue 1 item 5, TeaCache"),
+    tea_cache_model_id=("Wan2.1-T2V-1.3B", "ROADMAP.md Queue 1 item 5, TeaCache"))
+
 
 def _as_pil(image, width, height):
     from PIL import Image
@@ -33,20 +60,87 @@ def _as_pil(image, width, height):
 
 
 class WanVideoPipeline:
-    """Wan2.2-TI2V-5B pipeline over port params (see ``convert``).
+    """Wan2.2-TI2V-5B pipeline over port params (see ``convert`` and
+    ``from_pretrained``).
 
     ``device`` defaults to "cuda" and raises without a card unless "cpu" is
     asked for; params must already live on that device."""
 
     def __init__(self, dit_params: Any, dit_cfg: WanDiTConfig, vae_params: Any = None,
                  vae_cfg: Optional[WanVAEConfig] = None, te_params: Any = None,
-                 te_cfg: Optional[UMT5Config] = None, dtype=torch.bfloat16, device="cuda"):
+                 te_cfg: Optional[UMT5Config] = None, dtype=torch.bfloat16, device="cuda",
+                 tokenizer=None):
         self.device = resolve_device(device)
         self.dit_params, self.dit_cfg = dit_params, dit_cfg
         self.vae_params, self.vae_cfg = vae_params, vae_cfg
         self.te_params, self.te_cfg = te_params, te_cfg
+        self.tokenizer = tokenizer  # utils.tokenizer.HuggingfaceTokenizer
         self.dtype = dtype
 
+    @classmethod
+    def from_pretrained(cls, model_paths, tokenizer_path=None, dtype=torch.bfloat16, hints=None,
+                        mesh=None, device="cuda"):
+        """Hash-detected loading: the DiT, VAE38 and UMT5 files (paths or
+        ``core.model_config.ModelConfig``s, in any order) are built on
+        ``device``; ``hints`` maps a path to (model_name, extra_kwargs) for
+        checkpoints the registry does not know.  ``tokenizer_path``: a
+        transformers tokenizer directory (UMT5's, 512 tokens)."""
+        if mesh is not None:
+            raise NotImplementedError("mesh= (sequence parallelism) waits for parallel/ on "
+                                      "torch.distributed, ROADMAP.md Queue 1 item 9")
+        from ..core.model_pool import ModelPool
+
+        device = resolve_device(device)
+        pool = ModelPool().load(model_paths, dtype=dtype, hints=hints, device=device)
+        dits = pool.fetch_model("wan_video_dit", index="all") or []
+        if len(dits) > 1:
+            raise NotImplementedError(f"two DiT files (the two-expert models) are not ported "
+                                      f"({_VARIANTS})")
+        dit_params, dit_cfg = dits[0] if dits else (None, None)
+        vae = pool.fetch_model("wan_video_vae")
+        te = pool.fetch_model("wan_video_text_encoder")
+        tokenizer = None
+        if tokenizer_path is not None:
+            from ..utils.tokenizer import HuggingfaceTokenizer
+
+            tokenizer = HuggingfaceTokenizer(tokenizer_path, seq_len=512, clean="whitespace")
+        return cls(dit_params, dit_cfg, vae[0] if vae else None, vae[1] if vae else None,
+                   te[0] if te else None, te[1] if te else None, dtype=dtype, device=device,
+                   tokenizer=tokenizer)
+
+    def quantize(self, *args, **kwargs):
+        raise NotImplementedError("W8A8 DiT projections are not ported (ROADMAP.md Queue 1 "
+                                  "item 4, ops/quant.py)")
+
+    # ------------------------------------------------------------- adapters
+    def load_lora(self, lora_path_or_sd, alpha: float = 1.0, hotload: bool = False):
+        """A Wan-DiT LoRA (a file or a state dict) fused into the DiT weights,
+        or with ``hotload=True`` attached unfused (stacking by rank
+        concatenation across calls, removed by :meth:`clear_lora`)."""
+        from ..core.io import load_state_dict
+        from ..models.adapters import fuse_lora_into_wan_dit, hot_lora_into_wan_dit
+
+        sd = (load_state_dict(lora_path_or_sd) if isinstance(lora_path_or_sd, str)
+              else lora_path_or_sd)
+        if hotload:
+            self.dit_params, n = hot_lora_into_wan_dit(self.dit_params, sd, alpha=alpha,
+                                                       dtype=self.dtype)
+            print(f"{n} tensors patched by LoRA (hot).")
+        else:
+            self.dit_params, n = fuse_lora_into_wan_dit(self.dit_params, sd, self.dit_cfg,
+                                                        alpha=alpha)
+            print(f"{n} tensors fused by LoRA.")
+        return self
+
+    def clear_lora(self):
+        """Drop every hot-loaded LoRA (fused ones cannot be cleared)."""
+        from ..models.adapters import clear_hot_lora
+
+        self.dit_params, n = clear_hot_lora(self.dit_params)
+        print(f"{n} LoRA layers cleared.")
+        return self
+
+    # ---------------------------------------------------------------- text
     @torch.no_grad()
     def encode_ids(self, ids, mask) -> torch.Tensor:
         """UMT5 on token ids (B, L) -> context zeroed past each length."""
@@ -55,6 +149,15 @@ class WanVideoPipeline:
         emb = umt5_encode(self.te_params, self.te_cfg, ids, mask)
         return mask_pad_tokens(emb, mask).to(self.dtype)
 
+    def encode_prompt(self, prompt: str) -> torch.Tensor:
+        """A prompt string through the tokenizer and UMT5."""
+        if self.tokenizer is None or self.te_params is None:
+            raise ValueError("encode_prompt needs a tokenizer and a text encoder "
+                             "(from_pretrained(..., tokenizer_path=...))")
+        ids, mask = self.tokenizer(prompt, return_mask=True)
+        return self.encode_ids(ids, mask)
+
+    # ------------------------------------------------------------- helpers
     def _latent_shape(self, height, width, num_frames):
         f = self.vae_cfg.upsampling_factor
         return (1, self.vae_cfg.z_dim, (num_frames - 1) // 4 + 1, height // f, width // f)
@@ -66,20 +169,46 @@ class WanVideoPipeline:
         return vae38_encode(self.vae_params, self.vae_cfg,
                             img.to(self.device, self.dtype)).to(self.dtype)
 
+    # ---------------------------------------------------------------- call
     @torch.no_grad()
-    def __call__(self, *, context, negative_context=None, input_image=None, seed: int = 0,
+    def __call__(self, prompt: Optional[str] = None, negative_prompt: str = "", *,
+                 context=None, negative_context=None, input_image=None,
+                 denoising_strength: float = 1.0, seed: Optional[int] = 0,
                  height: int = 480, width: int = 832, num_frames: int = 81,
-                 cfg_scale: float = 5.0, num_inference_steps: int = 50,
-                 sigma_shift: float = 5.0, output_type: str = "quantized",
-                 torch_compat_noise: bool = False):
+                 cfg_scale: float = 5.0, cfg_merge: bool = False,
+                 num_inference_steps: int = 50, sigma_shift: float = 5.0,
+                 tiled: bool = False, tile_size: Tuple[int, int] = (30, 52),
+                 tile_stride: Tuple[int, int] = (15, 26),
+                 sliding_window_size: Optional[int] = None,
+                 sliding_window_stride: Optional[int] = None, streaming_vae: bool = False,
+                 vae_frames_per_chunk: int = 1, output_type: str = "quantized",
+                 torch_compat_noise: bool = False, progress_callback=None, **unported):
+        """The JAX pipeline's keywords; ``progress_callback(steps_done,
+        total_steps)`` runs after each step.  A keyword of a path that is
+        not ported is accepted at the JAX default and raises otherwise."""
+        for name, value in unported.items():
+            if name not in _UNPORTED:
+                raise TypeError(f"__call__() got an unexpected keyword argument {name!r}")
+            default, item = _UNPORTED[name]
+            if value is None if default is None else value == default:
+                continue
+            raise NotImplementedError(f"{name}: not ported ({item})")
+        seed = 0 if seed is None else seed
         f = self.vae_cfg.upsampling_factor
         height, width, num_frames = check_resize_height_width(
             height, width, num_frames, height_division_factor=f * 2,
             width_division_factor=f * 2, time_division_factor=4, time_division_remainder=1)
-        context = context.to(self.device, self.dtype)
-        use_cfg = cfg_scale != 1.0 and negative_context is not None
+        if context is None:
+            context = self.encode_prompt(prompt)
         if cfg_scale != 1.0 and negative_context is None:
-            raise ValueError("cfg_scale != 1 needs negative_context (the encoded empty prompt)")
+            if self.tokenizer is None:
+                raise ValueError("cfg_scale != 1 needs negative_context (the encoded empty "
+                                 "prompt) or a tokenizer for negative_prompt")
+            negative_context = self.encode_prompt(negative_prompt)
+        context = context.to(self.device, self.dtype)
+        use_cfg = cfg_scale != 1.0
+        if use_cfg:
+            negative_context = negative_context.to(self.device, self.dtype)
 
         latents = generate_noise(self._latent_shape(height, width, num_frames), seed=seed,
                                  dtype=self.dtype, torch_compat=torch_compat_noise,
@@ -87,37 +216,105 @@ class WanVideoPipeline:
         first = None
         if input_image is not None:
             if not self.dit_cfg.fuse_vae_embedding_in_latents:
-                raise NotImplementedError("only the TI2V first-frame conditioning is ported")
+                raise NotImplementedError(f"only the TI2V first-frame conditioning is ported "
+                                          f"({_VARIANTS})")
             first = self.encode_first_frame(_as_pil(input_image, width, height))
             latents[:, :, 0:1] = first
 
-        scheduler = FlowMatchScheduler("Wan").set_timesteps(num_inference_steps,
-                                                            shift=sigma_shift)
+        scheduler = FlowMatchScheduler("Wan").set_timesteps(
+            num_inference_steps, denoising_strength=denoising_strength, shift=sigma_shift)
+        args = (latents, context, negative_context if use_cfg else None, scheduler, first,
+                cfg_scale, progress_callback)
+        if sliding_window_size is not None:
+            latents = self._denoise_windowed(*args, sliding_window_size, sliding_window_stride)
+        else:
+            latents = self._denoise(*args, cfg_merge)
+        return self._decode_output(latents, output_type=output_type,
+                                   streaming_vae=streaming_vae,
+                                   frames_per_chunk=vae_frames_per_chunk, tiled=tiled,
+                                   tile_size=tile_size, tile_stride=tile_stride)
+
+    def _sweep(self, latents, t1, fuse, cross_kv=None, context=None):
+        return wan_dit_forward(self.dit_params, self.dit_cfg, latents, t1, context,
+                               fuse_vae_embedding_in_latents=fuse, cross_kv=cross_kv)
+
+    def _denoise(self, latents, context, negative_context, scheduler, first, cfg_scale,
+                 progress_callback, cfg_merge):
+        """The steps: two batch-1 sweeps for CFG, or with ``cfg_merge`` one
+        batch-2 sweep over [prompt, negative prompt]; the guidance combine
+        in fp32, as in the JAX package."""
         timesteps = torch.tensor(scheduler.timesteps, dtype=torch.float32)
-        ckv_p = precompute_cross_kv(self.dit_params, self.dit_cfg, context)
-        ckv_n = None
-        if use_cfg:
-            ckv_n = precompute_cross_kv(self.dit_params, self.dit_cfg,
-                                        negative_context.to(self.device, self.dtype))
-        fuse = first is not None
-        for i in range(len(scheduler.timesteps)):
+        n, fuse = len(scheduler.timesteps), first is not None
+        merge = negative_context is not None and cfg_merge
+        if merge:
+            ckv = precompute_cross_kv(self.dit_params, self.dit_cfg,
+                                      torch.cat([context, negative_context]))
+        else:
+            ckv = precompute_cross_kv(self.dit_params, self.dit_cfg, context)
+            if negative_context is not None:
+                ckv_n = precompute_cross_kv(self.dit_params, self.dit_cfg, negative_context)
+        for i in range(n):
             t1 = timesteps[i:i + 1].to(self.device)
-            v = wan_dit_forward(self.dit_params, self.dit_cfg, latents, t1,
-                                fuse_vae_embedding_in_latents=fuse, cross_kv=ckv_p)
-            if use_cfg:
-                v_n = wan_dit_forward(self.dit_params, self.dit_cfg, latents, t1,
-                                      fuse_vae_embedding_in_latents=fuse, cross_kv=ckv_n)
-                # the guidance combine runs in fp32, as in the JAX package
+            if merge:
+                v2 = self._sweep(torch.cat([latents, latents]), t1.repeat(2), fuse, ckv)
+                v, v_n = v2[:1], v2[1:]
+            else:
+                v = self._sweep(latents, t1, fuse, ckv)
+                if negative_context is not None:
+                    v_n = self._sweep(latents, t1, fuse, ckv_n)
+            if negative_context is not None:
                 v = v_n.float() + cfg_scale * (v - v_n).float()
             latents = scheduler.step(v, i, latents)
             if fuse:
                 latents[:, :, 0:1] = first
-        return self._decode_output(latents, output_type)
+            if progress_callback is not None:
+                progress_callback(i + 1, n)
+        return latents
 
-    def _decode_output(self, latents, output_type):
+    def _denoise_windowed(self, latents, context, negative_context, scheduler, first,
+                          cfg_scale, progress_callback, window_size, window_stride):
+        """Long videos: each step denoises overlapping temporal windows
+        (each sweep with the prompt's context; CFG combined per window in
+        the sweep's dtype, as the JAX package's windowed path does) and
+        blends them in fp32 (``utils.temporal_tiler``)."""
+        from ..utils.temporal_tiler import temporal_tiled_model_fn
+
+        if window_stride is None:
+            raise ValueError("sliding_window_size needs sliding_window_stride")
+        timesteps = torch.tensor(scheduler.timesteps, dtype=torch.float32)
+        n, fuse = len(scheduler.timesteps), first is not None
+        for i in range(n):
+            t1 = timesteps[i:i + 1].to(self.device)
+
+            def model_fn(window):
+                v = self._sweep(window, t1, fuse, context=context)
+                if negative_context is not None:
+                    v_n = self._sweep(window, t1, fuse, context=negative_context)
+                    v = v_n + float(torch.tensor(cfg_scale, dtype=v.dtype)) * (v - v_n)
+                return v
+
+            v = temporal_tiled_model_fn(model_fn, latents, window_size, window_stride)
+            latents = scheduler.step(v, i, latents)
+            if fuse:
+                latents[:, :, 0:1] = first
+            if progress_callback is not None:
+                progress_callback(i + 1, n)
+        return latents
+
+    def _decode_output(self, latents, *, output_type, streaming_vae=False, frames_per_chunk=1,
+                       tiled=False, tile_size=(30, 52), tile_stride=(15, 26)):
+        """latents -> (tiled / streamed / full-sequence) VAE decode ->
+        floatpoint video or quantized frames."""
         if self.vae_params is None or output_type == "latents":
             return latents
-        video = vae38_decode(self.vae_params, self.vae_cfg, latents.to(self.dtype))
+        if tiled:
+            from ..models.wan.vae_tiling import vae38_tiled_decode
+
+            video = vae38_tiled_decode(self.vae_params, self.vae_cfg, latents.to(self.dtype),
+                                       tile_size=tile_size, tile_stride=tile_stride)
+        else:
+            video = vae38_decode(self.vae_params, self.vae_cfg, latents.to(self.dtype),
+                                 streaming=streaming_vae, frames_per_chunk=frames_per_chunk)
         if output_type == "floatpoint":
             return video
         return postprocess_video(video.float().cpu().numpy())

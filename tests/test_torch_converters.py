@@ -98,13 +98,9 @@ def test_flux_clip_converter(goldens):
         jfte.convert_flux_clip_state_dict(sd, jfte.CLIPTextConfig.tiny(**CLIP_CFG)))
 
 
-def test_clip_text_converter_transformers_naming(goldens):
-    """transformers CLIPTextModel names, made from the FLUX golden's
-    tensors (with a text projection), through both converters."""
-    from fairygen_tpu.models.sdxl.clip import convert_clip_text_state_dict as j_conv
-    from fairygen_tpu_torch.models.sdxl.clip import convert_clip_text_state_dict as t_conv
-
-    src = _sd(goldens("flux_text"), "clip", ".")
+def transformers_clip_sd(src):
+    """The FLUX golden's CLIP tensors under transformers CLIPTextModel
+    names, with a (16, 32) text projection."""
     names = {"attn.to_q": "self_attn.q_proj", "attn.to_k": "self_attn.k_proj",
              "attn.to_v": "self_attn.v_proj", "attn.to_out": "self_attn.out_proj",
              "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
@@ -118,6 +114,16 @@ def test_clip_text_converter_transformers_naming(goldens):
             sd[f"text_model.encoder.layers.{i}.{names.get(stem, stem)}.{leaf}"] = v
         elif k.startswith("final_layer_norm"):
             sd["text_model." + k] = v
+    return sd
+
+
+def test_clip_text_converter_transformers_naming(goldens):
+    """transformers CLIPTextModel names, made from the FLUX golden's
+    tensors (with a text projection), through both converters."""
+    from fairygen_tpu.models.sdxl.clip import convert_clip_text_state_dict as j_conv
+    from fairygen_tpu_torch.models.sdxl.clip import convert_clip_text_state_dict as t_conv
+
+    sd = transformers_clip_sd(_sd(goldens("flux_text"), "clip", "."))
     cfg = dict(CLIP_CFG, projection_dim=16)
     _assert_same_tree(t_conv(sd, tfte.CLIPTextConfig.tiny(**cfg), device="cpu"),
                       j_conv(sd, jfte.CLIPTextConfig.tiny(**cfg)))

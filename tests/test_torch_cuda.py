@@ -15,7 +15,9 @@ key box past Sk_pad), at 80 and 64 keys (the 80-column form at head dim
 L2 error of 2^-10, over 40 heads of one key tile (several items a CTA),
 and two of their runs must give the same bits; K5 at head dim 128 and
 K6a with a kv_len inside the last 128-key tile (1030 of 1100), K6a's lse
-fed to K6b and K6c, and one launch each;
+fed to K6b and K6c, and one launch each; the streamed VAE38 decode
+against the full-sequence one, a four-tile decode against the CPU, and a
+hot LoRA through K1-K4 (the tiny pipelines also launch K11 in the VAE);
 K6b and K6c likewise (sq = 129 / Sk = 4097, sq = 300 with sk_actual =
 4000, one partial key tile at sk = 77), and two of their runs must give
 the same bits.  They skip here when no card is present; on a
@@ -216,6 +218,7 @@ def test_tiny_pipeline_launches_every_kernel(card):
                  output_type="floatpoint")
     assert torch.isfinite(video).all() and video.shape == (1, 3, 17, 512, 512)
     sweeps, layers = 4, 2
+    # the tiny VAE38's norm + SiLU: 13 in the first-frame encode, 21 in the decode
     assert _kernels.launches == {"ln_modulate": 3 * layers * sweeps,
                                  "rms_rope_heads_major": 3 * layers * sweeps,
                                  "flash_bounded": layers * sweeps,
@@ -223,7 +226,7 @@ def test_tiny_pipeline_launches_every_kernel(card):
                                  "flash_fwd": 0, "flash_fwd_lse": 0, "flash_bwd_dq": 0,
                                  "flash_bwd_dkv": 0, "rms_rope_per_head": 0,
                                  "rms_rope_joint": 0, "flash_bias": 0, "rms_modulate": 0,
-                                 "vae_rms_silu": 0, "flash_small_kv_max": 0,
+                                 "vae_rms_silu": 13 + 21, "flash_small_kv_max": 0,
                                  "flash_small_kv_masked": 0, "flash_fwd_d64": 0}
 
 
@@ -860,3 +863,112 @@ def test_tiny_sdxl_brushnet_pipeline_launches_its_kernels(card):
     got = {k: v for k, v in _kernels.launches.items() if v}
     assert got == {"flash_fwd_d64": 5 * steps, "flash_small_kv_max": (6 + 1) * steps,
                    "flash_small_kv_masked": 11 * steps}
+
+
+def _tiny_vae(seed=0):
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.wan.vae import WanVAEConfig
+
+    cfg = WanVAEConfig.tiny()
+    return convert.init_vae_params(cfg, "cpu", torch.float32, seed=seed), cfg
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def test_streamed_decode_matches_full_sequence(card):
+    """fp32 on the card (TF32 off): the streamed decode of 5 latent frames
+    against the full-sequence decode and against the CPU's streamed decode.
+    cuDNN may pick other convolution algorithms for 1- and 4-frame chunks
+    than for the whole clip, so 1e-4 (the CPU tests hold 1e-5)."""
+    from fairygen_tpu_torch.models.wan.vae import vae38_decode
+
+    params, cfg = _tiny_vae()
+    z = torch.randn((1, 4, 5, 16, 16), generator=torch.Generator().manual_seed(1))
+    gp, gz = _to(params, "cuda"), z.cuda()
+    streamed = vae38_decode(gp, cfg, gz, streaming=True, clamp=False)
+    full = vae38_decode(gp, cfg, gz, clamp=False)
+    assert streamed.shape == (1, 3, 17, 256, 256)
+    torch.testing.assert_close(streamed, full, rtol=0, atol=1e-4)
+    cpu = vae38_decode(params, cfg, z, streaming=True, clamp=False)
+    torch.testing.assert_close(streamed.cpu(), cpu, rtol=0, atol=1e-4)
+    two = vae38_decode(gp, cfg, gz, streaming=True, clamp=False, frames_per_chunk=2)
+    torch.testing.assert_close(two, full, rtol=0, atol=1e-4)
+
+
+def test_tiled_decode_over_four_tiles_matches_the_cpu(card):
+    """12 x 12 latents in 8 x 8 tiles at stride 4 (four tiles, fp32 blend on
+    the card) against the same on the CPU: 1e-4, as above."""
+    from fairygen_tpu_torch.models.wan.vae_tiling import _tile_tasks, vae38_tiled_decode
+
+    params, cfg = _tiny_vae(2)
+    z = torch.randn((1, 4, 3, 12, 12), generator=torch.Generator().manual_seed(3))
+    kw = dict(tile_size=(8, 8), tile_stride=(4, 4))
+    assert len(_tile_tasks(12, 12, (8, 8), (4, 4))) == 4
+    out = vae38_tiled_decode(_to(params, "cuda"), cfg, z.cuda(), **kw)
+    assert out.is_cuda and out.dtype == torch.float32 and out.shape == (1, 3, 9, 192, 192)
+    torch.testing.assert_close(out.cpu(), vae38_tiled_decode(params, cfg, z, **kw),
+                               rtol=0, atol=1e-4)
+
+
+def test_hot_lora_runs_through_the_serving_kernels(card):
+    """A tiny pipeline with a rank-4 hot LoRA (loaded twice: rank 8) on the
+    card in bf16 launches K1-K4 as without one, and its latents are held
+    to the CPU's in fp32 within twice the CPU bf16 run's relative L2 error
+    plus 1e-3 (chip_smoke.py's reference bound); after clear_lora no
+    adapter is left."""
+    import numpy as np
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.core.params import cast_tree
+    from fairygen_tpu_torch.models.wan.dit import WanDiTConfig
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines.wan_video import WanVideoPipeline
+
+    cfg = WanDiTConfig(dim=256, in_dim=4, ffn_dim=512, out_dim=4, text_dim=32, freq_dim=32,
+                       num_heads=2, num_layers=2, seperated_timestep=True,
+                       require_vae_embedding=False, require_clip_embedding=False,
+                       fuse_vae_embedding_in_latents=True)
+    dit = convert.init_dit_params(cfg, "cpu", torch.float32, seed=4)
+    vae, vcfg = _tiny_vae(5)
+    rng = np.random.default_rng(6)
+    lora = {}
+    for i in range(2):
+        for layer, (d_in, d_out) in (("self_attn.k", (256, 256)), ("ffn.2", (512, 256))):
+            lora[f"blocks.{i}.{layer}.lora_A.weight"] = (0.05 * rng.standard_normal(
+                (4, d_in))).astype(np.float32)
+            lora[f"blocks.{i}.{layer}.lora_B.weight"] = (0.05 * rng.standard_normal(
+                (d_out, 4))).astype(np.float32)
+    g = torch.Generator().manual_seed(7)
+    ctx, nctx = torch.randn(1, 20, 32, generator=g), torch.randn(1, 20, 32, generator=g)
+    kw = dict(input_image=np.random.default_rng(8).integers(0, 256, (512, 512, 3), np.uint8),
+              seed=9, height=512, width=512, num_frames=17, num_inference_steps=2,
+              output_type="latents", torch_compat_noise=True)
+    outs = {}
+    for dev, dt in (("cpu", torch.float32), ("cpu", torch.bfloat16), ("cuda", torch.bfloat16)):
+        pipe = WanVideoPipeline(cast_tree(_to(dit, dev), dt), cfg, cast_tree(_to(vae, dev), dt),
+                                vcfg, dtype=dt, device=dev)
+        pipe.load_lora(lora, alpha=0.5, hotload=True).load_lora(lora, alpha=0.5, hotload=True)
+        assert pipe.dit_params["blocks"][1]["ffn"]["fc2"]["lora"]["A"].shape == (512, 8)
+        _kernels.reset_launches()
+        outs[dev, dt] = pipe(context=ctx, negative_context=nctx, **kw).float().cpu()
+        if dev == "cuda":
+            sweeps, layers = 4, 2
+            assert {k: v for k, v in _kernels.launches.items() if v} == {
+                "ln_modulate": 3 * layers * sweeps, "rms_rope_heads_major": 3 * layers * sweeps,
+                "flash_bounded": layers * sweeps, "flash_small_kv": layers * sweeps,
+                "vae_rms_silu": 13}  # the first-frame encode; latents out, no decode
+            pipe.clear_lora()
+            assert not any("lora" in blk[sub][p] for blk in pipe.dit_params["blocks"]
+                           for sub, p in (("self_attn", "k"), ("ffn", "fc2")))
+    ref = outs["cpu", torch.float32]
+
+    def rel(a):
+        return ((a - ref).norm() / ref.norm()).item()
+
+    assert rel(outs["cuda", torch.bfloat16]) <= 2 * rel(outs["cpu", torch.bfloat16]) + 1e-3

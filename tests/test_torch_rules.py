@@ -18,6 +18,8 @@ import pytest
 import torch
 
 from fairygen_tpu_torch import convert
+from fairygen_tpu_torch.core.model_pool import ModelPool
+from fairygen_tpu_torch.examples import wan_batch_inference, wan_inference
 from fairygen_tpu_torch.models.flux.dit import FluxDiTConfig, convert_flux_dit_state_dict
 from fairygen_tpu_torch.models.qwen.text_encoder import QwenVLTextConfig
 from fairygen_tpu_torch.models.sdxl.clip import CLIPTextConfig
@@ -60,7 +62,9 @@ def test_the_scan_sees_the_whole_package():
     assert {"dit.py", "vae.py", "wan_video.py", "_kernels.py", "chip_smoke.py",
             "flux_image.py", "clip.py", "text_encoders.py", "params.py", "z_image.py",
             "text_encoder.py", "unet2d.py", "sdxl_brushnet.py", "dpm_solver.py",
-            "dora_trainer.py"} <= names
+            "dora_trainer.py", "vae_tiling.py", "temporal_tiler.py", "tokenizer.py",
+            "video.py", "model_pool.py", "registry.py", "model_config.py", "dtypes.py",
+            "wan_inference.py", "wan_batch_inference.py"} <= names
     assert REPO / "fairygen_tpu_torch" / "models" / "z_image" / "dit.py" in PORT_FILES
     assert REPO / "fairygen_tpu_torch" / "models" / "qwen" / "text_encoder.py" in PORT_FILES
 
@@ -91,7 +95,8 @@ UNET0_SD = {f"time_embedding.linear_{i}.{k}": np.zeros((2, 2) if k == "weight" e
                                    "init_t5", "init_clip_text", "init_autoencoder_kl",
                                    "convert_umt5", "convert_flux_dit", "zimage_pipeline",
                                    "init_z_image_dit", "init_qwen_text", "sdxl_pipeline",
-                                   "init_unet2d", "convert_unet2d"])
+                                   "init_unet2d", "convert_unet2d", "from_pretrained",
+                                   "model_pool", "cli_twin", "batch_cli_twin"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
@@ -119,6 +124,11 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
                                                       AutoencoderKLConfig.sdxl()),
         "init_unet2d": lambda: convert.init_unet2d_params(UNET0),
         "convert_unet2d": lambda: convert_unet2d_state_dict(UNET0_SD, UNET0),
+        "from_pretrained": lambda: WanVideoPipeline.from_pretrained([]),
+        "model_pool": lambda: ModelPool().load([]),
+        "cli_twin": lambda: wan_inference.main(["--model_paths", "[]", "--prompt", "x"]),
+        "batch_cli_twin": lambda: wan_batch_inference.main(["--model_paths", "[]",
+                                                            "--shot_dir", "."]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
