@@ -42,7 +42,9 @@ Phases, each printing its wall seconds:
                 the Z-Image-Turbo 1024x1024 shapes (4416, 4096 and 320 rows
                 of 3840, with and without scale) and K11 at two VAE38
                 shapes (399,360 x 256 and 7800 x 1024, with and without
-                SiLU), F.rms_norm as their yardstick.  Then K4's max and
+                SiLU), F.rms_norm as their yardstick, and K7, K8 and K9's
+                device time (torch.profiler) beside their event times.
+                Then K4's max and
                 masked forms and K5 at head dim 64 at the SDXL 1024x1024
                 CFG shapes (cross-attention to 77 text keys, 1024- and
                 4096-token self-attention), K4 at head dim 128, with a
@@ -65,7 +67,8 @@ Phases, each printing its wall seconds:
                 every other kernel 0)
                 and finite output of 81 480x832 frames; then K11 against
                 its plain version at every (rows, C) the request gave it
-                (recorded during the request); then on its latents
+                (recorded during the request), with its device time at
+                each and the sum over the 630 calls; then on its latents
                 the streamed decode alone (wall, peak memory, device busy
                 share of one profiled chunk), the one-tile tiled decode
                 (bit for bit the streamed one), the decode with its
@@ -82,6 +85,18 @@ Phases, each printing its wall seconds:
                 through safetensors, one stage-2 step, merge + fuse, one
                 request; launch counts checked exactly per step (per step:
                 K1 180, K2 180, K3 60, K4 60, K6a/b/c 60 each, K5 0).
+  6b. train_surface — the training surface as the wan_train CLI twin runs
+                it, at the same width: data_process of a seeded 81-frame
+                clip (frames in memory; the streamed VAE38 encode, K11 21
+                x 21 launches; UMT5), two stage-1 and two stage-2 steps
+                from the .npz cache through UnifiedDataset and
+                launch_training_task, the merge_weights twin and a
+                request with the merged adapter, a resumed run bit for
+                bit the straight one, one direct-distill step (4 sweeps
+                with gradients) and one trajectory step (50 teacher
+                sweeps at 17 frames), one step each with AdamW, Adafactor
+                and remat="offload" (which must lower the peak by at
+                least half its carries); walls, peaks, exact launches.
   7. breakdown — each stage of a request alone, and one DiT sweep under
                 torch.profiler (device time by kernel, busy share).
   8. flux     — FLUX.1-dev at full width and depth (DiT 19 + 38 blocks,
@@ -961,6 +976,13 @@ def main(argv):
         print(f"  launches, serving, the flagship request and training: {launches}", flush=True)
         done("train", t0)
 
+        t0 = phase("train_surface")
+        surface = train_surface_phase(pipe, per_request, vae_cfg)
+        launches = {k: launches[k] + surface[k] for k in launches}
+        print(f"  launches, serving, the flagship request, training and its surface: "
+              f"{launches}", flush=True)
+        done("train_surface", t0)
+
         t0 = phase("breakdown")
         breakdown(pipe, te_cfg)
         del pipe, dit, te, vae, video
@@ -1055,6 +1077,8 @@ def main(argv):
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"]})
+        if "device_ms" in r:
+            rows[-1]["device_ms"] = r["device_ms"]
     norm_sources = {"rms_modulate": ("fairygen_tpu/ops/fused_norms.py:141", (4416, "no-scale")),
                     "vae_rms_silu": ("fairygen_tpu/ops/fused_norms.py:224",
                                      (399360, "no-silu"))}
@@ -1065,8 +1089,9 @@ def main(argv):
             "replaces": replaces, "launches": None if expected is None else launches[k],
             "max_abs_err": max(v["max_abs_err"] for v in norm_k[k].values()), "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["library_ms"],
-            "by_shape": {f"{n} {tag}": {"ms": v["ms"], "plain_ms": v["plain_ms"],
+            "library_ms": r["library_ms"], "device_ms": r["device_ms"],
+            "by_shape": {f"{n} {tag}": {"ms": v["ms"], "device_ms": v["device_ms"],
+                                        "plain_ms": v["plain_ms"],
                                         "bound_ms": v["bound"][0], "library_ms": v["library_ms"],
                                         "differ": v["differ"]}
                          for (n, tag), v in norm_k[k].items()}})
@@ -1074,9 +1099,14 @@ def main(argv):
             rows[-1]["max_abs_err"] = max([rows[-1]["max_abs_err"]] +
                                           [v["max_abs_err"] for v in k11_main.values()])
             rows[-1]["main_path_shapes"] = {
-                tag: {"calls": v["calls"], "ms": v["ms"], "plain_ms": v["plain_ms"],
-                      "bound_ms": v["bound"][0], "max_abs_err": v["max_abs_err"],
-                      "differ": v["differ"]} for tag, v in k11_main.items()}
+                tag: {"calls": v["calls"], "ms": v["ms"], "device_ms": v["device_ms"],
+                      "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0],
+                      "max_abs_err": v["max_abs_err"], "differ": v["differ"]}
+                for tag, v in k11_main.items()}
+            rows[-1]["main_path_device_ms_total"] = sum(v["calls"] * v["device_ms"]
+                                                        for v in k11_main.values())
+            rows[-1]["main_path_bound_ms_total"] = sum(v["calls"] * v["bound"][0]
+                                                       for v in k11_main.values())
     sdxl_sources = {
         "flash_small_kv_max": ("csrc/flash_attention_online.cu",
                                "fairygen_tpu/ops/flash_attention.py:133", "self 40x1024"),
@@ -1164,6 +1194,8 @@ def flux_kernel_checks():
     res["rms_rope_per_head"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: fq.rms_rope_heads_major_per_head(x, gamma, ff, N, s_pad, eps=1e-6)),
+        device_ms=device_ms(lambda: fq.rms_rope_heads_major_per_head(x, gamma, ff, N, s_pad,
+                                                                     eps=1e-6)),
         plain_ms=time_ms(lambda: fq.rms_rope_heads_major_per_head_plain(x, gamma, ff, N, s_pad,
                                                                         eps=1e-6), 5, 3),
         bound=bound_ms(nbytes, 8 * s * D), library_ms=None)
@@ -1188,6 +1220,8 @@ def flux_kernel_checks():
         max_abs_err=err,
         ms=time_ms(lambda: fq.rms_rope_heads_major_joint(xi, xt, gi, gt, ffj, N, i_pad, j_pad,
                                                          eps=1e-6)),
+        device_ms=device_ms(lambda: fq.rms_rope_heads_major_joint(xi, xt, gi, gt, ffj, N, i_pad,
+                                                                  j_pad, eps=1e-6)),
         plain_ms=time_ms(lambda: fq.rms_rope_heads_major_joint_plain(
             xi, xt, gi, gt, ffj, N, i_pad, j_pad, eps=1e-6), 5, 3),
         bound=bound_ms(nbytes, 8 * s * D), library_ms=None)
@@ -1228,7 +1262,8 @@ def flux_kernel_checks():
         bound=bound_ms(nbytes, 4 * L * L * hd * N), library_ms=lib)
     for name, r in res.items():
         lib_s = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"  FLUX {name}: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+        dev_s = f" device_ms {r['device_ms']:.4f}" if "device_ms" in r else ""
+        print(f"  FLUX {name}: ms {r['ms']:.4f}{dev_s} plain_ms {r['plain_ms']:.4f} bound_ms "
               f"{r['bound'][0]:.4f} ({r['bound'][1]}) library_ms {lib_s}", flush=True)
     del q, k, v, qh, kh, vh, out, bias, mask16
     torch.cuda.empty_cache()
@@ -1521,6 +1556,308 @@ def train_phase(pipe, serving_per_request):
     return total
 
 
+class SeededTokenizer:
+    """Stands in for the UMT5 tokenizer, whose files the card lacks: every
+    prompt gives the same seeded ids and mask."""
+
+    def __init__(self, ids, mask):
+        self.ids, self.mask = ids, mask
+
+    def __call__(self, prompt, return_mask=False):
+        return (self.ids, self.mask) if return_mask else self.ids
+
+
+def times(per, n):
+    """A launch-count dict ``per`` times ``n``."""
+    return {k: v * n for k, v in per.items()}
+
+
+def train_surface_phase(pipe, serving_per_request, vae_cfg):
+    """The training surface as ``python -m fairygen_tpu_torch.examples.
+    wan_train`` runs it, at full width (480x832x81 frames, S = 8190, LoRA r
+    32), each part with its wall, peak device memory and exact launches:
+
+    1. data_process: a seeded 81-frame clip (HWC uint8 frames in memory,
+       no PIL) through ``launch_data_process_task`` with the CLI twin's
+       collate: the streamed VAE38 encode (K11 in each of its 21 chunks)
+       and UMT5 on the flagship's seeded ids, cached as one ``.npz``;
+    2. two-phase training from that cache: ``UnifiedDataset(metadata_path=
+       None)`` -> ``launch_training_task`` (``PrefetchLoader``, one worker,
+       shuffled): two stage-1 steps saved by ``ModelLogger(remove_prefix_
+       in_ckpt="pipe.dit.")``, two stage-2 steps from that file (only B2
+       moves), the ``merge_weights`` twin, and one 17-frame 4-step request
+       with the merged adapter fused (the serving launch counts);
+    3. resume: two steps, ``save_train_state``, a fresh state restored, one
+       step, against three straight steps: the adapters bit for bit;
+    4. one direct_distill step: a 4-step student rollout at S = 8190 with
+       gradients through all four sweeps;
+    5. one trajectory step at 17 frames (S = 1950): a 50-step teacher
+       rollout and 4 student sweeps;
+    6. one stage-1 step each with AdamW and remat=True, with Adafactor, and
+       with AdamW and remat="offload" (the peaks side by side).
+    Returns the phase's launches."""
+    import functools
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fairygen_tpu_torch.core.io import load_state_dict
+    from fairygen_tpu_torch.data import UnifiedDataset
+    from fairygen_tpu_torch.examples import merge_weights
+    from fairygen_tpu_torch.examples.wan_train import cached_collate, video_collate
+    from fairygen_tpu_torch.models.adapters import (
+        add_lora_to_wan_dit, leaves_with_path, lora_trainable_filter, set_lora_weights)
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines.wan_video import WanVideoPipeline
+    from fairygen_tpu_torch.training import runner
+    from fairygen_tpu_torch.training.data_process import launch_data_process_task
+    from fairygen_tpu_torch.training.optimizers import make_optimizer
+    from fairygen_tpu_torch.training.train_step import (make_wan_distill_train_step,
+                                                        make_wan_sft_train_step)
+
+    dit, cfg = pipe.dit_params, pipe.dit_cfg
+    total = {k: 0 for k in _kernels.launches}
+
+    def measured(label, fn, want):
+        """Run ``fn`` with the counts at 0 and the peak reset; print its
+        wall, peak and launches; fail unless the launches are ``want``."""
+        _kernels.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        got = dict(_kernels.launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"  {label}: {dt:.3f} s, max_memory_allocated {peak:.2f} GiB, launches "
+              f"{ {k: v for k, v in got.items() if v} }", flush=True)
+        want = {k: want.get(k, 0) for k in got}
+        if got != want:
+            raise RuntimeError(f"{label}: launch counts {got} != expected {want}")
+        for k, v in got.items():
+            total[k] += v
+        return out, dt, peak
+
+    def lora_of(params, leaf):
+        return {p: t for p, t in leaves_with_path(params) if "lora" in p and p[-1] == leaf}
+
+    def finite(label, loss):
+        if not np.isfinite(float(loss)):
+            raise RuntimeError(f"{label}: loss {float(loss)} is not finite")
+
+    tmp = tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build"))
+    try:
+        # 1. data_process
+        cache = os.path.join(tmp.name, "cache")
+        ids, mask, _, _ = seeded_prompt(31, pipe.te_cfg.vocab)
+        rng = np.random.default_rng(41)
+        frames = list(rng.integers(0, 256, (81, 480, 832, 3), dtype=np.uint8))
+        tokenizer, pipe.tokenizer = pipe.tokenizer, SeededTokenizer(ids, mask)
+        chunks = 1 + (81 - 1) // 4
+        try:
+            n, dt, _ = measured(
+                "data_process (81 frames: streamed VAE38 encode, UMT5, .npz)",
+                lambda: launch_data_process_task([{"video": frames, "prompt": "seeded"}],
+                                                 video_collate(pipe), cache),
+                {"vae_rms_silu": chunks * vae_norm_silu_calls(vae_cfg)[0]})
+        finally:
+            pipe.tokenizer = tokenizer
+        del frames
+        path = os.path.join(cache, "0-0.npz")
+        with np.load(path) as z:
+            shapes = {k: (z[k].shape, str(z[k].dtype)) for k in z.files}
+            ok = all(np.isfinite(z[k]).all() for k in z.files)
+        print(f"  data_process: {n} file, {os.path.getsize(path) / 2**20:.2f} MiB, {shapes}, "
+              f"all finite: {ok}", flush=True)
+        if n != 1 or not ok or shapes != {"latents": ((1, 48, 21, 30, 52), "float32"),
+                                          "context": ((1, 512, 4096), "float32")}:
+            raise RuntimeError("data_process wrote the wrong cache")
+        batch = {k: v.cuda() for k, v in
+                 cached_collate(UnifiedDataset(base_path=cache, metadata_path=None)[0]).items()}
+
+        # 2. two-phase training from the cache: stages 1 and 2, merge, request
+        dataset = UnifiedDataset(base_path=cache, metadata_path=None, repeat=2)
+        g = torch.Generator("cuda").manual_seed(2025)
+        stage1 = add_lora_to_wan_dit(dit, g, rank=32, alpha=32)
+        init, step = make_wan_sft_train_step(
+            cfg, make_optimizer("adamw", 1e-4, 0.01), remat=True, first_frame_clean=True,
+            trainable_filter=lora_trainable_filter(("A", "B")), lora_b_dropout=("B", 0.8))
+        logger1 = runner.ModelLogger(
+            os.path.join(tmp.name, "stage1"), remove_prefix_in_ckpt="pipe.dit.",
+            state_dict_fn=functools.partial(runner.wan_lora_state_dict, prefix="pipe.dit."))
+        saves = {}
+        wrap_timed(logger1, "save", saves)
+        state, _, _ = measured(
+            "stage 1 from the cache (2 steps, PrefetchLoader, ModelLogger)",
+            lambda: runner.launch_training_task(init(stage1), step, dataset, cached_collate,
+                                                logger=logger1, generator=g, shuffle=True,
+                                                num_workers=1, log_every=1),
+            times(TRAIN_PER_STEP, 2))
+        s1 = os.path.join(tmp.name, "stage1", "epoch-0.safetensors")
+        print(f"  stage 1: the checkpoint save {saves['save']:.3f} s, "
+              f"{os.path.getsize(s1) / 2**20:.1f} MiB", flush=True)
+        sd1 = load_state_dict(s1)
+        if state.step != 2 or len(sd1) != 600 or not all(k.startswith("blocks.") for k in sd1):
+            raise RuntimeError("stage 1 wrote the wrong checkpoint")
+        del state, stage1, step
+        torch.cuda.empty_cache()
+        stage2 = add_lora_to_wan_dit(dit, g, rank=32, alpha=32, with_b2=True)
+        if set_lora_weights(stage2, sd1) != 300:
+            raise RuntimeError("the stage-1 file did not fill the 300 stage-2 slots")
+        ab = {p: t.clone() for p, t in leaves_with_path(stage2)
+              if "lora" in p and p[-1] in ("A", "B")}
+        init, step = make_wan_sft_train_step(
+            cfg, make_optimizer("adamw", 1e-4, 0.01), remat=True, first_frame_clean=True,
+            trainable_filter=lora_trainable_filter(("B2",)), lora_b_dropout=("B2", 0.5))
+        logger2 = runner.ModelLogger(os.path.join(tmp.name, "stage2"), async_save=True)
+        saves = {}
+        wrap_timed(logger2, "save", saves)
+        wrap_timed(logger2, "flush", saves)
+        state, _, _ = measured(
+            "stage 2 from the cache (2 steps, async ModelLogger)",
+            lambda: runner.launch_training_task(init(stage2), step, dataset, cached_collate,
+                                                logger=logger2, generator=g, shuffle=True,
+                                                num_workers=1, log_every=1),
+            times(TRAIN_PER_STEP, 2))
+        if not all(torch.equal(t, ab[p]) for p, t in leaves_with_path(stage2) if p in ab):
+            raise RuntimeError("stage 2 moved A or B")
+        if not any(t.abs().sum().item() > 0 for t in lora_of(stage2, "B2").values()):
+            raise RuntimeError("no B2 moved in stage 2")
+        print(f"  stage 2: A and B unchanged, B2 moved; the async save returned in "
+              f"{saves['save']:.3f} s, the write joined in {saves['flush']:.3f} s", flush=True)
+        del state, stage2, step, ab
+        torch.cuda.empty_cache()
+        merged = os.path.join(tmp.name, "merged.safetensors")
+        if merge_weights.main(["--stage1", s1, "--stage2",
+                               os.path.join(tmp.name, "stage2", "epoch-0.safetensors"),
+                               "--output", merged]):
+            raise RuntimeError("the merge_weights twin failed")
+        pipe2 = WanVideoPipeline(dit, cfg, pipe.vae_params, pipe.vae_cfg, pipe.te_params,
+                                 pipe.te_cfg, torch.bfloat16, "cuda").load_lora(merged)
+        rids, rmask, nids, nmask = seeded_prompt(23, pipe.te_cfg.vocab)
+        video, _, _ = measured(
+            "merged-adapter request (17 frames, 4 steps, CFG 5)",
+            lambda: pipe2(context=pipe2.encode_ids(rids, rmask),
+                          negative_context=pipe2.encode_ids(nids, nmask),
+                          input_image=seeded_image(23, 480, 832), seed=23, height=480,
+                          width=832, num_frames=17, cfg_scale=5.0, num_inference_steps=4,
+                          output_type="floatpoint"),
+            serving_per_request)
+        if tuple(video.shape) != (1, 3, 17, 480, 832) or not bool(torch.isfinite(video).all()):
+            raise RuntimeError("merged-adapter request output has the wrong shape or values")
+        del pipe2, video
+        torch.cuda.empty_cache()
+
+        # 3. resume against straight through
+        def fresh(gen_seed=7):
+            """A new stage-1 state (the same adapter init) and generator."""
+            params = add_lora_to_wan_dit(dit, torch.Generator("cuda").manual_seed(5), rank=32,
+                                         alpha=32)
+            return init(params), torch.Generator("cuda").manual_seed(gen_seed)
+
+        init, step = make_wan_sft_train_step(
+            cfg, make_optimizer("adamw", 1e-4, 0.01), remat=True, first_frame_clean=True,
+            trainable_filter=lora_trainable_filter(("A", "B")), lora_b_dropout=("B", 0.8))
+
+        def run(state, gen, n_steps):
+            for _ in range(n_steps):
+                state, loss = step(state, batch, gen)
+                finite("resume", loss)
+            return state
+
+        state, gen = fresh()
+        state, _, _ = measured("3 straight stage-1 steps", lambda: run(state, gen, 3),
+                               times(TRAIN_PER_STEP, 3))
+        straight = [t.detach().clone() for t in state.trainable]
+        del state
+        torch.cuda.empty_cache()
+        ckpt = os.path.join(tmp.name, "state.pt")
+        state, gen = fresh()
+        state, _, _ = measured("2 stage-1 steps", lambda: run(state, gen, 2),
+                               times(TRAIN_PER_STEP, 2))
+        t1 = time.perf_counter()
+        runner.save_train_state(ckpt, state, gen)
+        del state
+        torch.cuda.empty_cache()
+        state, gen = fresh(gen_seed=99)  # both restored from the file
+        state = runner.restore_train_state(ckpt, state, gen)
+        print(f"  train state: {os.path.getsize(ckpt) / 2**20:.1f} MiB, saved and restored in "
+              f"{time.perf_counter() - t1:.3f} s", flush=True)
+        state, _, _ = measured("1 stage-1 step after restore", lambda: run(state, gen, 1),
+                               times(TRAIN_PER_STEP, 1))
+        diff = max((a - b).abs().max().item() for a, b in zip(state.trainable, straight))
+        same = all(torch.equal(a, b) for a, b in zip(state.trainable, straight))
+        print(f"  resumed against straight: bit for bit {same}, max abs difference {diff:.3e}",
+              flush=True)
+        if not same:
+            raise RuntimeError("the resumed run differs from the straight run")
+        del state, straight
+        torch.cuda.empty_cache()
+
+        # 4. direct_distill at S = 8190
+        student = add_lora_to_wan_dit(dit, torch.Generator("cuda").manual_seed(6), rank=32,
+                                      alpha=32)
+        for b in lora_of(student, "B").values():  # a student that is not the base
+            b.normal_(generator=g).mul_(1e-3)
+        dinit, dstep = make_wan_distill_train_step(
+            cfg, make_optimizer("adamw", 1e-4, 0.01), method="direct", num_inference_steps=4,
+            remat=True, first_frame_clean=True,
+            trainable_filter=lora_trainable_filter(("A", "B")))
+        (state, loss), _, _ = measured(
+            "direct_distill step (4-step rollout, S = 8190, gradients through all 4)",
+            lambda: dstep(dinit(student), batch, g), times(TRAIN_PER_STEP, 4))
+        finite("direct_distill", loss)
+        print(f"  direct_distill loss {float(loss):.6f}", flush=True)
+        del state, loss
+
+        # 5. trajectory at 17 frames (S = 1950), 50 teacher steps
+        tinit, tstep = make_wan_distill_train_step(
+            cfg, make_optimizer("adamw", 1e-4, 0.01), method="trajectory",
+            num_inference_steps=4, num_teacher_steps=50, remat=True, first_frame_clean=True,
+            trainable_filter=lora_trainable_filter(("A", "B")))
+        small = {"latents": torch.randn((1, 48, 5, 30, 52), generator=g,
+                                        device="cuda").to(torch.bfloat16),
+                 "context": batch["context"]}
+        want = times(TRAIN_PER_STEP, 4)
+        for k, v in FLAGSHIP_PER_SWEEP.items():  # a no-grad sweep's, at any S
+            want[k] += 50 * v
+        (state, loss), _, _ = measured(
+            "trajectory step (50 teacher sweeps, 4 student sweeps, S = 1950)",
+            lambda: tstep(tinit(student), small, g, teacher_params=dit), want)
+        finite("trajectory", loss)
+        print(f"  trajectory loss {float(loss):.6f}", flush=True)
+        del state, loss, student, small
+        torch.cuda.empty_cache()
+
+        # 6. AdamW with remat, Adafactor, offload: one stage-1 step each
+        peaks = {}
+        for label, opt, remat in (("AdamW, remat=True", "adamw", True),
+                                  ("Adafactor, remat=True", "adafactor", True),
+                                  ("AdamW, remat='offload'", "adamw", "offload")):
+            init, step = make_wan_sft_train_step(
+                cfg, make_optimizer(opt, 1e-4, 0.01), remat=remat, first_frame_clean=True,
+                trainable_filter=lora_trainable_filter(("A", "B")), lora_b_dropout=("B", 0.8))
+            state = init(add_lora_to_wan_dit(dit, torch.Generator("cuda").manual_seed(5),
+                                             rank=32, alpha=32))
+            (state, loss), _, peaks[label] = measured(f"stage-1 step, {label}",
+                                                      lambda: step(state, batch, g),
+                                                      times(TRAIN_PER_STEP, 1))
+            finite(label, loss)
+            del state, loss
+            torch.cuda.empty_cache()
+        carries = cfg.num_layers * batch["latents"][0, 0].numel() // 4 * cfg.dim * 2 / 2 ** 30
+        saved = peaks["AdamW, remat=True"] - peaks["AdamW, remat='offload'"]
+        print(f"  offload: the peak {saved:.2f} GiB below remat=True's; the {cfg.num_layers} "
+              f"carries are {carries:.2f} GiB", flush=True)
+        if saved < carries / 2:
+            raise RuntimeError("remat='offload' did not lower the peak by half its carries")
+    finally:
+        tmp.cleanup()
+    return total
+
+
 def breakdown(pipe, te_cfg):
     """Where a request's time goes: each stage alone (host clock around
     synchronised work, median of 3), then one DiT sweep under
@@ -1705,13 +2042,21 @@ def k11_main_path_checks(shapes):
         res[tag] = dict(
             calls=calls, max_abs_err=err, differ=ndiff,
             ms=time_ms(lambda: fn.fused_vae_rms_silu(x, gamma)),
+            device_ms=device_ms(lambda: fn.fused_vae_rms_silu(x, gamma), 20),
             plain_ms=time_ms(lambda: fn.vae_rms_silu_plain(x, gamma), 5, 3),
             bound=bound_ms(2 * x.numel() * 2 + c * 2, 10 * x.numel(), H100_FP32_FLOP_PER_S))
         del x, out, ref
     torch.cuda.empty_cache()
     for tag, r in res.items():
-        print(f"  K11 main path {tag} x{r['calls']}: ms {r['ms']:.4f} plain_ms "
-              f"{r['plain_ms']:.4f} bound_ms {r['bound'][0]:.4f} ({r['bound'][1]})", flush=True)
+        print(f"  K11 main path {tag} x{r['calls']}: ms {r['ms']:.4f} device_ms "
+              f"{r['device_ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms {r['bound'][0]:.4f} "
+              f"({r['bound'][1]})", flush=True)
+    total = {key: sum(r["calls"] * (r[key][0] if key == "bound" else r[key])
+                      for r in res.values()) for key in ("device_ms", "ms", "bound", "plain_ms")}
+    print(f"  K11 over the request's {sum(r['calls'] for r in res.values())} calls: device "
+          f"{total['device_ms']:.2f} ms, events {total['ms']:.2f} ms, bound "
+          f"{total['bound']:.2f} ms ({total['device_ms'] / total['bound']:.2f}x by device "
+          f"time), plain {total['plain_ms']:.2f} ms", flush=True)
     return res
 
 
@@ -2419,6 +2764,7 @@ def norm_kernel_checks():
             res["rms_modulate"][(s, tag)] = dict(
                 max_abs_err=err, differ=ndiff,
                 ms=time_ms(lambda: fn.fused_rms_modulate(x, w, scale, 1e-5)),
+                device_ms=device_ms(lambda: fn.fused_rms_modulate(x, w, scale, 1e-5)),
                 plain_ms=time_ms(lambda: fn.rms_modulate_plain(x, w, scale, 1e-5), 5, 3),
                 bound=bound_ms(nbytes, 5 * s * D, H100_FP32_FLOP_PER_S),
                 library_ms=None if scale is not None else time_ms(
@@ -2436,6 +2782,7 @@ def norm_kernel_checks():
             res["vae_rms_silu"][(rows, tag)] = dict(
                 max_abs_err=err, differ=ndiff,
                 ms=time_ms(lambda: fn.fused_vae_rms_silu(x, gamma, silu)),
+                device_ms=device_ms(lambda: fn.fused_vae_rms_silu(x, gamma, silu)),
                 plain_ms=time_ms(lambda: fn.vae_rms_silu_plain(x, gamma, silu), 5, 3),
                 bound=bound_ms(2 * rows * c * 2 + c * 2, (10 if silu else 6) * rows * c,
                                H100_FP32_FLOP_PER_S),
@@ -2445,7 +2792,8 @@ def norm_kernel_checks():
     for k, shapes in res.items():
         for (n, tag), r in shapes.items():
             lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-            print(f"  {k} rows={n} {tag}: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+            print(f"  {k} rows={n} {tag}: ms {r['ms']:.4f} device_ms {r['device_ms']:.4f} "
+                  f"plain_ms {r['plain_ms']:.4f} "
                   f"bound_ms {r['bound'][0]:.4f} ({r['bound'][1]}) library_ms {lib}", flush=True)
     torch.cuda.empty_cache()
     return res

@@ -43,6 +43,12 @@ def preprocess_image(image, min_value=-1.0, max_value=1.0) -> np.ndarray:
     return np.transpose(arr, (2, 0, 1))
 
 
+def preprocess_video(video: List, min_value=-1.0, max_value=1.0) -> np.ndarray:
+    """Frames (PIL images or HWC uint8 arrays) -> float32 (1, C, T, H, W)."""
+    frames = [preprocess_image(im, min_value, max_value) for im in video]
+    return np.stack(frames, axis=1)[None]
+
+
 def postprocess_image(arr: np.ndarray, min_value=-1.0, max_value=1.0) -> np.ndarray:
     """float (C, H, W) or (H, W, C) in [min, max] -> uint8 HWC."""
     arr = np.asarray(arr, dtype=np.float32)

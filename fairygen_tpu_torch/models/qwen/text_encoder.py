@@ -28,7 +28,7 @@ from ...core.params import Init, generator, linear, to_tensors
 from ...device import resolve_device
 from ...ops.norms import rms_norm
 
-_QWEN_IMAGE_ITEM = ("the Qwen-Image path (mRoPE, the vision tower; ROADMAP Queue 1 item 9) "
+_QWEN_IMAGE_ITEM = ("the Qwen-Image path (mRoPE, the vision tower; ROADMAP Queue 1 item 8) "
                     "is not ported yet")
 
 

@@ -15,7 +15,9 @@ attention chain, as in the JAX package; on CUDA that is refused.
 Training differentiates the same forward: K1 and the fused attention
 entries carry their own gradients (``ops/``), and ``remat=True`` wraps each
 block in ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``
-per block).
+per block).  ``remat="offload"`` is the same full remat with each block's
+saved carry (its input) parked in pinned host memory until its recompute
+(the JAX package's ``save_and_offload_only_these_names(["wan_block_carry"])``).
 """
 from __future__ import annotations
 
@@ -263,6 +265,68 @@ def time_embedding(params, cfg: WanDiTConfig, timestep):
     return t, t_mod.reshape(t_mod.shape[:-1] + (6, cfg.dim))
 
 
+class _Parked:
+    """A saved carry in host memory and what brings it back."""
+
+    def __init__(self, host, done, device):
+        self.host, self.done, self.device = host, done, device
+
+
+class offload_saved_carry:
+    """``saved_tensors_hooks`` around one block's checkpoint that park the
+    tensor the checkpoint saves for ``carry`` (the block input it recomputes
+    from) in host memory and bring it back when the recompute unpacks it;
+    every other saved tensor passes.  A CUDA carry is copied into pinned
+    memory on ``stream`` (a side stream, so the block runs while it copies;
+    ``record_stream`` keeps its memory from reuse until the copy ends) and
+    returns on the current stream after the copy's event; a CPU carry is
+    copied (it is in host memory already).  ``parked`` counts the carries
+    parked.
+
+    The carry is known by its address, shape, dtype and device, not held:
+    a saved tensor keeps its pack hook (and so this object) alive until the
+    backward pass, and a held carry would stay on the card with it."""
+
+    def __init__(self, carry, stream=None):
+        self.key, self.stream, self.parked = self._key(carry), stream, 0
+        self._hooks = torch.autograd.graph.saved_tensors_hooks(self._pack, self._unpack)
+
+    @staticmethod
+    def _key(t):
+        return t.data_ptr(), tuple(t.shape), t.dtype, t.device
+
+    def _pack(self, t):
+        if self._key(t) != self.key:
+            return t
+        self.parked += 1
+        if not t.is_cuda:
+            return _Parked(t.detach().clone(), None, t.device)
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        self.stream.wait_stream(torch.cuda.current_stream(t.device))
+        with torch.cuda.stream(self.stream):
+            host.copy_(t.detach(), non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        t.record_stream(self.stream)
+        return _Parked(host, done, t.device)
+
+    @staticmethod
+    def _unpack(h):
+        if not isinstance(h, _Parked):
+            return h
+        if h.done is None:
+            return h.host
+        torch.cuda.current_stream(h.device).wait_event(h.done)
+        return h.host.to(h.device, non_blocking=True)
+
+    def __enter__(self):
+        self._hooks.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._hooks.__exit__(*exc)
+
+
 def wan_dit_forward(params, cfg: WanDiTConfig, latents, timestep, context=None, *,
                     y=None, clip_feature=None, fuse_vae_embedding_in_latents: bool = False,
                     cross_kv=None, remat=False):
@@ -270,10 +334,11 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, timestep, context=None, 
     text / first-frame / I2V-y conditioning).  latents (B, C, F, H, W);
     timestep (B,); context (B, L, text_dim) or ``cross_kv`` from
     :func:`precompute_cross_kv`.  ``remat=True`` recomputes each block in
-    the backward pass from its input.  Returns (B, out_dim, F, H, W)."""
-    if remat == "offload":
-        raise NotImplementedError("remat='offload' (host-offloaded block inputs) is not "
-                                  "ported yet")
+    the backward pass from its input; ``remat="offload"`` also keeps that
+    input in pinned host memory in between (:class:`offload_saved_carry`).
+    Returns (B, out_dim, F, H, W)."""
+    if remat not in (False, True, "offload"):
+        raise ValueError(f"remat must be False, True or 'offload', got {remat!r}")
     b, _, _, H, W = latents.shape
     _, ph, pw = cfg.patch_size
     if latents.is_cuda and cfg.head_dim != 128:
@@ -305,9 +370,16 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, timestep, context=None, 
     x, grid = patchify(params, cfg, x)
     freqs = build_freqs_grid(precompute_freqs_3d(cfg.head_dim), *grid, device=x.device)
     freqs_full = build_freqs_full(freqs) if cfg.head_dim == 128 else None
+    side = torch.cuda.Stream(x.device) if remat == "offload" and x.is_cuda else None
     for i, blk in enumerate(params["blocks"]):
         args = (blk, x, t_mod, freqs, freqs_full, cfg, cross_kv[i], seg, img_kv[i], ctx)
-        x = checkpoint(dit_block, *args, use_reentrant=False) if remat else dit_block(*args)
+        if remat == "offload":
+            with offload_saved_carry(x, side):
+                x = checkpoint(dit_block, *args, use_reentrant=False)
+        elif remat:
+            x = checkpoint(dit_block, *args, use_reentrant=False)
+        else:
+            x = dit_block(*args)
     x = head_forward(params["head"], x, t, cfg, seg=seg)
     return unpatchify(x, grid, cfg)
 

@@ -8,8 +8,10 @@
   ``csrc/rms_modulate.cu`` (bf16, fp32).
 * K11 (``_vae_rms_silu_kernel``): the VAE channel RMS (F.normalize·√C·γ)
   with an optional SiLU, :func:`vae_rms_silu`.  No path of the JAX package
-  calls it (its VAE38 keeps the plain norm and SiLU), so none here does
-  either.  ``csrc/rms_modulate.cu`` (bf16, fp32).
+  calls it (its VAE38 keeps the plain norm and SiLU); here the VAE38's
+  ``_norm_silu`` (``models/wan/vae.py``) runs :func:`fused_vae_rms_silu` on
+  every encode and decode, output left channels-last.
+  ``csrc/rms_modulate.cu`` (bf16, fp32).
 
 CUDA tensors go through the hand-written kernels; CPU tensors take the
 ``*_plain`` versions, the same formulas in PyTorch.  Gradients

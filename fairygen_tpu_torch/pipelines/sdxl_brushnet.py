@@ -77,7 +77,7 @@ class SDXLBrushNetPipeline:
                  mesh: Any = None):
         if mesh is not None:
             raise NotImplementedError("data-parallel generation over a device mesh (ROADMAP "
-                                      "Queue 1 item 8) is not ported yet")
+                                      "Queue 1 items 7 and 9) is not ported yet")
         self.device = resolve_device(device)
         self.unet_params, self.unet_cfg = unet_params, unet_cfg
         self.vae_params, self.vae_cfg = vae_params, vae_cfg
@@ -111,11 +111,11 @@ class SDXLBrushNetPipeline:
         image in [-1, 1])."""
         if prompt is not None or prompt_embeds is None:
             raise NotImplementedError("string prompts (the CLIP tokenizers; ROADMAP Queue 1 "
-                                      "item 8) are not ported yet: pass prompt_embeds and "
+                                      "item 7) are not ported yet: pass prompt_embeds and "
                                       "pooled_embeds from encode_ids")
         if scheduler != "dpm":
             raise NotImplementedError(f"scheduler {scheduler!r} (the LCM rollout; ROADMAP "
-                                      "Queue 1 item 8) is not ported yet")
+                                      "Queue 1 item 7) is not ported yet")
         if output_type not in OUTPUT_TYPES:
             raise ValueError(f"output_type {output_type!r}: one of {OUTPUT_TYPES}")
         do_cfg = guidance_scale > 1.0

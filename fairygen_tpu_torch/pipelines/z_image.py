@@ -49,11 +49,11 @@ class ZImagePipeline:
     @classmethod
     def from_pretrained(cls, *args, **kwargs):
         raise NotImplementedError("ZImagePipeline.from_pretrained (the model pool, checkpoint "
-                                  "loading and the tokenizer; ROADMAP Queue 1 item 3) is not "
+                                  "loading and the tokenizer; ROADMAP Queue 1 item 8) is not "
                                   "ported yet")
 
     def quantize(self):
-        raise NotImplementedError("W8A8 quantize (ops/quant.py; ROADMAP Queue 1 item 5) is not "
+        raise NotImplementedError("W8A8 quantize (ops/quant.py; ROADMAP Queue 1 item 4) is not "
                                   "ported yet")
 
     @torch.no_grad()
@@ -91,7 +91,7 @@ class ZImagePipeline:
         "floatpoint" (the decoded (1, 3, H, W) fp32 image in [-1, 1])."""
         if prompt is not None or prompt_emb is None:
             raise NotImplementedError("string prompts (the Qwen3 tokenizer and chat template; "
-                                      "ROADMAP Queue 1 item 3) are not ported yet: pass "
+                                      "ROADMAP Queue 1 item 8) are not ported yet: pass "
                                       "prompt_emb from encode_ids")
         if height % 16 or width % 16:
             raise ValueError(f"height and width must be multiples of 16, got {height}x{width}")

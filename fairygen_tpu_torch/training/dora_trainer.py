@@ -6,7 +6,7 @@ fairygen_tpu/training/dora_trainer.py ``DORA_TARGETS``,
 DoRA adapters (r = 32, α = r) sit on every transformer attention
 projection to_q / to_k / to_v / to_out of the SDXL UNet; the dense layers
 apply them where a ``"lora"`` entry exists (``models/adapters.py``).  The
-masked DoRA train step is not ported yet (ROADMAP Queue 1 item 8).
+masked DoRA train step is not ported yet (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 

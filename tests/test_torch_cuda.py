@@ -1,8 +1,10 @@
 """Card-only tests of the port's CUDA kernels (marker ``cuda``): each kernel
 against its plain PyTorch version on the card, a tiny pipeline that must
 launch the four serving kernels, the flash-attention gradient against
-autograd of the plain attention, a tiny LoRA train step that must launch
-K6a-c, a tiny FLUX.1 pipeline that must launch K1, K7, K8 and K3/K4, or
+autograd of the plain attention, a tiny LoRA train step and a tiny
+direct-distill step (gradients through a 2-step rollout) that must launch
+K6a-c, a tiny remat="offload" step whose gradients must equal remat=True's
+bit for bit, a tiny FLUX.1 pipeline that must launch K1, K7, K8 and K3/K4, or
 K10 with EliGen regions, and a tiny Z-Image pipeline that must launch K9,
 K7 and K4, K4's max and masked forms and K5 at head dim 64 (and their
 refusals), and a tiny SDXL + BrushNet + DoRA pipeline that must launch
@@ -427,6 +429,87 @@ def test_tiny_lora_train_step_launches_k6_and_moves_only_adapters(card):
             assert not torch.equal(t, before[path]), path
         elif "lora" not in path:
             assert torch.equal(t, before[path]), path
+
+
+def _tiny_lora_dit(card):
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.adapters import add_lora_to_wan_dit
+    from fairygen_tpu_torch.models.wan.dit import WanDiTConfig
+
+    cfg = WanDiTConfig(dim=256, in_dim=4, ffn_dim=512, out_dim=4, text_dim=32, freq_dim=32,
+                       num_heads=2, num_layers=2, seperated_timestep=True,
+                       require_vae_embedding=False, require_clip_embedding=False,
+                       fuse_vae_embedding_in_latents=True)
+    params = add_lora_to_wan_dit(convert.init_dit_params(cfg), card, rank=8)
+    for blk in params["blocks"]:  # non-zero B, so that A gets a gradient too
+        for layer in (blk["self_attn"]["q"], blk["ffn"]["fc1"]):
+            layer["lora"]["B"].normal_(generator=card).mul_(0.02)
+    batch = {"latents": _randn(card, 1, 4, 5, 16, 16), "context": _randn(card, 1, 20, 32)}
+    return cfg, params, batch
+
+
+def test_tiny_direct_distill_step_launches_k6(card):
+    """One direct-distill step: a 2-step student rollout with gradients
+    through both sweeps, so K6a, K6b and K6c run 2 x 2 x layers times."""
+    from fairygen_tpu_torch.models.adapters import leaves_with_path, lora_trainable_filter
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.training.optimizers import make_optimizer
+    from fairygen_tpu_torch.training.train_step import make_wan_distill_train_step
+
+    cfg, params, batch = _tiny_lora_dit(card)
+    before = {p: t.clone() for p, t in leaves_with_path(params) if isinstance(t, torch.Tensor)}
+    init, step = make_wan_distill_train_step(cfg, make_optimizer("adamw", 1e-3, 0.01),
+                                             num_inference_steps=2,
+                                             trainable_filter=lora_trainable_filter(("A", "B")))
+    state = init(params)
+    _kernels.reset_launches()
+    state, loss = step(state, batch, card)
+    assert torch.isfinite(loss)
+    n = 2 * 2 * cfg.num_layers
+    assert {k: _kernels.launches[k] for k in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv",
+                                              "flash_fwd")} == {"flash_fwd_lse": n,
+                                                                "flash_bwd_dq": n,
+                                                                "flash_bwd_dkv": n,
+                                                                "flash_fwd": 0}
+    for path, t in leaves_with_path(state.params):
+        if isinstance(t, torch.Tensor) and "lora" not in path:
+            assert torch.equal(t, before[path]), path
+    assert any(not torch.equal(t, before[p]) for p, t in leaves_with_path(state.params)
+               if "lora" in p and p[-1] == "A")
+
+
+def test_tiny_offload_step_gives_the_remat_gradients(card):
+    """remat="offload" parks each block's carry in pinned host memory on a
+    side stream and brings it back for the recompute: the loss and every
+    LoRA gradient equal remat=True's bit for bit."""
+    from fairygen_tpu_torch.models.adapters import lora_trainable_filter
+    from fairygen_tpu_torch.models.wan import dit
+    from fairygen_tpu_torch.training.optimizers import make_optimizer
+    from fairygen_tpu_torch.training.train_step import make_wan_sft_train_step
+
+    cfg, params, batch = _tiny_lora_dit(card)
+    noise = _randn(card, 1, 4, 5, 16, 16)
+    parked = []
+    original = dit.offload_saved_carry
+
+    class Counting(original):
+        def __exit__(self, *exc):
+            parked.append(self.parked)
+            return super().__exit__(*exc)
+
+    out = []
+    try:
+        dit.offload_saved_carry = Counting
+        for remat in (True, "offload"):
+            init, step = make_wan_sft_train_step(cfg, make_optimizer(), remat=remat,
+                                                 trainable_filter=lora_trainable_filter())
+            out.append(step.loss_and_grads(init(params), batch, index=500, noise=noise))
+    finally:
+        dit.offload_saved_carry = original
+    assert parked == [1] * cfg.num_layers
+    assert torch.equal(out[0][0], out[1][0])
+    for k in out[0][1]:
+        assert torch.equal(out[0][1][k], out[1][1][k]), k
 
 
 @pytest.mark.parametrize("s", [300, 1100])

@@ -11,6 +11,7 @@
 """
 import ast
 import inspect
+import os
 import pathlib
 
 import numpy as np
@@ -19,7 +20,7 @@ import torch
 
 from fairygen_tpu_torch import convert
 from fairygen_tpu_torch.core.model_pool import ModelPool
-from fairygen_tpu_torch.examples import wan_batch_inference, wan_inference
+from fairygen_tpu_torch.examples import wan_batch_inference, wan_inference, wan_train
 from fairygen_tpu_torch.models.flux.dit import FluxDiTConfig, convert_flux_dit_state_dict
 from fairygen_tpu_torch.models.qwen.text_encoder import QwenVLTextConfig
 from fairygen_tpu_torch.models.sdxl.clip import CLIPTextConfig
@@ -35,7 +36,9 @@ from fairygen_tpu_torch.pipelines.flux_image import FluxImagePipeline
 from fairygen_tpu_torch.pipelines.sdxl_brushnet import SDXLBrushNetPipeline
 from fairygen_tpu_torch.pipelines.wan_video import WanVideoPipeline
 from fairygen_tpu_torch.pipelines.z_image import ZImagePipeline
-from fairygen_tpu_torch.training.train_step import make_wan_sft_train_step
+from fairygen_tpu_torch.training.runner import launch_training_task
+from fairygen_tpu_torch.training.train_step import (make_wan_distill_train_step,
+                                                    make_wan_sft_train_step)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "fairygen_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -64,7 +67,11 @@ def test_the_scan_sees_the_whole_package():
             "text_encoder.py", "unet2d.py", "sdxl_brushnet.py", "dpm_solver.py",
             "dora_trainer.py", "vae_tiling.py", "temporal_tiler.py", "tokenizer.py",
             "video.py", "model_pool.py", "registry.py", "model_config.py", "dtypes.py",
-            "wan_inference.py", "wan_batch_inference.py"} <= names
+            "wan_inference.py", "wan_batch_inference.py", "operators.py", "unified_dataset.py",
+            "loader.py", "parsers.py", "data_process.py", "train_logging.py", "runner.py",
+            "optimizers.py", "losses.py", "train_step.py", "wan_train.py",
+            "merge_weights.py"} <= names
+    assert REPO / "fairygen_tpu_torch" / "data" / "__init__.py" in PORT_FILES
     assert REPO / "fairygen_tpu_torch" / "models" / "z_image" / "dit.py" in PORT_FILES
     assert REPO / "fairygen_tpu_torch" / "models" / "qwen" / "text_encoder.py" in PORT_FILES
 
@@ -96,7 +103,8 @@ UNET0_SD = {f"time_embedding.linear_{i}.{k}": np.zeros((2, 2) if k == "weight" e
                                    "convert_umt5", "convert_flux_dit", "zimage_pipeline",
                                    "init_z_image_dit", "init_qwen_text", "sdxl_pipeline",
                                    "init_unet2d", "convert_unet2d", "from_pretrained",
-                                   "model_pool", "cli_twin", "batch_cli_twin"])
+                                   "model_pool", "cli_twin", "batch_cli_twin",
+                                   "train_cli_twin", "launch_training_task", "distill_step"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
@@ -129,9 +137,44 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
         "cli_twin": lambda: wan_inference.main(["--model_paths", "[]", "--prompt", "x"]),
         "batch_cli_twin": lambda: wan_batch_inference.main(["--model_paths", "[]",
                                                             "--shot_dir", "."]),
+        "train_cli_twin": lambda: wan_train.main(["--model_paths", "[]",
+                                                  "--dataset_base_path", "."]),
+        "launch_training_task": lambda: launch_training_task(None, None, [], None),
+        "distill_step": lambda: make_wan_distill_train_step(WanDiTConfig(num_layers=1), None),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
+
+
+def test_an_installed_port_carries_its_data_files():
+    """The sdist's file list (MANIFEST.in, as setuptools reads it) and the
+    wheel's package data (pyproject.toml) hold the model registry and every
+    CUDA source the kernels are built from."""
+    import tomllib
+
+    from setuptools.command.egg_info import FileList
+
+    want = {"fairygen_tpu_torch/configs/model_registry.json"} | {
+        f"fairygen_tpu_torch/csrc/{name}" for name in _kernels.SOURCES + _kernels.HEADERS}
+    assert len(want) == 8
+    files = FileList()
+    cwd = os.getcwd()
+    os.chdir(REPO)
+    try:
+        for line in (REPO / "MANIFEST.in").read_text().splitlines():
+            if line.strip():
+                files.process_template_line(line)
+    finally:
+        os.chdir(cwd)
+    assert want <= {f.replace(os.sep, "/") for f in files.files}
+    data = tomllib.loads((REPO / "pyproject.toml").read_text())["tool"]["setuptools"]
+    assert "fairygen_tpu_torch*" in data["packages"]["find"]["include"]
+    shipped = set()
+    for pkg, globs in data["package-data"].items():
+        root = REPO.joinpath(*pkg.split("."))
+        shipped |= {str(f.relative_to(REPO)).replace(os.sep, "/") for g in globs
+                    for f in root.glob(g)}
+    assert want <= shipped
 
 
 WRAPPERS = [fused_norms.layer_norm_modulate, fused_qk.rms_rope_heads_major,

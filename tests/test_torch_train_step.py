@@ -64,7 +64,8 @@ def test_training_schedule_matches_goldens(goldens):
     np.testing.assert_array_equal(s.training, j.training)
 
 
-@pytest.mark.parametrize("name,clip", [("adamw", None), ("adamw", 0.05), ("sgd", 0.05)])
+@pytest.mark.parametrize("name,clip", [("adamw", None), ("adamw", 0.05), ("sgd", 0.05),
+                                       ("adafactor", None), ("adafactor", 0.05)])
 def test_optimizers_match_optax(name, clip):
     import optax
 
@@ -86,13 +87,18 @@ def test_optimizers_match_optax(name, clip):
 
 
 def test_unported_options_are_refused():
+    """Mesh and pipeline training (ROADMAP item 9) are refused by the steps
+    and the runner; Adafactor and remat="offload" are ported
+    (tests/test_torch_training_surface.py)."""
     cfg = tdit.WanDiTConfig(**TINY128)
-    with pytest.raises(NotImplementedError, match="adafactor"):
-        make_optimizer("adafactor")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(NotImplementedError, match="mesh.*item 9"):
         make_wan_sft_train_step(cfg, make_optimizer(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="offload"):
-        tdit.wan_dit_forward({}, cfg, torch.zeros(1, 8, 1, 2, 2), torch.zeros(1), remat="offload")
+    with pytest.raises(NotImplementedError, match="pipeline.*item 9"):
+        make_wan_sft_train_step(cfg, make_optimizer(), pp_microbatches=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh.*item 9"):
+        launch_training_task(None, None, [], None, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="remat"):
+        tdit.wan_dit_forward({}, cfg, torch.zeros(1, 8, 1, 2, 2), torch.zeros(1), remat="host")
 
 
 def _tiny_lora_problem(seed=0):
@@ -238,12 +244,13 @@ def test_stage2_trains_b2_only_and_accumulates(tmp_path):
     assert all(p[-1] == "B2" for p in state.paths) and len(state.paths) == 2 * 10
     data = [{"latents": torch.randn(1, 8, 2, 4, 4, generator=g),
              "context": torch.randn(1, 5, 32, generator=g)} for _ in range(2)]
-    state = launch_training_task(state, step, data[:1], lambda x: x, generator=g, log_every=1)
+    state = launch_training_task(state, step, data[:1], lambda x: x, generator=g, log_every=1,
+                                 device="cpu")
     assert all(torch.equal(t, before[p]) for p, t in tad.leaves_with_path(state.params)
                if isinstance(t, torch.Tensor))  # first micro step: no update
     logger = ModelLogger(str(tmp_path))
     state = launch_training_task(state, step, data[1:], lambda x: x, generator=g,
-                                 logger=logger, save_steps=1)
+                                 logger=logger, save_steps=1, device="cpu")
     assert state.step == 2
     for p, t in tad.leaves_with_path(state.params):
         if isinstance(t, torch.Tensor):
