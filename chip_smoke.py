@@ -17,7 +17,9 @@ Phases, each printing its wall seconds:
                 count of 0 or wgmma that ptxas serialized, C7511 / C7512
                 / C7520, fails the run); beside them nvcc builds a copy of
                 csrc/flash_attention_online.cu in which no kernel has the
-                consumers take turns.
+                consumers take turns; the registers, shared memory and
+                spills of the fp32 K6a-c (FFMA) of
+                csrc/flash_attention_fp32.cu.
   3. kernels  — K1-K4 against their plain PyTorch versions on the card in
                 bf16 at the main path's shapes (480x832, 17 frames: S=1950)
                 and the flagship's (81 frames: S=8190); error, kernel ms,
@@ -52,6 +54,13 @@ Phases, each printing its wall seconds:
                 relative L2 error of 2^-10, SDPA as their yardstick, device
                 times beside the CUDA-event times; with --ab-lib, K4 of
                 another build of the library beside this one's.
+                Then K6a, K6b and K6c in fp32 at head dim 64 at the
+                Style-DoRA step's shapes (self 10 x 4096 and 20 x 1024,
+                cross to 77 text keys in 128): o, dq, dk, dv within a
+                relative L2 error of 1e-5 of the plain versions, lse within
+                1e-5, two runs bit for bit, the fp32 flash_attention
+                gradient against autograd, SDPA's fp32 forward and backward
+                as the yardstick, and their sums over a step's 140 calls.
   4. weights  — full-width Wan2.2-TI2V-5B DiT, UMT5-XXL and VAE38, made on
                 the card in bf16 from a seeded CUDA generator.
   5. requests — WanVideoPipeline answers two 480x832x17-frame, 4-step,
@@ -117,6 +126,17 @@ Phases, each printing its wall seconds:
                 0.7 requests on a seeded masked image with exact launch
                 counts (per step: K5 at head dim 64 10, K4 max form 61, K4
                 masked form 70), and one BrushNet + UNet step profiled.
+ 10b. dora    — FairyGen's stylization front end at full width as the CLI
+                twins run it (tools/create_mask.py, examples/dora_train.py,
+                examples/brushnet_stylize.py): the full-width ISNet's mask
+                of a seeded 1024x1024 drawing; the fp32 SDXL UNet, CLIP-L,
+                OpenCLIP bigG and VAE with a rank-32 DoRA, four masked DoRA
+                steps (AdamW 1e-4, wd 1e-2; the last with min-SNR-5), each
+                with wall, peak memory, exact launches (K6a-c fp32 140
+                each), a finite loss, base weights bit for bit and every
+                A, B, mag moved; one profiled step; the adapter through
+                safetensors into the bf16 serving pipeline at 0.66 and one
+                4-step 1024x1024 request with the sdxl phase's launches.
  11. reference — a tiny-width pipeline on the card (kernels, bf16) against
                 the same pipeline on the CPU (plain versions, fp32), a tiny
                 pipeline loaded by from_pretrained(hints=...) from
@@ -126,7 +146,8 @@ Phases, each printing its wall seconds:
                 FLUX.1 DiT with and without EliGen likewise, a tiny
                 head-dim-128 Z-Image DiT and a tiny Qwen3 encoder likewise,
                 and a tiny head-dim-64 SDXL + BrushNet + DoRA pipeline
-                likewise.
+                likewise, and a tiny head-dim-64 fp32 DoRA step (with and
+                without min-SNR-5) likewise.
 Then the card line, one JSON line of kernel numbers and the result line.
 Any failure exits non-zero; past BUDGET_S seconds the run stops, naming
 the phase it was in.
@@ -509,6 +530,39 @@ def hopper_build_report(log):
             raise RuntimeError(f"{k}: no HGMMA or UTMALDG instruction in its SASS: {p}")
 
 
+def f32_build_report(log):
+    """Registers and spills (ptxas -v) of the fp32 K6a-c kernels of
+    csrc/flash_attention_fp32.cu (FFMA, no TMA or wgmma) and their dynamic
+    shared memory; raises on a spill or a kernel ptxas did not report."""
+    import re
+
+    from fairygen_tpu_torch.ops import _kernels
+
+    names = ("fa_f32_fwd_lse_kernel", "fa_f32_bwd_dq_kernel", "fa_f32_bwd_dkv_kernel")
+    props, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = next((n for n in names if n + "E" in m.group(1)), None)
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            props.setdefault(current, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            props.setdefault(current, {})["registers"] = int(m.group(1))
+    for i, n in enumerate(names):
+        p = props.get(n, {})
+        print(f"  {F32_KERNELS[i]} ({n}, flash_attention_fp32.cu.o): registers "
+              f"{p.get('registers')}, dynamic shared memory "
+              f"{_kernels.lib().fg_flash_f32_smem_bytes(i)} bytes, spill bytes "
+              f"{p.get('spill_bytes')}", flush=True)
+        if p.get("registers") is None or p.get("spill_bytes") != 0:
+            raise RuntimeError(f"{n}: ptxas -v shows spills or no such kernel: {p}")
+
+
 def train_kernel_checks():
     """K5, K6a, K6b, K6c against their plain versions on the card in bf16 at
     the training path's two shapes: self-attention (B*N = 24, S = 8190
@@ -883,6 +937,7 @@ def main(argv):
         print(build_log)
         _kernels.lib()
         hopper_build_report(build_log)
+        f32_build_report(build_log)
         turns_log, _ = turns_proc.communicate(timeout=300)
     finally:
         if turns_proc.poll() is None:
@@ -902,6 +957,7 @@ def main(argv):
     flux_k = flux_kernel_checks()
     norm_k = norm_kernel_checks()
     sdxl_k = sdxl_kernel_checks()
+    f32_k = f32_train_kernel_checks()
     k4_other = k4_ab(ab_lib) if ab_lib else None
     torch.cuda.synchronize()
     done("kernels", t0)
@@ -1007,6 +1063,13 @@ def main(argv):
         print(f"  launches, serving, training, FLUX.1, Z-Image and SDXL: {launches}", flush=True)
         done("sdxl", t0)
 
+        t0 = phase("dora")
+        dora_launches = dora_phase()
+        launches = {k: launches[k] + dora_launches[k] for k in launches}
+        print(f"  launches, serving, training, FLUX.1, Z-Image, SDXL and its DoRA front end: "
+              f"{launches}", flush=True)
+        done("dora", t0)
+
         t0 = phase("reference")
         reference_check()
         reference_from_pretrained_check()
@@ -1014,6 +1077,7 @@ def main(argv):
         reference_flux_check()
         reference_zimage_check()
         reference_sdxl_check()
+        reference_dora_check()
         done("reference", t0)
 
     sources = {"ln_modulate": ("csrc/ln_modulate.cu", "fairygen_tpu/ops/fused_norms.py:42"),
@@ -1134,6 +1198,26 @@ def main(argv):
             rows[-1]["turns_ab_ms"] = {tag: turns[tag]["K4"] for tag, *_ in K4_TURNS_SHAPES}
             if k4_other:
                 rows[-1]["ab_lib_ms"] = k4_other
+    f32_sources = {"flash_fwd_lse_f32": "fairygen_tpu/ops/flash_attention.py:253",
+                   "flash_bwd_dq_f32": "fairygen_tpu/ops/flash_attention.py:295",
+                   "flash_bwd_dkv_f32": "fairygen_tpu/ops/flash_attention.py:329"}
+    for k, replaces in f32_sources.items():
+        by = f32_k[k]
+        r = by["self 10x4096"]
+        rows.append({
+            "name": k, "route": "cuda", "source": "fairygen_tpu_torch/csrc/flash_attention_fp32.cu",
+            "replaces": replaces, "launches": None if expected is None else launches[k],
+            "max_abs_err": max(v["max_abs_err"] for v in by.values()), "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"], "shape": "self 10x4096", "device_ms": r["device_ms"],
+            "rel_l2": max(v["rel_l2"] for v in by.values()),
+            "step_device_ms": sum(v["calls"] * v["device_ms"] for v in by.values()),
+            "step_bound_ms": sum(v["calls"] * v["bound"][0] for v in by.values()),
+            "by_shape": {tag: {"calls": v["calls"], "ms": v["ms"], "device_ms": v["device_ms"],
+                               "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0],
+                               "library_ms": v["library_ms"], "max_abs_err": v["max_abs_err"],
+                               "rel_l2": v["rel_l2"]}
+                         for tag, v in by.items()}})
     timer.cancel()
     print(smi)
     print(json.dumps({"kernels": rows}))
@@ -1393,7 +1477,8 @@ TRAIN_PER_STEP = {"ln_modulate": 180, "rms_rope_heads_major": 180, "flash_bounde
                   "flash_small_kv": 60, "flash_fwd": 0, "flash_fwd_lse": 60,
                   "flash_bwd_dq": 60, "flash_bwd_dkv": 60, "rms_rope_per_head": 0,
                   "rms_rope_joint": 0, "flash_bias": 0, "rms_modulate": 0, "vae_rms_silu": 0,
-                  "flash_small_kv_max": 0, "flash_small_kv_masked": 0, "flash_fwd_d64": 0}
+                  "flash_small_kv_max": 0, "flash_small_kv_masked": 0, "flash_fwd_d64": 0,
+                  "flash_fwd_lse_f32": 0, "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0}
 
 
 def train_phase(pipe, serving_per_request):
@@ -3101,6 +3186,167 @@ def sdxl_kernel_checks():
     return res
 
 
+# the fp32 DoRA train step's attention calls (batch 1, head dim 64, 1024x1024:
+# 128 x 128 latents): (tag, BN, Sq, Sk_pad, sk_actual, calls a step).  The
+# 10 transformer blocks at 64 x 64 latents (640 channels, 10 heads)
+# self-attend over 4096 tokens, the 60 at 32 x 32 (1280, 20 heads) over
+# 1024; all 70 cross-attend to the 77 text tokens, padded to 128
+DORA_ATTENTION_SHAPES = (
+    ("self 10x4096", 10, 4096, 4096, 4096, 10),
+    ("self 20x1024", 20, 1024, 1024, 1024, 60),
+    ("cross 10x4096 q, 77 keys", 10, 4096, 128, 77, 10),
+    ("cross 20x1024 q, 77 keys", 20, 1024, 128, 77, 60),
+)
+F32_KERNELS = ("flash_fwd_lse_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
+
+
+def f32_train_kernel_checks():
+    """K6a, K6b and K6c in fp32 at head dim 64 against their plain versions
+    on the card at the DoRA step's shapes (DORA_ATTENTION_SHAPES): o, dq, dk
+    and dv each within a relative L2 error of 1e-5 of the plain version, lse
+    within 1e-5 absolute (both sides fp32; the kernels sum in another order
+    and their exp2 is the hardware ex2, about 2 ulp), and each kernel run
+    twice giving the same bits.  Bounds count 4 (K6a), 6 (K6b) and 8 (K6c)
+    x BN x Sq x Sk x 64 flops on the unpadded lengths at 67 TFLOP/s (fp32
+    outside the tensor cores), each input read and output written once at
+    3.35 TB/s.  The library yardstick is scaled_dot_product_attention in
+    fp32 on the unpadded heads: its forward for K6a, its backward (dq, dk
+    and dv together) for K6b and K6c, timed here only.  Then
+    flash_attention's fp32 gradient against fp32 autograd of the plain
+    attention (relative L2 below 1e-5).  Returns {kernel: {tag: numbers}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
+    from fairygen_tpu_torch.ops.attention import xla_attention
+
+    g = torch.Generator("cuda").manual_seed(4242)
+    ln2, d, f32 = 0.6931471805599453, 64, torch.float32
+    res = {}
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    def rel_l2_of(out, ref):
+        return ((out.double() - ref.double()).norm() / ref.double().norm()).item()
+
+    for tag, bn, sq, skp, ska, calls in DORA_ATTENTION_SHAPES:
+        qh = randn(bn, sq, d, scale=d ** -0.5 * 1.4426950408889634)
+        kh, vh = randn(bn, skp, d), randn(bn, skp, d)
+        kh[:, ska:], vh[:, ska:] = 0, 0
+        doh = randn(bn, sq, d, scale=0.05)
+        before = dict(_kernels.launches)
+        o, lse = fa.flash_fwd(qh, kh, vh, sk_actual=ska)
+        o_ref, lse_ref = fa.flash_fwd_plain(qh, kh, vh, sk_actual=ska)
+        delta = (doh * o_ref).sum(-1)
+        dq = fa.flash_bwd_dq(qh, kh, vh, doh, lse_ref, delta, sk_actual=ska,
+                             dq_factor=1 / 1.4426950408889634)
+        dk, dv = fa.flash_bwd_dkv(qh, kh, vh, doh, lse_ref, delta, sq=sq, sk_actual=ska)
+        counted = {k: _kernels.launches[k] - before[k] for k in F32_KERNELS}
+        if counted != {k: 1 for k in F32_KERNELS}:
+            raise RuntimeError(f"{tag}: the fp32 counters did not count one launch each: "
+                               f"{counted}")
+        dq_ref = fa.flash_bwd_dq_plain(qh, kh, vh, doh, lse_ref, delta, sk_actual=ska,
+                                       dq_factor=1 / 1.4426950408889634)
+        dk_ref, dv_ref = fa.flash_bwd_dkv_plain(qh, kh, vh, doh, lse_ref, delta, sq=sq,
+                                                sk_actual=ska)
+        errs = {"o": rel_l2_of(o, o_ref), "dq": rel_l2_of(dq, dq_ref),
+                "dk": rel_l2_of(dk, dk_ref), "dv": rel_l2_of(dv, dv_ref)}
+        lse_err = (lse - lse_ref).abs().max().item()
+        zero_rows = bool((dk[:, ska:] == 0).all() and (dv[:, ska:] == 0).all())
+        o2, lse2 = fa.flash_fwd(qh, kh, vh, sk_actual=ska)
+        dq2 = fa.flash_bwd_dq(qh, kh, vh, doh, lse_ref, delta, sk_actual=ska,
+                              dq_factor=1 / 1.4426950408889634)
+        dk2, dv2 = fa.flash_bwd_dkv(qh, kh, vh, doh, lse_ref, delta, sq=sq, sk_actual=ska)
+        same = [torch.equal(a, b) for a, b in ((o, o2), (lse, lse2), (dq, dq2), (dk, dk2),
+                                               (dv, dv2))]
+        print(f"  fp32 K6a-c {tag}: relative L2 error o {errs['o']:.3e} dq {errs['dq']:.3e} "
+              f"dk {errs['dk']:.3e} dv {errs['dv']:.3e} (bound 1e-5); lse max abs error "
+              f"{lse_err:.3e} (bound 1e-5); dk/dv rows >= {ska} exactly 0: {zero_rows}; run "
+              f"twice, o lse dq dk dv bit for bit {same}", flush=True)
+        if not (max(errs.values()) < 1e-5 and lse_err < 1e-5 and zero_rows and all(same)):
+            raise RuntimeError(f"fp32 K6a-c disagree with their plain versions at {tag}")
+        del o2, lse2, dq2, dk2, dv2
+
+        q4, k4, v4, do4 = (t.view(1, bn, -1, d)[:, :, :n].contiguous() for t, n in
+                           ((qh, sq), (kh, ska), (vh, ska), (doh, sq)))
+        lq, lk, lv = (t.clone().requires_grad_(True) for t in (q4, k4, v4))
+        lib_out = F.scaled_dot_product_attention(lq, lk, lv, scale=ln2)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(q4, k4, v4, scale=ln2)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(lib_out, (lq, lk, lv), do4, retain_graph=True)
+
+        lib_fwd, lib_bwd = time_ms(sdpa_fwd, 10, 5), time_ms(sdpa_bwd, 10, 5)
+        rows, keys, work = bn * sq, bn * ska, bn * sq * ska * d
+        nb = {"flash_fwd_lse_f32": (2 * rows + 2 * keys) * d * 4 + rows * 4,
+              "flash_bwd_dq_f32": (3 * rows + 2 * keys) * d * 4 + 2 * rows * 4,
+              "flash_bwd_dkv_f32": (2 * rows + 4 * keys) * d * 4 + 2 * rows * 4}
+        f = 1 / 1.4426950408889634
+        runs = {
+            "flash_fwd_lse_f32": (errs["o"], 4,
+                                  lambda: fa.flash_fwd(qh, kh, vh, sk_actual=ska),
+                                  lambda: fa.flash_fwd_plain(qh, kh, vh, sk_actual=ska),
+                                  lib_fwd, (o - o_ref).abs().max().item()),
+            "flash_bwd_dq_f32": (errs["dq"], 6,
+                                 lambda: fa.flash_bwd_dq(qh, kh, vh, doh, lse, delta,
+                                                         sk_actual=ska, dq_factor=f),
+                                 lambda: fa.flash_bwd_dq_plain(qh, kh, vh, doh, lse, delta,
+                                                               sk_actual=ska, dq_factor=f),
+                                 lib_bwd, (dq - dq_ref).abs().max().item()),
+            "flash_bwd_dkv_f32": (max(errs["dk"], errs["dv"]), 8,
+                                  lambda: fa.flash_bwd_dkv(qh, kh, vh, doh, lse, delta, sq=sq,
+                                                           sk_actual=ska),
+                                  lambda: fa.flash_bwd_dkv_plain(qh, kh, vh, doh, lse, delta,
+                                                                 sq=sq, sk_actual=ska),
+                                  lib_bwd, max((dk - dk_ref).abs().max().item(),
+                                               (dv - dv_ref).abs().max().item())),
+        }
+        for name, (rel, mult, kern, plain, lib, max_abs) in runs.items():
+            what = "backward, dq+dk+dv" if "bwd" in name else "forward"
+            r = dict(max_abs_err=max_abs, rel_l2=rel, ms=time_ms(kern, 10, 5),
+                     device_ms=device_ms(kern, 10), plain_ms=time_ms(plain, 1, 3),
+                     bound=bound_ms(nb[name], mult * work, H100_FP32_FLOP_PER_S),
+                     library_ms=lib, calls=calls)
+            res.setdefault(name, {})[tag] = r
+            print(f"  {tag} {name}: ms {r['ms']:.4f} (device {r['device_ms']:.4f}) plain_ms "
+                  f"{r['plain_ms']:.4f} bound_ms {r['bound'][0]:.4f} ({r['bound'][1]}) "
+                  f"library_ms {lib:.4f} (SDPA fp32 {what})",
+                  flush=True)
+        del qh, kh, vh, doh, o, lse, o_ref, lse_ref, dq, dk, dv, dq_ref, dk_ref, dv_ref
+        del q4, k4, v4, do4, lq, lk, lv, lib_out
+        torch.cuda.empty_cache()
+    for name in F32_KERNELS:
+        step_ms = sum(r["device_ms"] * r["calls"] for r in res[name].values())
+        step_bound = sum(r["bound"][0] * r["calls"] for r in res[name].values())
+        print(f"  {name} over one DoRA step's 140 calls: device {step_ms:.3f} ms, bound "
+              f"{step_bound:.3f} ms", flush=True)
+
+    # flash_attention's fp32 gradient (K6a, K6b, K6c) against fp32 autograd
+    # of the plain attention on the same values
+    q = randn(1, 1000, 2, d, scale=d ** -0.5).requires_grad_(True)
+    k, v = randn(1, 1000, 2, d).requires_grad_(True), randn(1, 1000, 2, d).requires_grad_(True)
+    w = randn(1, 1000, 2, d)
+    before = dict(_kernels.launches)
+    out = fa.flash_attention(q, k, v, kv_len=900)
+    grads = torch.autograd.grad((out * w).sum(), (q, k, v))
+    counted = {k_: _kernels.launches[k_] - before[k_] for k_ in F32_KERNELS}
+    ref_in = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    ref = xla_attention(*ref_in, kv_len=900)
+    ref_grads = torch.autograd.grad((ref * w).sum(), ref_in)
+    rels = [rel_l2_of(a, b) for a, b in zip((out,) + grads, (ref,) + ref_grads)]
+    print(f"  fp32 flash_attention vs fp32 autograd of the plain attention (S=1000, "
+          f"kv_len 900, d 64): relative L2 o {rels[0]:.3e} dq {rels[1]:.3e} dk {rels[2]:.3e} "
+          f"dv {rels[3]:.3e} (bound 1e-5); launches {counted}", flush=True)
+    if not max(rels) < 1e-5 or counted != {k_: 1 for k_ in F32_KERNELS}:
+        raise RuntimeError(f"fp32 flash_attention gradient disagrees: {rels} {counted}")
+    return res
+
+
 def k4_ab(other_path):
     """K4's C entry fg_flash_small_kv_max (the same arguments in every
     build) of this build's library against another build's (``--ab-lib``:
@@ -3405,6 +3651,335 @@ def reference_sdxl_check():
         raise RuntimeError(f"tiny SDXL pipeline: kernel launches {ran} != {want}")
     if not rel <= tol:
         raise RuntimeError("tiny SDXL pipeline disagrees with the CPU reference")
+
+
+DORA_STEPS = 4  # one of them with min-SNR-5 weighting
+DORA_PER_STEP = {k: 140 for k in F32_KERNELS}  # 70 transformer blocks x 2 attentions
+DORA_STYLIZE_STEPS = 4
+
+
+def dora_inputs(size):
+    """A seeded (size, size, 3) uint8 drawing: seeded noise with a centred
+    ellipse of a flat seeded colour, the 'character'."""
+    import numpy as np
+
+    rng = np.random.default_rng(41)
+    img = rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    inside = (((yy - 0.55) / 0.35) ** 2 + ((xx - 0.5) / 0.22) ** 2) < 1
+    img[inside] = rng.integers(0, 256, 3, dtype=np.uint8)
+    return img
+
+
+def dora_phase():
+    """FairyGen's stylization front end at full width on the card, as the
+    CLI twins run its first three stages (tools/create_mask.py,
+    examples/dora_train.py, examples/brushnet_stylize.py), from seeded
+    weights:
+      mask    — the full-width ISNet (ISNetConfig.dis(), fp32) runs
+                extract_mask on a seeded 1024x1024 drawing; the mask must be
+                neither empty nor full;
+      style   — the SDXL UNet, CLIP-L, OpenCLIP bigG and the VAE in fp32
+                with a rank-32 DoRA, AdamW at lr 1e-4 and weight decay
+                1e-2: the drawing encoded to scaled latents, the mask on
+                the latent grid by nearest index, seeded 77-token prompt
+                ids through sdxl_encode_prompt, then DORA_STEPS masked DoRA
+                steps (the last with snr_gamma 5), each with its wall time,
+                peak memory, exact launch counts (K6a, K6b, K6c in fp32 140
+                each, every other kernel 0), a finite loss, the base weights
+                bit for bit as before (against a copy) and every A, B
+                and mag moved; then one step under torch.profiler;
+      stylize — the adapter through sdxl_dora_state_dict -> safetensors ->
+                load_sdxl_dora_state_dict at 0.66 into the bf16 serving
+                pipeline (bf16 UNet, BrushNet and text encoders, fp32 VAE):
+                one 1024x1024 request of DORA_STYLIZE_STEPS steps, CFG 7.5,
+                with the sdxl phase's launch counts per step.
+    Returns the launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.core.io import load_state_dict, save_safetensors
+    from fairygen_tpu_torch.models.adapters import leaves_with_path
+    from fairygen_tpu_torch.models.isnet import ISNetConfig, extract_mask, init_isnet_params
+    from fairygen_tpu_torch.models.sdxl.clip import CLIPTextConfig, sdxl_encode_prompt
+    from fairygen_tpu_torch.models.sdxl.unet2d import UNet2DConfig
+    from fairygen_tpu_torch.models.sdxl.vae import AutoencoderKLConfig, vae_encode
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines.sdxl_brushnet import SDXLBrushNetPipeline
+    from fairygen_tpu_torch.training.dora_trainer import (add_dora_to_sdxl_unet,
+                                                          load_sdxl_dora_state_dict,
+                                                          make_sdxl_dora_train_step,
+                                                          sdxl_dora_state_dict)
+    from fairygen_tpu_torch.training.optimizers import make_optimizer
+
+    f32, bf = torch.float32, torch.bfloat16
+    gib = 2 ** 30
+    total = {k: 0 for k in _kernels.launches}
+
+    def count(got):
+        for k, v in got.items():
+            total[k] += v
+
+    # --- mask
+    image = dora_inputs(1024)
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    icfg = ISNetConfig.dis()
+    isnet = init_isnet_params(icfg, "cuda", f32, seed=60)
+    torch.cuda.synchronize()
+    n_isnet = sum(t.numel() for _, t in leaves_with_path(isnet))
+    print(f"  ISNet-DIS {n_isnet:,} fp32 parameters in {time.perf_counter() - t1:.3f} s",
+          flush=True)
+    _kernels.reset_launches()
+    for label in ("first", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mask = extract_mask(isnet, icfg, image)
+        torch.cuda.synchronize()
+        fg = float((mask == 255).mean())
+        print(f"  mask ({label}): extract_mask 1024x1024 in {time.perf_counter() - t1:.3f} s, "
+              f"{tuple(mask.shape)} {mask.dtype}, values {sorted(np.unique(mask).tolist())}, "
+              f"foreground share {fg:.4f}, max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB", flush=True)
+    if mask.shape != (1024, 1024) or not 0 < fg < 1:
+        raise RuntimeError("the ISNet mask is empty, full or of the wrong shape")
+    if any(_kernels.launches.values()):
+        raise RuntimeError(f"the mask stage launched kernels: {_kernels.launches}")
+    del isnet
+
+    # --- style
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    ucfg = UNet2DConfig.sdxl_base()
+    te1_cfg, te2_cfg = CLIPTextConfig.sdxl_te1(), CLIPTextConfig.sdxl_te2()
+    vcfg = AutoencoderKLConfig.sdxl()
+    base = convert.init_unet2d_params(ucfg, "cuda", f32, seed=61)
+    te1 = convert.init_clip_text_params(te1_cfg, "cuda", f32, seed=62)
+    te2 = convert.init_clip_text_params(te2_cfg, "cuda", f32, seed=63)
+    vae = convert.init_autoencoder_kl_params(vcfg, "cuda", f32, seed=64)
+    params = add_dora_to_sdxl_unet(base, torch.Generator("cuda").manual_seed(65), rank=32)
+    torch.cuda.synchronize()
+    print(f"  fp32 weights in {time.perf_counter() - t1:.3f} s: UNet "
+          f"{convert.count_params(base):,} CLIP-L {convert.count_params(te1):,} OpenCLIP bigG "
+          f"{convert.count_params(te2):,} VAE {convert.count_params(vae):,}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB", flush=True)
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        pixel = torch.from_numpy(image.astype(np.float32) / 127.5 - 1.0).permute(2, 0, 1)
+        latents = vae_encode(vae, vcfg, pixel[None].cuda()) * vcfg.scaling_factor
+        h, w = latents.shape[-2:]
+        ih, iw = np.arange(h) * 1024 // h, np.arange(w) * 1024 // w
+        mask_latents = torch.from_numpy((mask[ih][:, iw] > 127).astype(np.float32))
+        ids1, ids2 = sdxl_ids(66, 12)
+        pe, pooled = sdxl_encode_prompt(te1, te1_cfg, te2, te2_cfg, ids1.cuda(), ids2.cuda())
+    torch.cuda.synchronize()
+    print(f"  encode: latents {tuple(latents.shape)}, latent mask foreground "
+          f"{float(mask_latents.mean()):.4f}, prompt {tuple(pe.shape)} pooled "
+          f"{tuple(pooled.shape)} in {time.perf_counter() - t1:.3f} s", flush=True)
+    if not (torch.isfinite(latents).all() and torch.isfinite(pe).all()):
+        raise RuntimeError("the DoRA batch holds non-finite values")
+    del te1, te2
+    torch.cuda.empty_cache()
+    batch = {"latents": latents, "mask_latents": mask_latents[None, None].cuda(),
+             "prompt_embeds": pe, "pooled": pooled,
+             "original_size": torch.tensor([[1024, 1024]], device="cuda"),
+             "crop_top_left": torch.tensor([[0, 0]], device="cuda")}
+    opt = make_optimizer("adamw", 1e-4, weight_decay=1e-2)
+    init_state, step_plain = make_sdxl_dora_train_step(ucfg, opt, resolution=1024,
+                                                       device="cuda")
+    _, step_snr = make_sdxl_dora_train_step(ucfg, opt, snr_gamma=5.0, resolution=1024,
+                                            device="cuda")
+    state = init_state(params)
+    # a copy of the base weights on the card to hold them bit for bit after
+    # each step; its bytes are counted out of each step's peak below
+    ref_base = [t.detach().clone() for _, t in leaves_with_path(base)]
+    ref_gib = sum(t.numel() * t.element_size() for t in ref_base) / gib
+    print(f"  {len(state.trainable)} trainable tensors "
+          f"({sum(t.numel() for t in state.trainable):,} values: A, B, mag); a {ref_gib:.2f} GiB "
+          f"reference copy of the {len(ref_base)} base tensors", flush=True)
+    kinds = {k: sum(p[-1] == k for p in state.paths) for k in ("A", "B", "mag")}
+    if kinds != {"A": 560, "B": 560, "mag": 560} or len(state.paths) != 1680:
+        raise RuntimeError(f"trainable tensors {kinds}, expected 560 each of A, B, mag")
+    want = {k: DORA_PER_STEP.get(k, 0) for k in _kernels.launches}
+    gen = torch.Generator("cuda").manual_seed(67)
+    walls = []
+    for i in range(DORA_STEPS):
+        snr = i == DORA_STEPS - 1
+        before = [t.detach().clone() for t in state.trainable]
+        _kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, loss = (step_snr if snr else step_plain)(state, batch, gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        got = dict(_kernels.launches)
+        count(got)
+        peak = torch.cuda.max_memory_allocated() / gib - ref_gib
+        moved = {k: 0 for k in kinds}
+        for p, t, b in zip(state.paths, state.trainable, before):
+            moved[p[-1]] += int(not torch.equal(t, b))
+        same = all(torch.equal(t, r) for (_, t), r in zip(leaves_with_path(base), ref_base))
+        print(f"  DoRA step {i + 1}{' (snr_gamma 5)' if snr else ''}: {walls[-1]:.3f} s, loss "
+              f"{float(loss):.6f}, max_memory_allocated {peak:.2f} GiB (without the reference "
+              f"copy), launches { {k: v for k, v in got.items() if v} }, tensors moved {moved}, "
+              f"base weights bit for bit as before: {same}", flush=True)
+        if not torch.isfinite(loss) or got != want or not same or moved != kinds:
+            raise RuntimeError(f"DoRA step {i + 1} failed its checks")
+        del before
+    del ref_base
+
+    # where a step's time goes
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        state, loss = step_plain(state, batch, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    count(dict(_kernels.launches))
+    device_table(prof, wall, "profiled DoRA step (1024x1024, fp32, rank 32)", 18,
+                 also=("fa_f32",))
+    f32_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and "fa_f32" in e.key)
+    print(f"  fp32 K6a-c in the profiled step: {f32_us / 1e3:.3f} ms of device time",
+          flush=True)
+
+    # --- stylize: the adapter saved and loaded as the CLI twins do
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pytorch_lora_weights.safetensors")
+        t1 = time.perf_counter()
+        save_safetensors(path, sdxl_dora_state_dict(state.params))
+        sd = load_state_dict(path)
+        print(f"  adapter: {len(sd)} tensors through {os.path.getsize(path) / 2**20:.1f} MiB "
+              f"of safetensors in {time.perf_counter() - t1:.3f} s", flush=True)
+    unet = to(base, "cuda", bf)
+    del state, params, base, latents, batch, opt, step_plain, step_snr, init_state, prof
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    unet, n = load_sdxl_dora_state_dict(unet, sd, scale=0.66)
+    if n != 560:
+        raise RuntimeError(f"{n} DoRA adapters loaded, expected 560")
+    bcfg = UNet2DConfig.brushnet_sdxl()
+    bn = convert.init_unet2d_params(bcfg, "cuda", bf, seed=68, brushnet=True)
+    te1 = convert.init_clip_text_params(te1_cfg, "cuda", bf, seed=62)
+    te2 = convert.init_clip_text_params(te2_cfg, "cuda", bf, seed=63)
+    pipe = SDXLBrushNetPipeline(unet, ucfg, vae, vcfg, bn, bcfg, te1, te1_cfg, te2, te2_cfg,
+                                dtype=bf, device="cuda")
+    ppe, pppe = pipe.encode_ids(*sdxl_ids(69, 20))
+    npe, nppe = pipe.encode_ids(*sdxl_ids(70, 0))
+    keep = (mask[..., None] > 250).astype(np.float32)
+    masked = image.astype(np.float32) / 255.0 * (1.0 - keep)
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    img = pipe(prompt_embeds=ppe, pooled_embeds=pppe, negative_prompt_embeds=npe,
+               negative_pooled_embeds=nppe, image=masked, mask=keep, height=1024, width=1024,
+               num_inference_steps=DORA_STYLIZE_STEPS, guidance_scale=7.5,
+               brushnet_conditioning_scale=0.7, seed=333, output_type="np_pm1")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    got = dict(_kernels.launches)
+    count(got)
+    want = {k: SDXL_PER_STEP.get(k, 0) * DORA_STYLIZE_STEPS for k in _kernels.launches}
+    finite = bool(torch.isfinite(img).all())
+    print(f"  stylize request with the trained adapter at 0.66 ({DORA_STYLIZE_STEPS} steps, "
+          f"CFG 7.5): {dt:.3f} s, output {tuple(img.shape)}, all finite {finite}, std "
+          f"{img.std().item():.4f}, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB, launches "
+          f"{ {k: v for k, v in got.items() if v} }", flush=True)
+    if tuple(img.shape) != (1, 3, 1024, 1024) or not finite or got != want:
+        raise RuntimeError(f"the stylize request failed its checks: {got} != {want}")
+    del pipe, unet, bn, te1, te2, vae, img
+    torch.cuda.empty_cache()
+    return total
+
+
+def reference_dora_check():
+    """One masked DoRA step of a tiny head-dim-64 SDXL UNet on the card
+    (fp32, so K6a, K6b and K6c in fp32) against the same step on the CPU
+    (plain versions), from the same weights, batch, timesteps and noise,
+    without and with min-SNR-5: the loss within 1e-4 relative and the A, B
+    and mag gradients within 1e-3 relative L2, the CPU tests' bounds
+    against the JAX step (both sides fp32; sums in other orders; TF32 is
+    off for matmuls and cuDNN since the device phase)."""
+    import torch
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.sdxl.unet2d import UNet2DConfig
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.training.dora_trainer import (add_dora_to_sdxl_unet,
+                                                          make_sdxl_dora_train_step)
+    from fairygen_tpu_torch.training.optimizers import make_optimizer
+
+    cfg = UNet2DConfig(block_out_channels=(64, 128), num_attention_heads=(1, 2),
+                       down_block_types=("CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+                       up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D"),
+                       transformer_layers_per_block=(1, 1), cross_attention_dim=64,
+                       addition_time_embed_dim=8, projection_class_embeddings_input_dim=80)
+    g = torch.Generator("cpu").manual_seed(110)
+    params = add_dora_to_sdxl_unet(convert.init_unet2d_params(cfg, "cpu", torch.float32,
+                                                              seed=111), g, rank=8)
+
+    def perturb(tree):
+        if isinstance(tree, dict):
+            if "lora" in tree:
+                tree["lora"]["B"].normal_(generator=g).mul_(0.05)
+            for v in tree.values():
+                perturb(v)
+        elif isinstance(tree, list):
+            for v in tree:
+                perturb(v)
+
+    perturb(params)
+    batch = {"latents": torch.randn(1, 4, 32, 32, generator=g),
+             "mask_latents": (torch.rand(1, 1, 32, 32, generator=g) > 0.4).float(),
+             "prompt_embeds": torch.randn(1, 77, 64, generator=g),
+             "pooled": torch.randn(1, 32, generator=g),
+             "original_size": torch.tensor([[256, 256]]),
+             "crop_top_left": torch.tensor([[0, 0]])}
+    noise = torch.randn(1, 4, 32, 32, generator=g)
+    timesteps = torch.tensor([60])  # SNR 15.9: min-SNR-5 weights the loss by 5 / 15.9
+
+    def placed(tree, dev):
+        if isinstance(tree, dict):
+            return {k: placed(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [placed(v, dev) for v in tree]
+        return tree.detach().to(dev).clone() if torch.is_tensor(tree) else tree
+
+    def run(dev, snr):
+        init, step = make_sdxl_dora_train_step(cfg, make_optimizer("adamw", 1e-4, 1e-2),
+                                               snr_gamma=snr, resolution=256, device=dev)
+        loss, grads = step.loss_and_grads(init(placed(params, dev)),
+                                          {k: v.to(dev) for k, v in batch.items()},
+                                          timesteps=timesteps.to(dev), noise=noise.to(dev))
+        return float(loss), {k: v.cpu() for k, v in grads.items()}
+
+    for snr in (None, 5.0):
+        ref_loss, ref = run("cpu", snr)
+        _kernels.reset_launches()
+        loss, grads = run("cuda", snr)
+        ran = {k: v for k, v in _kernels.launches.items() if v}
+        e_loss = abs(loss - ref_loss) / abs(ref_loss)
+        worst = {}
+        for kind in ("A", "B", "mag"):
+            keys = [k for k in ref if k[-1] == kind]
+            a = torch.cat([grads[k].double().ravel() for k in keys])
+            b = torch.cat([ref[k].double().ravel() for k in keys])
+            worst[kind] = float((a - b).norm() / b.norm())
+        print(f"  tiny DoRA step (d 64, 32x32 latents, snr_gamma {snr}): loss {loss:.6f} card, "
+              f"{ref_loss:.6f} CPU, relative error {e_loss:.3e} (bound 1e-4); relative L2 of "
+              f"the gradients {worst} (bound 1e-3); kernel launches {ran}", flush=True)
+        if ran != {k: 22 for k in F32_KERNELS}:
+            raise RuntimeError(f"tiny DoRA step: kernel launches {ran}, expected 22 each")
+        if not (e_loss <= 1e-4 and max(worst.values()) <= 1e-3):
+            raise RuntimeError("tiny DoRA step disagrees with the CPU reference")
 
 
 if __name__ == "__main__":

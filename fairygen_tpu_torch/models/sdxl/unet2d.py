@@ -15,7 +15,8 @@ returns and :func:`unet2d_forward` takes are channels-first too (the JAX
 package's are NHWC).  Convolutions, GroupNorm, LayerNorm and GEGLU are
 plain PyTorch, as they are plain XLA in the JAX package; attention goes
 through ``ops.attention`` (on the card, K4's max and masked forms and K5 at
-head dim 64).
+head dim 64; with a gradient in fp32, the Style-DoRA train step's, K6a-c's
+fp32 forms).
 """
 from __future__ import annotations
 

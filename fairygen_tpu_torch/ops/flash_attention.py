@@ -62,6 +62,7 @@ def flash_attention_heads_major(qh, kh, v, *, b, n, sq, sk_actual, bq=2048,
     if not qh.is_cuda:
         return flash_attention_heads_major_plain(qh, kh, v, b=b, n=n, sq=sq,
                                                  sk_actual=sk_actual)
+    _refuse_unported(qh, grad=False)
     _kernels.check_cuda(qh, "qh", torch.bfloat16, 3)
     _kernels.check_cuda(kh, "kh", torch.bfloat16, 3)
     _kernels.check_cuda(v, "v", torch.bfloat16, 4)
@@ -88,9 +89,11 @@ def flash_attention_heads_major(qh, kh, v, *, b, n, sq, sk_actual, bq=2048,
 # K4 (max and masked forms) / K5 / K6a / K6b / K6c: the generic entry and its
 # gradient (port of ``flash_attention`` with its custom VJP,
 # ``_flash_fwd_impl``, ``_flash_fwd`` and ``_flash_bwd``).  The kernels take
-# head-major bf16 (B*N, S_pad, d) q/k/v, zero rows past the sequence, S_pad
-# a multiple of 64; d is 64 or 128 for K4 and K5, 128 for K6a-c.  lse and
-# delta are one fp32 value per row.  CPU tensors take the ``*_plain``
+# head-major (B*N, S_pad, d) q/k/v, zero rows past the sequence, S_pad a
+# multiple of 64: bf16 at d 64 or 128 for K4 and K5 and at d 128 for K6a-c,
+# and fp32 at d 64 for K6a-c (the fp32 SDXL UNet of the Style-DoRA train
+# step).  Other forms raise a ValueError that names ROADMAP.md Queue 2.  lse
+# and delta are one fp32 value per row.  CPU tensors take the ``*_plain``
 # versions, which compute what the Pallas kernels compute on one tile: fp32
 # logits, keys >= sk_actual masked, p rounded to the value dtype before each
 # product, fp32 accumulation.  On the card K4's max and masked forms, K5 (d
@@ -99,13 +102,33 @@ def flash_attention_heads_major(qh, kh, v, *, b, n, sq, sk_actual, bq=2048,
 # against its tile's running max, K4 against the row's max over every key
 # (a pre-pass over the key tiles after the first finds it), as the Pallas
 # kernel does; K6b and K6c are those of ``csrc/flash_attention_bwd.cu``.
+# The fp32 forms of K6a-c are the FFMA kernels of
+# ``csrc/flash_attention_fp32.cu`` (all in fp32, on 64-key tiles).
 
 DEFAULT_BQ = 1024
 DEFAULT_BK = 1024
 LOG2E = 1.4426950408889634
 _ROW_TILE = 64  # the CUDA kernels take padded lengths that are multiples of this
 _FWD_DIMS = (64, 128)  # head dims of the K4 max/masked and K5 kernels
-_TRAIN_DIMS = (128,)   # head dims of K6a-c (and K10)
+_TRAIN_DIMS = (128,)   # head dims of K6a-c in bf16 (and K10)
+_F32_TRAIN_DIMS = (64,)  # head dims of K6a-c in fp32
+
+
+def _refuse_unported(qh, grad):
+    """Raise for an attention form whose kernel is not ported yet: bf16 with
+    a gradient at a head dim other than 128, fp32 without a gradient, fp32
+    with one at a head dim other than 64."""
+    d = qh.shape[-1]
+    if qh.dtype == torch.float32 and not grad:
+        form = "fp32 attention without a gradient (the fp32 K3/K4/K5/K10 forms)"
+    elif qh.dtype == torch.float32 and d not in _F32_TRAIN_DIMS:
+        form = f"fp32 attention with a gradient at head dim {d}"
+    elif qh.dtype == torch.bfloat16 and grad and d not in _TRAIN_DIMS:
+        form = f"bf16 attention with a gradient at head dim {d}"
+    else:
+        return
+    raise ValueError(f"{form} has no kernel on the card yet: K6a-c take bf16 at head dim 128 "
+                     "and fp32 at 64, K3/K4/K5/K10 bf16 (ROADMAP.md Queue 2 A)")
 
 
 def _masked_logits(qh, kh, bn, sk_actual):
@@ -117,7 +140,9 @@ def _masked_logits(qh, kh, bn, sk_actual):
 def flash_fwd_plain(qh, kh, vh, *, sk_actual, with_lse=True):
     """Plain version of K5 (``with_lse=False``) and K6a: softmax in base 2
     with the row max, one head at a time.  Returns o (BN, Sq_pad, d) in
-    q's dtype and, with ``with_lse``, lse = m + log2(l) (BN, Sq_pad) fp32."""
+    q's dtype and, with ``with_lse``, lse = m + log2(l) (BN, Sq_pad) fp32.
+    Any dtype: on fp32 inputs (K6a's fp32 form) ``p.to(v.dtype)`` is a
+    no-op and everything stays fp32."""
     out = torch.empty_like(qh)
     lse = qh.new_empty(qh.shape[:2], dtype=torch.float32)
     for bn in range(qh.shape[0]):
@@ -131,7 +156,8 @@ def flash_fwd_plain(qh, kh, vh, *, sk_actual, with_lse=True):
 
 
 def flash_bwd_dq_plain(qh, kh, vh, doh, lse, delta, *, sk_actual, dq_factor):
-    """Plain version of K6b: dQ = f * [P o (dP - delta)] K."""
+    """Plain version of K6b: dQ = f * [P o (dP - delta)] K.  In fp32 the
+    rounding of dS to k's dtype is a no-op."""
     dq = torch.empty_like(qh)
     for bn in range(qh.shape[0]):
         p = torch.exp2(_masked_logits(qh, kh, bn, sk_actual) - lse[bn, :, None])
@@ -143,7 +169,8 @@ def flash_bwd_dq_plain(qh, kh, vh, doh, lse, delta, *, sk_actual, dq_factor):
 
 def flash_bwd_dkv_plain(qh, kh, vh, doh, lse, delta, *, sq, sk_actual):
     """Plain version of K6c: dV = P^T dO, dK = [P o (dP - delta)]^T Q /
-    log2(e); queries >= sq contribute nothing."""
+    log2(e); queries >= sq contribute nothing.  In fp32 the roundings of P
+    and dS to the operands' dtype are no-ops."""
     dk, dv = torch.empty_like(kh), torch.empty_like(vh)
     for bn in range(qh.shape[0]):
         p = torch.exp2(_masked_logits(qh, kh, bn, sk_actual) - lse[bn, :, None])
@@ -155,9 +182,10 @@ def flash_bwd_dkv_plain(qh, kh, vh, doh, lse, delta, *, sq, sk_actual):
     return dk, dv
 
 
-def _check_heads_major(qh, kh, vh, sk_actual, extra=(), dims=_TRAIN_DIMS):
+def _check_heads_major(qh, kh, vh, sk_actual, extra=(), dims=_TRAIN_DIMS,
+                       dtype=torch.bfloat16):
     for name, t in (("qh", qh), ("kh", kh), ("vh", vh)) + tuple(extra):
-        _kernels.check_cuda(t, name, torch.bfloat16, 3)
+        _kernels.check_cuda(t, name, dtype, 3)
     if qh.shape[2] not in dims or kh.shape != vh.shape or kh.shape[0] != qh.shape[0] \
             or kh.shape[2] != qh.shape[2]:
         raise ValueError(f"this flash kernel needs (BN, S_pad, d) q/k/v with d in {dims}, got "
@@ -175,16 +203,25 @@ def _check_rows(t, name, shape):
 
 
 def flash_fwd(qh, kh, vh, *, sk_actual, with_lse=True):
-    """K6a (``with_lse``, d = 128) or K5 (d = 64 or 128) on head-major
-    q/k/v (see the section note).  Returns o, and lse with ``with_lse``.
-    On the card both are the TMA + wgmma kernels of
-    ``csrc/flash_attention_online.cu``; at d 128 K5's o equals K6a's bit
-    for bit."""
+    """K6a (``with_lse``: bf16 at d 128, fp32 at d 64) or K5 (bf16, d = 64
+    or 128) on head-major q/k/v (see the section note).  Returns o, and lse
+    with ``with_lse``.  On the card the bf16 forms are the TMA + wgmma
+    kernels of ``csrc/flash_attention_online.cu`` (at d 128 K5's o equals
+    K6a's bit for bit), the fp32 form that of
+    ``csrc/flash_attention_fp32.cu``."""
     if not qh.is_cuda:
         return flash_fwd_plain(qh, kh, vh, sk_actual=sk_actual, with_lse=with_lse)
-    _check_heads_major(qh, kh, vh, sk_actual, dims=_TRAIN_DIMS if with_lse else _FWD_DIMS)
+    _refuse_unported(qh, grad=with_lse)
     bn, sq_p, d = qh.shape
     out = torch.empty_like(qh)
+    if qh.dtype == torch.float32:
+        _check_heads_major(qh, kh, vh, sk_actual, dims=_F32_TRAIN_DIMS, dtype=torch.float32)
+        lse = torch.empty((bn, sq_p), dtype=torch.float32, device=qh.device)
+        _kernels.launch("flash_fwd_lse_f32", "fg_flash_fwd_lse_f32", qh.data_ptr(),
+                        kh.data_ptr(), vh.data_ptr(), out.data_ptr(), lse.data_ptr(), bn, sq_p,
+                        int(sk_actual), kh.shape[1])
+        return out, lse
+    _check_heads_major(qh, kh, vh, sk_actual, dims=_TRAIN_DIMS if with_lse else _FWD_DIMS)
     if with_lse:
         lse = torch.empty((bn, sq_p), dtype=torch.float32, device=qh.device)
         _kernels.launch("flash_fwd_lse", "fg_flash_fwd_lse", qh.data_ptr(), kh.data_ptr(),
@@ -213,6 +250,7 @@ def flash_small_kv_max(qh, kh, vh, *, sk_actual):
     with each row's max taken before its first p (see the section note)."""
     if not qh.is_cuda:
         return flash_small_kv_max_plain(qh, kh, vh, sk_actual=sk_actual)
+    _refuse_unported(qh, grad=False)
     _check_heads_major(qh, kh, vh, sk_actual, dims=_FWD_DIMS)
     bn, sq_p, d = qh.shape
     sk_p = kh.shape[1]
@@ -225,19 +263,30 @@ def flash_small_kv_max(qh, kh, vh, *, sk_actual):
     return out
 
 
-def flash_bwd_dq(qh, kh, vh, doh, lse, delta, *, sk_actual, dq_factor):
-    """K6b: dQ (BN, Sq_pad, 128) from the forward's lse and delta; every row
-    below Sq_pad is written."""
-    if not qh.is_cuda:
-        return flash_bwd_dq_plain(qh, kh, vh, doh, lse, delta, sk_actual=sk_actual,
-                                  dq_factor=dq_factor)
-    _check_heads_major(qh, kh, vh, sk_actual, (("doh", doh),))
+def _check_bwd(qh, kh, vh, doh, lse, delta, sk_actual):
+    """The backward kernels' checks; True for the fp32 form."""
+    _refuse_unported(qh, grad=True)
+    f32 = qh.dtype == torch.float32
+    _check_heads_major(qh, kh, vh, sk_actual, (("doh", doh),),
+                       dims=_F32_TRAIN_DIMS if f32 else _TRAIN_DIMS,
+                       dtype=torch.float32 if f32 else torch.bfloat16)
     if doh.shape != qh.shape:
         raise ValueError("doh must have q's shape")
     _check_rows(lse, "lse", qh.shape[:2])
     _check_rows(delta, "delta", qh.shape[:2])
+    return f32
+
+
+def flash_bwd_dq(qh, kh, vh, doh, lse, delta, *, sk_actual, dq_factor):
+    """K6b: dQ (BN, Sq_pad, d) from the forward's lse and delta (bf16 at d
+    128, fp32 at d 64); every row below Sq_pad is written."""
+    if not qh.is_cuda:
+        return flash_bwd_dq_plain(qh, kh, vh, doh, lse, delta, sk_actual=sk_actual,
+                                  dq_factor=dq_factor)
+    f32 = _check_bwd(qh, kh, vh, doh, lse, delta, sk_actual)
     dq = torch.empty_like(qh)
-    _kernels.launch("flash_bwd_dq", "fg_flash_bwd_dq", qh.data_ptr(), kh.data_ptr(),
+    kernel = "flash_bwd_dq_f32" if f32 else "flash_bwd_dq"
+    _kernels.launch(kernel, "fg_" + kernel, qh.data_ptr(), kh.data_ptr(),
                     vh.data_ptr(), doh.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                     dq.data_ptr(), float(dq_factor), qh.shape[0], qh.shape[1],
                     int(sk_actual), kh.shape[1])
@@ -245,17 +294,17 @@ def flash_bwd_dq(qh, kh, vh, doh, lse, delta, *, sk_actual, dq_factor):
 
 
 def flash_bwd_dkv(qh, kh, vh, doh, lse, delta, *, sq, sk_actual):
-    """K6c: (dK, dV), each (BN, Sk_pad, 128); queries >= sq are skipped and
-    key rows >= sk_actual come out exactly 0."""
+    """K6c: (dK, dV), each (BN, Sk_pad, d) (bf16 at d 128, fp32 at d 64);
+    queries >= sq are skipped and key rows >= sk_actual come out exactly
+    0."""
     if not qh.is_cuda:
         return flash_bwd_dkv_plain(qh, kh, vh, doh, lse, delta, sq=sq, sk_actual=sk_actual)
-    _check_heads_major(qh, kh, vh, sk_actual, (("doh", doh),))
-    if doh.shape != qh.shape or not 1 <= sq <= qh.shape[1]:
-        raise ValueError("doh must have q's shape and 1 <= sq <= Sq_pad")
-    _check_rows(lse, "lse", qh.shape[:2])
-    _check_rows(delta, "delta", qh.shape[:2])
+    f32 = _check_bwd(qh, kh, vh, doh, lse, delta, sk_actual)
+    if not 1 <= sq <= qh.shape[1]:
+        raise ValueError(f"sq {sq} outside [1, {qh.shape[1]}]")
     dk, dv = torch.empty_like(kh), torch.empty_like(vh)
-    _kernels.launch("flash_bwd_dkv", "fg_flash_bwd_dkv", qh.data_ptr(), kh.data_ptr(),
+    kernel = "flash_bwd_dkv_f32" if f32 else "flash_bwd_dkv"
+    _kernels.launch(kernel, "fg_" + kernel, qh.data_ptr(), kh.data_ptr(),
                     vh.data_ptr(), doh.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                     dk.data_ptr(), dv.data_ptr(), qh.shape[0], int(sq), qh.shape[1],
                     int(sk_actual), kh.shape[1])
@@ -333,7 +382,10 @@ def _flash_fwd_impl(q, k, v, scale=None, prescaled=False, kv_len=None, bounded_l
 
 class _FlashAttention(torch.autograd.Function):
     """``flash_attention`` with a gradient: forward K6a (saves o and the
-    per-row lse), backward K6b then K6c, δ = Σ dO·O in PyTorch."""
+    per-row lse), backward K6b then K6c, δ = Σ dO·O in PyTorch.  On the
+    card bf16 q/k/v at head dim 128 take the TMA + wgmma kernels, fp32 at
+    head dim 64 (the fp32 SDXL UNet's) the FFMA kernels of
+    ``csrc/flash_attention_fp32.cu``; other forms raise (ROADMAP.md Queue 2)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, prescaled, kv_len):
@@ -407,6 +459,7 @@ def flash_attention_bias_heads_major(qh, kh, vh, bias, *, n, sq, sk):
     rows) and an unpadded fp32 bias (B|1, sq, sk).  Returns head-major o."""
     if not qh.is_cuda:
         return flash_attention_bias_plain(qh, kh, vh, bias, n=n, sq=sq, sk=sk)
+    _refuse_unported(qh, grad=False)
     _check_heads_major(qh, kh, vh, sk)
     _kernels.check_cuda(bias, "bias", torch.float32, 3)
     bn = qh.shape[0]

@@ -9,11 +9,10 @@ BrushNet sweep and one UNet sweep at CFG batch 2 (uncond first), the
 BrushNet features added into the UNet scaled by ``brushnet_conditioning_scale``
 times the ``brushnet_keep`` schedule, and the fp32 VAE decode.  The style
 DoRA rides inside the UNet params; ``scale_adapters`` rescales it.
-Prompts arrive as embeddings; :meth:`SDXLBrushNetPipeline.encode_ids` runs
-the two CLIP encoders on token ids in place of the JAX package's
-tokenizers, which need files the repository does not hold.  String
-prompts, ``scheduler="lcm"`` and a device ``mesh`` are not ported and
-raise.
+Prompts arrive as strings (through ``tokenizer1`` / ``tokenizer2``, the
+CLIP tokenizers of ``utils/tokenizer.py``, and the two text encoders), as
+embeddings, or as token ids through :meth:`SDXLBrushNetPipeline.encode_ids`.
+``scheduler="lcm"`` and a device ``mesh`` are not ported and raise.
 """
 from __future__ import annotations
 
@@ -74,7 +73,7 @@ class SDXLBrushNetPipeline:
                  brushnet_cfg: Optional[UNet2DConfig] = None, te1_params: Any = None,
                  te1_cfg: Optional[CLIPTextConfig] = None, te2_params: Any = None,
                  te2_cfg: Optional[CLIPTextConfig] = None, dtype=torch.float32, device="cuda",
-                 mesh: Any = None):
+                 mesh: Any = None, tokenizer1: Any = None, tokenizer2: Any = None):
         if mesh is not None:
             raise NotImplementedError("data-parallel generation over a device mesh (ROADMAP "
                                       "Queue 1 items 7 and 9) is not ported yet")
@@ -84,6 +83,7 @@ class SDXLBrushNetPipeline:
         self.brushnet_params, self.brushnet_cfg = brushnet_params, brushnet_cfg
         self.te1_params, self.te1_cfg = te1_params, te1_cfg
         self.te2_params, self.te2_cfg = te2_params, te2_cfg
+        self.tokenizer1, self.tokenizer2 = tokenizer1, tokenizer2
         self.dtype = dtype
 
     @torch.no_grad()
@@ -94,6 +94,18 @@ class SDXLBrushNetPipeline:
         ids2 = torch.as_tensor(ids2, device=self.device)
         return sdxl_encode_prompt(self.te1_params, self.te1_cfg, self.te2_params, self.te2_cfg,
                                   ids1, ids2)
+
+    def encode_prompt(self, prompt):
+        """A prompt string (or a list of them) through both tokenizers and
+        text encoders -> (prompt embeddings (B, 77, 2048), pooled (B, 1280))."""
+        if isinstance(prompt, (list, tuple)):
+            embs = [self.encode_prompt(p) for p in prompt]
+            return torch.cat([e[0] for e in embs]), torch.cat([e[1] for e in embs])
+        if self.tokenizer1 is None or self.tokenizer2 is None or self.te1_params is None \
+                or self.te2_params is None:
+            raise ValueError("a prompt string needs tokenizer1, tokenizer2 and both text "
+                             "encoders; or pass prompt_embeds and pooled_embeds")
+        return self.encode_ids(self.tokenizer1(prompt), self.tokenizer2(prompt))
 
     @torch.no_grad()
     def __call__(self, prompt: Optional[str] = None, negative_prompt: str = "", *,
@@ -108,20 +120,18 @@ class SDXLBrushNetPipeline:
         ``mask``: HW(C) floats in [0, 1], 1 = the character to keep.
         ``output_type``: "latent" (the final latents), "np" (a list of
         (H, W, 3) uint8 arrays), or "np_pm1" (the decoded (B, 3, H, W) fp32
-        image in [-1, 1])."""
-        if prompt is not None or prompt_embeds is None:
-            raise NotImplementedError("string prompts (the CLIP tokenizers; ROADMAP Queue 1 "
-                                      "item 7) are not ported yet: pass prompt_embeds and "
-                                      "pooled_embeds from encode_ids")
+        image in [-1, 1]).  A string ``prompt`` (and, with CFG, ``negative_prompt``) is
+        encoded where its embeddings are not given."""
         if scheduler != "dpm":
             raise NotImplementedError(f"scheduler {scheduler!r} (the LCM rollout; ROADMAP "
                                       "Queue 1 item 7) is not ported yet")
         if output_type not in OUTPUT_TYPES:
             raise ValueError(f"output_type {output_type!r}: one of {OUTPUT_TYPES}")
         do_cfg = guidance_scale > 1.0
+        if prompt_embeds is None:
+            prompt_embeds, pooled_embeds = self.encode_prompt(prompt)
         if do_cfg and negative_prompt_embeds is None:
-            raise ValueError("guidance_scale > 1 needs negative_prompt_embeds and "
-                             f"negative_pooled_embeds (the encoded {negative_prompt!r})")
+            negative_prompt_embeds, negative_pooled_embeds = self.encode_prompt(negative_prompt)
         dev, dt = self.device, self.dtype
 
         def on_dev(t):

@@ -1,12 +1,19 @@
-"""The Style-DoRA adapter of the SDXL stylization path, serving side (port of
-fairygen_tpu/training/dora_trainer.py ``DORA_TARGETS``,
-``add_dora_to_sdxl_unet``, ``sdxl_dora_state_dict`` and
+"""The Style-DoRA adapter of the SDXL stylization path and its masked train
+step (port of fairygen_tpu/training/dora_trainer.py ``DORA_TARGETS``,
+``add_dora_to_sdxl_unet``, ``masked_mse_loss``,
+``make_sdxl_dora_train_step``, ``sdxl_dora_state_dict`` and
 ``load_sdxl_dora_state_dict``).
 
 DoRA adapters (r = 32, α = r) sit on every transformer attention
 projection to_q / to_k / to_v / to_out of the SDXL UNet; the dense layers
-apply them where a ``"lora"`` entry exists (``models/adapters.py``).  The
-masked DoRA train step is not ported yet (ROADMAP Queue 1 item 7).
+apply them where a ``"lora"`` entry exists (``models/adapters.py``), gated
+per token by the training image's mask.  The train step is the
+single-image masked finetune: ε-prediction on DDPM-noised latents, the
+masked MSE ``sum(se·mask) / max(sum(mask), 1)``, optionally weighted per
+sample by min-SNR-γ, SDXL's time ids original + crop + target; only the
+adapters' A, B and magnitude train.  In the fp32 UNet of the example on
+the card every attention of the step runs K6a, K6b and K6c in fp32 at
+head dim 64 (``ops/flash_attention.py``).
 """
 from __future__ import annotations
 
@@ -15,7 +22,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..models.adapters import init_lora
+from ..device import resolve_device
+from ..diffusion.ddpm import DDPMScheduler
+from ..models.adapters import init_lora, lora_trainable_filter
+from ..models.sdxl.unet2d import UNet2DConfig, unet2d_forward
+from .train_step import _trainer
 
 DORA_TARGETS = ("to_q", "to_k", "to_v", "to_out")
 
@@ -54,6 +65,71 @@ def add_dora_to_sdxl_unet(params, generator, rank: int = 32, alpha: Optional[flo
         params["mid_block"] = {**mb, "attentions": [inject_transformer(t)
                                                     for t in mb["attentions"]]}
     return params
+
+
+def masked_mse_loss(pred, target, mask_latents):
+    """sum(se·mask) / max(sum(mask), 1) in fp32; ``mask_latents`` (B, 1, h,
+    w) on the latent grid, broadcast over the channels."""
+    mask = mask_latents.float().expand(pred.shape)
+    se = (pred.float() - target.float()) ** 2
+    return (se * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def make_sdxl_dora_train_step(unet_cfg: UNet2DConfig, optimizer, *,
+                              scheduler: Optional[DDPMScheduler] = None,
+                              snr_gamma: Optional[float] = None, resolution: int = 1024,
+                              device="cuda"):
+    """Build (init_state, train_step) for the masked style-DoRA finetune.
+
+    ``train_step(state, batch, generator, *, timesteps=None, noise=None) ->
+    (state, loss)``; the batch holds ``latents`` (B, 4, h, w), scaled,
+    ``mask_latents`` (B, 1, h, w), ``prompt_embeds`` (B, 77, 2048),
+    ``pooled`` (B, 1280), ``original_size`` and ``crop_top_left`` (B, 2).
+    The generator draws, in order, the timesteps (uniform integers below
+    ``num_train_timesteps``) and the noise, as the JAX loss draws them from
+    its two keys; ``timesteps`` / ``noise`` replace the two draws.  Only the
+    adapters' A, B and ``mag`` get gradients and go to the optimizer; the
+    base weights stay as they are, bit for bit.
+    ``train_step.loss_and_grads(state, batch, generator, ...)`` gives the
+    loss and the trainable gradients (path -> tensor) without an update."""
+    resolve_device(device)
+    sched = scheduler or DDPMScheduler()
+
+    def loss_fn(params, batch, generator, timesteps=None, noise=None):
+        latents = batch["latents"]
+        b, dev = latents.shape[0], latents.device
+        if timesteps is None:
+            timesteps = torch.randint(0, sched.num_train_timesteps, (b,), generator=generator,
+                                      device=dev)
+        if noise is None:
+            noise = torch.randn(latents.shape, generator=generator, device=dev,
+                                dtype=latents.dtype)
+        timesteps = torch.as_tensor(timesteps, device=dev).long()
+        noise = torch.as_tensor(noise).to(dev, latents.dtype)
+        noisy = sched.add_noise(latents, noise, timesteps)
+
+        def f32(key):
+            return torch.as_tensor(batch[key]).to(dev, torch.float32)
+
+        time_ids = torch.cat([f32("original_size"), f32("crop_top_left"),
+                              torch.full((b, 2), float(resolution), device=dev)], -1)
+        pred = unet2d_forward(params, unet_cfg, noisy, timesteps.float(),
+                              batch["prompt_embeds"], text_embeds=batch["pooled"],
+                              time_ids=time_ids, mask_latents=batch["mask_latents"])
+        target = noise  # ε-prediction
+        if snr_gamma is None:
+            return masked_mse_loss(pred, target, batch["mask_latents"])
+        # min-SNR-γ weights each sample's masked loss by its own timestep's
+        # weight before the mean, as the JAX package does
+        mask = batch["mask_latents"].float().expand(pred.shape)
+        se = (pred.float() - target.float()) ** 2
+        dims = tuple(range(1, pred.dim()))
+        per_sample = (se * mask).sum(dims) / mask.sum(dims).clamp_min(1.0)
+        snr = sched.snr(timesteps, dev)
+        w = torch.minimum(snr, torch.tensor(float(snr_gamma), device=dev)) / snr.clamp_min(1e-8)
+        return (per_sample * w).mean()
+
+    return _trainer(loss_fn, optimizer, lora_trainable_filter(("A", "B", "mag")))
 
 
 def sdxl_dora_state_dict(params) -> dict:

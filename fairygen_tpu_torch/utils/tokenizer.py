@@ -2,9 +2,11 @@
 
 ``HuggingfaceTokenizer`` is the UMT5 path's wrapper: whitespace / lower /
 canonicalize cleaning, then ids and masks padded and truncated to
-``seq_len`` (512 for Wan), as numpy int arrays.  ``transformers`` is
-imported when a tokenizer is constructed, so the module imports without
-it; a tokenizer asked for without it raises ``ImportError``.
+``seq_len`` (512 for Wan), as numpy int arrays.  ``CLIPTokenizerWrapper``
+is SDXL's (CLIP-L and OpenCLIP bigG): CLIP BPE ids padded to the maximum
+length and truncated at 77.  ``transformers`` is imported when a tokenizer
+is constructed, so the module imports without it; a tokenizer asked for
+without it raises ``ImportError``.
 """
 from __future__ import annotations
 
@@ -78,3 +80,17 @@ class HuggingfaceTokenizer:
             return ids.input_ids, ids.attention_mask
         return ids.input_ids
 
+
+class CLIPTokenizerWrapper:
+    """77-token CLIP tokenizer (SDXL's two text encoders): a string or a
+    list of strings -> (B, 77) numpy int ids."""
+
+    def __init__(self, name: str, **kwargs):
+        from transformers import CLIPTokenizer
+
+        self.tokenizer = CLIPTokenizer.from_pretrained(name, **kwargs)
+
+    def __call__(self, text):
+        out = self.tokenizer([text] if isinstance(text, str) else text, padding="max_length",
+                             truncation=True, max_length=77, return_tensors="np")
+        return out.input_ids

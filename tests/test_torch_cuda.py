@@ -22,8 +22,13 @@ against the full-sequence one, a four-tile decode against the CPU, and a
 hot LoRA through K1-K4 (the tiny pipelines also launch K11 in the VAE);
 K6b and K6c likewise (sq = 129 / Sk = 4097, sq = 300 with sk_actual =
 4000, one partial key tile at sk = 77), and two of their runs must give
-the same bits.  They skip here when no card is present; on a
-card:
+the same bits; K6a, K6b and K6c in fp32 at head dim 64 (the Style-DoRA
+step's forms) against their plain versions within a relative L2 error of
+1e-5 (both sides fp32), two runs bit for bit, flash_attention's fp32
+gradient against autograd of the plain attention, a tiny head-dim-64 DoRA
+step that must launch them and agree with the CPU step, and the forms not
+ported yet raising a ValueError that names ROADMAP Queue 2.  They skip here
+when no card is present; on a card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 
@@ -229,7 +234,9 @@ def test_tiny_pipeline_launches_every_kernel(card):
                                  "flash_bwd_dkv": 0, "rms_rope_per_head": 0,
                                  "rms_rope_joint": 0, "flash_bias": 0, "rms_modulate": 0,
                                  "vae_rms_silu": 13 + 21, "flash_small_kv_max": 0,
-                                 "flash_small_kv_masked": 0, "flash_fwd_d64": 0}
+                                 "flash_small_kv_masked": 0, "flash_fwd_d64": 0,
+                                 "flash_fwd_lse_f32": 0, "flash_bwd_dq_f32": 0,
+                                 "flash_bwd_dkv_f32": 0}
 
 
 def _close_grad(out, ref):
@@ -881,7 +888,8 @@ def test_k5_at_head_dim_64_ragged_edges_match_plain(card):
 
 def test_flash_kernels_refuse_what_they_do_not_take(card):
     """No fallback on the card: fp32 or a head dim outside {64, 128} raises
-    for K4's max/masked forms and K5; K6a-c take head dim 128 only."""
+    for K4's max/masked forms and K5; K6a-c take bf16 at head dim 128 (and
+    fp32 at 64, below)."""
     from fairygen_tpu_torch.ops import flash_attention as fa
 
     def qkv(d, dtype=torch.bfloat16, s=128):
@@ -1055,3 +1063,162 @@ def test_hot_lora_runs_through_the_serving_kernels(card):
         return ((a - ref).norm() / ref.norm()).item()
 
     assert rel(outs["cuda", torch.bfloat16]) <= 2 * rel(outs["cpu", torch.bfloat16]) + 1e-3
+
+
+def _f32_inputs(card, bn, sq, sk_pad, sk_actual):
+    """fp32 head-major q (prescaled), k, v (zero rows at or past sk_actual)
+    and dO at head dim 64."""
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=card, device="cuda") * scale
+
+    qh, kh, vh = randn(bn, sq, 64, scale=64 ** -0.5 * 1.4427), randn(bn, sk_pad, 64), \
+        randn(bn, sk_pad, 64)
+    kh[:, sk_actual:], vh[:, sk_actual:] = 0, 0
+    return qh, kh, vh, randn(bn, sq, 64, scale=0.05)
+
+
+def _rel_l2(a, b):
+    return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+
+@pytest.mark.parametrize("bn,sq,sk_pad,sk_actual", [(4, 1024, 1024, 1024), (4, 4096, 128, 77),
+                                                   (2, 320, 320, 250), (3, 192, 64, 64)])
+def test_k6_fp32_d64_match_plain(card, bn, sq, sk_pad, sk_actual):
+    """o, lse, dq, dk and dv of the fp32 kernels against their plain
+    versions, one launch each; dk and dv rows at or past sk_actual are 0."""
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    qh, kh, vh, doh = _f32_inputs(card, bn, sq, sk_pad, sk_actual)
+    _kernels.reset_launches()
+    o, lse = fa.flash_fwd(qh, kh, vh, sk_actual=sk_actual)
+    o_ref, lse_ref = fa.flash_fwd_plain(qh, kh, vh, sk_actual=sk_actual)
+    delta = (doh * o_ref).sum(-1)
+    f = 1 / 1.4426950408889634
+    dq = fa.flash_bwd_dq(qh, kh, vh, doh, lse_ref, delta, sk_actual=sk_actual, dq_factor=f)
+    dk, dv = fa.flash_bwd_dkv(qh, kh, vh, doh, lse_ref, delta, sq=sq - 5, sk_actual=sk_actual)
+    assert {k: v for k, v in _kernels.launches.items() if v} == {
+        "flash_fwd_lse_f32": 1, "flash_bwd_dq_f32": 1, "flash_bwd_dkv_f32": 1}
+    dq_ref = fa.flash_bwd_dq_plain(qh, kh, vh, doh, lse_ref, delta, sk_actual=sk_actual,
+                                   dq_factor=f)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_plain(qh, kh, vh, doh, lse_ref, delta, sq=sq - 5,
+                                            sk_actual=sk_actual)
+    for out, ref in ((o, o_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert out.dtype == torch.float32 and _rel_l2(out, ref) < 1e-5
+    assert (lse - lse_ref).abs().max().item() < 1e-5
+    assert bool((dk[:, sk_actual:] == 0).all() and (dv[:, sk_actual:] == 0).all())
+
+
+def test_k6_fp32_two_runs_give_the_same_bits(card):
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    qh, kh, vh, doh = _f32_inputs(card, 4, 1024, 1024, 1000)
+    outs = []
+    for _ in range(2):
+        o, lse = fa.flash_fwd(qh, kh, vh, sk_actual=1000)
+        delta = (doh * o).sum(-1)
+        dq = fa.flash_bwd_dq(qh, kh, vh, doh, lse, delta, sk_actual=1000, dq_factor=0.5)
+        outs.append((o, lse, dq) + fa.flash_bwd_dkv(qh, kh, vh, doh, lse, delta, sq=1024,
+                                                    sk_actual=1000))
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def test_fp32_flash_attention_gradient_matches_autograd(card):
+    """flash_attention in fp32 at head dim 64 (K6a forward, K6b + K6c
+    backward) against fp32 autograd of the plain attention: relative L2
+    below 1e-5."""
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops.attention import xla_attention
+    from fairygen_tpu_torch.ops.flash_attention import flash_attention
+
+    q, k, v, w = (torch.randn((1, 1000, 2, 64), generator=card, device="cuda")
+                  for _ in range(4))
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    _kernels.reset_launches()
+    out = flash_attention(*ins, kv_len=900)
+    grads = torch.autograd.grad((out * w).sum(), ins)
+    assert {k_: n for k_, n in _kernels.launches.items() if n} == {
+        "flash_fwd_lse_f32": 1, "flash_bwd_dq_f32": 1, "flash_bwd_dkv_f32": 1}
+    ref_in = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = xla_attention(*ref_in, kv_len=900)
+    ref_grads = torch.autograd.grad((ref * w).sum(), ref_in)
+    for a, b in zip((out,) + grads, (ref,) + ref_grads):
+        assert _rel_l2(a, b) < 1e-5
+
+
+def test_unported_attention_forms_raise_naming_queue_2(card):
+    """bf16 with a gradient at head dim 64, fp32 without one, and fp32 with
+    one at head dim 128 have no kernel yet: each raises, none falls back."""
+    from fairygen_tpu_torch.ops.flash_attention import flash_attention
+
+    def qkv(d, dtype, grad):
+        return [torch.randn((1, 256, 2, d), generator=card, device="cuda").to(dtype)
+                .requires_grad_(grad) for _ in range(3)]
+
+    for d, dtype, grad in ((64, torch.bfloat16, True), (64, torch.float32, False),
+                           (128, torch.float32, True), (128, torch.float32, False)):
+        with pytest.raises(ValueError, match="Queue 2"):
+            flash_attention(*qkv(d, dtype, grad))
+
+
+def test_tiny_dora_step_launches_the_fp32_kernels(card):
+    """One masked DoRA step of a tiny head-dim-64 UNet (channels 64 and 128
+    at 1 and 2 heads, 11 transformer blocks) in fp32 on the card: 22
+    launches of each fp32 kernel and nothing else; the loss within 1e-4 and
+    the A / B / mag gradients within 1e-3 relative L2 of the CPU step."""
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.sdxl.unet2d import UNet2DConfig
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.training.dora_trainer import (add_dora_to_sdxl_unet,
+                                                          make_sdxl_dora_train_step)
+    from fairygen_tpu_torch.training.optimizers import make_optimizer
+
+    cfg = UNet2DConfig(block_out_channels=(64, 128), num_attention_heads=(1, 2),
+                       down_block_types=("CrossAttnDownBlock2D",) * 2,
+                       up_block_types=("CrossAttnUpBlock2D",) * 2,
+                       transformer_layers_per_block=(1, 1), cross_attention_dim=64,
+                       addition_time_embed_dim=8, projection_class_embeddings_input_dim=80)
+    g = torch.Generator().manual_seed(1)
+    base = add_dora_to_sdxl_unet(convert.init_unet2d_params(cfg, "cpu", torch.float32, seed=2),
+                                 g, rank=4)
+    for blocks in ([t for st in base["down_blocks"] + base["up_blocks"]
+                    for t in st.get("attentions", [])] + base["mid_block"]["attentions"]):
+        for blk in blocks["blocks"]:
+            for attn in (blk["attn1"], blk["attn2"]):
+                for layer in attn.values():
+                    layer["lora"]["B"].normal_(generator=g).mul_(0.05)  # A gets gradients
+    batch = {"latents": torch.randn(1, 4, 32, 32, generator=g),
+             "mask_latents": (torch.rand(1, 1, 32, 32, generator=g) > 0.4).float(),
+             "prompt_embeds": torch.randn(1, 77, 64, generator=g),
+             "pooled": torch.randn(1, 32, generator=g),
+             "original_size": torch.tensor([[256, 256]]),
+             "crop_top_left": torch.tensor([[0, 0]])}
+    noise = torch.randn(1, 4, 32, 32, generator=g)
+
+    def place(tree, dev):
+        if isinstance(tree, dict):
+            return {k: place(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [place(v, dev) for v in tree]
+        return tree.detach().to(dev).clone() if torch.is_tensor(tree) else tree
+
+    res = {}
+    for dev in ("cpu", "cuda"):
+        init, step = make_sdxl_dora_train_step(cfg, make_optimizer(), snr_gamma=5.0,
+                                               resolution=256, device=dev)
+        _kernels.reset_launches()
+        loss, grads = step.loss_and_grads(init(place(base, dev)),
+                                          {k: v.to(dev) for k, v in batch.items()},
+                                          timesteps=torch.tensor([60], device=dev),
+                                          noise=noise.to(dev))
+        res[dev] = float(loss), {k: v.cpu() for k, v in grads.items()}
+        if dev == "cuda":
+            assert {k: n for k, n in _kernels.launches.items() if n} == {
+                "flash_fwd_lse_f32": 22, "flash_bwd_dq_f32": 22, "flash_bwd_dkv_f32": 22}
+    (l_cpu, g_cpu), (l_card, g_card) = res["cpu"], res["cuda"]
+    assert abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
+    for kind in ("A", "B", "mag"):
+        keys = [k for k in g_cpu if k[-1] == kind]
+        assert _rel_l2(torch.cat([g_card[k].ravel() for k in keys]),
+                       torch.cat([g_cpu[k].ravel() for k in keys])) < 1e-3, kind
+

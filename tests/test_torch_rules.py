@@ -20,7 +20,9 @@ import torch
 
 from fairygen_tpu_torch import convert
 from fairygen_tpu_torch.core.model_pool import ModelPool
-from fairygen_tpu_torch.examples import wan_batch_inference, wan_inference, wan_train
+from fairygen_tpu_torch.examples import (brushnet_stylize, dora_train, fairygen_story,
+                                         wan_batch_inference, wan_inference, wan_train)
+from fairygen_tpu_torch.models.isnet import ISNetConfig, convert_isnet_state_dict, init_isnet_params
 from fairygen_tpu_torch.models.flux.dit import FluxDiTConfig, convert_flux_dit_state_dict
 from fairygen_tpu_torch.models.qwen.text_encoder import QwenVLTextConfig
 from fairygen_tpu_torch.models.sdxl.clip import CLIPTextConfig
@@ -36,6 +38,8 @@ from fairygen_tpu_torch.pipelines.flux_image import FluxImagePipeline
 from fairygen_tpu_torch.pipelines.sdxl_brushnet import SDXLBrushNetPipeline
 from fairygen_tpu_torch.pipelines.wan_video import WanVideoPipeline
 from fairygen_tpu_torch.pipelines.z_image import ZImagePipeline
+from fairygen_tpu_torch.tools import create_mask
+from fairygen_tpu_torch.training.dora_trainer import make_sdxl_dora_train_step
 from fairygen_tpu_torch.training.runner import launch_training_task
 from fairygen_tpu_torch.training.train_step import (make_wan_distill_train_step,
                                                     make_wan_sft_train_step)
@@ -70,7 +74,9 @@ def test_the_scan_sees_the_whole_package():
             "wan_inference.py", "wan_batch_inference.py", "operators.py", "unified_dataset.py",
             "loader.py", "parsers.py", "data_process.py", "train_logging.py", "runner.py",
             "optimizers.py", "losses.py", "train_step.py", "wan_train.py",
-            "merge_weights.py"} <= names
+            "merge_weights.py", "ddpm.py", "isnet.py", "create_mask.py", "dora_train.py",
+            "brushnet_stylize.py", "fairygen_story.py"} <= names
+    assert REPO / "fairygen_tpu_torch" / "tools" / "create_mask.py" in PORT_FILES
     assert REPO / "fairygen_tpu_torch" / "data" / "__init__.py" in PORT_FILES
     assert REPO / "fairygen_tpu_torch" / "models" / "z_image" / "dit.py" in PORT_FILES
     assert REPO / "fairygen_tpu_torch" / "models" / "qwen" / "text_encoder.py" in PORT_FILES
@@ -104,7 +110,9 @@ UNET0_SD = {f"time_embedding.linear_{i}.{k}": np.zeros((2, 2) if k == "weight" e
                                    "init_z_image_dit", "init_qwen_text", "sdxl_pipeline",
                                    "init_unet2d", "convert_unet2d", "from_pretrained",
                                    "model_pool", "cli_twin", "batch_cli_twin",
-                                   "train_cli_twin", "launch_training_task", "distill_step"])
+                                   "train_cli_twin", "launch_training_task", "distill_step",
+                                   "init_isnet", "convert_isnet", "dora_step", "mask_cli_twin",
+                                   "dora_cli_twin", "stylize_cli_twin", "story_cli_twin"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
@@ -141,6 +149,20 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
                                                   "--dataset_base_path", "."]),
         "launch_training_task": lambda: launch_training_task(None, None, [], None),
         "distill_step": lambda: make_wan_distill_train_step(WanDiTConfig(num_layers=1), None),
+        "init_isnet": lambda: init_isnet_params(ISNetConfig.tiny()),
+        "convert_isnet": lambda: convert_isnet_state_dict({}, ISNetConfig.tiny()),
+        "dora_step": lambda: make_sdxl_dora_train_step(UNET0, None),
+        "mask_cli_twin": lambda: create_mask.main(["--weights", "x", "--input", "x",
+                                                   "--output", "x"]),
+        "dora_cli_twin": lambda: dora_train.main(["--unet", "x", "--vae", "x", "--te1", "x",
+                                                  "--te2", "x", "--tokenizer1", "x",
+                                                  "--tokenizer2", "x", "--image", "x",
+                                                  "--mask", "x", "--caption", "x"]),
+        "stylize_cli_twin": lambda: brushnet_stylize.main(
+            ["--unet", "x", "--brushnet", "x", "--vae", "x", "--te1", "x", "--te2", "x",
+             "--tokenizer1", "x", "--tokenizer2", "x", "--image", "x", "--mask", "x",
+             "--prompt_dir", "x"]),
+        "story_cli_twin": lambda: fairygen_story.main(["--workspace", "x"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -156,7 +178,7 @@ def test_an_installed_port_carries_its_data_files():
 
     want = {"fairygen_tpu_torch/configs/model_registry.json"} | {
         f"fairygen_tpu_torch/csrc/{name}" for name in _kernels.SOURCES + _kernels.HEADERS}
-    assert len(want) == 8
+    assert len(want) == 9
     files = FileList()
     cwd = os.getcwd()
     os.chdir(REPO)
