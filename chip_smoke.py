@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                 # the whole run, one card
     python3 chip_smoke.py --kernels-only  # device, build and kernel checks only
-    python3 chip_smoke.py --ab-lib PATH   # also K4 against another build's library
+    python3 chip_smoke.py --ab-lib PATH   # also K4 and the fp32 K6b / K6c against another
+                                          # build's library
 
 Phases, each printing its wall seconds:
   1. device   — card name/count, nvidia-smi name and power limit, TF32 off.
@@ -18,8 +19,10 @@ Phases, each printing its wall seconds:
                 / C7520, fails the run); beside them nvcc builds a copy of
                 csrc/flash_attention_online.cu in which no kernel has the
                 consumers take turns; the registers, shared memory and
-                spills of the fp32 K6a-c (FFMA) of
-                csrc/flash_attention_fp32.cu.
+                spills of the fp32 K6a (FFMA) of csrc/flash_attention_fp32.cu
+                and of the pre-pass and reduce kernels, and the 3xTF32 K6b
+                and K6c of csrc/flash_attention_fp32_bwd.cu with their
+                HGMMA and UTMALDG counts (the same failures as above).
   3. kernels  — K1-K4 against their plain PyTorch versions on the card in
                 bf16 at the main path's shapes (480x832, 17 frames: S=1950)
                 and the flagship's (81 frames: S=8190); error, kernel ms,
@@ -58,9 +61,14 @@ Phases, each printing its wall seconds:
                 Style-DoRA step's shapes (self 10 x 4096 and 20 x 1024,
                 cross to 77 text keys in 128): o, dq, dk, dv within a
                 relative L2 error of 1e-5 of the plain versions, lse within
-                1e-5, two runs bit for bit, the fp32 flash_attention
-                gradient against autograd, SDPA's fp32 forward and backward
-                as the yardstick, and their sums over a step's 140 calls.
+                1e-5, two runs bit for bit, the pre-pass's workspace and
+                the reduce pass's sums bit for bit their plain versions',
+                the fp32 flash_attention gradient against autograd, SDPA's
+                fp32 forward and backward as the yardstick, each kernel's
+                device time against the FFMA (67 TFLOP/s) and 3xTF32
+                (494.7 / 3 TFLOP/s) bounds, and their sums over a step's
+                140 calls; with --ab-lib, the other build's fp32 K6b and
+                K6c C entries beside this build's wrappers.
   4. weights  — full-width Wan2.2-TI2V-5B DiT, UMT5-XXL and VAE38, made on
                 the card in bf16 from a seeded CUDA generator.
   5. requests — WanVideoPipeline answers two 480x832x17-frame, 4-step,
@@ -133,7 +141,8 @@ Phases, each printing its wall seconds:
                 OpenCLIP bigG and VAE with a rank-32 DoRA, four masked DoRA
                 steps (AdamW 1e-4, wd 1e-2; the last with min-SNR-5), each
                 with wall, peak memory, exact launches (K6a-c fp32 140
-                each), a finite loss, base weights bit for bit and every
+                each, their pre-pass 280, the reduce 140), a finite loss,
+                base weights bit for bit and every
                 A, B, mag moved; one profiled step; the adapter through
                 safetensors into the bf16 serving pipeline at 0.66 and one
                 4-step 1024x1024 request with the sdxl phase's launches.
@@ -166,6 +175,7 @@ PHASE = ["start"]
 H100_BYTES_PER_S = 3.35e12    # HBM3, NVIDIA H100 SXM data sheet
 H100_BF16_FLOP_PER_S = 989e12  # dense bf16 tensor cores, same source
 H100_FP32_FLOP_PER_S = 67e12   # fp32 outside the tensor cores, same source
+H100_TF32_FLOP_PER_S = 494.7e12  # dense TF32 tensor cores, same source; 3xTF32 takes a third
 
 
 def _watchdog():
@@ -223,6 +233,26 @@ def device_ms(fn, calls=50):
                  if e.device_type == torch.autograd.DeviceType.CUDA)
         if us > 0:
             return us / calls / 1e3
+    raise RuntimeError("torch.profiler recorded no device time in three traces")
+
+
+def device_ms_by_kernel(fn, calls=10):
+    """{kernel name: ms of device time per call} over ``calls`` calls of
+    ``fn`` under torch.profiler, after one warm-up (as device_ms)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        got = {e.key: e.self_device_time_total / calls / 1e3 for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total}
+        if got:
+            return got
     raise RuntimeError("torch.profiler recorded no device time in three traces")
 
 
@@ -467,13 +497,22 @@ HOPPER_KERNELS = (
 )
 
 
-def hopper_build_report(log):
-    """Each TMA + wgmma kernel's registers and spills from the build's ptxas
-    -v, its dynamic shared memory and, where cuobjdump is present, its
-    counts of HGMMA (wgmma) and UTMALDG (TMA load) instructions from its own
-    object file.  Raises on a spill, on a missing kernel, on a count of 0,
-    or where ptxas says it serialized the kernel's wgmma (C7511, C7512,
-    C7520).
+# the fp32 kernels of csrc/flash_attention_fp32_bwd.cu on the tensor cores
+F32_TC_KERNELS = (
+    ("flash_bwd_dq_f32", "fa_f32_dq_tc_kernel", "flash_attention_fp32_bwd.cu.o",
+     lambda lib: lib.fg_flash_f32_tc_smem_bytes(0)),
+    ("flash_bwd_dkv_f32", "fa_f32_dkv_tc_kernel", "flash_attention_fp32_bwd.cu.o",
+     lambda lib: lib.fg_flash_f32_tc_smem_bytes(1)),
+)
+
+
+def hopper_build_report(log, table=HOPPER_KERNELS):
+    """Each TMA + wgmma kernel's (of ``table``) registers and spills from
+    the build's ptxas -v, its dynamic shared memory and, where cuobjdump is
+    present, its counts of HGMMA (wgmma) and UTMALDG (TMA load)
+    instructions from its own object file.  Raises on a spill, on a missing
+    kernel, on a count of 0, or where ptxas says it serialized the kernel's
+    wgmma (C7511, C7512, C7520).
     A function is matched by its name followed by 'E' (the end of the name
     in the mangled symbol), so no name matches another it begins."""
     import re
@@ -482,7 +521,7 @@ def hopper_build_report(log):
     from fairygen_tpu_torch.ops import _kernels
 
     def which(symbol):
-        return next((k for k, f, _, _ in HOPPER_KERNELS if f + "E" in symbol), None)
+        return next((k for k, f, _, _ in table if f + "E" in symbol), None)
 
     props, current = {}, None
     for line in log.splitlines():
@@ -505,7 +544,7 @@ def hopper_build_report(log):
     tool = os.path.join(home, "bin", "cuobjdump")
     tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
     if tool:
-        for obj in sorted({o for _, _, o, _ in HOPPER_KERNELS}):
+        for obj in sorted({o for _, _, o, _ in table}):
             sass = subprocess.run([tool, "-sass", str(_kernels.BUILD_DIR / obj)],
                                   capture_output=True, text=True, timeout=120).stdout
             current = None
@@ -518,7 +557,7 @@ def hopper_build_report(log):
                 elif current:
                     props[current]["HGMMA"] += len(re.findall(r"\bHGMMA\.", line))
                     props[current]["UTMALDG"] += len(re.findall(r"\bUTMALDG\b", line))
-    for k, fn, obj, smem in HOPPER_KERNELS:
+    for k, fn, obj, smem in table:
         p = props.get(k, {})
         print(f"  {k} ({fn}, {obj}): registers {p.get('registers')}, dynamic shared memory "
               f"{smem(_kernels.lib())} bytes, spill bytes {p.get('spill_bytes')}; SASS: HGMMA "
@@ -531,14 +570,20 @@ def hopper_build_report(log):
 
 
 def f32_build_report(log):
-    """Registers and spills (ptxas -v) of the fp32 K6a-c kernels of
-    csrc/flash_attention_fp32.cu (FFMA, no TMA or wgmma) and their dynamic
-    shared memory; raises on a spill or a kernel ptxas did not report."""
+    """The fp32 kernels: K6b and K6c on the tensor cores as
+    hopper_build_report reports and checks them (HGMMA and UTMALDG counts;
+    a spill, a count of 0 or C7511 / C7512 / C7520 fails), then the
+    registers and spills (ptxas -v) of K6a (FFMA, csrc/flash_attention_fp32.cu;
+    with its dynamic shared memory), the pre-pass and the reduce pass
+    (csrc/flash_attention_fp32_bwd.cu); raises on a spill or a kernel ptxas
+    did not report."""
     import re
 
     from fairygen_tpu_torch.ops import _kernels
 
-    names = ("fa_f32_fwd_lse_kernel", "fa_f32_bwd_dq_kernel", "fa_f32_bwd_dkv_kernel")
+    hopper_build_report(log, F32_TC_KERNELS)
+    names = ("fa_f32_fwd_lse_kernel", "fa_f32_bwd_prep_kernel", "fa_f32_dkv_reduce_kernel")
+    counters = ("flash_fwd_lse_f32", "flash_bwd_prep_f32", "flash_bwd_dkv_reduce_f32")
     props, current = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -555,9 +600,9 @@ def f32_build_report(log):
             props.setdefault(current, {})["registers"] = int(m.group(1))
     for i, n in enumerate(names):
         p = props.get(n, {})
-        print(f"  {F32_KERNELS[i]} ({n}, flash_attention_fp32.cu.o): registers "
-              f"{p.get('registers')}, dynamic shared memory "
-              f"{_kernels.lib().fg_flash_f32_smem_bytes(i)} bytes, spill bytes "
+        smem = (f"dynamic shared memory {_kernels.lib().fg_flash_f32_smem_bytes()} bytes, "
+                if i == 0 else "")
+        print(f"  {counters[i]} ({n}): registers {p.get('registers')}, {smem}spill bytes "
               f"{p.get('spill_bytes')}", flush=True)
         if p.get("registers") is None or p.get("spill_bytes") != 0:
             raise RuntimeError(f"{n}: ptxas -v shows spills or no such kernel: {p}")
@@ -959,6 +1004,7 @@ def main(argv):
     sdxl_k = sdxl_kernel_checks()
     f32_k = f32_train_kernel_checks()
     k4_other = k4_ab(ab_lib) if ab_lib else None
+    f32_other = f32_bwd_ab(ab_lib) if ab_lib else None
     torch.cuda.synchronize()
     done("kernels", t0)
 
@@ -1204,19 +1250,57 @@ def main(argv):
     for k, replaces in f32_sources.items():
         by = f32_k[k]
         r = by["self 10x4096"]
+        tc = k != "flash_fwd_lse_f32"  # K6b and K6c: 3xTF32 on the tensor cores
         rows.append({
-            "name": k, "route": "cuda", "source": "fairygen_tpu_torch/csrc/flash_attention_fp32.cu",
+            "name": k, "route": "cuda",
+            "source": "fairygen_tpu_torch/csrc/flash_attention_fp32" + ("_bwd" if tc else "") + ".cu",
             "replaces": replaces, "launches": None if expected is None else launches[k],
             "max_abs_err": max(v["max_abs_err"] for v in by.values()), "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["tc_bound"][0] if tc else r["bound"][0],
+            "bound_by": r["tc_bound"][1] if tc else r["bound"][1],
             "library_ms": r["library_ms"], "shape": "self 10x4096", "device_ms": r["device_ms"],
             "rel_l2": max(v["rel_l2"] for v in by.values()),
             "step_device_ms": sum(v["calls"] * v["device_ms"] for v in by.values()),
-            "step_bound_ms": sum(v["calls"] * v["bound"][0] for v in by.values()),
+            "step_bound_ms": sum(v["calls"] * (v["tc_bound"] if tc else v["bound"])[0]
+                                 for v in by.values()),
             "by_shape": {tag: {"calls": v["calls"], "ms": v["ms"], "device_ms": v["device_ms"],
                                "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0],
                                "library_ms": v["library_ms"], "max_abs_err": v["max_abs_err"],
                                "rel_l2": v["rel_l2"]}
+                         for tag, v in by.items()}})
+        if tc:
+            rows[-1]["bound_ms_fp32_ffma"] = r["bound"][0]
+            rows[-1]["step_bound_ms_fp32_ffma"] = sum(v["calls"] * v["bound"][0]
+                                                      for v in by.values())
+            for tag, v in by.items():
+                rows[-1]["by_shape"][tag].update(bound_ms_3xtf32=v["tc_bound"][0],
+                                                 device_parts=v["device_parts"],
+                                                 library_device_ms=v["library_device_ms"])
+                if "split_device_ms" in v:
+                    rows[-1]["by_shape"][tag]["split_device_ms"] = v["split_device_ms"]
+            if f32_other:
+                rows[-1]["ab_lib_device_ms"] = f32_other[k]
+    # K6b and K6c's helpers on the tensor-core path: the pre-pass (its K6b
+    # form at the self 10 x 4096 shape) and the reduce pass (the 10 x 4096
+    # queries to 77 keys); neither replaces a TPU kernel of its own
+    helpers = {"flash_bwd_prep_f32": ("fairygen_tpu/ops/flash_attention.py:295",
+                                      "self 10x4096, K6b form"),
+               "flash_bwd_dkv_reduce_f32": ("fairygen_tpu/ops/flash_attention.py:329",
+                                            "cross 10x4096 q, 77 keys")}
+    for k, (replaces, main_shape) in helpers.items():
+        by = f32_k[k]
+        r = by[main_shape]
+        rows.append({
+            "name": k, "route": "cuda",
+            "source": "fairygen_tpu_torch/csrc/flash_attention_fp32_bwd.cu",
+            "replaces": replaces, "part_of": "K6b and K6c in fp32 (bit for bit its plain version)",
+            "launches": None if expected is None else launches[k], "max_abs_err": 0.0,
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": None, "shape": main_shape,
+            "device_ms": r["device_ms"],
+            "by_shape": {tag: {"ms": v["ms"], "device_ms": v["device_ms"],
+                               "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0]}
                          for tag, v in by.items()}})
     timer.cancel()
     print(smi)
@@ -1478,7 +1562,8 @@ TRAIN_PER_STEP = {"ln_modulate": 180, "rms_rope_heads_major": 180, "flash_bounde
                   "flash_bwd_dq": 60, "flash_bwd_dkv": 60, "rms_rope_per_head": 0,
                   "rms_rope_joint": 0, "flash_bias": 0, "rms_modulate": 0, "vae_rms_silu": 0,
                   "flash_small_kv_max": 0, "flash_small_kv_masked": 0, "flash_fwd_d64": 0,
-                  "flash_fwd_lse_f32": 0, "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0}
+                  "flash_fwd_lse_f32": 0, "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0,
+                  "flash_bwd_prep_f32": 0, "flash_bwd_dkv_reduce_f32": 0}
 
 
 def train_phase(pipe, serving_per_request):
@@ -3198,22 +3283,38 @@ DORA_ATTENTION_SHAPES = (
     ("cross 20x1024 q, 77 keys", 20, 1024, 128, 77, 60),
 )
 F32_KERNELS = ("flash_fwd_lse_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
+# the launches of one fp32 flash_attention call with a gradient: K6a, K6b,
+# K6c, and the pre-pass once for K6b and once for K6c (plus one reduce
+# where K6c's query loop is split)
+F32_ONE_CALL = {"flash_fwd_lse_f32": 1, "flash_bwd_dq_f32": 1, "flash_bwd_dkv_f32": 1,
+                "flash_bwd_prep_f32": 2}
 
 
 def f32_train_kernel_checks():
     """K6a, K6b and K6c in fp32 at head dim 64 against their plain versions
     on the card at the DoRA step's shapes (DORA_ATTENTION_SHAPES): o, dq, dk
     and dv each within a relative L2 error of 1e-5 of the plain version, lse
-    within 1e-5 absolute (both sides fp32; the kernels sum in another order
-    and their exp2 is the hardware ex2, about 2 ulp), and each kernel run
-    twice giving the same bits.  Bounds count 4 (K6a), 6 (K6b) and 8 (K6c)
-    x BN x Sq x Sk x 64 flops on the unpadded lengths at 67 TFLOP/s (fp32
-    outside the tensor cores), each input read and output written once at
-    3.35 TB/s.  The library yardstick is scaled_dot_product_attention in
-    fp32 on the unpadded heads: its forward for K6a, its backward (dq, dk
-    and dv together) for K6b and K6c, timed here only.  Then
-    flash_attention's fp32 gradient against fp32 autograd of the plain
-    attention (relative L2 below 1e-5).  Returns {kernel: {tag: numbers}}."""
+    within 1e-5 absolute (both sides fp32; the kernels sum in another order,
+    K6b and K6c multiply in three TF32 passes, and exp2 is the hardware ex2,
+    about 2 ulp), dk and dv rows >= sk_actual exactly 0, and each kernel run
+    twice giving the same bits.  K6b and K6c's pre-pass is held bit for bit
+    to its plain version (both forms), K6c's reduce pass likewise on the
+    plain split partials, whose sum is also held to the one-split plain
+    dK / dV within a relative L2 of 1e-6; each call counts one launch of
+    K6a-c, two of the pre-pass and one of the reduce where K6c's query loop
+    is split.  Bounds count 4 (K6a), 6 (K6b) and 8 (K6c) x BN x Sq x Sk x 64
+    flops on the unpadded lengths, each input read and output written once
+    at 3.35 TB/s: against 67 TFLOP/s (fp32 outside the tensor cores) for
+    all three, and for K6b and K6c also against 494.7 / 3 TFLOP/s (three
+    TF32 passes on the tensor cores), which a device time may not beat.
+    The library yardstick is scaled_dot_product_attention in fp32 on the
+    unpadded heads: its forward for K6a, its backward (dq, dk and dv
+    together) for K6b and K6c, timed here only.  K6b and K6c's times are
+    their wrappers' (the pre-pass, the kernel and the reduce), device time
+    also by kernel; K6c's kernel and reduce also at other split counts of
+    its query loop.  Then flash_attention's fp32 gradient against fp32
+    autograd of the plain attention (relative L2 below 1e-5).  Returns
+    {kernel: {tag: numbers}}."""
     import torch
     import torch.nn.functional as F
 
@@ -3223,6 +3324,7 @@ def f32_train_kernel_checks():
 
     g = torch.Generator("cuda").manual_seed(4242)
     ln2, d, f32 = 0.6931471805599453, 64, torch.float32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     res = {}
 
     def randn(*shape, scale=1.0):
@@ -3231,11 +3333,17 @@ def f32_train_kernel_checks():
     def rel_l2_of(out, ref):
         return ((out.double() - ref.double()).norm() / ref.double().norm()).item()
 
+    def part_of(name):  # a kernel's part of a K6b / K6c call, by its function name
+        return ("prep" if "fa_f32_bwd_prep" in name else "reduce" if "fa_f32_dkv_reduce" in name
+                else "kernel")
+
     for tag, bn, sq, skp, ska, calls in DORA_ATTENTION_SHAPES:
         qh = randn(bn, sq, d, scale=d ** -0.5 * 1.4426950408889634)
         kh, vh = randn(bn, skp, d), randn(bn, skp, d)
         kh[:, ska:], vh[:, ska:] = 0, 0
         doh = randn(bn, sq, d, scale=0.05)
+        n_split, tps = fa.dkv_splits(bn, sq, skp, sms)
+        want = dict(F32_ONE_CALL, flash_bwd_dkv_reduce_f32=int(n_split > 1))
         before = dict(_kernels.launches)
         o, lse = fa.flash_fwd(qh, kh, vh, sk_actual=ska)
         o_ref, lse_ref = fa.flash_fwd_plain(qh, kh, vh, sk_actual=ska)
@@ -3243,10 +3351,9 @@ def f32_train_kernel_checks():
         dq = fa.flash_bwd_dq(qh, kh, vh, doh, lse_ref, delta, sk_actual=ska,
                              dq_factor=1 / 1.4426950408889634)
         dk, dv = fa.flash_bwd_dkv(qh, kh, vh, doh, lse_ref, delta, sq=sq, sk_actual=ska)
-        counted = {k: _kernels.launches[k] - before[k] for k in F32_KERNELS}
-        if counted != {k: 1 for k in F32_KERNELS}:
-            raise RuntimeError(f"{tag}: the fp32 counters did not count one launch each: "
-                               f"{counted}")
+        counted = {k: _kernels.launches[k] - before[k] for k in want}
+        if counted != want:
+            raise RuntimeError(f"{tag}: the fp32 counters counted {counted}, expected {want}")
         dq_ref = fa.flash_bwd_dq_plain(qh, kh, vh, doh, lse_ref, delta, sk_actual=ska,
                                        dq_factor=1 / 1.4426950408889634)
         dk_ref, dv_ref = fa.flash_bwd_dkv_plain(qh, kh, vh, doh, lse_ref, delta, sq=sq,
@@ -3261,13 +3368,44 @@ def f32_train_kernel_checks():
         dk2, dv2 = fa.flash_bwd_dkv(qh, kh, vh, doh, lse_ref, delta, sq=sq, sk_actual=ska)
         same = [torch.equal(a, b) for a, b in ((o, o2), (lse, lse2), (dq, dq2), (dk, dk2),
                                                (dv, dv2))]
+        prep_same = [torch.equal(fa._bwd_prep_f32(qh, kh, vh, doh, w),
+                                 fa.bwd_prep_f32_plain(qh, kh, vh, doh, w)) for w in (0, 1)]
         print(f"  fp32 K6a-c {tag}: relative L2 error o {errs['o']:.3e} dq {errs['dq']:.3e} "
               f"dk {errs['dk']:.3e} dv {errs['dv']:.3e} (bound 1e-5); lse max abs error "
               f"{lse_err:.3e} (bound 1e-5); dk/dv rows >= {ska} exactly 0: {zero_rows}; run "
-              f"twice, o lse dq dk dv bit for bit {same}", flush=True)
-        if not (max(errs.values()) < 1e-5 and lse_err < 1e-5 and zero_rows and all(same)):
+              f"twice, o lse dq dk dv bit for bit {same}; K6c's query loop in {n_split} "
+              f"split(s) of {tps} 32-query tiles; the pre-pass (K6b, K6c forms) bit for bit "
+              f"its plain version {prep_same}; launches {counted}", flush=True)
+        if not (max(errs.values()) < 1e-5 and lse_err < 1e-5 and zero_rows and all(same)
+                and all(prep_same)):
             raise RuntimeError(f"fp32 K6a-c disagree with their plain versions at {tag}")
         del o2, lse2, dq2, dk2, dv2
+        reduce_r = None
+        if n_split > 1:
+            part = fa.flash_bwd_dkv_partials_plain(qh, kh, vh, doh, lse_ref, delta, sq=sq,
+                                                   sk_actual=ska, n_split=n_split,
+                                                   tiles_per_split=tps)
+            rk, rv = torch.empty_like(kh), torch.empty_like(vh)
+
+            def reduce_call():
+                _kernels.launch("flash_bwd_dkv_reduce_f32", "fg_flash_bwd_dkv_reduce_f32",
+                                part.data_ptr(), rk.data_ptr(), rv.data_ptr(), n_split,
+                                rk.numel())
+            reduce_call()
+            pk, pv = fa.dkv_reduce_plain(part)
+            red_same = torch.equal(rk, pk) and torch.equal(rv, pv)
+            split_rel = max(rel_l2_of(pk, dk_ref), rel_l2_of(pv, dv_ref))
+            print(f"  fp32 K6c reduce {tag}: {n_split} plain split partials summed by the "
+                  f"kernel bit for bit the plain sum: {red_same}; that sum against the "
+                  f"one-split plain dK / dV, relative L2 {split_rel:.3e} (bound 1e-6)",
+                  flush=True)
+            if not (red_same and split_rel < 1e-6):
+                raise RuntimeError(f"the fp32 K6c reduce pass disagrees at {tag}")
+            reduce_r = dict(ms=time_ms(reduce_call, 10, 5), device_ms=device_ms(reduce_call, 10),
+                            plain_ms=time_ms(lambda: fa.dkv_reduce_plain(part), 1, 3),
+                            bound=bound_ms((2 * n_split + 2) * rk.numel() * 4, 0),
+                            n_split=n_split, calls=calls)
+            del part, rk, rv, pk, pv
 
         q4, k4, v4, do4 = (t.view(1, bn, -1, d)[:, :, :n].contiguous() for t, n in
                            ((qh, sq), (kh, ska), (vh, ska), (doh, sq)))
@@ -3282,6 +3420,7 @@ def f32_train_kernel_checks():
             return torch.autograd.grad(lib_out, (lq, lk, lv), do4, retain_graph=True)
 
         lib_fwd, lib_bwd = time_ms(sdpa_fwd, 10, 5), time_ms(sdpa_bwd, 10, 5)
+        lib_bwd_dev = device_ms(sdpa_bwd, 10)
         rows, keys, work = bn * sq, bn * ska, bn * sq * ska * d
         nb = {"flash_fwd_lse_f32": (2 * rows + 2 * keys) * d * 4 + rows * 4,
               "flash_bwd_dq_f32": (3 * rows + 2 * keys) * d * 4 + 2 * rows * 4,
@@ -3309,32 +3448,97 @@ def f32_train_kernel_checks():
         for name, (rel, mult, kern, plain, lib, max_abs) in runs.items():
             what = "backward, dq+dk+dv" if "bwd" in name else "forward"
             r = dict(max_abs_err=max_abs, rel_l2=rel, ms=time_ms(kern, 10, 5),
-                     device_ms=device_ms(kern, 10), plain_ms=time_ms(plain, 1, 3),
+                     plain_ms=time_ms(plain, 1, 3),
                      bound=bound_ms(nb[name], mult * work, H100_FP32_FLOP_PER_S),
                      library_ms=lib, calls=calls)
+            if name == "flash_fwd_lse_f32":
+                r["device_ms"] = device_ms(kern, 10)
+                parts = ""
+            else:
+                by = {}
+                for k_, v_ in device_ms_by_kernel(kern, 10).items():
+                    by[part_of(k_)] = by.get(part_of(k_), 0.0) + v_
+                r.update(device_ms=sum(by.values()), device_parts=by, library_device_ms=lib_bwd_dev,
+                         tc_bound=bound_ms(nb[name], mult * work, H100_TF32_FLOP_PER_S / 3))
+                parts = (f" = {' + '.join(f'{k_} {v_:.4f}' for k_, v_ in by.items())}; bound "
+                         f"3xTF32 {r['tc_bound'][0]:.4f} ({r['tc_bound'][1]})")
+                if r["device_ms"] < r["tc_bound"][0]:
+                    raise RuntimeError(f"{tag} {name}: device time {r['device_ms']} ms reads "
+                                       f"below the tensor-core bound {r['tc_bound'][0]} ms")
             res.setdefault(name, {})[tag] = r
-            print(f"  {tag} {name}: ms {r['ms']:.4f} (device {r['device_ms']:.4f}) plain_ms "
-                  f"{r['plain_ms']:.4f} bound_ms {r['bound'][0]:.4f} ({r['bound'][1]}) "
-                  f"library_ms {lib:.4f} (SDPA fp32 {what})",
-                  flush=True)
+            print(f"  {tag} {name}: ms {r['ms']:.4f} (device {r['device_ms']:.4f}{parts}) "
+                  f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound'][0]:.4f} "
+                  f"({r['bound'][1]}, 67 TFLOP/s fp32) library_ms {lib:.4f} (SDPA fp32 {what}"
+                  f"{f'; device {lib_bwd_dev:.4f}' if 'bwd' in name else ''})", flush=True)
+        # K6c's kernel and reduce at other split counts of its query loop
+        # (device time), beside dkv_splits' choice
+        ws = fa._bwd_prep_f32(qh, kh, vh, doh, 1)
+        n_qt, split_ms = -(-sq // 32), {}
+        counts = {-(-n_qt // -(-n_qt // min(c, n_qt))) for c in (1, 2, 3, 4, 6, 8, 13, 26)}
+        for ns in sorted(counts | {n_split}):
+            tps_ = -(-n_qt // ns)
+            sk_, sv_ = torch.empty_like(kh), torch.empty_like(vh)
+            part_ = torch.empty((ns, 2) + tuple(kh.shape), device="cuda") if ns > 1 else sk_
+
+            def split_run(ns=ns, tps_=tps_, sk_=sk_, sv_=sv_, part_=part_):
+                _kernels.launch("flash_bwd_dkv_f32", "fg_flash_bwd_dkv_f32_tc", ws.data_ptr(),
+                                lse.data_ptr(), delta.data_ptr(), sk_.data_ptr(), sv_.data_ptr(),
+                                part_.data_ptr(), ns, tps_, bn, sq, sq, ska, skp)
+                if ns > 1:
+                    _kernels.launch("flash_bwd_dkv_reduce_f32", "fg_flash_bwd_dkv_reduce_f32",
+                                    part_.data_ptr(), sk_.data_ptr(), sv_.data_ptr(), ns,
+                                    sk_.numel())
+            split_ms[ns] = device_ms(split_run, 10)
+        res["flash_bwd_dkv_f32"][tag]["split_device_ms"] = split_ms
+        print(f"  {tag} K6c kernel + reduce by split count (device ms): " +
+              ", ".join(f"{ns}: {m:.4f}{' (dkv_splits)' if ns == n_split else ''}"
+                        for ns, m in split_ms.items()), flush=True)
+        del ws
+        # the pre-pass alone: its two forms, and its bytes (4 inputs read, the
+        # workspace written)
+        for which, name in ((0, "K6b"), (1, "K6c")):
+            ws_floats = (4 * rows + 4 * bn * skp) * d + (2 * bn * skp if which == 0
+                                                         else 4 * rows) * d
+            res.setdefault("flash_bwd_prep_f32", {})[f"{tag}, {name} form"] = dict(
+                ms=time_ms(lambda: fa._bwd_prep_f32(qh, kh, vh, doh, which), 10, 5),
+                device_ms=device_ms(lambda: fa._bwd_prep_f32(qh, kh, vh, doh, which), 10),
+                plain_ms=time_ms(lambda: fa.bwd_prep_f32_plain(qh, kh, vh, doh, which), 1, 3),
+                bound=bound_ms((2 * rows + 2 * bn * skp) * d * 4 + ws_floats * 4, 0),
+                calls=calls)
+        if reduce_r:
+            res.setdefault("flash_bwd_dkv_reduce_f32", {})[tag] = reduce_r
         del qh, kh, vh, doh, o, lse, o_ref, lse_ref, dq, dk, dv, dq_ref, dk_ref, dv_ref
         del q4, k4, v4, do4, lq, lk, lv, lib_out
         torch.cuda.empty_cache()
     for name in F32_KERNELS:
-        step_ms = sum(r["device_ms"] * r["calls"] for r in res[name].values())
-        step_bound = sum(r["bound"][0] * r["calls"] for r in res[name].values())
-        print(f"  {name} over one DoRA step's 140 calls: device {step_ms:.3f} ms, bound "
-              f"{step_bound:.3f} ms", flush=True)
+        by = res[name]
+        step_ms = sum(r["device_ms"] * r["calls"] for r in by.values())
+        step_bound = sum(r["bound"][0] * r["calls"] for r in by.values())
+        tc = (f", bound 3xTF32 {sum(r['tc_bound'][0] * r['calls'] for r in by.values()):.3f} ms"
+              if name != "flash_fwd_lse_f32" else "")
+        parts = ""
+        if name != "flash_fwd_lse_f32":
+            sums = {}
+            for r in by.values():
+                for k_, v_ in r["device_parts"].items():
+                    sums[k_] = sums.get(k_, 0.0) + v_ * r["calls"]
+            parts = " (" + ", ".join(f"{k_} {v_:.3f}" for k_, v_ in sums.items()) + ")"
+        print(f"  {name} over one DoRA step's 140 calls: device {step_ms:.3f} ms{parts}, "
+              f"bound 67 TFLOP/s {step_bound:.3f} ms{tc}", flush=True)
 
     # flash_attention's fp32 gradient (K6a, K6b, K6c) against fp32 autograd
     # of the plain attention on the same values
     q = randn(1, 1000, 2, d, scale=d ** -0.5).requires_grad_(True)
     k, v = randn(1, 1000, 2, d).requires_grad_(True), randn(1, 1000, 2, d).requires_grad_(True)
     w = randn(1, 1000, 2, d)
+    # 2 heads of 1000 keys, padded to 1024: 16 items of 128 keys, so K6c's
+    # query loop splits
+    want = dict(F32_ONE_CALL, flash_bwd_dkv_reduce_f32=int(fa.dkv_splits(2, 1000, 1024,
+                                                                          sms)[0] > 1))
     before = dict(_kernels.launches)
     out = fa.flash_attention(q, k, v, kv_len=900)
     grads = torch.autograd.grad((out * w).sum(), (q, k, v))
-    counted = {k_: _kernels.launches[k_] - before[k_] for k_ in F32_KERNELS}
+    counted = {k_: _kernels.launches[k_] - before[k_] for k_ in want}
     ref_in = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
     ref = xla_attention(*ref_in, kv_len=900)
     ref_grads = torch.autograd.grad((ref * w).sum(), ref_in)
@@ -3342,8 +3546,103 @@ def f32_train_kernel_checks():
     print(f"  fp32 flash_attention vs fp32 autograd of the plain attention (S=1000, "
           f"kv_len 900, d 64): relative L2 o {rels[0]:.3e} dq {rels[1]:.3e} dk {rels[2]:.3e} "
           f"dv {rels[3]:.3e} (bound 1e-5); launches {counted}", flush=True)
-    if not max(rels) < 1e-5 or counted != {k_: 1 for k_ in F32_KERNELS}:
+    if not max(rels) < 1e-5 or counted != want:
         raise RuntimeError(f"fp32 flash_attention gradient disagrees: {rels} {counted}")
+    return res
+
+
+def f32_bwd_ab(other_path):
+    """The fp32 K6b and K6c of another build of the library (``--ab-lib``:
+    the parent's FFMA kernels, through their C entries fg_flash_bwd_dq_f32
+    and fg_flash_bwd_dkv_f32 and those entries' own arguments) beside this
+    build's (its wrappers: the pre-pass, the kernel and, where split, the
+    reduce) on the same inputs at the DoRA step's shapes.  Each output is
+    held to the plain version within a relative L2 of 1e-5; device times
+    (torch.profiler) are taken in the order other, this, this, other, and
+    beside them each call's host time (the wall of 20 calls enqueued on an
+    idle card, before they are waited for, over 20; this build's wrapper
+    with its checks and allocations, the other's bare C entry).
+    Returns {kernel: {shape: {"this"|"other"|"host_this"|"host_other": [ms, ...]}}}."""
+    import ctypes
+
+    import torch
+
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    other = ctypes.CDLL(os.path.abspath(other_path))
+    other.fg_flash_bwd_dq_f32.argtypes = [p_] * 7 + [f_, i_, i_, i_, i_, p_]
+    other.fg_flash_bwd_dkv_f32.argtypes = [p_] * 8 + [i_] * 5 + [p_]
+    other.fg_flash_bwd_dq_f32.restype = other.fg_flash_bwd_dkv_f32.restype = ctypes.c_int
+    g = torch.Generator("cuda").manual_seed(779)
+    f = 1 / 1.4426950408889634
+    res = {"flash_bwd_dq_f32": {}, "flash_bwd_dkv_f32": {}}
+    for tag, bn, sq, skp, ska, _ in DORA_ATTENTION_SHAPES:
+        qh = torch.randn((bn, sq, 64), generator=g, device="cuda") * (64 ** -0.5 * 1.4426950408889634)
+        kh, vh = (torch.randn((bn, skp, 64), generator=g, device="cuda") for _ in range(2))
+        kh[:, ska:], vh[:, ska:] = 0, 0
+        doh = torch.randn((bn, sq, 64), generator=g, device="cuda") * 0.05
+        o, lse = fa.flash_fwd_plain(qh, kh, vh, sk_actual=ska)
+        delta = (doh * o).sum(-1)
+        refs = {"flash_bwd_dq_f32": (fa.flash_bwd_dq_plain(qh, kh, vh, doh, lse, delta,
+                                                           sk_actual=ska, dq_factor=f),),
+                "flash_bwd_dkv_f32": fa.flash_bwd_dkv_plain(qh, kh, vh, doh, lse, delta, sq=sq,
+                                                            sk_actual=ska)}
+        outs = {"flash_bwd_dq_f32": (torch.empty_like(qh),),
+                "flash_bwd_dkv_f32": (torch.empty_like(kh), torch.empty_like(vh))}
+
+        def other_dq():
+            rc = other.fg_flash_bwd_dq_f32(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(),
+                                           doh.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                                           outs["flash_bwd_dq_f32"][0].data_ptr(), f, bn, sq,
+                                           ska, skp, torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"fg_flash_bwd_dq_f32: cudaError {rc}")
+            return outs["flash_bwd_dq_f32"]
+
+        def other_dkv():
+            dk_, dv_ = outs["flash_bwd_dkv_f32"]
+            rc = other.fg_flash_bwd_dkv_f32(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(),
+                                            doh.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                                            dk_.data_ptr(), dv_.data_ptr(), bn, sq, sq, ska, skp,
+                                            torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"fg_flash_bwd_dkv_f32: cudaError {rc}")
+            return outs["flash_bwd_dkv_f32"]
+
+        calls = {"flash_bwd_dq_f32": {
+                     "other": other_dq,
+                     "this": lambda: (fa.flash_bwd_dq(qh, kh, vh, doh, lse, delta, sk_actual=ska,
+                                                      dq_factor=f),)},
+                 "flash_bwd_dkv_f32": {
+                     "other": other_dkv,
+                     "this": lambda: fa.flash_bwd_dkv(qh, kh, vh, doh, lse, delta, sq=sq,
+                                                      sk_actual=ska)}}
+        for name, by in calls.items():
+            for who, fn in by.items():
+                got = fn()
+                torch.cuda.synchronize()
+                rel = max(((a.double() - b.double()).norm() / b.double().norm()).item()
+                          for a, b in zip(got, refs[name]))
+                if not rel < 1e-5:
+                    raise RuntimeError(f"{name} A/B {tag}, {who} build: relative L2 {rel}")
+            times = {"this": [], "other": [], "host_this": [], "host_other": []}
+            for who in ("other", "this", "this", "other"):
+                times[who].append(device_ms(by[who], 10))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    by[who]()
+                times["host_" + who].append((time.perf_counter() - t0) / 20 * 1e3)
+                torch.cuda.synchronize()
+            res[name][tag] = times
+            print(f"  fp32 A/B {tag} {name}: device ms this " +
+                  " / ".join(f"{m:.4f}" for m in times["this"]) + ", other (the other build's "
+                  "C entry) " + " / ".join(f"{m:.4f}" for m in times["other"]) +
+                  "; host ms a call this " + " / ".join(f"{m:.4f}" for m in times["host_this"]) +
+                  ", other " + " / ".join(f"{m:.4f}" for m in times["host_other"]), flush=True)
+        del qh, kh, vh, doh, o, lse, delta, refs, outs, calls
+        torch.cuda.empty_cache()
     return res
 
 
@@ -3654,7 +3953,22 @@ def reference_sdxl_check():
 
 
 DORA_STEPS = 4  # one of them with min-SNR-5 weighting
-DORA_PER_STEP = {k: 140 for k in F32_KERNELS}  # 70 transformer blocks x 2 attentions
+
+
+def dora_per_step():
+    """The fp32 kernels' launches in one DoRA step: 140 each of K6a-c (70
+    transformer blocks x 2 attentions), the pre-pass twice a backward, and
+    K6c's reduce pass at the shapes whose query loop it splits (on an H100's
+    132 SMs all four: 140)."""
+    import torch
+
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split = sum(calls for _, bn, sq, skp, _, calls in DORA_ATTENTION_SHAPES
+                if fa.dkv_splits(bn, sq, skp, sms)[0] > 1)
+    return dict({k: 140 for k in F32_KERNELS}, flash_bwd_prep_f32=280,
+                flash_bwd_dkv_reduce_f32=split)
 DORA_STYLIZE_STEPS = 4
 
 
@@ -3804,7 +4118,8 @@ def dora_phase():
     kinds = {k: sum(p[-1] == k for p in state.paths) for k in ("A", "B", "mag")}
     if kinds != {"A": 560, "B": 560, "mag": 560} or len(state.paths) != 1680:
         raise RuntimeError(f"trainable tensors {kinds}, expected 560 each of A, B, mag")
-    want = {k: DORA_PER_STEP.get(k, 0) for k in _kernels.launches}
+    per_step = dora_per_step()
+    want = {k: per_step.get(k, 0) for k in _kernels.launches}
     gen = torch.Generator("cuda").manual_seed(67)
     walls = []
     for i in range(DORA_STEPS):
@@ -3976,8 +4291,12 @@ def reference_dora_check():
         print(f"  tiny DoRA step (d 64, 32x32 latents, snr_gamma {snr}): loss {loss:.6f} card, "
               f"{ref_loss:.6f} CPU, relative error {e_loss:.3e} (bound 1e-4); relative L2 of "
               f"the gradients {worst} (bound 1e-3); kernel launches {ran}", flush=True)
-        if ran != {k: 22 for k in F32_KERNELS}:
-            raise RuntimeError(f"tiny DoRA step: kernel launches {ran}, expected 22 each")
+        # 11 transformer blocks x 2 attentions; every K6c call of these few
+        # heads and keys splits its query loop (at most 8 items of 128 keys)
+        want = dict({k: 22 for k in F32_KERNELS}, flash_bwd_prep_f32=44,
+                    flash_bwd_dkv_reduce_f32=22)
+        if ran != want:
+            raise RuntimeError(f"tiny DoRA step: kernel launches {ran}, expected {want}")
         if not (e_loss <= 1e-4 and max(worst.values()) <= 1e-3):
             raise RuntimeError("tiny DoRA step disagrees with the CPU reference")
 

@@ -1,54 +1,44 @@
-// K6a, K6b and K6c in fp32 at head dim 64: flash attention with a gradient
-// on head-major fp32 q/k/v/dO (B*N, S_pad, 64), for Hopper (sm_90a).  The
-// masked Style-DoRA finetune of the SDXL UNet trains in fp32, and SDXL's
-// heads are 64 wide, so every attention of its train step comes here.
+// K6a in fp32 at head dim 64: the flash attention forward with its
+// log-sum-exp on head-major fp32 q/k/v (B*N, S_pad, 64), for Hopper
+// (sm_90a).  The masked Style-DoRA finetune of the SDXL UNet trains in fp32,
+// and SDXL's heads are 64 wide, so every attention forward of its train step
+// comes here; its backward (K6b, K6c) runs on the tensor cores in
+// csrc/flash_attention_fp32_bwd.cu (3xTF32 wgmma).
 //
-// Replaces the TPU kernels fairygen_tpu/ops/flash_attention.py, run on fp32
+// Replaces the TPU kernel fairygen_tpu/ops/flash_attention.py, run on fp32
 // inputs:
 //   K6a _fa_fwd_lse_kernel (:253)  o = softmax2(S) V and lse = m + log2(l)
-//   K6b _fa_bwd_dq_kernel  (:295)  dQ = f * sum_j [P o (dP - delta)] K_j
-//   K6c _fa_bwd_dkv_kernel (:329)  dV = sum_i P^T dO_i,
-//                                  dK = sum_i [P o (dP - delta)]^T Q_i / log2(e)
-// Contract (the bf16 kernels' of csrc/flash_attention_online.cu and
-// csrc/flash_attention_bwd.cu): q carries hd^-1/2 * log2(e), so the logits
-// S = Q K^T are base 2; key columns >= sk_actual are masked (P = 0); lse is
-// one fp32 value a row, delta = sum_d dO * O one fp32 value a row from the
-// caller; S_pad is a multiple of 64 and rows past the sequence are zero.
-// Everything is fp32: the logits, exp2, P and dS (the Pallas kernels'
-// rounding of p to v's dtype is a no-op here) and every sum.  K6a and K6b
-// write every row below Sq_pad; K6c skips queries >= sq (P = 0 there,
-// whatever the padded rows of lse and delta hold), writes every row below
-// Sk_pad, and key rows >= sk_actual come out exactly 0.  No atomics: K6a and
-// K6b own query rows, K6c key rows, as the TPU kernels split the work, so
+// Contract (the bf16 kernels' of csrc/flash_attention_online.cu): q carries
+// hd^-1/2 * log2(e), so the logits S = Q K^T are base 2; key columns >=
+// sk_actual are masked (P = 0); lse is one fp32 value a row; S_pad is a
+// multiple of 64 and rows past the sequence are zero.  Everything is fp32:
+// the logits, exp2, P (the Pallas kernel's rounding of p to v's dtype is a
+// no-op here) and every sum.  Every row below Sq_pad is written.  No
+// atomics: a CTA owns its query rows, as the TPU kernel splits the work, so
 // the same inputs give the same bits on every run.
 //
-// Bound on the H100: operations.  Hopper's tensor cores have no fp32
-// product (TF32 keeps 10 mantissa bits, about 1e-3 relative, far from the
-// fp32 reference), so these kernels run on the CUDA cores' FFMA: 4 (K6a: S,
-// PV), 6 (K6b: S, dP, dQ) and 8 (K6c: S, dP, dV, dK) x BN Sq Sk 64 flops at
-// 67 TFLOP/s, 0.64, 0.96 and 1.28 ms at 10 heads x 4096 x 4096, against a
-// few hundred bytes a row.  Design (deliberately simple):
-//   - a CTA of 256 threads owns 64 rows of one head (query rows for K6a and
-//     K6b, key rows for K6c) and loops over the other side in tiles of 64,
-//     blockIdx.x the row block and blockIdx.y the head, so the CTAs that
-//     run together share a head's tiles in L2;
+// Bound on the H100: operations.  This first design runs on the CUDA
+// cores' FFMA (not yet moved to the tensor cores as K6b and K6c were):
+// 4 x BN Sq Sk 64 flops (S, PV) at 67 TFLOP/s, 0.64 ms at 10 heads x 4096 x
+// 4096, against a few hundred bytes a row.  Design (simple):
+//   - a CTA of 256 threads owns 64 query rows of one head and loops over
+//     the keys in tiles of 64, blockIdx.x the row block and blockIdx.y the
+//     head, so the CTAs that run together share a head's tiles in L2;
 //   - tiles live in shared memory row-major with a row stride of 68 floats
 //     (16-byte aligned rows; rows 4 banks apart), loaded by coalesced
 //     float4 reads, never transposed;
 //   - thread (ty, tx) = (tid / 16, tid % 16) computes a 4 x 4 micro-tile.
-//     A product that reduces over d (S = Q K^T, dP = dO V^T and, in K6c,
-//     their transposes) reads both operands as float4 along d, its own 4
-//     rows ty*4 + i (broadcast within a half-warp) against the columns tx +
-//     16 j (eight threads of a quarter-warp hit eight distinct 4-bank
-//     groups).  A product that reduces over the tile (P V, dS K, P^T dO,
-//     dS^T Q) takes the first factor from a shared buffer the threads wrote
-//     from their registers already transposed, one float4 of 4 rows per
-//     tile column, and the second as a float4 of 4 consecutive columns of a
-//     row-major tile: 2 shared loads for 16 FFMA either way;
-//   - row statistics (K6a's running max and sum) are reduced over the 16
-//     threads of a row with shuffles inside a half-warp;
-//   - only ceil(sk_actual / 64) key tiles (K6a, K6b) or ceil(sq / 64) query
-//     tiles (K6c) are computed: the others add exact zeros;
+//     S = Q K^T reads both operands as float4 along d, its own 4 rows ty*4 +
+//     i (broadcast within a half-warp) against the columns tx + 16 j (eight
+//     threads of a quarter-warp hit eight distinct 4-bank groups).  P V
+//     takes P from a shared buffer the threads wrote from their registers
+//     already transposed, one float4 of 4 rows per tile column, and V as a
+//     float4 of 4 consecutive columns of a row-major tile: 2 shared loads
+//     for 16 FFMA either way;
+//   - the running max and sum are reduced over the 16 threads of a row with
+//     shuffles inside a half-warp;
+//   - only ceil(sk_actual / 64) key tiles are computed: the others add
+//     exact zeros;
 //   - exp2f is the hardware ex2 (about 2 ulp), so P lies within a few ulp of
 //     the plain version's exp2.
 #include <cuda_runtime.h>
@@ -62,19 +52,14 @@ constexpr int kT = 64;        // rows of a tile
 constexpr int kLd = 68;       // shared row stride, floats
 constexpr int kThreads = 256;
 constexpr int kTile = kT * kLd;  // floats of one shared tile
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const float* q;
   const float* k;
   const float* v;
-  const float* dout;
-  const float* lse;
-  const float* delta;
-  float* out0;   // o (K6a), dq (K6b), dk (K6c)
-  float* out1;   // lse (K6a), dv (K6c)
-  int sq, sq_pad, sk_actual, sk_pad;
-  float dq_factor;
+  float* out0;  // o
+  float* out1;  // lse
+  int sq_pad, sk_actual, sk_pad;
 };
 
 // rows [row0, row0 + 64) of a (S_pad, 64) fp32 head into a shared tile
@@ -237,120 +222,6 @@ __global__ void __launch_bounds__(kThreads) fa_f32_fwd_lse_kernel(Params p) {
   }
 }
 
-// K6b: shared Q, dO, K, V, dS^T
-constexpr int kDqSmem = 5 * kTile * 4;
-
-__global__ void __launch_bounds__(kThreads) fa_f32_bwd_dq_kernel(Params p) {
-  extern __shared__ float4 smem4[];
-  float* sq = reinterpret_cast<float*>(smem4);
-  float* sdo = sq + kTile;
-  float* sk = sdo + kTile;
-  float* sv = sk + kTile;
-  float* sds = sv + kTile;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int row0 = blockIdx.x * kT;
-  const size_t head_q = (size_t)blockIdx.y * p.sq_pad * kD;
-  const size_t head_k = (size_t)blockIdx.y * p.sk_pad * kD;
-  load_tile(sq, p.q + head_q, row0);
-  load_tile(sdo, p.dout + head_q, row0);
-  float lse[4], dlt[4], acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const size_t r = (size_t)blockIdx.y * p.sq_pad + row0 + ty * 4 + i;
-    lse[i] = p.lse[r];
-    dlt[i] = p.delta[r];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-  }
-  const int n_tiles = (p.sk_actual + kT - 1) / kT;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    __syncthreads();
-    load_tile(sk, p.k + head_k, kt * kT);
-    load_tile(sv, p.v + head_k, kt * kT);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    product_over_d(s, sq, sk, ty, tx);
-    product_over_d(dp, sdo, sv, ty, tx);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool keep = kt * kT + tx + 16 * j < p.sk_actual;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        s[i][j] = keep ? exp2f(s[i][j] - lse[i]) * (dp[i][j] - dlt[i]) : 0.f;
-    }
-    store_transposed(sds, s, ty, tx);
-    __syncthreads();
-    product_over_tile(acc, sds, sk, ty, tx);
-  }
-  store_rows(p.out0 + head_q, row0, acc, ty, tx, p.dq_factor);
-}
-
-// K6c: shared K, V, Q, dO, P (query, key), dS (query, key), lse, delta
-constexpr int kDkvSmem = 6 * kTile * 4 + 2 * kT * 4;
-
-__global__ void __launch_bounds__(kThreads) fa_f32_bwd_dkv_kernel(Params p) {
-  extern __shared__ float4 smem4[];
-  float* sk = reinterpret_cast<float*>(smem4);
-  float* sv = sk + kTile;
-  float* sq = sv + kTile;
-  float* sdo = sq + kTile;
-  float* spb = sdo + kTile;
-  float* sdsb = spb + kTile;
-  float* slse = sdsb + kTile;
-  float* sdlt = slse + kT;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int row0 = blockIdx.x * kT;
-  const size_t head_q = (size_t)blockIdx.y * p.sq_pad * kD;
-  const size_t head_k = (size_t)blockIdx.y * p.sk_pad * kD;
-  float dk[4][4], dv[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dk[i][c] = dv[i][c] = 0.f;
-  const int n_tiles = row0 < p.sk_actual ? (p.sq + kT - 1) / kT : 0;
-  if (n_tiles) {
-    load_tile(sk, p.k + head_k, row0);
-    load_tile(sv, p.v + head_k, row0);
-  }
-  bool key_ok[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) key_ok[i] = row0 + ty * 4 + i < p.sk_actual;
-  for (int qt = 0; qt < n_tiles; ++qt) {
-    __syncthreads();
-    load_tile(sq, p.q + head_q, qt * kT);
-    load_tile(sdo, p.dout + head_q, qt * kT);
-    if (threadIdx.x < kT) {
-      const size_t r = (size_t)blockIdx.y * p.sq_pad + qt * kT + threadIdx.x;
-      slse[threadIdx.x] = p.lse[r];
-      sdlt[threadIdx.x] = p.delta[r];
-    }
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    product_over_d(s, sk, sq, ty, tx);   // S^T: own key rows, query columns
-    product_over_d(dp, sv, sdo, ty, tx);  // dP^T
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = tx + 16 * j;
-      const bool q_ok = qt * kT + col < p.sq;
-      const float lse_c = slse[col], dlt_c = sdlt[col];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bool ok = q_ok && key_ok[i];
-        const float pr = ok ? exp2f(s[i][j] - lse_c) : 0.f;
-        dp[i][j] = ok ? pr * (dp[i][j] - dlt_c) : 0.f;
-        s[i][j] = pr;
-      }
-    }
-    store_transposed(spb, s, ty, tx);
-    store_transposed(sdsb, dp, ty, tx);
-    __syncthreads();
-    product_over_tile(dv, spb, sdo, ty, tx);
-    product_over_tile(dk, sdsb, sq, ty, tx);
-  }
-  store_rows(p.out0 + head_k, row0, dk, ty, tx, 1.f / kLog2e);
-  store_rows(p.out1 + head_k, row0, dv, ty, tx, 1.f);
-}
-
 typedef void (*F32Kernel)(Params);
 
 int allow_smem(F32Kernel kernel, int smem_bytes) {
@@ -384,49 +255,5 @@ extern "C" int fg_flash_fwd_lse_f32(const void* qh, const void* kh, const void* 
   return launch(fa_f32_fwd_lse_kernel, rc, kFwdSmem, sq_pad, BN, p, stream);
 }
 
-extern "C" int fg_flash_bwd_dq_f32(const void* qh, const void* kh, const void* vh,
-                                   const void* doh, const void* lse, const void* delta, void* dq,
-                                   float dq_factor, int BN, int sq_pad, int sk_actual,
-                                   int sk_pad, void* stream) {
-  Params p = {};
-  p.q = (const float*)qh;
-  p.k = (const float*)kh;
-  p.v = (const float*)vh;
-  p.dout = (const float*)doh;
-  p.lse = (const float*)lse;
-  p.delta = (const float*)delta;
-  p.out0 = (float*)dq;
-  p.sq_pad = sq_pad;
-  p.sk_actual = sk_actual;
-  p.sk_pad = sk_pad;
-  p.dq_factor = dq_factor;
-  static int rc = allow_smem(fa_f32_bwd_dq_kernel, kDqSmem);
-  return launch(fa_f32_bwd_dq_kernel, rc, kDqSmem, sq_pad, BN, p, stream);
-}
-
-extern "C" int fg_flash_bwd_dkv_f32(const void* qh, const void* kh, const void* vh,
-                                    const void* doh, const void* lse, const void* delta,
-                                    void* dk, void* dv, int BN, int sq, int sq_pad,
-                                    int sk_actual, int sk_pad, void* stream) {
-  Params p = {};
-  p.q = (const float*)qh;
-  p.k = (const float*)kh;
-  p.v = (const float*)vh;
-  p.dout = (const float*)doh;
-  p.lse = (const float*)lse;
-  p.delta = (const float*)delta;
-  p.out0 = (float*)dk;
-  p.out1 = (float*)dv;
-  p.sq = sq;
-  p.sq_pad = sq_pad;
-  p.sk_actual = sk_actual;
-  p.sk_pad = sk_pad;
-  static int rc = allow_smem(fa_f32_bwd_dkv_kernel, kDkvSmem);
-  return launch(fa_f32_bwd_dkv_kernel, rc, kDkvSmem, sk_pad, BN, p, stream);
-}
-
-// dynamic shared memory of K6a (which = 0), K6b (1) or K6c (2), in bytes
-// (printed by chip_smoke.py)
-extern "C" int fg_flash_f32_smem_bytes(int which) {
-  return which == 0 ? kFwdSmem : which == 1 ? kDqSmem : kDkvSmem;
-}
+// dynamic shared memory of K6a, in bytes (printed by chip_smoke.py)
+extern "C" int fg_flash_f32_smem_bytes() { return kFwdSmem; }

@@ -25,6 +25,8 @@ and K6a-c for its gradient) and K10, the attention with a bias.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _kernels
@@ -102,8 +104,15 @@ def flash_attention_heads_major(qh, kh, v, *, b, n, sq, sk_actual, bq=2048,
 # against its tile's running max, K4 against the row's max over every key
 # (a pre-pass over the key tiles after the first finds it), as the Pallas
 # kernel does; K6b and K6c are those of ``csrc/flash_attention_bwd.cu``.
-# The fp32 forms of K6a-c are the FFMA kernels of
-# ``csrc/flash_attention_fp32.cu`` (all in fp32, on 64-key tiles).
+# The fp32 form of K6a is the FFMA kernel of ``csrc/flash_attention_fp32.cu``
+# (all in fp32, on 64-key tiles); the fp32 K6b and K6c are TMA + wgmma
+# kernels of ``csrc/flash_attention_fp32_bwd.cu`` on the tensor cores, each
+# product taken in three TF32 passes (hi·hi + hi·lo + lo·hi, fp32
+# accumulation), after a pre-pass that writes the operands' TF32 hi / lo
+# and transposed copies to a workspace; the fp32 K6c splits its query loop
+# over CTAs where rounds of its 128-key items would leave SMs idle
+# (:func:`dkv_splits`) and sums the splits' partials in a second pass, in
+# split order.
 
 DEFAULT_BQ = 1024
 DEFAULT_BK = 1024
@@ -112,6 +121,8 @@ _ROW_TILE = 64  # the CUDA kernels take padded lengths that are multiples of thi
 _FWD_DIMS = (64, 128)  # head dims of the K4 max/masked and K5 kernels
 _TRAIN_DIMS = (128,)   # head dims of K6a-c in bf16 (and K10)
 _F32_TRAIN_DIMS = (64,)  # head dims of K6a-c in fp32
+_DKV_Q_TILE = 32   # queries a tile of the fp32 K6c
+_DKV_KEYS = 128    # keys an item of the fp32 K6c (two consumers of 64)
 
 
 def _refuse_unported(qh, grad):
@@ -171,15 +182,124 @@ def flash_bwd_dkv_plain(qh, kh, vh, doh, lse, delta, *, sq, sk_actual):
     """Plain version of K6c: dV = P^T dO, dK = [P o (dP - delta)]^T Q /
     log2(e); queries >= sq contribute nothing.  In fp32 the roundings of P
     and dS to the operands' dtype are no-ops."""
+    return _dkv_rows_plain(qh, kh, vh, doh, lse, delta, 0, sq, sk_actual)
+
+
+def _dkv_rows_plain(qh, kh, vh, doh, lse, delta, q_lo, q_hi, sk_actual):
+    """K6c's plain version over the queries [q_lo, q_hi) alone."""
     dk, dv = torch.empty_like(kh), torch.empty_like(vh)
     for bn in range(qh.shape[0]):
         p = torch.exp2(_masked_logits(qh, kh, bn, sk_actual) - lse[bn, :, None])
-        p[sq:] = 0.0
+        p[:q_lo] = 0.0
+        p[q_hi:] = 0.0
         dv[bn] = (p.to(doh.dtype).float().T @ doh[bn].float()).to(vh.dtype)
         dp = doh[bn].float() @ vh[bn].float().T
         ds = p * (dp - delta[bn, :, None])
         dk[bn] = ((ds.to(qh.dtype).float().T @ qh[bn].float()) * (1.0 / LOG2E)).to(kh.dtype)
     return dk, dv
+
+
+@functools.lru_cache(maxsize=None)
+def dkv_splits(bn, sq, sk_pad, sms):
+    """(n_split, tiles_per_split): how the fp32 K6c splits its query loop of
+    ceil(sq / 32) tiles over CTAs.  Its items are 128 keys of one head and
+    one split; split j takes the tiles [j tps, min((j + 1) tps, n_tiles)).
+    The count is the least of rounds x (tps + 2) (a round: one item on every
+    SM; the 2: an item's K / V load and its partials' store, in tiles),
+    fewer splits on a tie, among the counts that give at least ``sms`` items
+    where the 128-key blocks alone give fewer and splits can make so many.
+    On an H100 this picks 2 / 4 / 26 / 11 splits at a DoRA step's 10 x
+    4096^2, 20 x 1024^2, 10 x 4096 x 77 and 20 x 1024 x 77 shapes; PERF.md
+    §6 (PR 18) has the times of the other counts."""
+    n_qt = -(-sq // _DKV_Q_TILE)
+    base = bn * -(-sk_pad // _DKV_KEYS)
+    best = None
+    for tps in range(1, n_qt + 1):
+        n_split = -(-n_qt // tps)
+        items = base * n_split
+        if items < sms <= base * n_qt:
+            continue
+        key = (-(-items // sms) * (tps + 2), n_split)
+        if best is None or key < best[0]:
+            best = (key, (n_split, tps))
+    return best[1]
+
+
+def split_ranges(n_tiles, n_split, tiles_per_split):
+    """The query tiles [start, end) of each split, in split order."""
+    return [(j * tiles_per_split, min((j + 1) * tiles_per_split, n_tiles))
+            for j in range(n_split)]
+
+
+def flash_bwd_dkv_partials_plain(qh, kh, vh, doh, lse, delta, *, sq, sk_actual, n_split,
+                                 tiles_per_split):
+    """Plain version of the split fp32 K6c: each split's dK and dV over its
+    queries alone, (n_split, 2, BN, Sk_pad, d)."""
+    n_qt = -(-sq // _DKV_Q_TILE)
+    parts = []
+    for j0, j1 in split_ranges(n_qt, n_split, tiles_per_split):
+        parts.append(torch.stack(_dkv_rows_plain(qh, kh, vh, doh, lse, delta,
+                                                 j0 * _DKV_Q_TILE, min(j1 * _DKV_Q_TILE, sq),
+                                                 sk_actual)))
+    return torch.stack(parts)
+
+
+def dkv_reduce_plain(part):
+    """Plain version of the fp32 K6c's reduce pass: the partials (n_split,
+    2, ...) summed in split order, one fp32 add at a time; (dK, dV)."""
+    acc = part[0].clone()
+    for p in part[1:]:
+        acc += p
+    return acc[0], acc[1]
+
+
+def tf32_round_plain(x):
+    """x (fp32) rounded to TF32, 10 mantissa bits, to nearest with ties away
+    from zero (the kernels' rounding): + 2^12 and the low 13 bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_split_plain(x):
+    hi = tf32_round_plain(x)
+    return hi, tf32_round_plain(x - hi)
+
+
+def _permuted_rows(n):
+    """Row index of each position of a transposed operand: each 8 rows as
+    0, 2, 4, 6, 1, 3, 5, 7 (the order of a wgmma accumulator's columns)."""
+    p = torch.arange(n)
+    e = p % 8
+    return p - e + torch.where(e < 4, 2 * e, 2 * (e - 4) + 1)
+
+
+def bwd_prep_f32_plain(qh, kh, vh, doh, which):
+    """Plain version of the fp32 K6b (``which`` 0) / K6c (1) pre-pass: the
+    workspace, flat: the TF32 hi and lo of q, dO, k, v, then those of the
+    transposed (BN, d, S_pad), row-permuted K (K6b) or Q and dO (K6c)."""
+    parts = []
+    for x in (qh, doh, kh, vh):
+        parts += _tf32_split_plain(x)
+    for x in (kh,) if which == 0 else (qh, doh):
+        parts += _tf32_split_plain(x[:, _permuted_rows(x.shape[1]).to(x.device)]
+                                   .transpose(1, 2).contiguous())
+    return torch.cat([p.reshape(-1) for p in parts])
+
+
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _bwd_prep_f32(qh, kh, vh, doh, which):
+    """The fp32 K6b / K6c pre-pass into a new workspace (the layout of
+    ``bwd_prep_f32_plain``)."""
+    bn, sq_p, d = qh.shape
+    nq, nk = bn * sq_p * d, bn * kh.shape[1] * d
+    ws = torch.empty(4 * nq + 4 * nk + (2 * nk if which == 0 else 4 * nq), dtype=torch.float32,
+                     device=qh.device)
+    _kernels.launch("flash_bwd_prep_f32", "fg_flash_bwd_prep_f32", qh.data_ptr(), kh.data_ptr(),
+                    vh.data_ptr(), doh.data_ptr(), ws.data_ptr(), which, bn, sq_p, kh.shape[1])
+    return ws
 
 
 def _check_heads_major(qh, kh, vh, sk_actual, extra=(), dims=_TRAIN_DIMS,
@@ -207,7 +327,7 @@ def flash_fwd(qh, kh, vh, *, sk_actual, with_lse=True):
     or 128) on head-major q/k/v (see the section note).  Returns o, and lse
     with ``with_lse``.  On the card the bf16 forms are the TMA + wgmma
     kernels of ``csrc/flash_attention_online.cu`` (at d 128 K5's o equals
-    K6a's bit for bit), the fp32 form that of
+    K6a's bit for bit), the fp32 form the FFMA kernel of
     ``csrc/flash_attention_fp32.cu``."""
     if not qh.is_cuda:
         return flash_fwd_plain(qh, kh, vh, sk_actual=sk_actual, with_lse=with_lse)
@@ -279,35 +399,59 @@ def _check_bwd(qh, kh, vh, doh, lse, delta, sk_actual):
 
 def flash_bwd_dq(qh, kh, vh, doh, lse, delta, *, sk_actual, dq_factor):
     """K6b: dQ (BN, Sq_pad, d) from the forward's lse and delta (bf16 at d
-    128, fp32 at d 64); every row below Sq_pad is written."""
+    128, fp32 at d 64); every row below Sq_pad is written.  On the card the
+    bf16 form is the TMA + wgmma kernel of ``csrc/flash_attention_bwd.cu``,
+    the fp32 form the pre-pass and the 3xTF32 TMA + wgmma kernel of
+    ``csrc/flash_attention_fp32_bwd.cu``."""
     if not qh.is_cuda:
         return flash_bwd_dq_plain(qh, kh, vh, doh, lse, delta, sk_actual=sk_actual,
                                   dq_factor=dq_factor)
     f32 = _check_bwd(qh, kh, vh, doh, lse, delta, sk_actual)
+    bn, sq_p, _ = qh.shape
     dq = torch.empty_like(qh)
-    kernel = "flash_bwd_dq_f32" if f32 else "flash_bwd_dq"
-    _kernels.launch(kernel, "fg_" + kernel, qh.data_ptr(), kh.data_ptr(),
+    if f32:
+        ws = _bwd_prep_f32(qh, kh, vh, doh, 0)
+        _kernels.launch("flash_bwd_dq_f32", "fg_flash_bwd_dq_f32_tc", ws.data_ptr(),
+                        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), float(dq_factor), bn,
+                        sq_p, int(sk_actual), kh.shape[1])
+        return dq
+    _kernels.launch("flash_bwd_dq", "fg_flash_bwd_dq", qh.data_ptr(), kh.data_ptr(),
                     vh.data_ptr(), doh.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                    dq.data_ptr(), float(dq_factor), qh.shape[0], qh.shape[1],
-                    int(sk_actual), kh.shape[1])
+                    dq.data_ptr(), float(dq_factor), bn, sq_p, int(sk_actual), kh.shape[1])
     return dq
 
 
 def flash_bwd_dkv(qh, kh, vh, doh, lse, delta, *, sq, sk_actual):
     """K6c: (dK, dV), each (BN, Sk_pad, d) (bf16 at d 128, fp32 at d 64);
     queries >= sq are skipped and key rows >= sk_actual come out exactly
-    0."""
+    0.  On the card the bf16 form is the TMA + wgmma kernel of
+    ``csrc/flash_attention_bwd.cu``, the fp32 form the pre-pass and the
+    3xTF32 TMA + wgmma kernel of ``csrc/flash_attention_fp32_bwd.cu``, its
+    query loop split as :func:`dkv_splits` says and, when split, the reduce
+    pass."""
     if not qh.is_cuda:
         return flash_bwd_dkv_plain(qh, kh, vh, doh, lse, delta, sq=sq, sk_actual=sk_actual)
     f32 = _check_bwd(qh, kh, vh, doh, lse, delta, sk_actual)
     if not 1 <= sq <= qh.shape[1]:
         raise ValueError(f"sq {sq} outside [1, {qh.shape[1]}]")
+    bn, sq_p, _ = qh.shape
+    sk_p = kh.shape[1]
     dk, dv = torch.empty_like(kh), torch.empty_like(vh)
-    kernel = "flash_bwd_dkv_f32" if f32 else "flash_bwd_dkv"
-    _kernels.launch(kernel, "fg_" + kernel, qh.data_ptr(), kh.data_ptr(),
+    if f32:
+        ws = _bwd_prep_f32(qh, kh, vh, doh, 1)
+        n_split, tps = dkv_splits(bn, int(sq), sk_p, _sm_count(qh.device))
+        part = torch.empty((n_split, 2) + tuple(kh.shape), dtype=torch.float32,
+                           device=qh.device) if n_split > 1 else dk
+        _kernels.launch("flash_bwd_dkv_f32", "fg_flash_bwd_dkv_f32_tc", ws.data_ptr(),
+                        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                        part.data_ptr(), n_split, tps, bn, int(sq), sq_p, int(sk_actual), sk_p)
+        if n_split > 1:
+            _kernels.launch("flash_bwd_dkv_reduce_f32", "fg_flash_bwd_dkv_reduce_f32",
+                            part.data_ptr(), dk.data_ptr(), dv.data_ptr(), n_split, dk.numel())
+        return dk, dv
+    _kernels.launch("flash_bwd_dkv", "fg_flash_bwd_dkv", qh.data_ptr(), kh.data_ptr(),
                     vh.data_ptr(), doh.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                    dk.data_ptr(), dv.data_ptr(), qh.shape[0], int(sq), qh.shape[1],
-                    int(sk_actual), kh.shape[1])
+                    dk.data_ptr(), dv.data_ptr(), bn, int(sq), sq_p, int(sk_actual), sk_p)
     return dk, dv
 
 
@@ -384,8 +528,10 @@ class _FlashAttention(torch.autograd.Function):
     """``flash_attention`` with a gradient: forward K6a (saves o and the
     per-row lse), backward K6b then K6c, δ = Σ dO·O in PyTorch.  On the
     card bf16 q/k/v at head dim 128 take the TMA + wgmma kernels, fp32 at
-    head dim 64 (the fp32 SDXL UNet's) the FFMA kernels of
-    ``csrc/flash_attention_fp32.cu``; other forms raise (ROADMAP.md Queue 2)."""
+    head dim 64 (the fp32 SDXL UNet's) the FFMA K6a of
+    ``csrc/flash_attention_fp32.cu`` and the 3xTF32 TMA + wgmma K6b and K6c
+    of ``csrc/flash_attention_fp32_bwd.cu``; other forms raise (ROADMAP.md
+    Queue 2)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, prescaled, kv_len):

@@ -23,11 +23,15 @@ hot LoRA through K1-K4 (the tiny pipelines also launch K11 in the VAE);
 K6b and K6c likewise (sq = 129 / Sk = 4097, sq = 300 with sk_actual =
 4000, one partial key tile at sk = 77), and two of their runs must give
 the same bits; K6a, K6b and K6c in fp32 at head dim 64 (the Style-DoRA
-step's forms) against their plain versions within a relative L2 error of
-1e-5 (both sides fp32), two runs bit for bit, flash_attention's fp32
-gradient against autograd of the plain attention, a tiny head-dim-64 DoRA
-step that must launch them and agree with the CPU step, and the forms not
-ported yet raising a ValueError that names ROADMAP Queue 2.  They skip here
+step's forms; K6b and K6c in three TF32 passes on the tensor cores)
+against their plain versions within a relative L2 error of 1e-5 (both
+sides fp32) at ragged sq, at 77 keys and at 1, with K6c's query loop in
+one split and in many, two runs bit for bit, key rows >= sk_actual exactly
+0, their pre-pass and reduce pass bit for bit their plain versions, every
+counter once a call (the pre-pass twice), flash_attention's fp32 gradient
+against autograd of the plain attention, a tiny head-dim-64 DoRA step that
+must launch them and agree with the CPU step, and the forms not ported yet
+raising a ValueError that names ROADMAP Queue 2.  They skip here
 when no card is present; on a card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -236,7 +240,8 @@ def test_tiny_pipeline_launches_every_kernel(card):
                                  "vae_rms_silu": 13 + 21, "flash_small_kv_max": 0,
                                  "flash_small_kv_masked": 0, "flash_fwd_d64": 0,
                                  "flash_fwd_lse_f32": 0, "flash_bwd_dq_f32": 0,
-                                 "flash_bwd_dkv_f32": 0}
+                                 "flash_bwd_dkv_f32": 0, "flash_bwd_prep_f32": 0,
+                                 "flash_bwd_dkv_reduce_f32": 0}
 
 
 def _close_grad(out, ref):
@@ -1081,11 +1086,30 @@ def _rel_l2(a, b):
     return ((a.double() - b.double()).norm() / b.double().norm()).item()
 
 
+def _f32_launches(bn, sq, sk_pad):
+    """The counters of one fp32 K6a + K6b + K6c: the pre-pass twice, the
+    reduce where K6c's query loop is split."""
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = {"flash_fwd_lse_f32": 1, "flash_bwd_dq_f32": 1, "flash_bwd_dkv_f32": 1,
+            "flash_bwd_prep_f32": 2}
+    if fa.dkv_splits(bn, sq, sk_pad, sms)[0] > 1:
+        want["flash_bwd_dkv_reduce_f32"] = 1
+    return want
+
+
+# (4, 1024, 1024): 32 items of 128 keys, many splits; (33, 1024, 512): 132
+# items, one split (dkv_splits on 132 SMs); (10, 4096, 128, 77): a DoRA
+# step's 77 keys; sq - 5 is ragged in each
 @pytest.mark.parametrize("bn,sq,sk_pad,sk_actual", [(4, 1024, 1024, 1024), (4, 4096, 128, 77),
-                                                   (2, 320, 320, 250), (3, 192, 64, 64)])
+                                                   (2, 320, 320, 250), (3, 192, 64, 64),
+                                                   (33, 1024, 512, 512), (10, 4096, 128, 77),
+                                                   (2, 128, 128, 1), (3, 448, 192, 130)])
 def test_k6_fp32_d64_match_plain(card, bn, sq, sk_pad, sk_actual):
     """o, lse, dq, dk and dv of the fp32 kernels against their plain
-    versions, one launch each; dk and dv rows at or past sk_actual are 0."""
+    versions, each counter once a call (the pre-pass twice); dk and dv rows
+    at or past sk_actual are 0."""
     from fairygen_tpu_torch.ops import _kernels
     from fairygen_tpu_torch.ops import flash_attention as fa
 
@@ -1094,11 +1118,15 @@ def test_k6_fp32_d64_match_plain(card, bn, sq, sk_pad, sk_actual):
     o, lse = fa.flash_fwd(qh, kh, vh, sk_actual=sk_actual)
     o_ref, lse_ref = fa.flash_fwd_plain(qh, kh, vh, sk_actual=sk_actual)
     delta = (doh * o_ref).sum(-1)
+    if sk_actual == 1:
+        # with one key o = v and dP - delta cancels to rounding noise, so dq
+        # and dk would be noise; the kernels take any delta: a random one
+        delta = torch.randn(delta.shape, generator=card, device="cuda") * 0.1
     f = 1 / 1.4426950408889634
     dq = fa.flash_bwd_dq(qh, kh, vh, doh, lse_ref, delta, sk_actual=sk_actual, dq_factor=f)
     dk, dv = fa.flash_bwd_dkv(qh, kh, vh, doh, lse_ref, delta, sq=sq - 5, sk_actual=sk_actual)
-    assert {k: v for k, v in _kernels.launches.items() if v} == {
-        "flash_fwd_lse_f32": 1, "flash_bwd_dq_f32": 1, "flash_bwd_dkv_f32": 1}
+    assert {k: v for k, v in _kernels.launches.items() if v} == _f32_launches(bn, sq - 5,
+                                                                               sk_pad)
     dq_ref = fa.flash_bwd_dq_plain(qh, kh, vh, doh, lse_ref, delta, sk_actual=sk_actual,
                                    dq_factor=f)
     dk_ref, dv_ref = fa.flash_bwd_dkv_plain(qh, kh, vh, doh, lse_ref, delta, sq=sq - 5,
@@ -1123,6 +1151,57 @@ def test_k6_fp32_two_runs_give_the_same_bits(card):
     assert all(torch.equal(a, b) for a, b in zip(*outs))
 
 
+@pytest.mark.parametrize("bn,sq,sk_pad,sk_actual", [(10, 4096, 128, 77), (33, 1024, 512, 512)])
+def test_k6_fp32_two_runs_give_the_same_bits_split_or_not(card, bn, sq, sk_pad, sk_actual):
+    """K6b and K6c at a DoRA step's 77-key shape (K6c's query loop split,
+    summed by the reduce pass) and at 132 items of 128 keys (one split on
+    132 SMs): the same bits twice."""
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    qh, kh, vh, doh = _f32_inputs(card, bn, sq, sk_pad, sk_actual)
+    o, lse = fa.flash_fwd_plain(qh, kh, vh, sk_actual=sk_actual)
+    delta = (doh * o).sum(-1)
+    outs = [(fa.flash_bwd_dq(qh, kh, vh, doh, lse, delta, sk_actual=sk_actual, dq_factor=0.5),)
+            + fa.flash_bwd_dkv(qh, kh, vh, doh, lse, delta, sq=sq, sk_actual=sk_actual)
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_k6_fp32_prep_matches_plain_bit_for_bit(card, which):
+    """The pre-pass's workspace (TF32 hi / lo, transposed and row-permuted
+    copies) equals its plain version bit for bit, at a ragged pair of
+    lengths; one launch."""
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    qh, kh, vh, doh = _f32_inputs(card, 3, 320, 192, 150)
+    _kernels.reset_launches()
+    ws = fa._bwd_prep_f32(qh, kh, vh, doh, which)
+    assert {k: v for k, v in _kernels.launches.items() if v} == {"flash_bwd_prep_f32": 1}
+    assert torch.equal(ws, fa.bwd_prep_f32_plain(qh, kh, vh, doh, which))
+
+
+def test_k6_fp32_reduce_matches_plain_bit_for_bit(card):
+    """The reduce pass sums the plain split partials as dkv_reduce_plain
+    does, bit for bit; one launch."""
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    qh, kh, vh, doh = _f32_inputs(card, 4, 1024, 128, 77)
+    o, lse = fa.flash_fwd_plain(qh, kh, vh, sk_actual=77)
+    delta = (doh * o).sum(-1)
+    part = fa.flash_bwd_dkv_partials_plain(qh, kh, vh, doh, lse, delta, sq=1000, sk_actual=77,
+                                           n_split=7, tiles_per_split=5)
+    dk, dv = torch.empty_like(kh), torch.empty_like(vh)
+    _kernels.reset_launches()
+    _kernels.launch("flash_bwd_dkv_reduce_f32", "fg_flash_bwd_dkv_reduce_f32", part.data_ptr(),
+                    dk.data_ptr(), dv.data_ptr(), 7, dk.numel())
+    assert {k: v for k, v in _kernels.launches.items() if v} == {"flash_bwd_dkv_reduce_f32": 1}
+    pk, pv = fa.dkv_reduce_plain(part)
+    assert torch.equal(dk, pk) and torch.equal(dv, pv)
+
+
 def test_fp32_flash_attention_gradient_matches_autograd(card):
     """flash_attention in fp32 at head dim 64 (K6a forward, K6b + K6c
     backward) against fp32 autograd of the plain attention: relative L2
@@ -1137,8 +1216,7 @@ def test_fp32_flash_attention_gradient_matches_autograd(card):
     _kernels.reset_launches()
     out = flash_attention(*ins, kv_len=900)
     grads = torch.autograd.grad((out * w).sum(), ins)
-    assert {k_: n for k_, n in _kernels.launches.items() if n} == {
-        "flash_fwd_lse_f32": 1, "flash_bwd_dq_f32": 1, "flash_bwd_dkv_f32": 1}
+    assert {k_: n for k_, n in _kernels.launches.items() if n} == _f32_launches(2, 1000, 1024)
     ref_in = [t.clone().requires_grad_(True) for t in (q, k, v)]
     ref = xla_attention(*ref_in, kv_len=900)
     ref_grads = torch.autograd.grad((ref * w).sum(), ref_in)
@@ -1165,7 +1243,9 @@ def test_tiny_dora_step_launches_the_fp32_kernels(card):
     """One masked DoRA step of a tiny head-dim-64 UNet (channels 64 and 128
     at 1 and 2 heads, 11 transformer blocks) in fp32 on the card: 22
     launches of each fp32 kernel and nothing else; the loss within 1e-4 and
-    the A / B / mag gradients within 1e-3 relative L2 of the CPU step."""
+    the A / B / mag gradients within 1e-3 relative L2 of the CPU step;
+    the pre-pass twice a backward, and every K6c call of these few heads
+    and keys splits its query loop (one reduce each)."""
     from fairygen_tpu_torch import convert
     from fairygen_tpu_torch.models.sdxl.unet2d import UNet2DConfig
     from fairygen_tpu_torch.ops import _kernels
@@ -1214,7 +1294,8 @@ def test_tiny_dora_step_launches_the_fp32_kernels(card):
         res[dev] = float(loss), {k: v.cpu() for k, v in grads.items()}
         if dev == "cuda":
             assert {k: n for k, n in _kernels.launches.items() if n} == {
-                "flash_fwd_lse_f32": 22, "flash_bwd_dq_f32": 22, "flash_bwd_dkv_f32": 22}
+                "flash_fwd_lse_f32": 22, "flash_bwd_dq_f32": 22, "flash_bwd_dkv_f32": 22,
+                "flash_bwd_prep_f32": 44, "flash_bwd_dkv_reduce_f32": 22}
     (l_cpu, g_cpu), (l_card, g_card) = res["cpu"], res["cuda"]
     assert abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
     for kind in ("A", "B", "mag"):

@@ -11,7 +11,9 @@ The train step runs on the same converted params and on the draws of the
 JAX key, split as the JAX loss splits it.  The JAX step runs once with
 optax.sgd(LR): its update is -LR times the gradient, so one compiled step gives
 the loss and the A / B / mag gradients; the AdamW update is held against
-optax.adamw applied to those gradients.  Tolerances (fp32 on both sides,
+optax.adamw applied to the port's own gradients (the optimizer compared on
+equal input: its first step divides g by |g| + 1e-8, which turns fp32
+noise in tiny gradient entries into update noise).  Tolerances (fp32 on both sides,
 sums in other orders): the loss 1e-4 relative; gradients and the AdamW
 update 1e-3 relative L2 (the Wan step's bounds in test_torch_train_step.py);
 the fp32 attention kernels' plain versions 1e-5 relative L2 (no rounding
@@ -152,7 +154,8 @@ def _adapter_leaves_jax(tree):
 @pytest.mark.parametrize("snr_gamma", [None, 5.0])
 def test_dora_train_step_matches_jax(problem, snr_gamma):
     """Loss, the A / B / mag gradients (from the JAX step with SGD at rate LR)
-    and the AdamW update of one port step against the JAX package; the base
+    and the AdamW update of one port step (against the JAX AdamW on the
+    port's gradients) against the JAX package; the base
     weights stay bit for bit and every adapter moves."""
     jcfg, tcfg, jtree, port_tree, batch = problem
     key = jax.random.key(7)
@@ -191,7 +194,10 @@ def test_dora_train_step_matches_jax(problem, snr_gamma):
     jopt = j_make_optimizer("adamw", 1e-4, weight_decay=1e-2)
     paths = list(jgrads)
     jparams = [jnp.asarray(before[k]) for k in paths]
-    jupd, _ = jopt.update([jnp.asarray(jgrads[k], jnp.float32) for k in paths],
+    # the JAX AdamW on the port's own gradients: its first step divides g by
+    # |g| + 1e-8, so entries with |g| below that eps turn fp32 summation
+    # noise between the two steps' gradients (held above) into update noise
+    jupd, _ = jopt.update([jnp.asarray(grads[k].numpy(), jnp.float32) for k in paths],
                           jopt.init(jparams), jparams)
     jupd = dict(zip(paths, jupd))
     for p, t in zip(state.paths, state.trainable):
