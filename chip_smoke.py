@@ -3,8 +3,11 @@
 
     python3 chip_smoke.py                 # the whole run, one card
     python3 chip_smoke.py --kernels-only  # device, build and kernel checks only
-    python3 chip_smoke.py --ab-lib PATH   # also K4 and the fp32 K6b / K6c against another
+    python3 chip_smoke.py --ab-lib PATH   # also K4 and the fp32 K6a-c against another
                                           # build's library
+    python3 chip_smoke.py --dora-ab LIB   # only the dora phase, with DoRA steps in turns
+                                          # through another build's fp32 K6a and this
+                                          # one's, after the wrappers' host time a call
 
 Phases, each printing its wall seconds:
   1. device   — card name/count, nvidia-smi name and power limit, TF32 off.
@@ -18,11 +21,12 @@ Phases, each printing its wall seconds:
                 count of 0 or wgmma that ptxas serialized, C7511 / C7512
                 / C7520, fails the run); beside them nvcc builds a copy of
                 csrc/flash_attention_online.cu in which no kernel has the
-                consumers take turns; the registers, shared memory and
-                spills of the fp32 K6a (FFMA) of csrc/flash_attention_fp32.cu
-                and of the pre-pass and reduce kernels, and the 3xTF32 K6b
-                and K6c of csrc/flash_attention_fp32_bwd.cu with their
-                HGMMA and UTMALDG counts (the same failures as above).
+                consumers take turns; the 3xTF32 K6a of
+                csrc/flash_attention_fp32.cu, K6b and K6c of
+                csrc/flash_attention_fp32_bwd.cu with their HGMMA and
+                UTMALDG counts (the same failures as above), and the
+                registers and spills of K6a's pre-pass and of the
+                backward's pre-pass and reduce kernels.
   3. kernels  — K1-K4 against their plain PyTorch versions on the card in
                 bf16 at the main path's shapes (480x832, 17 frames: S=1950)
                 and the flagship's (81 frames: S=8190); error, kernel ms,
@@ -61,14 +65,15 @@ Phases, each printing its wall seconds:
                 Style-DoRA step's shapes (self 10 x 4096 and 20 x 1024,
                 cross to 77 text keys in 128): o, dq, dk, dv within a
                 relative L2 error of 1e-5 of the plain versions, lse within
-                1e-5, two runs bit for bit, the pre-pass's workspace and
+                1e-5, two runs bit for bit, the pre-passes' workspaces and
                 the reduce pass's sums bit for bit their plain versions',
-                the fp32 flash_attention gradient against autograd, SDPA's
-                fp32 forward and backward as the yardstick, each kernel's
+                the fp32 flash_attention
+                gradient against autograd, SDPA's fp32 forward and backward
+                as the yardstick (events and device time), each kernel's
                 device time against the FFMA (67 TFLOP/s) and 3xTF32
                 (494.7 / 3 TFLOP/s) bounds, and their sums over a step's
-                140 calls; with --ab-lib, the other build's fp32 K6b and
-                K6c C entries beside this build's wrappers.
+                140 calls; with --ab-lib, the other build's fp32 K6a-c C
+                entries beside this build's wrappers, with host time a call.
   4. weights  — full-width Wan2.2-TI2V-5B DiT, UMT5-XXL and VAE38, made on
                 the card in bf16 from a seeded CUDA generator.
   5. requests — WanVideoPipeline answers two 480x832x17-frame, 4-step,
@@ -141,7 +146,8 @@ Phases, each printing its wall seconds:
                 OpenCLIP bigG and VAE with a rank-32 DoRA, four masked DoRA
                 steps (AdamW 1e-4, wd 1e-2; the last with min-SNR-5), each
                 with wall, peak memory, exact launches (K6a-c fp32 140
-                each, their pre-pass 280, the reduce 140), a finite loss,
+                each, K6a's pre-pass 140, the backward's 280, the reduce
+                140), a finite loss,
                 base weights bit for bit and every
                 A, B, mag moved; one profiled step; the adapter through
                 safetensors into the bf16 serving pipeline at 0.66 and one
@@ -214,46 +220,91 @@ def time_ms(fn, inner=20, rounds=5):
     return times[len(times) // 2]
 
 
-def device_ms(fn, calls=50):
-    """ms of device time per call: the kernels of ``calls`` calls summed by
-    torch.profiler, after one warm-up.  Unlike time_ms it leaves out the
-    host's time between launches, which outlasts a kernel of a few
-    microseconds called through its Python wrapper."""
+def _window_rows(fn, calls, acts):
+    """torch.profiler's key_averages (activities ``acts``) over ``calls``
+    calls of ``fn`` and a synchronisation, the window opened by a spin
+    kernel of a few microseconds (torch.cuda._sleep) whose row is left
+    out: on an H100 the tracer often left out a window's first kernel."""
     import torch
+
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda._sleep(20000)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages() if "spin_kernel" not in e.key]
+
+
+def _device_rows(fn, calls):
+    """{name: row} of the device-side rows (kernels, copies, memsets) that
+    hold records, over ``calls`` calls of ``fn`` (_window_rows)."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    return {e.key: e for e in _window_rows(fn, calls, acts)
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.count}
+
+
+def device_trace(fn, calls):
+    """{kernel name: ms of device time per call} over a trace of ``calls``
+    calls of ``fn``, after a warm-up call.
+
+    Each attempt profiles one call, then ``calls`` calls.  A kernel's
+    records a call are the most that the evidence so far shows: its count
+    in any one-call window, or its count in any trace over ``calls``,
+    rounded up (records are lost, never added).  A trace is whole when it
+    holds ``calls`` times each kernel's records a call, and those add up to
+    at least the launches the port's wrappers counted in a call; it is
+    then summed.  Otherwise the attempt is made again, up to three times.
+    After three, the fullest trace that held every kernel gives each
+    kernel its mean time over the records it holds times its records a
+    call, with a line saying so; where no trace held every kernel, or the
+    records a call add up to fewer than the wrappers' launches, this
+    raises."""
+    import torch
+
+    from fairygen_tpu_torch.ops import _kernels
 
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):  # a trace that lost its device events is taken again
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
-            return us / calls / 1e3
-    raise RuntimeError("torch.profiler recorded no device time in three traces")
-
-
-def device_ms_by_kernel(fn, calls=10):
-    """{kernel name: ms of device time per call} over ``calls`` calls of
-    ``fn`` under torch.profiler, after one warm-up (as device_ms)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    per_call, counted, best, got = {}, 0, None, []
     for _ in range(3):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        got = {e.key: e.self_device_time_total / calls / 1e3 for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total}
-        if got:
-            return got
-    raise RuntimeError("torch.profiler recorded no device time in three traces")
+        before = sum(_kernels.launches.values())
+        one = _device_rows(fn, 1)
+        counted = max(counted, sum(_kernels.launches.values()) - before)
+        rows = _device_rows(fn, calls)
+        for k, e in one.items():
+            per_call[k] = max(per_call.get(k, 0), e.count)
+        for k, e in rows.items():
+            per_call[k] = max(per_call.get(k, 0), -(-e.count // calls))
+        lacking = sum(calls * n - (rows[k].count if k in rows else 0)
+                      for k, n in per_call.items())
+        held_all = all(k in rows and rows[k].self_device_time_total for k in per_call)
+        if held_all and not lacking and sum(per_call.values()) >= counted:
+            return {k: rows[k].self_device_time_total / calls / 1e3 for k in per_call}
+        if held_all and (best is None or sum(e.count for e in rows.values())
+                         > sum(e.count for e in best.values())):
+            best = rows
+        got.append(lacking)
+        print(f"  device_trace: a trace of {calls} calls lacked {lacking} of {calls} x "
+              f"{sum(per_call.values())} kernel records ({counted} launches counted a call), "
+              f"every kernel held: {held_all}; taken again", flush=True)
+    if best is None or set(best) != set(per_call) or sum(per_call.values()) < counted:
+        raise RuntimeError(f"three torch.profiler traces of {calls} calls lost a kernel of the "
+                           f"call: lacked {got} records; records a call {per_call}, "
+                           f"{counted} launches counted")
+    print(f"  device_trace: three traces of {calls} calls came short; each kernel's mean over "
+          f"the records the fullest held, times its records a call {per_call}", flush=True)
+    return {k: best[k].self_device_time_total / best[k].count * n / 1e3
+            for k, n in per_call.items()}
+
+
+def device_ms(fn, calls=50):
+    """ms of device time per call (device_trace, summed over kernels).
+    Unlike time_ms it leaves out the host's time between launches, which
+    outlasts a kernel of a few microseconds called through its Python
+    wrapper."""
+    return sum(device_trace(fn, calls).values())
 
 
 def bound_ms(nbytes, flops, flop_per_s=H100_BF16_FLOP_PER_S):
@@ -497,8 +548,11 @@ HOPPER_KERNELS = (
 )
 
 
-# the fp32 kernels of csrc/flash_attention_fp32_bwd.cu on the tensor cores
+# the fp32 kernels on the tensor cores: K6a (csrc/flash_attention_fp32.cu),
+# K6b and K6c (csrc/flash_attention_fp32_bwd.cu)
 F32_TC_KERNELS = (
+    ("flash_fwd_lse_f32", "fa_f32_fwd_tc_kernel", "flash_attention_fp32.cu.o",
+     lambda lib: lib.fg_flash_f32_smem_bytes()),
     ("flash_bwd_dq_f32", "fa_f32_dq_tc_kernel", "flash_attention_fp32_bwd.cu.o",
      lambda lib: lib.fg_flash_f32_tc_smem_bytes(0)),
     ("flash_bwd_dkv_f32", "fa_f32_dkv_tc_kernel", "flash_attention_fp32_bwd.cu.o",
@@ -570,20 +624,18 @@ def hopper_build_report(log, table=HOPPER_KERNELS):
 
 
 def f32_build_report(log):
-    """The fp32 kernels: K6b and K6c on the tensor cores as
-    hopper_build_report reports and checks them (HGMMA and UTMALDG counts;
-    a spill, a count of 0 or C7511 / C7512 / C7520 fails), then the
-    registers and spills (ptxas -v) of K6a (FFMA, csrc/flash_attention_fp32.cu;
-    with its dynamic shared memory), the pre-pass and the reduce pass
-    (csrc/flash_attention_fp32_bwd.cu); raises on a spill or a kernel ptxas
-    did not report."""
+    """The fp32 kernels: K6a, K6b and K6c on the tensor cores as
+    hopper_build_report reports and checks them (HGMMA and UTMALDG
+    counts; a spill, a count of 0 or C7511 / C7512 / C7520 fails), then the
+    registers and spills (ptxas -v) of K6a's pre-pass
+    (csrc/flash_attention_fp32.cu), the backward's pre-pass and the reduce
+    pass (csrc/flash_attention_fp32_bwd.cu); raises on a spill or a kernel
+    ptxas did not report."""
     import re
 
-    from fairygen_tpu_torch.ops import _kernels
-
     hopper_build_report(log, F32_TC_KERNELS)
-    names = ("fa_f32_fwd_lse_kernel", "fa_f32_bwd_prep_kernel", "fa_f32_dkv_reduce_kernel")
-    counters = ("flash_fwd_lse_f32", "flash_bwd_prep_f32", "flash_bwd_dkv_reduce_f32")
+    names = ("fa_f32_fwd_prep_kernel", "fa_f32_bwd_prep_kernel", "fa_f32_dkv_reduce_kernel")
+    counters = ("flash_fwd_prep_f32", "flash_bwd_prep_f32", "flash_bwd_dkv_reduce_f32")
     props, current = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -600,9 +652,7 @@ def f32_build_report(log):
             props.setdefault(current, {})["registers"] = int(m.group(1))
     for i, n in enumerate(names):
         p = props.get(n, {})
-        smem = (f"dynamic shared memory {_kernels.lib().fg_flash_f32_smem_bytes()} bytes, "
-                if i == 0 else "")
-        print(f"  {counters[i]} ({n}): registers {p.get('registers')}, {smem}spill bytes "
+        print(f"  {counters[i]} ({n}): registers {p.get('registers')}, spill bytes "
               f"{p.get('spill_bytes')}", flush=True)
         if p.get("registers") is None or p.get("spill_bytes") != 0:
             raise RuntimeError(f"{n}: ptxas -v shows spills or no such kernel: {p}")
@@ -941,6 +991,90 @@ def seeded_image(seed, height, width):
     return np.random.default_rng(seed).integers(0, 256, (height, width, 3), dtype=np.uint8)
 
 
+def f32_host_ms(label="this build's"):
+    """The host time a call of the fp32 K6a, K6b and K6c wrappers
+    (flash_fwd, flash_bwd_dq, flash_bwd_dkv, as the module holds them when
+    called) at the DoRA step's shapes: the wall of 20 calls enqueued on an
+    idle card, before they are waited for, over 20; the median of three
+    such runs after a warm-up.  Returns {kernel: {shape: ms}}."""
+    import statistics
+
+    import torch
+
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator("cuda").manual_seed(780)
+    f = 1 / 1.4426950408889634
+    res = {}
+    for tag, bn, sq, skp, ska, _ in DORA_ATTENTION_SHAPES:
+        qh = torch.randn((bn, sq, 64), generator=g, device="cuda") * (64 ** -0.5 * fa.LOG2E)
+        kh, vh = (torch.randn((bn, skp, 64), generator=g, device="cuda") for _ in range(2))
+        kh[:, ska:], vh[:, ska:] = 0, 0
+        doh = torch.randn((bn, sq, 64), generator=g, device="cuda") * 0.05
+        o, lse = fa.flash_fwd(qh, kh, vh, sk_actual=ska)
+        delta = (doh * o).sum(-1)
+        calls = {"flash_fwd_lse_f32": lambda: fa.flash_fwd(qh, kh, vh, sk_actual=ska),
+                 "flash_bwd_dq_f32": lambda: fa.flash_bwd_dq(qh, kh, vh, doh, lse, delta,
+                                                             sk_actual=ska, dq_factor=f),
+                 "flash_bwd_dkv_f32": lambda: fa.flash_bwd_dkv(qh, kh, vh, doh, lse, delta,
+                                                               sq=sq, sk_actual=ska)}
+        for name, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    fn()
+                walls.append((time.perf_counter() - t0) / 20 * 1e3)
+                torch.cuda.synchronize()
+            res.setdefault(name, {})[tag] = statistics.median(walls)
+        del qh, kh, vh, doh, o, lse, delta, calls
+    torch.cuda.empty_cache()
+    for name, by in res.items():
+        print(f"  host ms a call of {label} {name} wrapper: " +
+              ", ".join(f"{tag} {ms:.4f}" for tag, ms in by.items()), flush=True)
+    return res
+
+
+def other_f32_fwd(lib_path):
+    """flash_fwd with its fp32 form through another build's C entry
+    fg_flash_fwd_lse_f32 (``--dora-ab``: an older tree's library, whose
+    K6a is the FFMA kernel), with the host steps of that tree's wrapper:
+    the same checks, o and lse allocated, one launch counted under
+    ``flash_fwd_lse_f32``.  Every other form goes to this build's
+    flash_fwd."""
+    import ctypes
+
+    import torch
+
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    entry = ctypes.CDLL(os.path.abspath(lib_path)).fg_flash_fwd_lse_f32
+    entry.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    entry.restype = ctypes.c_int
+    this = fa.flash_fwd
+
+    def flash_fwd(qh, kh, vh, *, sk_actual, with_lse=True):
+        if not (qh.is_cuda and qh.dtype == torch.float32):
+            return this(qh, kh, vh, sk_actual=sk_actual, with_lse=with_lse)
+        fa._refuse_unported(qh, grad=with_lse)
+        bn, sq_p, _ = qh.shape
+        out = torch.empty_like(qh)
+        fa._check_heads_major(qh, kh, vh, sk_actual, dims=fa._F32_TRAIN_DIMS,
+                              dtype=torch.float32)
+        lse = torch.empty((bn, sq_p), dtype=torch.float32, device=qh.device)
+        rc = entry(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                   bn, sq_p, int(sk_actual), kh.shape[1], torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"fg_flash_fwd_lse_f32 of {lib_path}: cudaError {rc}")
+        _kernels.launches["flash_fwd_lse_f32"] += 1
+        return out, lse
+
+    return flash_fwd
+
+
 def main(argv):
     if not os.path.isdir(os.path.join(HERE, "fairygen_tpu_torch")):
         sys.stderr.write("chip_smoke: the fairygen_tpu_torch package is not next to this script\n")
@@ -972,6 +1106,22 @@ def main(argv):
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     done("device", t0)
+    if "--dora-ab" in argv:
+        from fairygen_tpu_torch.ops import flash_attention as fa
+
+        other = other_f32_fwd(argv[argv.index("--dora-ab") + 1])
+        this = fa.flash_fwd
+        _kernels.lib()
+        for _ in range(2):
+            f32_host_ms()
+            fa.flash_fwd = other
+            f32_host_ms("the other build's K6a and this build's")
+            fa.flash_fwd = this
+        t0 = phase("dora")
+        dora_phase(other)
+        done("dora", t0)
+        timer.cancel()
+        return 0
 
     t0 = phase("build")
     for cmd in _kernels.compile_commands(verbose=True) + [_kernels.link_command()]:
@@ -1004,7 +1154,7 @@ def main(argv):
     sdxl_k = sdxl_kernel_checks()
     f32_k = f32_train_kernel_checks()
     k4_other = k4_ab(ab_lib) if ab_lib else None
-    f32_other = f32_bwd_ab(ab_lib) if ab_lib else None
+    f32_other = f32_ab(ab_lib) if ab_lib else None
     torch.cuda.synchronize()
     done("kernels", t0)
 
@@ -1247,54 +1397,55 @@ def main(argv):
     f32_sources = {"flash_fwd_lse_f32": "fairygen_tpu/ops/flash_attention.py:253",
                    "flash_bwd_dq_f32": "fairygen_tpu/ops/flash_attention.py:295",
                    "flash_bwd_dkv_f32": "fairygen_tpu/ops/flash_attention.py:329"}
+    f32_files = {"flash_fwd_lse_f32": "flash_attention_fp32.cu",
+                 "flash_bwd_dq_f32": "flash_attention_fp32_bwd.cu",
+                 "flash_bwd_dkv_f32": "flash_attention_fp32_bwd.cu"}
     for k, replaces in f32_sources.items():
         by = f32_k[k]
         r = by["self 10x4096"]
-        tc = k != "flash_fwd_lse_f32"  # K6b and K6c: 3xTF32 on the tensor cores
+        # on the tensor cores in three TF32 passes: the 3xTF32 bound, the
+        # 67 TFLOP/s fp32 one beside it
         rows.append({
-            "name": k, "route": "cuda",
-            "source": "fairygen_tpu_torch/csrc/flash_attention_fp32" + ("_bwd" if tc else "") + ".cu",
+            "name": k, "route": "cuda", "source": "fairygen_tpu_torch/csrc/" + f32_files[k],
             "replaces": replaces, "launches": None if expected is None else launches[k],
             "max_abs_err": max(v["max_abs_err"] for v in by.values()), "ms": r["ms"],
-            "plain_ms": r["plain_ms"],
-            "bound_ms": r["tc_bound"][0] if tc else r["bound"][0],
-            "bound_by": r["tc_bound"][1] if tc else r["bound"][1],
-            "library_ms": r["library_ms"], "shape": "self 10x4096", "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["tc_bound"][0],
+            "bound_by": r["tc_bound"][1], "library_ms": r["library_ms"],
+            "shape": "self 10x4096", "device_ms": r["device_ms"],
             "rel_l2": max(v["rel_l2"] for v in by.values()),
             "step_device_ms": sum(v["calls"] * v["device_ms"] for v in by.values()),
-            "step_bound_ms": sum(v["calls"] * (v["tc_bound"] if tc else v["bound"])[0]
-                                 for v in by.values()),
+            "step_bound_ms": sum(v["calls"] * v["tc_bound"][0] for v in by.values()),
+            "bound_ms_fp32_ffma": r["bound"][0],
+            "step_bound_ms_fp32_ffma": sum(v["calls"] * v["bound"][0] for v in by.values()),
             "by_shape": {tag: {"calls": v["calls"], "ms": v["ms"], "device_ms": v["device_ms"],
-                               "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0],
-                               "library_ms": v["library_ms"], "max_abs_err": v["max_abs_err"],
-                               "rel_l2": v["rel_l2"]}
+                               "device_parts": v["device_parts"], "plain_ms": v["plain_ms"],
+                               "bound_ms": v["tc_bound"][0], "bound_ms_fp32_ffma": v["bound"][0],
+                               "library_ms": v["library_ms"],
+                               "library_device_ms": v["library_device_ms"],
+                               "max_abs_err": v["max_abs_err"], "rel_l2": v["rel_l2"]}
                          for tag, v in by.items()}})
-        if tc:
-            rows[-1]["bound_ms_fp32_ffma"] = r["bound"][0]
-            rows[-1]["step_bound_ms_fp32_ffma"] = sum(v["calls"] * v["bound"][0]
-                                                      for v in by.values())
-            for tag, v in by.items():
-                rows[-1]["by_shape"][tag].update(bound_ms_3xtf32=v["tc_bound"][0],
-                                                 device_parts=v["device_parts"],
-                                                 library_device_ms=v["library_device_ms"])
-                if "split_device_ms" in v:
-                    rows[-1]["by_shape"][tag]["split_device_ms"] = v["split_device_ms"]
-            if f32_other:
-                rows[-1]["ab_lib_device_ms"] = f32_other[k]
-    # K6b and K6c's helpers on the tensor-core path: the pre-pass (its K6b
-    # form at the self 10 x 4096 shape) and the reduce pass (the 10 x 4096
-    # queries to 77 keys); neither replaces a TPU kernel of its own
-    helpers = {"flash_bwd_prep_f32": ("fairygen_tpu/ops/flash_attention.py:295",
-                                      "self 10x4096, K6b form"),
+        for tag, v in by.items():
+            if "split_device_ms" in v:
+                rows[-1]["by_shape"][tag]["split_device_ms"] = v["split_device_ms"]
+        if f32_other and k in f32_other:
+            rows[-1]["ab_lib_device_ms"] = f32_other[k]
+    # the helpers on the fp32 tensor-core path: K6a's pre-pass, K6b and
+    # K6c's (its K6b form at the self 10 x 4096 shape) and K6c's reduce pass
+    # (the 10 x 4096 queries to 77 keys); none replaces a TPU kernel of its own
+    helpers = {"flash_fwd_prep_f32": ("fairygen_tpu/ops/flash_attention.py:253",
+                                      "self 10x4096", "flash_attention_fp32.cu", "K6a in fp32"),
+               "flash_bwd_prep_f32": ("fairygen_tpu/ops/flash_attention.py:295",
+                                      "self 10x4096, K6b form", "flash_attention_fp32_bwd.cu",
+                                      "K6b and K6c in fp32"),
                "flash_bwd_dkv_reduce_f32": ("fairygen_tpu/ops/flash_attention.py:329",
-                                            "cross 10x4096 q, 77 keys")}
-    for k, (replaces, main_shape) in helpers.items():
+                                            "cross 10x4096 q, 77 keys",
+                                            "flash_attention_fp32_bwd.cu", "K6c in fp32")}
+    for k, (replaces, main_shape, src, part) in helpers.items():
         by = f32_k[k]
         r = by[main_shape]
         rows.append({
-            "name": k, "route": "cuda",
-            "source": "fairygen_tpu_torch/csrc/flash_attention_fp32_bwd.cu",
-            "replaces": replaces, "part_of": "K6b and K6c in fp32 (bit for bit its plain version)",
+            "name": k, "route": "cuda", "source": "fairygen_tpu_torch/csrc/" + src,
+            "replaces": replaces, "part_of": part + " (bit for bit its plain version)",
             "launches": None if expected is None else launches[k], "max_abs_err": 0.0,
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": None, "shape": main_shape,
@@ -1563,7 +1714,8 @@ TRAIN_PER_STEP = {"ln_modulate": 180, "rms_rope_heads_major": 180, "flash_bounde
                   "rms_rope_joint": 0, "flash_bias": 0, "rms_modulate": 0, "vae_rms_silu": 0,
                   "flash_small_kv_max": 0, "flash_small_kv_masked": 0, "flash_fwd_d64": 0,
                   "flash_fwd_lse_f32": 0, "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0,
-                  "flash_bwd_prep_f32": 0, "flash_bwd_dkv_reduce_f32": 0}
+                  "flash_bwd_prep_f32": 0, "flash_bwd_dkv_reduce_f32": 0,
+                  "flash_fwd_prep_f32": 0}
 
 
 def train_phase(pipe, serving_per_request):
@@ -3283,11 +3435,11 @@ DORA_ATTENTION_SHAPES = (
     ("cross 20x1024 q, 77 keys", 20, 1024, 128, 77, 60),
 )
 F32_KERNELS = ("flash_fwd_lse_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
-# the launches of one fp32 flash_attention call with a gradient: K6a, K6b,
-# K6c, and the pre-pass once for K6b and once for K6c (plus one reduce
-# where K6c's query loop is split)
+# the launches of one fp32 flash_attention call with a gradient: K6a and its
+# pre-pass, K6b, K6c, and the backward's pre-pass once for K6b and once for
+# K6c (plus one reduce where K6c's query loop is split)
 F32_ONE_CALL = {"flash_fwd_lse_f32": 1, "flash_bwd_dq_f32": 1, "flash_bwd_dkv_f32": 1,
-                "flash_bwd_prep_f32": 2}
+                "flash_fwd_prep_f32": 1, "flash_bwd_prep_f32": 2}
 
 
 def f32_train_kernel_checks():
@@ -3295,26 +3447,27 @@ def f32_train_kernel_checks():
     on the card at the DoRA step's shapes (DORA_ATTENTION_SHAPES): o, dq, dk
     and dv each within a relative L2 error of 1e-5 of the plain version, lse
     within 1e-5 absolute (both sides fp32; the kernels sum in another order,
-    K6b and K6c multiply in three TF32 passes, and exp2 is the hardware ex2,
-    about 2 ulp), dk and dv rows >= sk_actual exactly 0, and each kernel run
-    twice giving the same bits.  K6b and K6c's pre-pass is held bit for bit
-    to its plain version (both forms), K6c's reduce pass likewise on the
-    plain split partials, whose sum is also held to the one-split plain
-    dK / dV within a relative L2 of 1e-6; each call counts one launch of
-    K6a-c, two of the pre-pass and one of the reduce where K6c's query loop
-    is split.  Bounds count 4 (K6a), 6 (K6b) and 8 (K6c) x BN x Sq x Sk x 64
-    flops on the unpadded lengths, each input read and output written once
-    at 3.35 TB/s: against 67 TFLOP/s (fp32 outside the tensor cores) for
-    all three, and for K6b and K6c also against 494.7 / 3 TFLOP/s (three
-    TF32 passes on the tensor cores), which a device time may not beat.
-    The library yardstick is scaled_dot_product_attention in fp32 on the
-    unpadded heads: its forward for K6a, its backward (dq, dk and dv
-    together) for K6b and K6c, timed here only.  K6b and K6c's times are
-    their wrappers' (the pre-pass, the kernel and the reduce), device time
-    also by kernel; K6c's kernel and reduce also at other split counts of
-    its query loop.  Then flash_attention's fp32 gradient against fp32
-    autograd of the plain attention (relative L2 below 1e-5).  Returns
-    {kernel: {tag: numbers}}."""
+    multiply in three TF32 passes, and exp2 is the hardware ex2, about 2
+    ulp), dk and dv rows >= sk_actual exactly 0, and each kernel run twice
+    giving the same bits.  K6a's pre-pass and K6b and K6c's
+    (both forms) are held bit for bit to their plain versions, K6c's reduce
+    pass likewise on the plain split partials, whose sum is also held to
+    the one-split plain dK / dV within a relative L2 of 1e-6; each call
+    counts one launch of K6a-c and of K6a's pre-pass, two of the backward's
+    pre-pass and one of the reduce where K6c's query loop is split.  Bounds
+    count 4 (K6a), 6 (K6b) and 8 (K6c) x BN x Sq x Sk x 64 flops on the
+    unpadded lengths, each input read and output written once at 3.35
+    TB/s: against 67 TFLOP/s (fp32 outside the tensor cores) and against
+    494.7 / 3 TFLOP/s (three TF32 passes on the tensor cores), which a
+    device time may not beat.  The library yardstick is
+    scaled_dot_product_attention in fp32 on the unpadded heads: its forward
+    for K6a, its backward (dq, dk and dv together) for K6b and K6c, timed
+    here only, by CUDA events and by device time.  Each kernel's time is its
+    wrapper's (the pre-pass, the kernel and the reduce), device time also
+    by kernel; K6c's kernel and reduce also at other split counts of its
+    query loop.  Then flash_attention's fp32
+    gradient against fp32 autograd of the plain attention (relative L2
+    below 1e-5).  Returns {kernel: {tag: numbers}}."""
     import torch
     import torch.nn.functional as F
 
@@ -3333,9 +3486,9 @@ def f32_train_kernel_checks():
     def rel_l2_of(out, ref):
         return ((out.double() - ref.double()).norm() / ref.double().norm()).item()
 
-    def part_of(name):  # a kernel's part of a K6b / K6c call, by its function name
-        return ("prep" if "fa_f32_bwd_prep" in name else "reduce" if "fa_f32_dkv_reduce" in name
-                else "kernel")
+    def part_of(name):  # a kernel's part of a K6a-c call, by its function name
+        return ("prep" if "fa_f32_bwd_prep" in name or "fa_f32_fwd_prep" in name
+                else "reduce" if "fa_f32_dkv_reduce" in name else "kernel")
 
     for tag, bn, sq, skp, ska, calls in DORA_ATTENTION_SHAPES:
         qh = randn(bn, sq, d, scale=d ** -0.5 * 1.4426950408889634)
@@ -3368,14 +3521,15 @@ def f32_train_kernel_checks():
         dk2, dv2 = fa.flash_bwd_dkv(qh, kh, vh, doh, lse_ref, delta, sq=sq, sk_actual=ska)
         same = [torch.equal(a, b) for a, b in ((o, o2), (lse, lse2), (dq, dq2), (dk, dk2),
                                                (dv, dv2))]
-        prep_same = [torch.equal(fa._bwd_prep_f32(qh, kh, vh, doh, w),
-                                 fa.bwd_prep_f32_plain(qh, kh, vh, doh, w)) for w in (0, 1)]
+        prep_same = [torch.equal(fa._fwd_prep_f32(kh, vh), fa.fwd_prep_f32_plain(kh, vh))] + [
+            torch.equal(fa._bwd_prep_f32(qh, kh, vh, doh, w),
+                        fa.bwd_prep_f32_plain(qh, kh, vh, doh, w)) for w in (0, 1)]
         print(f"  fp32 K6a-c {tag}: relative L2 error o {errs['o']:.3e} dq {errs['dq']:.3e} "
               f"dk {errs['dk']:.3e} dv {errs['dv']:.3e} (bound 1e-5); lse max abs error "
               f"{lse_err:.3e} (bound 1e-5); dk/dv rows >= {ska} exactly 0: {zero_rows}; run "
               f"twice, o lse dq dk dv bit for bit {same}; K6c's query loop in {n_split} "
-              f"split(s) of {tps} 32-query tiles; the pre-pass (K6b, K6c forms) bit for bit "
-              f"its plain version {prep_same}; launches {counted}", flush=True)
+              f"split(s) of {tps} 32-query tiles; the pre-passes (K6a; K6b, K6c forms) bit for "
+              f"bit their plain versions {prep_same}; launches {counted}", flush=True)
         if not (max(errs.values()) < 1e-5 and lse_err < 1e-5 and zero_rows and all(same)
                 and all(prep_same)):
             raise RuntimeError(f"fp32 K6a-c disagree with their plain versions at {tag}")
@@ -3420,7 +3574,7 @@ def f32_train_kernel_checks():
             return torch.autograd.grad(lib_out, (lq, lk, lv), do4, retain_graph=True)
 
         lib_fwd, lib_bwd = time_ms(sdpa_fwd, 10, 5), time_ms(sdpa_bwd, 10, 5)
-        lib_bwd_dev = device_ms(sdpa_bwd, 10)
+        lib_fwd_dev, lib_bwd_dev = device_ms(sdpa_fwd, 10), device_ms(sdpa_bwd, 10)
         rows, keys, work = bn * sq, bn * ska, bn * sq * ska * d
         nb = {"flash_fwd_lse_f32": (2 * rows + 2 * keys) * d * 4 + rows * 4,
               "flash_bwd_dq_f32": (3 * rows + 2 * keys) * d * 4 + 2 * rows * 4,
@@ -3447,29 +3601,31 @@ def f32_train_kernel_checks():
         }
         for name, (rel, mult, kern, plain, lib, max_abs) in runs.items():
             what = "backward, dq+dk+dv" if "bwd" in name else "forward"
+            lib_dev = lib_bwd_dev if "bwd" in name else lib_fwd_dev
+            by = {}
+            for k_, v_ in device_trace(kern, 10).items():
+                by[part_of(k_)] = by.get(part_of(k_), 0.0) + v_
             r = dict(max_abs_err=max_abs, rel_l2=rel, ms=time_ms(kern, 10, 5),
                      plain_ms=time_ms(plain, 1, 3),
                      bound=bound_ms(nb[name], mult * work, H100_FP32_FLOP_PER_S),
-                     library_ms=lib, calls=calls)
-            if name == "flash_fwd_lse_f32":
-                r["device_ms"] = device_ms(kern, 10)
-                parts = ""
-            else:
-                by = {}
-                for k_, v_ in device_ms_by_kernel(kern, 10).items():
-                    by[part_of(k_)] = by.get(part_of(k_), 0.0) + v_
-                r.update(device_ms=sum(by.values()), device_parts=by, library_device_ms=lib_bwd_dev,
-                         tc_bound=bound_ms(nb[name], mult * work, H100_TF32_FLOP_PER_S / 3))
-                parts = (f" = {' + '.join(f'{k_} {v_:.4f}' for k_, v_ in by.items())}; bound "
-                         f"3xTF32 {r['tc_bound'][0]:.4f} ({r['tc_bound'][1]})")
-                if r["device_ms"] < r["tc_bound"][0]:
-                    raise RuntimeError(f"{tag} {name}: device time {r['device_ms']} ms reads "
-                                       f"below the tensor-core bound {r['tc_bound'][0]} ms")
+                     tc_bound=bound_ms(nb[name], mult * work, H100_TF32_FLOP_PER_S / 3),
+                     library_ms=lib, library_device_ms=lib_dev, calls=calls,
+                     device_ms=sum(by.values()), device_parts=by)
+            if r["device_ms"] < r["tc_bound"][0]:
+                raise RuntimeError(f"{tag} {name}: device time {r['device_ms']} ms reads "
+                                   f"below the tensor-core bound {r['tc_bound'][0]} ms")
             res.setdefault(name, {})[tag] = r
-            print(f"  {tag} {name}: ms {r['ms']:.4f} (device {r['device_ms']:.4f}{parts}) "
-                  f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound'][0]:.4f} "
-                  f"({r['bound'][1]}, 67 TFLOP/s fp32) library_ms {lib:.4f} (SDPA fp32 {what}"
-                  f"{f'; device {lib_bwd_dev:.4f}' if 'bwd' in name else ''})", flush=True)
+            print(f"  {tag} {name}: ms {r['ms']:.4f} (device {r['device_ms']:.4f} = "
+                  f"{' + '.join(f'{k_} {v_:.4f}' for k_, v_ in by.items())}) plain_ms "
+                  f"{r['plain_ms']:.4f} bound_ms 3xTF32 {r['tc_bound'][0]:.4f} "
+                  f"({r['tc_bound'][1]}), 67 TFLOP/s fp32 {r['bound'][0]:.4f} ({r['bound'][1]}) "
+                  f"library_ms {lib:.4f} (SDPA fp32 {what}; device {lib_dev:.4f})", flush=True)
+        # K6a's pre-pass alone: k, v read, the workspace (4 BN Sk_pad 64) written
+        res.setdefault("flash_fwd_prep_f32", {})[tag] = dict(
+            ms=time_ms(lambda: fa._fwd_prep_f32(kh, vh), 10, 5),
+            device_ms=device_ms(lambda: fa._fwd_prep_f32(kh, vh), 10),
+            plain_ms=time_ms(lambda: fa.fwd_prep_f32_plain(kh, vh), 1, 3),
+            bound=bound_ms(6 * bn * skp * d * 4, 0), calls=calls)
         # K6c's kernel and reduce at other split counts of its query loop
         # (device time), beside dkv_splits' choice
         ws = fa._bwd_prep_f32(qh, kh, vh, doh, 1)
@@ -3514,17 +3670,14 @@ def f32_train_kernel_checks():
         by = res[name]
         step_ms = sum(r["device_ms"] * r["calls"] for r in by.values())
         step_bound = sum(r["bound"][0] * r["calls"] for r in by.values())
-        tc = (f", bound 3xTF32 {sum(r['tc_bound'][0] * r['calls'] for r in by.values()):.3f} ms"
-              if name != "flash_fwd_lse_f32" else "")
-        parts = ""
-        if name != "flash_fwd_lse_f32":
-            sums = {}
-            for r in by.values():
-                for k_, v_ in r["device_parts"].items():
-                    sums[k_] = sums.get(k_, 0.0) + v_ * r["calls"]
-            parts = " (" + ", ".join(f"{k_} {v_:.3f}" for k_, v_ in sums.items()) + ")"
-        print(f"  {name} over one DoRA step's 140 calls: device {step_ms:.3f} ms{parts}, "
-              f"bound 67 TFLOP/s {step_bound:.3f} ms{tc}", flush=True)
+        step_tc = sum(r["tc_bound"][0] * r["calls"] for r in by.values())
+        sums = {}
+        for r in by.values():
+            for k_, v_ in r["device_parts"].items():
+                sums[k_] = sums.get(k_, 0.0) + v_ * r["calls"]
+        print(f"  {name} over one DoRA step's 140 calls: device {step_ms:.3f} ms (" +
+              ", ".join(f"{k_} {v_:.3f}" for k_, v_ in sums.items()) + f"), bound 67 TFLOP/s "
+              f"{step_bound:.3f} ms, bound 3xTF32 {step_tc:.3f} ms", flush=True)
 
     # flash_attention's fp32 gradient (K6a, K6b, K6c) against fp32 autograd
     # of the plain attention on the same values
@@ -3551,17 +3704,19 @@ def f32_train_kernel_checks():
     return res
 
 
-def f32_bwd_ab(other_path):
-    """The fp32 K6b and K6c of another build of the library (``--ab-lib``:
-    the parent's FFMA kernels, through their C entries fg_flash_bwd_dq_f32
-    and fg_flash_bwd_dkv_f32 and those entries' own arguments) beside this
-    build's (its wrappers: the pre-pass, the kernel and, where split, the
-    reduce) on the same inputs at the DoRA step's shapes.  Each output is
-    held to the plain version within a relative L2 of 1e-5; device times
-    (torch.profiler) are taken in the order other, this, this, other, and
-    beside them each call's host time (the wall of 20 calls enqueued on an
-    idle card, before they are waited for, over 20; this build's wrapper
-    with its checks and allocations, the other's bare C entry).
+def f32_ab(other_path):
+    """The fp32 K6a, K6b and K6c of another build of the library
+    (``--ab-lib``: an older tree's, through its C entries
+    fg_flash_fwd_lse_f32, fg_flash_bwd_dq_f32 and fg_flash_bwd_dkv_f32 (the
+    first, FFMA designs) with those entries' own arguments; an entry the
+    other build lacks is left out) beside this build's wrappers (the
+    pre-pass, the kernel and, where split, the reduce) on the same inputs at
+    the DoRA step's shapes.  Each output is held to the plain version within
+    a relative L2 of 1e-5 (lse within 1e-5); device times (torch.profiler)
+    are taken in the order other, this, this, other, and beside them each
+    call's host time (the wall of 20 calls enqueued on an idle card, before
+    they are waited for, over 20; this build's wrapper with its checks and
+    allocations, the other's bare C entry).
     Returns {kernel: {shape: {"this"|"other"|"host_this"|"host_other": [ms, ...]}}}."""
     import ctypes
 
@@ -3571,12 +3726,20 @@ def f32_bwd_ab(other_path):
 
     p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     other = ctypes.CDLL(os.path.abspath(other_path))
-    other.fg_flash_bwd_dq_f32.argtypes = [p_] * 7 + [f_, i_, i_, i_, i_, p_]
-    other.fg_flash_bwd_dkv_f32.argtypes = [p_] * 8 + [i_] * 5 + [p_]
-    other.fg_flash_bwd_dq_f32.restype = other.fg_flash_bwd_dkv_f32.restype = ctypes.c_int
+    entries = {"flash_fwd_lse_f32": ("fg_flash_fwd_lse_f32", [p_] * 5 + [i_] * 4 + [p_]),
+               "flash_bwd_dq_f32": ("fg_flash_bwd_dq_f32", [p_] * 7 + [f_, i_, i_, i_, i_, p_]),
+               "flash_bwd_dkv_f32": ("fg_flash_bwd_dkv_f32", [p_] * 8 + [i_] * 5 + [p_])}
+    found = {}
+    for name, (entry, argtypes) in entries.items():
+        fn = getattr(other, entry, None)
+        if fn is None:
+            print(f"  fp32 A/B: the other build has no {entry}; {name} left out", flush=True)
+            continue
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        found[name] = fn
     g = torch.Generator("cuda").manual_seed(779)
     f = 1 / 1.4426950408889634
-    res = {"flash_bwd_dq_f32": {}, "flash_bwd_dkv_f32": {}}
+    res = {name: {} for name in found}
     for tag, bn, sq, skp, ska, _ in DORA_ATTENTION_SHAPES:
         qh = torch.randn((bn, sq, 64), generator=g, device="cuda") * (64 ** -0.5 * 1.4426950408889634)
         kh, vh = (torch.randn((bn, skp, 64), generator=g, device="cuda") for _ in range(2))
@@ -3584,48 +3747,51 @@ def f32_bwd_ab(other_path):
         doh = torch.randn((bn, sq, 64), generator=g, device="cuda") * 0.05
         o, lse = fa.flash_fwd_plain(qh, kh, vh, sk_actual=ska)
         delta = (doh * o).sum(-1)
-        refs = {"flash_bwd_dq_f32": (fa.flash_bwd_dq_plain(qh, kh, vh, doh, lse, delta,
+        refs = {"flash_fwd_lse_f32": (o, lse),
+                "flash_bwd_dq_f32": (fa.flash_bwd_dq_plain(qh, kh, vh, doh, lse, delta,
                                                            sk_actual=ska, dq_factor=f),),
                 "flash_bwd_dkv_f32": fa.flash_bwd_dkv_plain(qh, kh, vh, doh, lse, delta, sq=sq,
                                                             sk_actual=ska)}
-        outs = {"flash_bwd_dq_f32": (torch.empty_like(qh),),
+        outs = {"flash_fwd_lse_f32": (torch.empty_like(qh), torch.empty_like(lse)),
+                "flash_bwd_dq_f32": (torch.empty_like(qh),),
                 "flash_bwd_dkv_f32": (torch.empty_like(kh), torch.empty_like(vh))}
-
-        def other_dq():
-            rc = other.fg_flash_bwd_dq_f32(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(),
-                                           doh.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                                           outs["flash_bwd_dq_f32"][0].data_ptr(), f, bn, sq,
-                                           ska, skp, torch.cuda.current_stream().cuda_stream)
-            if rc:
-                raise RuntimeError(f"fg_flash_bwd_dq_f32: cudaError {rc}")
-            return outs["flash_bwd_dq_f32"]
-
-        def other_dkv():
-            dk_, dv_ = outs["flash_bwd_dkv_f32"]
-            rc = other.fg_flash_bwd_dkv_f32(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(),
-                                            doh.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                                            dk_.data_ptr(), dv_.data_ptr(), bn, sq, sq, ska, skp,
-                                            torch.cuda.current_stream().cuda_stream)
-            if rc:
-                raise RuntimeError(f"fg_flash_bwd_dkv_f32: cudaError {rc}")
-            return outs["flash_bwd_dkv_f32"]
-
-        calls = {"flash_bwd_dq_f32": {
-                     "other": other_dq,
-                     "this": lambda: (fa.flash_bwd_dq(qh, kh, vh, doh, lse, delta, sk_actual=ska,
-                                                      dq_factor=f),)},
-                 "flash_bwd_dkv_f32": {
-                     "other": other_dkv,
-                     "this": lambda: fa.flash_bwd_dkv(qh, kh, vh, doh, lse, delta, sq=sq,
-                                                      sk_actual=ska)}}
-        for name, by in calls.items():
+        stream = torch.cuda.current_stream().cuda_stream
+        args = {"flash_fwd_lse_f32": lambda: (qh.data_ptr(), kh.data_ptr(), vh.data_ptr(),
+                                              outs["flash_fwd_lse_f32"][0].data_ptr(),
+                                              outs["flash_fwd_lse_f32"][1].data_ptr(), bn, sq,
+                                              ska, skp, stream),
+                "flash_bwd_dq_f32": lambda: (qh.data_ptr(), kh.data_ptr(), vh.data_ptr(),
+                                             doh.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                                             outs["flash_bwd_dq_f32"][0].data_ptr(), f, bn, sq,
+                                             ska, skp, stream),
+                "flash_bwd_dkv_f32": lambda: (qh.data_ptr(), kh.data_ptr(), vh.data_ptr(),
+                                              doh.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                                              outs["flash_bwd_dkv_f32"][0].data_ptr(),
+                                              outs["flash_bwd_dkv_f32"][1].data_ptr(), bn, sq,
+                                              sq, ska, skp, stream)}
+        this = {"flash_fwd_lse_f32": lambda: fa.flash_fwd(qh, kh, vh, sk_actual=ska),
+                "flash_bwd_dq_f32": lambda: (fa.flash_bwd_dq(qh, kh, vh, doh, lse, delta,
+                                                             sk_actual=ska, dq_factor=f),),
+                "flash_bwd_dkv_f32": lambda: fa.flash_bwd_dkv(qh, kh, vh, doh, lse, delta,
+                                                              sq=sq, sk_actual=ska)}
+        for name, entry in found.items():
+            def other_call(name=name, entry=entry):
+                rc = entry(*args[name]())
+                if rc:
+                    raise RuntimeError(f"{entries[name][0]}: cudaError {rc}")
+                return outs[name]
+            by = {"other": other_call, "this": this[name]}
             for who, fn in by.items():
                 got = fn()
                 torch.cuda.synchronize()
                 rel = max(((a.double() - b.double()).norm() / b.double().norm()).item()
-                          for a, b in zip(got, refs[name]))
-                if not rel < 1e-5:
-                    raise RuntimeError(f"{name} A/B {tag}, {who} build: relative L2 {rel}")
+                          for a, b in zip(got[:1] if name == "flash_fwd_lse_f32" else got,
+                                          refs[name]))
+                lse_err = ((got[1] - refs[name][1]).abs().max().item()
+                           if name == "flash_fwd_lse_f32" else 0.0)
+                if not (rel < 1e-5 and lse_err < 1e-5):
+                    raise RuntimeError(f"{name} A/B {tag}, {who} build: relative L2 {rel}, "
+                                       f"lse error {lse_err}")
             times = {"this": [], "other": [], "host_this": [], "host_other": []}
             for who in ("other", "this", "this", "other"):
                 times[who].append(device_ms(by[who], 10))
@@ -3641,7 +3807,7 @@ def f32_bwd_ab(other_path):
                   "C entry) " + " / ".join(f"{m:.4f}" for m in times["other"]) +
                   "; host ms a call this " + " / ".join(f"{m:.4f}" for m in times["host_this"]) +
                   ", other " + " / ".join(f"{m:.4f}" for m in times["host_other"]), flush=True)
-        del qh, kh, vh, doh, o, lse, delta, refs, outs, calls
+        del qh, kh, vh, doh, o, lse, delta, refs, outs, args, this
         torch.cuda.empty_cache()
     return res
 
@@ -3758,6 +3924,7 @@ def sdxl_phase():
                                                        unet2d_forward)
     from fairygen_tpu_torch.models.sdxl.vae import AutoencoderKLConfig
     from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
     from fairygen_tpu_torch.pipelines.sdxl_brushnet import SDXLBrushNetPipeline
     from fairygen_tpu_torch.training.dora_trainer import (add_dora_to_sdxl_unet,
                                                           load_sdxl_dora_state_dict,
@@ -3892,6 +4059,7 @@ def reference_sdxl_check():
     from fairygen_tpu_torch.models.sdxl.unet2d import UNet2DConfig
     from fairygen_tpu_torch.models.sdxl.vae import AutoencoderKLConfig
     from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
     from fairygen_tpu_torch.pipelines.sdxl_brushnet import SDXLBrushNetPipeline
     from fairygen_tpu_torch.training.dora_trainer import (add_dora_to_sdxl_unet,
                                                           load_sdxl_dora_state_dict,
@@ -3957,9 +4125,10 @@ DORA_STEPS = 4  # one of them with min-SNR-5 weighting
 
 def dora_per_step():
     """The fp32 kernels' launches in one DoRA step: 140 each of K6a-c (70
-    transformer blocks x 2 attentions), the pre-pass twice a backward, and
-    K6c's reduce pass at the shapes whose query loop it splits (on an H100's
-    132 SMs all four: 140)."""
+    transformer blocks x 2 attentions) and of K6a's pre-pass, the
+    backward's pre-pass twice a backward, and K6c's reduce pass at the
+    shapes whose query loop it splits (on an H100's 132 SMs all four:
+    140)."""
     import torch
 
     from fairygen_tpu_torch.ops import flash_attention as fa
@@ -3967,7 +4136,7 @@ def dora_per_step():
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     split = sum(calls for _, bn, sq, skp, _, calls in DORA_ATTENTION_SHAPES
                 if fa.dkv_splits(bn, sq, skp, sms)[0] > 1)
-    return dict({k: 140 for k in F32_KERNELS}, flash_bwd_prep_f32=280,
+    return dict({k: 140 for k in F32_KERNELS}, flash_fwd_prep_f32=140, flash_bwd_prep_f32=280,
                 flash_bwd_dkv_reduce_f32=split)
 DORA_STYLIZE_STEPS = 4
 
@@ -3985,7 +4154,55 @@ def dora_inputs(size):
     return img
 
 
-def dora_phase():
+DORA_AB_PAIRS = 10
+
+
+def dora_ab_steps(state, batch, gen, step, other, want, count):
+    """DORA_AB_PAIRS pairs of DoRA steps on one card, one step with
+    flash_fwd as this build has it and one with ``other`` (the other
+    build's fp32 K6a), in the order other, this, this, other, ...: each
+    step's wall, launches (the other's: those of this build without K6a's
+    pre-pass) and finite loss; then each side's median wall, and in how
+    many pairs this build's step was the faster.  Returns the state."""
+    import statistics
+
+    import torch
+
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    this = fa.flash_fwd
+    walls = {"this": [], "other": []}
+    order = [w for i in range(DORA_AB_PAIRS)
+             for w in (("other", "this") if i % 2 == 0 else ("this", "other"))]
+    for who in order:
+        fa.flash_fwd = other if who == "other" else this
+        _kernels.reset_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, loss = step(state, batch, gen)
+        torch.cuda.synchronize()
+        walls[who].append(time.perf_counter() - t1)
+        fa.flash_fwd = this
+        got = dict(_kernels.launches)
+        count(got)
+        expect = dict(want, flash_fwd_prep_f32=0) if who == "other" else want
+        print(f"  DoRA A/B step, {who} build's K6a: {walls[who][-1]:.4f} s, loss "
+              f"{float(loss):.6f}", flush=True)
+        if got != expect or not torch.isfinite(loss):
+            raise RuntimeError(f"DoRA A/B step ({who}): launches {got} != {expect} or a "
+                               f"non-finite loss")
+    faster = sum(t < o for t, o in zip(walls["this"], walls["other"]))
+    print(f"  DoRA A/B over {DORA_AB_PAIRS} pairs: median wall this "
+          f"{statistics.median(walls['this']):.4f} s, other "
+          f"{statistics.median(walls['other']):.4f} s; this build's step the faster in "
+          f"{faster} of {DORA_AB_PAIRS} pairs; walls this " +
+          " / ".join(f"{w:.4f}" for w in walls["this"]) + ", other " +
+          " / ".join(f"{w:.4f}" for w in walls["other"]), flush=True)
+    return state
+
+
+def dora_phase(other=None):
     """FairyGen's stylization front end at full width on the card, as the
     CLI twins run its first three stages (tools/create_mask.py,
     examples/dora_train.py, examples/brushnet_stylize.py), from seeded
@@ -4008,7 +4225,11 @@ def dora_phase():
                 pipeline (bf16 UNet, BrushNet and text encoders, fp32 VAE):
                 one 1024x1024 request of DORA_STYLIZE_STEPS steps, CFG 7.5,
                 with the sdxl phase's launch counts per step.
-    Returns the launches."""
+    With ``other`` (``--dora-ab``: flash_fwd through another build's fp32
+    K6a, other_f32_fwd), after the checked steps DORA_AB_PAIRS pairs of
+    steps, one through each K6a, in the order other, this, this, other,
+    ...: each step's wall, launches and loss; then the profiled step also
+    through the other K6a.  Returns the launches."""
     import tempfile
 
     import numpy as np
@@ -4022,6 +4243,7 @@ def dora_phase():
     from fairygen_tpu_torch.models.sdxl.unet2d import UNet2DConfig
     from fairygen_tpu_torch.models.sdxl.vae import AutoencoderKLConfig, vae_encode
     from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
     from fairygen_tpu_torch.pipelines.sdxl_brushnet import SDXLBrushNetPipeline
     from fairygen_tpu_torch.training.dora_trainer import (add_dora_to_sdxl_unet,
                                                           load_sdxl_dora_state_dict,
@@ -4032,6 +4254,7 @@ def dora_phase():
     f32, bf = torch.float32, torch.bfloat16
     gib = 2 ** 30
     total = {k: 0 for k in _kernels.launches}
+    this_fwd = fa.flash_fwd
 
     def count(got):
         for k, v in got.items():
@@ -4147,23 +4370,29 @@ def dora_phase():
             raise RuntimeError(f"DoRA step {i + 1} failed its checks")
         del before
     del ref_base
+    if other is not None:
+        state = dora_ab_steps(state, batch, gen, step_plain, other, want, count)
 
     # where a step's time goes
-    _kernels.reset_launches()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t1 = time.perf_counter()
-        state, loss = step_plain(state, batch, gen)
+    for who in ("other", "this") if other is not None else ("this",):
+        fa.flash_fwd = other if who == "other" else this_fwd
+        _kernels.reset_launches()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
-    count(dict(_kernels.launches))
-    device_table(prof, wall, "profiled DoRA step (1024x1024, fp32, rank 32)", 18,
-                 also=("fa_f32",))
-    f32_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and "fa_f32" in e.key)
-    print(f"  fp32 K6a-c in the profiled step: {f32_us / 1e3:.3f} ms of device time",
-          flush=True)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t1 = time.perf_counter()
+            state, loss = step_plain(state, batch, gen)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        fa.flash_fwd = this_fwd
+        count(dict(_kernels.launches))
+        side = ", the other build's K6a" if who == "other" else ""
+        device_table(prof, wall, f"profiled DoRA step (1024x1024, fp32, rank 32{side})", 18,
+                     also=("fa_f32",))
+        f32_us = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA and "fa_f32" in e.key)
+        print(f"  fp32 K6a-c in the profiled step{side}: {f32_us / 1e3:.3f} ms of device time",
+              flush=True)
 
     # --- stylize: the adapter saved and loaded as the CLI twins do
     with tempfile.TemporaryDirectory() as tmp:
@@ -4293,7 +4522,7 @@ def reference_dora_check():
               f"the gradients {worst} (bound 1e-3); kernel launches {ran}", flush=True)
         # 11 transformer blocks x 2 attentions; every K6c call of these few
         # heads and keys splits its query loop (at most 8 items of 128 keys)
-        want = dict({k: 22 for k in F32_KERNELS}, flash_bwd_prep_f32=44,
+        want = dict({k: 22 for k in F32_KERNELS}, flash_fwd_prep_f32=22, flash_bwd_prep_f32=44,
                     flash_bwd_dkv_reduce_f32=22)
         if ran != want:
             raise RuntimeError(f"tiny DoRA step: kernel launches {ran}, expected {want}")

@@ -15,11 +15,15 @@ apart (``flash_small_kv`` bounded, ``flash_small_kv_max``,
 128, ``flash_fwd_d64`` at 64: two instantiations of one template), and
 K6a-c's fp32 forms at head dim 64 count apart from their bf16 ones
 (``flash_fwd_lse_f32``, ``flash_bwd_dq_f32``, ``flash_bwd_dkv_f32``).  The
-fp32 K6b and K6c on the tensor cores have two helper kernels with counters
-of their own: ``flash_bwd_prep_f32``, the pre-pass that writes each call's
-TF32 hi / lo operands (one launch a K6b call and one a K6c call), and
-``flash_bwd_dkv_reduce_f32``, which sums the fp32 K6c's split partials (one
-launch a K6c call whose query loop is split).
+fp32 K6a-c on the tensor cores have three helper kernels with counters of
+their own: ``flash_fwd_prep_f32``, the pre-pass that writes a K6a call's
+TF32 hi / lo K and V^T (one launch a K6a call); ``flash_bwd_prep_f32``, the
+pre-pass that writes a backward call's TF32 hi / lo operands (one launch a
+K6b call and one a K6c call); and ``flash_bwd_dkv_reduce_f32``, which sums
+the fp32 K6c's split partials (one launch a K6c call whose query loop is
+split).  One fp32 ``flash_attention`` call with a gradient thus launches
+K6a-c once each, ``flash_fwd_prep_f32`` once, ``flash_bwd_prep_f32`` twice
+and, where K6c splits, the reduce once.
 """
 from __future__ import annotations
 
@@ -39,13 +43,13 @@ LIB_NAME = "libfairygen_kernels.so"
 SOURCES = ("ln_modulate.cu", "rms_rope.cu", "flash_attention.cu", "flash_attention_online.cu",
            "rms_modulate.cu", "flash_attention_bwd.cu", "flash_attention_fp32.cu",
            "flash_attention_fp32_bwd.cu")
-HEADERS = ("hopper_common.cuh",)
+HEADERS = ("hopper_common.cuh", "hopper_tf32.cuh")
 KERNELS = ("ln_modulate", "rms_rope_heads_major", "flash_bounded", "flash_small_kv",
            "flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv",
            "rms_rope_per_head", "rms_rope_joint", "flash_bias", "rms_modulate", "vae_rms_silu",
            "flash_small_kv_max", "flash_small_kv_masked", "flash_fwd_d64",
            "flash_fwd_lse_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32",
-           "flash_bwd_prep_f32", "flash_bwd_dkv_reduce_f32")
+           "flash_bwd_prep_f32", "flash_bwd_dkv_reduce_f32", "flash_fwd_prep_f32")
 
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
@@ -69,7 +73,8 @@ _SIGNATURES = {
     "fg_rms_modulate": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "fg_vae_rms_silu": [_P, _P, _P, _I, _I, _I, _I, _P],
     "fg_flash_small_kv_max": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "fg_flash_fwd_lse_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fg_flash_fwd_prep_f32": [_P, _P, _P, _I, _I, _P],
+    "fg_flash_fwd_lse_f32_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fg_flash_bwd_prep_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fg_flash_bwd_dq_f32_tc": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _P],
     "fg_flash_bwd_dkv_f32_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

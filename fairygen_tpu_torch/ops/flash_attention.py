@@ -104,15 +104,14 @@ def flash_attention_heads_major(qh, kh, v, *, b, n, sq, sk_actual, bq=2048,
 # against its tile's running max, K4 against the row's max over every key
 # (a pre-pass over the key tiles after the first finds it), as the Pallas
 # kernel does; K6b and K6c are those of ``csrc/flash_attention_bwd.cu``.
-# The fp32 form of K6a is the FFMA kernel of ``csrc/flash_attention_fp32.cu``
-# (all in fp32, on 64-key tiles); the fp32 K6b and K6c are TMA + wgmma
-# kernels of ``csrc/flash_attention_fp32_bwd.cu`` on the tensor cores, each
-# product taken in three TF32 passes (hi·hi + hi·lo + lo·hi, fp32
-# accumulation), after a pre-pass that writes the operands' TF32 hi / lo
-# and transposed copies to a workspace; the fp32 K6c splits its query loop
-# over CTAs where rounds of its 128-key items would leave SMs idle
-# (:func:`dkv_splits`) and sums the splits' partials in a second pass, in
-# split order.
+# The fp32 K6a-c are TMA + wgmma kernels on the tensor cores (K6a in
+# ``csrc/flash_attention_fp32.cu``, K6b and K6c in
+# ``csrc/flash_attention_fp32_bwd.cu``), each product taken in three TF32
+# passes (hi·hi + hi·lo + lo·hi, fp32 accumulation), after a pre-pass that
+# writes the operands' TF32 hi / lo and transposed copies to a workspace;
+# the fp32 K6c splits its query loop over CTAs where rounds of its 128-key
+# items would leave SMs idle (:func:`dkv_splits`) and sums the splits'
+# partials in a second pass, in split order.
 
 DEFAULT_BQ = 1024
 DEFAULT_BK = 1024
@@ -286,6 +285,23 @@ def bwd_prep_f32_plain(qh, kh, vh, doh, which):
     return torch.cat([p.reshape(-1) for p in parts])
 
 
+def fwd_prep_f32_plain(kh, vh):
+    """Plain version of the fp32 K6a pre-pass: the workspace, flat: the TF32
+    hi and lo of k, then those of the transposed (BN, d, Sk_pad),
+    row-permuted v (the B operand of P V)."""
+    vt = vh[:, _permuted_rows(vh.shape[1]).to(vh.device)].transpose(1, 2).contiguous()
+    return torch.cat([p.reshape(-1) for p in _tf32_split_plain(kh) + _tf32_split_plain(vt)])
+
+
+def _fwd_prep_f32(kh, vh):
+    """The fp32 K6a pre-pass into a new workspace (the layout of
+    ``fwd_prep_f32_plain``)."""
+    ws = torch.empty(4 * kh.numel(), dtype=torch.float32, device=kh.device)
+    _kernels.launch("flash_fwd_prep_f32", "fg_flash_fwd_prep_f32", kh.data_ptr(), vh.data_ptr(),
+                    ws.data_ptr(), kh.shape[0], kh.shape[1])
+    return ws
+
+
 def _sm_count(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -327,8 +343,8 @@ def flash_fwd(qh, kh, vh, *, sk_actual, with_lse=True):
     or 128) on head-major q/k/v (see the section note).  Returns o, and lse
     with ``with_lse``.  On the card the bf16 forms are the TMA + wgmma
     kernels of ``csrc/flash_attention_online.cu`` (at d 128 K5's o equals
-    K6a's bit for bit), the fp32 form the FFMA kernel of
-    ``csrc/flash_attention_fp32.cu``."""
+    K6a's bit for bit), the fp32 form the pre-pass and the 3xTF32 TMA +
+    wgmma kernel of ``csrc/flash_attention_fp32.cu``."""
     if not qh.is_cuda:
         return flash_fwd_plain(qh, kh, vh, sk_actual=sk_actual, with_lse=with_lse)
     _refuse_unported(qh, grad=with_lse)
@@ -337,9 +353,10 @@ def flash_fwd(qh, kh, vh, *, sk_actual, with_lse=True):
     if qh.dtype == torch.float32:
         _check_heads_major(qh, kh, vh, sk_actual, dims=_F32_TRAIN_DIMS, dtype=torch.float32)
         lse = torch.empty((bn, sq_p), dtype=torch.float32, device=qh.device)
-        _kernels.launch("flash_fwd_lse_f32", "fg_flash_fwd_lse_f32", qh.data_ptr(),
-                        kh.data_ptr(), vh.data_ptr(), out.data_ptr(), lse.data_ptr(), bn, sq_p,
-                        int(sk_actual), kh.shape[1])
+        ws = _fwd_prep_f32(kh, vh)
+        _kernels.launch("flash_fwd_lse_f32", "fg_flash_fwd_lse_f32_tc", qh.data_ptr(),
+                        ws.data_ptr(), out.data_ptr(), lse.data_ptr(), bn, sq_p, int(sk_actual),
+                        kh.shape[1])
         return out, lse
     _check_heads_major(qh, kh, vh, sk_actual, dims=_TRAIN_DIMS if with_lse else _FWD_DIMS)
     if with_lse:
@@ -528,9 +545,9 @@ class _FlashAttention(torch.autograd.Function):
     """``flash_attention`` with a gradient: forward K6a (saves o and the
     per-row lse), backward K6b then K6c, δ = Σ dO·O in PyTorch.  On the
     card bf16 q/k/v at head dim 128 take the TMA + wgmma kernels, fp32 at
-    head dim 64 (the fp32 SDXL UNet's) the FFMA K6a of
-    ``csrc/flash_attention_fp32.cu`` and the 3xTF32 TMA + wgmma K6b and K6c
-    of ``csrc/flash_attention_fp32_bwd.cu``; other forms raise (ROADMAP.md
+    head dim 64 (the fp32 SDXL UNet's) the 3xTF32 TMA + wgmma K6a of
+    ``csrc/flash_attention_fp32.cu`` and K6b and K6c of
+    ``csrc/flash_attention_fp32_bwd.cu``; other forms raise (ROADMAP.md
     Queue 2)."""
 
     @staticmethod

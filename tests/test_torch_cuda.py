@@ -23,12 +23,13 @@ hot LoRA through K1-K4 (the tiny pipelines also launch K11 in the VAE);
 K6b and K6c likewise (sq = 129 / Sk = 4097, sq = 300 with sk_actual =
 4000, one partial key tile at sk = 77), and two of their runs must give
 the same bits; K6a, K6b and K6c in fp32 at head dim 64 (the Style-DoRA
-step's forms; K6b and K6c in three TF32 passes on the tensor cores)
-against their plain versions within a relative L2 error of 1e-5 (both
-sides fp32) at ragged sq, at 77 keys and at 1, with K6c's query loop in
-one split and in many, two runs bit for bit, key rows >= sk_actual exactly
-0, their pre-pass and reduce pass bit for bit their plain versions, every
-counter once a call (the pre-pass twice), flash_attention's fp32 gradient
+step's forms, in three TF32 passes on the tensor cores) against their
+plain versions within a relative L2 error of 1e-5 (both sides fp32) at
+ragged sq, at 77 keys and at 1, K6a also at an odd count of its 64-row
+items, with K6c's query loop in one split and in many, two runs bit for
+bit, key rows >= sk_actual exactly 0, their pre-passes and reduce pass
+bit for bit their plain versions, every counter once a call (the
+backward's pre-pass twice), flash_attention's fp32 gradient
 against autograd of the plain attention, a tiny head-dim-64 DoRA step that
 must launch them and agree with the CPU step, and the forms not ported yet
 raising a ValueError that names ROADMAP Queue 2.  They skip here
@@ -241,7 +242,7 @@ def test_tiny_pipeline_launches_every_kernel(card):
                                  "flash_small_kv_masked": 0, "flash_fwd_d64": 0,
                                  "flash_fwd_lse_f32": 0, "flash_bwd_dq_f32": 0,
                                  "flash_bwd_dkv_f32": 0, "flash_bwd_prep_f32": 0,
-                                 "flash_bwd_dkv_reduce_f32": 0}
+                                 "flash_bwd_dkv_reduce_f32": 0, "flash_fwd_prep_f32": 0}
 
 
 def _close_grad(out, ref):
@@ -1087,13 +1088,13 @@ def _rel_l2(a, b):
 
 
 def _f32_launches(bn, sq, sk_pad):
-    """The counters of one fp32 K6a + K6b + K6c: the pre-pass twice, the
-    reduce where K6c's query loop is split."""
+    """The counters of one fp32 K6a + K6b + K6c: K6a's pre-pass once, the
+    backward's twice, the reduce where K6c's query loop is split."""
     from fairygen_tpu_torch.ops import flash_attention as fa
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     want = {"flash_fwd_lse_f32": 1, "flash_bwd_dq_f32": 1, "flash_bwd_dkv_f32": 1,
-            "flash_bwd_prep_f32": 2}
+            "flash_fwd_prep_f32": 1, "flash_bwd_prep_f32": 2}
     if fa.dkv_splits(bn, sq, sk_pad, sms)[0] > 1:
         want["flash_bwd_dkv_reduce_f32"] = 1
     return want
@@ -1165,6 +1166,36 @@ def test_k6_fp32_two_runs_give_the_same_bits_split_or_not(card, bn, sq, sk_pad, 
             + fa.flash_bwd_dkv(qh, kh, vh, doh, lse, delta, sq=sq, sk_actual=sk_actual)
             for _ in range(2)]
     assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+@pytest.mark.parametrize("bn,sq,sk_pad,sk_actual", [(3, 192, 64, 64), (2, 320, 320, 250),
+                                                   (4, 1024, 128, 77), (5, 448, 192, 130),
+                                                   (2, 128, 128, 1), (1, 64, 64, 64)])
+def test_k6a_fp32_matches_plain_twice(card, bn, sq, sk_pad, sk_actual):
+    """K6a fp32 (items of 64 query rows, one consumer an item; at 3 x 192,
+    5 x 448 and 1 x 64 the item count is odd, so a consumer has one item
+    fewer or none) at ragged shapes: o within a relative L2 of 1e-5 of the
+    plain version, lse within 1e-5, two runs bit for bit."""
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    qh, kh, vh, _ = _f32_inputs(card, bn, sq, sk_pad, sk_actual)
+    o_ref, lse_ref = fa.flash_fwd_plain(qh, kh, vh, sk_actual=sk_actual)
+    (o, lse), (o2, lse2) = (fa.flash_fwd(qh, kh, vh, sk_actual=sk_actual) for _ in range(2))
+    assert _rel_l2(o, o_ref) < 1e-5 and (lse - lse_ref).abs().max().item() < 1e-5
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def test_k6a_fp32_prep_matches_plain_bit_for_bit(card):
+    """K6a's pre-pass (K's TF32 hi / lo, V^T's transposed and row-permuted)
+    equals its plain version bit for bit; one launch."""
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    _, kh, vh, _ = _f32_inputs(card, 3, 64, 192, 150)
+    _kernels.reset_launches()
+    ws = fa._fwd_prep_f32(kh, vh)
+    assert {k: v for k, v in _kernels.launches.items() if v} == {"flash_fwd_prep_f32": 1}
+    assert torch.equal(ws, fa.fwd_prep_f32_plain(kh, vh))
 
 
 @pytest.mark.parametrize("which", [0, 1])
@@ -1244,8 +1275,9 @@ def test_tiny_dora_step_launches_the_fp32_kernels(card):
     at 1 and 2 heads, 11 transformer blocks) in fp32 on the card: 22
     launches of each fp32 kernel and nothing else; the loss within 1e-4 and
     the A / B / mag gradients within 1e-3 relative L2 of the CPU step;
-    the pre-pass twice a backward, and every K6c call of these few heads
-    and keys splits its query loop (one reduce each)."""
+    K6a's pre-pass once a forward, the backward's twice a backward, and
+    every K6c call of these few heads and keys splits its query loop (one
+    reduce each)."""
     from fairygen_tpu_torch import convert
     from fairygen_tpu_torch.models.sdxl.unet2d import UNet2DConfig
     from fairygen_tpu_torch.ops import _kernels
@@ -1295,7 +1327,8 @@ def test_tiny_dora_step_launches_the_fp32_kernels(card):
         if dev == "cuda":
             assert {k: n for k, n in _kernels.launches.items() if n} == {
                 "flash_fwd_lse_f32": 22, "flash_bwd_dq_f32": 22, "flash_bwd_dkv_f32": 22,
-                "flash_bwd_prep_f32": 44, "flash_bwd_dkv_reduce_f32": 22}
+                "flash_fwd_prep_f32": 22, "flash_bwd_prep_f32": 44,
+                "flash_bwd_dkv_reduce_f32": 22}
     (l_cpu, g_cpu), (l_card, g_card) = res["cpu"], res["cuda"]
     assert abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
     for kind in ("A", "B", "mag"):

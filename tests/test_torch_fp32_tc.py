@@ -1,7 +1,17 @@
-"""The fp32 K6b and K6c on the tensor cores (csrc/flash_attention_fp32_bwd.cu),
-checked on the CPU where no card is: the arithmetic, the index maps and the
-split of K6c's query loop, each against the plain versions that the card
-tests hold the kernels to.
+"""The fp32 K6a (csrc/flash_attention_fp32.cu), K6b and K6c
+(csrc/flash_attention_fp32_bwd.cu) on the tensor cores, checked on the CPU
+where no card is: the arithmetic, the index maps and the split of K6c's
+query loop, each against the plain versions that the card tests hold the
+kernels to.
+
+- A numpy emulation of K6a's steps: per 64-key tile S in 3xTF32, keys >=
+  sk_actual masked, the running max and sum in fp32, P = exp2(S - m), P V
+  in 3xTF32 into a fresh accumulator a tile, O = alpha O + PV in fp32, o =
+  O / l and lse = m + log2 l, at small Style-DoRA-like shapes (self
+  attention, 77 keys padded to 128) within the card's bounds of
+  ``flash_fwd_plain``: o within a relative L2 of 1e-5, lse within 1e-5.
+- K6a's P V fragments against the pre-pass's permuted V^T, and the
+  pre-pass's plain version (``fwd_prep_f32_plain``) and its layout.
 
 - A numpy emulation of the kernels' 3xTF32 products (each operand split as
   hi = rna_tf32(x), lo = rna_tf32(x - hi); hi·hi + hi·lo + lo·hi with fp32
@@ -96,6 +106,51 @@ def _emulated_dkv(q, k, v, do, lse, delta, sq, sk_actual):
     return dk, dv
 
 
+def _emulated_fwd(q, k, v, sk_actual, tc=None):
+    """K6a: per 64-key tile S in 3xTF32, key columns >= sk_actual at -inf,
+    the running max m and sum l in fp32, P = exp2(S - m), O = alpha O + P V
+    with each tile's P V a fresh 3xTF32 product; o = O / l, lse = m +
+    log2(l).  ``tc`` replaces the 3xTF32 product."""
+    tc = tc or _tc
+    o = np.empty_like(q)
+    lse = np.empty(q.shape[:2], np.float32)
+    for h in range(q.shape[0]):
+        m = np.full(q.shape[1], -np.inf, np.float32)
+        l = np.zeros(q.shape[1], np.float32)
+        acc = np.zeros(q.shape[1:], np.float32)
+        for j0 in range(0, sk_actual, 64):
+            s = tc(q[h], k[h, j0:j0 + 64].T)
+            s[:, sk_actual - j0:] = -np.inf
+            m_new = np.maximum(m, s.max(1))
+            alpha = np.exp2(m - m_new)
+            p = np.exp2(s - m_new[:, None])
+            l = l * alpha + p.sum(1, dtype=np.float32)
+            acc = acc * alpha[:, None] + tc(p, v[h, j0:j0 + 64])
+            m = m_new
+        o[h] = acc / l[:, None]
+        lse[h] = m + np.log2(l)
+    return o, lse
+
+
+def _one_pass(a, b):
+    return _rna(np.asarray(a, np.float32)) @ _rna(np.asarray(b, np.float32))
+
+
+@pytest.mark.parametrize("sq,sk_pad,sk_actual", [(256, 256, 256), (192, 128, 77),
+                                                 (128, 192, 150)])
+def test_3xtf32_forward_meets_the_fp32_bound(sq, sk_pad, sk_actual):
+    """K6a emulated in 3xTF32 against ``flash_fwd_plain`` (2 heads): o
+    within a relative L2 error of 1e-5, lse within 1e-5 absolute; one TF32
+    pass alone misses the o bound, so the test can tell."""
+    q, k, v, _, _, _ = _inputs(2, sq, sk_pad, sk_actual, seed=sq + sk_actual + 1)
+    o_ref, lse_ref = (x.numpy() for x in fa.flash_fwd_plain(
+        *(torch.from_numpy(x) for x in (q, k, v)), sk_actual=sk_actual))
+    o, lse = _emulated_fwd(q, k, v, sk_actual)
+    assert o.dtype == np.float32 and _rel_l2(o, o_ref) < 1e-5
+    assert np.abs(lse - lse_ref).max() < 1e-5
+    assert _rel_l2(_emulated_fwd(q, k, v, sk_actual, _one_pass)[0], o_ref) > 1e-4
+
+
 def _rel_l2(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return np.linalg.norm(a - b) / np.linalg.norm(b)
@@ -131,17 +186,13 @@ def _emulated_one_pass(q, k, v, do, lse, delta, sk_actual, f):
     return out
 
 
-def test_register_fragments_and_permuted_operand_give_the_product():
-    """The kernels' A fragments, built from a 64 x 64 wgmma accumulator
+def _a_fragments(x):
+    """The A operand the kernels hand wgmma from a 64 x 64 accumulator x
     (thread (warp w, lane): g = 16w + lane / 4, t = lane % 4; x[4j + e] at
     row g + 8 (e // 2), column 8j + 2t + e % 2) as a[4kk..4kk+3] = x[4kk],
     x[4kk + 2], x[4kk + 1], x[4kk + 3], read with PTX's TF32 A layout (a0
     row g col t, a1 row g + 8 col t, a2 row g col t + 4, a3 row g + 8 col
-    t + 4 of each 8-wide k-step) against B = the pre-pass's transposed,
-    row-permuted K: the plain product X K."""
-    rng = np.random.default_rng(3)
-    x = rng.standard_normal((64, 64)).astype(np.float32)
-    kt = rng.standard_normal((64, 64)).astype(np.float32)  # 64 keys x 64 d
+    t + 4 of each 8-wide k-step): the matrix wgmma multiplies."""
     a = np.zeros((64, 64), np.float32)
     for w in range(4):
         for lane in range(32):
@@ -152,9 +203,38 @@ def test_register_fragments_and_permuted_operand_give_the_product():
                 frag = (acc[4 * kk], acc[4 * kk + 2], acc[4 * kk + 1], acc[4 * kk + 3])
                 a[g, 8 * kk + t], a[g + 8, 8 * kk + t] = frag[0], frag[1]
                 a[g, 8 * kk + t + 4], a[g + 8, 8 * kk + t + 4] = frag[2], frag[3]
+    return a
+
+
+def test_register_fragments_and_permuted_operand_give_the_product():
+    """The kernels' A fragments (``_a_fragments``) against B = the
+    pre-pass's transposed, row-permuted K: the plain product X K."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((64, 64)).astype(np.float32)
+    kt = rng.standard_normal((64, 64)).astype(np.float32)  # 64 keys x 64 d
+    a = _a_fragments(x)
     perm = fa._permuted_rows(64).numpy()
     b_kmajor = kt[perm].T  # the transposed operand: d rows, permuted keys along the row
     np.testing.assert_allclose(a @ b_kmajor.T, x @ kt, rtol=1e-5, atol=1e-5)
+
+
+def test_pv_fragments_against_the_forward_prep_give_p_v():
+    """K6a's P V: P's fragments (``_a_fragments`` of the S accumulator)
+    against the forward pre-pass's V^T block (d rows, each 8 keys permuted
+    along the row) read as wgmma's K-major B: exactly P V.  The values are
+    TF32-exact (hi = x, lo = 0), so the index map alone decides."""
+    rng = np.random.default_rng(4)
+    p = (rng.integers(0, 64, (64, 64)) / 64).astype(np.float32)
+    kh, vh = (torch.from_numpy((rng.integers(-32, 32, (1, 128, 64)) / 8).astype(np.float32))
+              for _ in range(2))
+    ws = fa.fwd_prep_f32_plain(kh, vh)
+    n = vh.numel()
+    vt_hi = ws[2 * n:3 * n].view(1, 64, 128)[0].numpy()
+    assert not ws[3 * n:].any()
+    for tile in range(2):  # the B operand of key tile j: its 64 columns
+        b = vt_hi[:, 64 * tile:64 * tile + 64]
+        np.testing.assert_array_equal(_a_fragments(p) @ b.T,
+                                      p @ vh[0, 64 * tile:64 * tile + 64].numpy())
 
 
 DORA_SHAPES = [("a", 10, 4096, 4096), ("b", 20, 1024, 1024), ("c", 10, 4096, 128),
@@ -233,3 +313,23 @@ def test_prep_workspace_layout(which):
         assert torch.equal(hi, fa.tf32_round_plain(xt))
         assert torch.equal(lo, fa.tf32_round_plain(xt - hi))
     assert perm[:8].tolist() == [0, 2, 4, 6, 1, 3, 5, 7]
+
+
+def test_fwd_prep_workspace_layout():
+    """The fp32 K6a pre-pass: K's TF32 hi and lo as K lies, then V^T's
+    (BN, 64, Sk_pad) with each 8 keys permuted; hi + lo gives x back within
+    2^-21 relative."""
+    rng = np.random.default_rng(7)
+    kh, vh = (torch.from_numpy(rng.standard_normal((3, 192, 64)).astype(np.float32))
+              for _ in range(2))
+    ws = fa.fwd_prep_f32_plain(kh, vh)
+    n = kh.numel()
+    assert ws.numel() == 4 * n
+    k_hi, k_lo, vt_hi, vt_lo = torch.split(ws, [n] * 4)
+    assert torch.equal(k_hi.view_as(kh), fa.tf32_round_plain(kh))
+    assert ((k_hi.view_as(kh) + k_lo.view_as(kh) - kh).abs() <= 2 ** -21 * kh.abs()).all()
+    perm = fa._permuted_rows(192)
+    vt = vh[:, perm].transpose(1, 2).contiguous()  # vt[.., d, p] = v[perm p, d]
+    assert torch.equal(vt_hi.view_as(vt), fa.tf32_round_plain(vt))
+    assert torch.equal(vt_lo.view_as(vt), fa.tf32_round_plain(vt - vt_hi.view_as(vt)))
+    assert vt_hi.view_as(vt)[1, 5, 1] == fa.tf32_round_plain(vh[1, 2, 5])

@@ -178,7 +178,7 @@ def test_an_installed_port_carries_its_data_files():
 
     want = {"fairygen_tpu_torch/configs/model_registry.json"} | {
         f"fairygen_tpu_torch/csrc/{name}" for name in _kernels.SOURCES + _kernels.HEADERS}
-    assert len(want) == 10
+    assert len(want) == 11
     files = FileList()
     cwd = os.getcwd()
     os.chdir(REPO)
