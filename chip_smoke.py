@@ -8,6 +8,9 @@
     python3 chip_smoke.py --dora-ab LIB   # only the dora phase, with DoRA steps in turns
                                           # through another build's fp32 K6a and this
                                           # one's, after the wrappers' host time a call
+    python3 chip_smoke.py --speed-only    # device, build, then only the speed modes: the
+                                          # speed, flux and zimage phases and their
+                                          # reference check; no result line
 
 Phases, each printing its wall seconds:
   1. device   — card name/count, nvidia-smi name and power limit, TF32 off.
@@ -121,17 +124,40 @@ Phases, each printing its wall seconds:
                 least half its carries); walls, peaks, exact launches.
   7. breakdown — each stage of a request alone, and one DiT sweep under
                 torch.profiler (device time by kernel, busy share).
+  7b. speed   — the serving speed modes of the TI2V-5B DiT at full width,
+                from seed-0 bf16 weights made anew for each mode:
+                torch._int_mm at the FFN shapes (8190 x 3072 x 14336 and
+                8190 x 14336 x 3072) by events and device time beside its
+                1,979 TOPS bound, the bf16 product and a row-major weight,
+                the whole W8A8 dense, and on 300 rows its products and
+                output bit for bit the CPU's; a 480x832x17, 4-step, CFG 5
+                bf16 request; act_amax from 3 samples of a 10-step
+                rollout; TeaCache calibrated over one 20-step rollout
+                (registered as "Wan2.2-TI2V-5B"), the threshold picked for
+                half the steps and a 20-step CFG 5 request at it (its
+                schedule the replay's within a boundary step, launches
+                exact for the sweeps it computed); the 4-step request again
+                in "int8_ffn", "int8" and "int8" with act_amax and a bf16
+                fallback for 8 fc2 channels.  Each: wall, the DiT's bytes,
+                peak memory, exact launches and _int_mm calls, the final
+                latents' relative L2 to the bf16 request's, a profiled
+                S = 8190 sweep with the W8A8 passes' device time by name.
+                The requests and rollouts run at 17 frames to keep the
+                smoke inside its budget on a slow host (--speed-only: 81).
   8. flux     — FLUX.1-dev at full width and depth (DiT 19 + 38 blocks,
                 T5 v1.1 XXL, CLIP-L, the FLUX VAE) from seeded bf16 weights:
                 two 1024x1024 4-step requests and one EliGen request with
                 exact launch counts of K1, K7, K8, K3 and K10, and one
-                profiled sweep without regions and one with them.
+                profiled sweep without regions and one with them; then the
+                DiT quantized to W8A8 and the first request again (the
+                speed phase's report).
   9. zimage   — Z-Image-Turbo at full width and depth (DiT 2 + 2 + 30
                 blocks, dim 3840; Qwen3-4B; the FLUX VAE) from seeded bf16
                 weights: a 300-id prompt through encode_ids, two 1024x1024
                 8-step requests and one image-to-image CFG request with
                 exact launch counts of K9, K7, K3 and K4, and one profiled
-                sweep.
+                sweep; then the DiT quantized to W8A8 and the first request
+                again (the speed phase's report).
  10. sdxl     — SDXL + BrushNet stylization at full width and depth (UNet,
                 BrushNet-SDXL, CLIP-L, OpenCLIP bigG, the SDXL VAE in fp32)
                 from seeded bf16 weights with a rank-32 Style DoRA loaded at
@@ -162,7 +188,9 @@ Phases, each printing its wall seconds:
                 head-dim-128 Z-Image DiT and a tiny Qwen3 encoder likewise,
                 and a tiny head-dim-64 SDXL + BrushNet + DoRA pipeline
                 likewise, and a tiny head-dim-64 fp32 DoRA step (with and
-                without min-SNR-5) likewise.
+                without min-SNR-5) likewise, and the tiny pipeline quantized
+                to "int8" and with TeaCache likewise (the TeaCache schedule
+                the same on the card as on the CPU in bf16 and fp32).
 Then the card line, one JSON line of kernel numbers and the result line.
 Any failure exits non-zero; past BUDGET_S seconds the run stops, naming
 the phase it was in.
@@ -1143,6 +1171,11 @@ def main(argv):
                            f"{turns_log}")
     done("build", t0)
 
+    if "--speed-only" in argv:
+        speed_only()
+        timer.cancel()
+        return 0
+
     t0 = phase("kernels")
     smoke = kernel_checks(1950, (5, 15, 26), "S=1950")
     flagship = kernel_checks(8190, (21, 15, 26), "S=8190")
@@ -1237,9 +1270,18 @@ def main(argv):
 
         t0 = phase("breakdown")
         breakdown(pipe, te_cfg)
-        del pipe, dit, te, vae, video
+        del pipe, dit, video
         torch.cuda.empty_cache()
         done("breakdown", t0)
+
+        t0 = phase("speed")
+        speed = speed_phase(te, te_cfg, vae, vae_cfg)
+        launches = {k: launches[k] + speed[k] for k in launches}
+        print(f"  launches, serving, the flagship request, training, its surface and the speed "
+              f"modes: {launches}", flush=True)
+        del te, vae
+        torch.cuda.empty_cache()
+        done("speed", t0)
 
         t0 = phase("flux")
         flux_launches = flux_phase()
@@ -1274,6 +1316,7 @@ def main(argv):
         reference_zimage_check()
         reference_sdxl_check()
         reference_dora_check()
+        reference_speed_check()
         done("reference", t0)
 
     sources = {"ln_modulate": ("csrc/ln_modulate.cu", "fairygen_tpu/ops/fused_norms.py:42"),
@@ -1461,6 +1504,33 @@ def main(argv):
 
 
 
+def speed_only():
+    """The speed modes alone (``--speed-only``): UMT5-XXL and the VAE38,
+    the speed phase with its requests at the flagship's 81 frames, the
+    FLUX.1 and Z-Image phases with their W8A8 requests, and
+    reference_speed_check."""
+    import torch
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.wan.text_encoder import UMT5Config
+    from fairygen_tpu_torch.models.wan.vae import WanVAEConfig
+
+    t0 = phase("weights")
+    te_cfg, vae_cfg = UMT5Config.umt5_xxl(), WanVAEConfig.wan22_38()
+    te = convert.init_umt5_params(te_cfg, "cuda", torch.bfloat16, seed=1)
+    vae = convert.init_vae_params(vae_cfg, "cuda", torch.bfloat16, seed=2)
+    done("weights", t0)
+    for name, fn in (("speed", lambda: speed_phase(te, te_cfg, vae, vae_cfg, frames=81)),
+                     ("flux", flux_phase), ("zimage", zimage_phase),
+                     ("reference", reference_speed_check)):
+        if name == "flux":
+            del te, vae
+            torch.cuda.empty_cache()
+        t0 = phase(name)
+        fn()
+        done(name, t0)
+
+
 def flux_kernel_checks():
     """K7, K8 and K10 against their plain versions on the card in bf16 at the
     FLUX.1-dev 1024x1024 shapes: 4096 image and 512 text tokens, 24 heads of
@@ -1602,8 +1672,9 @@ def flux_phase():
     tokens, embedded guidance 3.5, cfg_scale 1, 4 steps) and one EliGen
     request (2 entity prompts, seeded rectangles at latent resolution), each
     with exact launch counts; then one sweep without regions and one with
-    the EliGen request's under torch.profiler.  Returns the launches of the
-    three requests."""
+    the EliGen request's under torch.profiler; then the DiT quantized to
+    W8A8 (``pipe.quantize()``) and the seed-41 request again (image_w8a8).
+    Returns the launches of the four requests."""
     import torch
 
     from fairygen_tpu_torch import convert
@@ -1611,6 +1682,7 @@ def flux_phase():
     from fairygen_tpu_torch.models.flux.text_encoders import UMT5Config, flux_clip_l_config
     from fairygen_tpu_torch.models.sdxl.vae import AutoencoderKLConfig
     from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines import flux_image
     from fairygen_tpu_torch.pipelines.flux_image import FluxImagePipeline
 
     bf = torch.bfloat16
@@ -1665,6 +1737,7 @@ def flux_phase():
         for k, v in got.items():
             total[k] += v
 
+    decoded, undo_decoded = capture_decoded(flux_image)
     for seed in (41, 42):
         emb, pooled = prompt(seed)
         request(f"FLUX.1-dev request seed={seed}", FLUX_PER_SWEEP, prompt_emb=emb,
@@ -1703,7 +1776,19 @@ def flux_phase():
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t1
         device_table(prof, wall, "profiled " + label, 14)
-    del pipe, dit, t5, clip, vae
+
+    # W8A8: the blocks' projections quantized (8 a double block, 2 a single
+    # one), the seed-41 request again
+    emb, pooled = prompt(41)
+    del dit
+    try:
+        image_w8a8("FLUX.1-dev", pipe, request, FLUX_PER_SWEEP, FLUX_STEPS, 19 * 8 + 38 * 2,
+                   decoded[0], decoded,
+                   lambda: flux_dit_forward(pipe.dit_params, dit_cfg, lat, t, emb, pooled, guid),
+                   prompt_emb=emb, pooled_prompt_emb=pooled, seed=41)
+    finally:
+        undo_decoded()
+    del pipe, t5, clip, vae
     torch.cuda.empty_cache()
     return total
 
@@ -2238,9 +2323,10 @@ def device_table(prof, wall, label, top, also=()):
     the other kernels whose names hold a string of ``also``."""
     import torch
 
-    rows = []  # device-side events only: the kernels themselves
+    rows = []  # device-side events only: the kernels themselves (not the
+    # spans of record_function ranges, which the tracer also puts there)
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in W8A8_RANGES:
             rows.append((e.self_device_time_total, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
@@ -2250,6 +2336,7 @@ def device_table(prof, wall, label, top, also=()):
         if i < top or any(a in key for a in also):
             print(f"    {dev_us / 1e3:9.3f} ms {100 * dev_us / 1e6 / busy:5.1f}%  x{count:<5d} "
                   f"{key[:100]}")
+    return busy
 
 
 FLAGSHIP_PER_SWEEP = {"ln_modulate": 90, "rms_rope_heads_major": 90, "flash_bounded": 30,
@@ -2571,6 +2658,548 @@ def flagship_phase(pipe, te_cfg, latents17, k8190):
         "stream_vs_full_max_abs": err, "stream_vs_full_rel_l2": rel,
         "stream_vs_full_worst_frame_rel_l2": rel_frame}), flush=True)
     return got, k11_main
+
+
+# ----------------------------------------------------------- speed modes
+H100_INT8_OP_PER_S = 1979e12  # dense int8 tensor cores, NVIDIA H100 SXM data sheet
+SPEED_STEPS = 4
+SPEED_FRAMES = 17  # the whole smoke's; --speed-only runs the flagship's 81
+TEA_STEPS = 20
+TEA_MODEL_ID = "Wan2.2-TI2V-5B"
+TEA_TARGET_CALC_FRAC = 0.5
+# (label, rows, in, out): the flagship sweep's FFN products at S = 8190
+INT_MM_SHAPES = (("fc1 8190x3072x14336", 8190, 3072, 14336),
+                 ("fc2 8190x14336x3072", 8190, 14336, 3072))
+W8A8_RANGES = ("w8a8.quantize", "w8a8.int_mm", "w8a8.rescale", "w8a8.outliers")
+# _int_mm calls of one Wan DiT sweep per block: the FFN (2), or every block
+# projection (self q, k, v, o, cross q, o, FFN 2) with the cross k and v
+# projected once per context per block
+WAN_INT_MM = {"int8_ffn": (2, 0), "int8": (8, 2)}
+
+
+def tree_bytes(tree):
+    """Bytes of every tensor in a nested dict / list."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if hasattr(tree, "numel") else 0
+
+
+def profiled(label, fn, top=12):
+    """One warm call of ``fn``, then one under torch.profiler: device_table
+    (the int8 GEMM's kernels named too) and the device time of the W8A8
+    passes' record_function ranges (ops/quant.py) and of aten::_int_mm.
+    Returns (busy ms, {range: (device ms, calls)}): a range's device ms is
+    the time of the kernels launched inside it."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+    busy = device_table(prof, wall, label, top, also=("s8", "i8", "imma", "int8"))
+    ranges = {e.key: (e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CPU
+              and (e.key in W8A8_RANGES or e.key == "aten::_int_mm")}
+    for k, (ms, n) in sorted(ranges.items()):
+        print(f"    {k}: {ms:.3f} ms of device time, {n} calls ({100 * ms / 1e3 / busy:.1f}% "
+              f"of the busy time)", flush=True)
+    return busy * 1e3, ranges
+
+
+def int_mm_checks():
+    """torch._int_mm at the flagship FFN shapes: the port's layout (weight
+    column-major) against a row-major weight (the same int32 products
+    required), by CUDA events and device time, beside the int8 bound
+    (2·M·K·N at 1,979 TOPS, or the bytes: int8 operands in, int32 out) and
+    the bf16 product of the same shape; then the whole plain W8A8 dense
+    (ops.quant.quantized_dense: quantizer, _int_mm, rescale) against the
+    bf16 product, and on 300 rows its int32 products and its output bit for
+    bit the CPU's."""
+    import torch
+
+    from fairygen_tpu_torch.ops import quant
+
+    g = torch.Generator("cuda").manual_seed(80)
+    out = {}
+    for label, m, k, n in INT_MM_SHAPES:
+        a = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
+        w = torch.randint(-127, 128, (k, n), generator=g, device="cuda", dtype=torch.int8)
+        wc = quant.int_mm_layout(w)
+        same = torch.equal(torch._int_mm(a, w), torch._int_mm(a, wc))
+        xb = (torch.randn((m, k), generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+        wb = (torch.randn((k, n), generator=g, device="cuda") * k ** -0.5).to(torch.bfloat16)
+        qp = quant.quantize_dense_params({"w": wb})
+        ops = 2 * m * k * n
+        r = {"ms": time_ms(lambda: torch._int_mm(a, wc)),
+             "device_ms": sum(device_trace(lambda: torch._int_mm(a, wc), 20).values()),
+             "row_major_b_ms": time_ms(lambda: torch._int_mm(a, w), 5, 3),
+             "bf16_mm_ms": time_ms(lambda: xb @ wb),
+             "quantized_dense_ms": time_ms(lambda: quant.quantized_dense(qp, xb), 5, 5),
+             "bound": bound_ms(m * k + k * n + 4 * m * n, ops, H100_INT8_OP_PER_S),
+             "bf16_bound_ms": ops / H100_BF16_FLOP_PER_S * 1e3}
+        r["tops"] = ops / r["device_ms"] / 1e9
+        qc = {kk: v.cpu() for kk, v in qp.items()}
+        acc_same = torch.equal(quant.int8_matmul(a[:300], wc).cpu(),
+                               quant.int8_matmul(a[:300].cpu(), wc.cpu()))
+        dense_same = torch.equal(quant.quantized_dense(qp, xb[:300]).cpu(),
+                                 quant.quantized_dense(qc, xb[:300].cpu()))
+        print(f"  torch._int_mm {label}: {r['ms']:.3f} ms (events), {r['device_ms']:.3f} ms "
+              f"device ({r['tops']:.0f} TOPS), bound {r['bound'][0]:.3f} ms ({r['bound'][1]}; "
+              f"{100 * r['bound'][0] / r['device_ms']:.0f}% of it); with a row-major weight "
+              f"{r['row_major_b_ms']:.3f} ms (the same products: {same}); the bf16 product "
+              f"{r['bf16_mm_ms']:.3f} ms (bf16 bound {r['bf16_bound_ms']:.3f} ms); the whole "
+              f"plain W8A8 dense {r['quantized_dense_ms']:.3f} ms; on 300 rows the card's "
+              f"int32 products equal the CPU's: {acc_same}, its W8A8 output the CPU's: "
+              f"{dense_same}", flush=True)
+        if not (same and acc_same and dense_same):
+            raise RuntimeError(f"torch._int_mm {label}: the layouts, or the card and the CPU, "
+                               f"disagree ({same}, {acc_same}, {dense_same})")
+        out[label] = r
+        del a, w, wc, xb, wb, qp
+    torch.cuda.empty_cache()
+    return out
+
+
+def tea_replay(coeffs, xs, thresh, n):
+    """The replayed schedule, and at each step the rule decides (not the
+    first or the last) the replayed accumulator and its distance from
+    ``thresh``, relative."""
+    import numpy as np
+
+    from fairygen_tpu_torch.training.tea_cache_experiment import simulate_calc_schedule
+
+    mask = simulate_calc_schedule(coeffs, xs, thresh, n)
+    acc, rows, c32 = np.float32(0), [], np.asarray(coeffs, np.float32)
+    for i in range(1, n):
+        acc = np.float32(acc + np.polyval(c32, np.float32(xs[i - 1])))
+        if i < n - 1:
+            rows.append((i, float(acc), abs(float(acc) - thresh) / abs(thresh)))
+        if mask[i]:
+            acc = np.float32(0)
+    return mask, rows
+
+
+def spy_tea_decisions():
+    """Wrap utils.tea_cache.tea_cache_blocks to record, per gated sweep,
+    whether the block stack ran.  Returns (the list, a function that
+    undoes it)."""
+    from fairygen_tpu_torch.utils import tea_cache
+
+    real, decided = tea_cache.tea_cache_blocks, []
+
+    def spy(state, x, t_mod, blocks_fn, **opts):
+        ran = []
+        out = real(state, x, t_mod, lambda v: ran.append(1) or blocks_fn(v), **opts)
+        decided.append(bool(ran))
+        return out
+
+    tea_cache.tea_cache_blocks = spy
+
+    def undo():
+        tea_cache.tea_cache_blocks = real
+
+    return decided, undo
+
+
+def speed_phase(te, te_cfg, vae, vae_cfg, frames=SPEED_FRAMES):
+    """The serving speed modes of the Wan2.2-TI2V-5B DiT at full width
+    (dim 3072, 30 layers) from seeded bf16 weights (seed 0, made anew for
+    each W8A8 mode, since quantizing consumes them): torch._int_mm at the
+    FFN shapes (int_mm_checks); a 480x832, ``frames``-frame, 4-step, CFG 5
+    bf16 request with the first image and the streamed decode; a 10-step
+    dense rollout's samples (rollout_calibration_samples) through
+    calibrate_wan_dit_act_amax; TeaCache: calibrate_wan_tea_cache over one
+    20-step rollout, its coefficients registered as "Wan2.2-TI2V-5B",
+    pick_threshold for half the steps and a 20-step CFG 5 request at that
+    threshold (the steps it computed equal the replayed schedule's within
+    one boundary step, its launches exact for the sweeps it computed);
+    then the bf16 request again with the DiT quantized to "int8_ffn", to
+    "int8" and to "int8" with the calibrated act_amax and
+    outlier_k={"ffn": {"fc2": 8}}.  Each request: wall, the DiT's weight
+    bytes, peak memory, exact launches (and _int_mm calls), and the final
+    latents' relative L2 to the bf16 request's (a number to record: the
+    weights are random); each mode one profiled sweep at the flagship's
+    S = 8190 (busy time, kernels, the W8A8 passes by name).  The whole
+    smoke runs the requests and rollouts at 17 frames (S = 1950), to stay
+    in its budget on a slow host; ``--speed-only`` at the flagship's 81.
+    Returns the phase's launches."""
+    import numpy as np
+    import torch
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.wan.dit import WanDiTConfig, precompute_cross_kv, wan_dit_forward
+    from fairygen_tpu_torch.ops import _kernels, quant
+    from fairygen_tpu_torch.pipelines.wan_video import WanVideoPipeline
+    from fairygen_tpu_torch.training.quant_experiment import (calibrate_wan_dit_act_amax,
+                                                              rollout_calibration_samples)
+    from fairygen_tpu_torch.training.tea_cache_experiment import (pick_threshold,
+                                                                   simulate_calc_schedule)
+    from fairygen_tpu_torch.utils.tea_cache_calibration import (calibrate_wan_tea_cache,
+                                                                register_tea_cache_coefficients)
+
+    bf, gib = torch.bfloat16, 2 ** 30
+    cfg = WanDiTConfig.ti2v_5b()
+    start = time.perf_counter()
+
+    def mark(what):
+        print(f"  ({what}: {time.perf_counter() - start:.1f} s into the phase)", flush=True)
+
+    report = {"int_mm": int_mm_checks()}
+    mark("_int_mm checked")
+    total = {k: 0 for k in _kernels.launches}
+    enc_norms, dec_norms = vae_norm_silu_calls(vae_cfg)
+
+    def fresh():
+        torch.cuda.empty_cache()
+        dit = convert.init_dit_params(cfg, "cuda", bf, seed=0)
+        return WanVideoPipeline(dit, cfg, vae, vae_cfg, te, te_cfg, bf, "cuda")
+
+    pipe = fresh()
+    ids, mask, nids, nmask = seeded_prompt(51, te_cfg.vocab)
+    ctx, nctx = pipe.encode_ids(ids, mask), pipe.encode_ids(nids, nmask)
+    image = seeded_image(51, 480, 832)
+    g = torch.Generator("cuda").manual_seed(51)
+    lat_s = torch.randn((1, 48, 21, 30, 52), generator=g, device="cuda").to(bf)
+    lat_f, size = (frames - 1) // 4 + 1, f"480x832x{frames}"
+    t_s = torch.tensor([500.0], device="cuda")
+
+    def request(pipe, label, steps, sweeps=None, int_mm=0, **kw):
+        """One request with the streamed decode.  Its launches must be
+        K1-K4's for ``sweeps`` DiT sweeps (None: the sweeps the TeaCache
+        gate computed), K11's for the first frame and a decode chunk a
+        latent frame, and ``int_mm`` _int_mm calls.  Returns (final
+        latents, report, gate decisions)."""
+        kept, walls = capture_latents(pipe), {}
+        wrap_timed(pipe, "_denoise", walls)
+        decided, undo = spy_tea_decisions()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
+        quant.reset_launches()
+        try:
+            t = time.perf_counter()
+            video = pipe(context=ctx, negative_context=nctx, input_image=image, seed=51,
+                         height=480, width=832, num_frames=frames, cfg_scale=5.0,
+                         num_inference_steps=steps, streaming_vae=True,
+                         output_type="floatpoint", **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        finally:
+            undo()
+            del pipe._decode_output, pipe._denoise
+        if sweeps is None:
+            sweeps = sum(decided)
+        want = {k: FLAGSHIP_PER_SWEEP.get(k, 0) * sweeps for k in _kernels.launches}
+        want["vae_rms_silu"] = enc_norms + lat_f * dec_norms
+        got, n_int_mm = dict(_kernels.launches), quant.launches["int_mm"]
+        finite = bool(torch.isfinite(video).all())
+        r = {"request_s": wall, "denoise_s": walls["_denoise"], "sweeps": sweeps,
+             "peak_gib": torch.cuda.max_memory_allocated() / gib,
+             "dit_gib": tree_bytes(pipe.dit_params) / gib, "int_mm_calls": n_int_mm}
+        print(f"  {label}: {wall:.3f} s (denoise {r['denoise_s']:.3f} s, {sweeps} DiT sweeps), "
+              f"DiT weights {r['dit_gib']:.3f} GiB, max_memory_allocated {r['peak_gib']:.2f} "
+              f"GiB, output {tuple(video.shape)}, all finite: {finite}, launches "
+              f"{ {k: v for k, v in got.items() if v} }, _int_mm {n_int_mm}", flush=True)
+        if tuple(video.shape) != (1, 3, frames, 480, 832) or not finite:
+            raise RuntimeError(f"{label}: output has the wrong shape or non-finite values")
+        if got != want or n_int_mm != int_mm:
+            raise RuntimeError(f"{label}: launches {got}, _int_mm {n_int_mm} != expected "
+                               f"{want}, {int_mm}")
+        for k, v in got.items():
+            total[k] += v
+        return kept[0], r, decided
+
+    def sweep_of(pipe):
+        kv = precompute_cross_kv(pipe.dit_params, cfg, ctx)
+        return lambda: wan_dit_forward(pipe.dit_params, cfg, lat_s, t_s, cross_kv=kv,
+                                       fuse_vae_embedding_in_latents=True)
+
+    report["frames"] = frames
+    ref_lat, report["bf16"], _ = request(pipe, f"bf16 request ({size}, 4 steps, CFG 5)",
+                                         SPEED_STEPS, 2 * SPEED_STEPS)
+    report["bf16"]["sweep_busy_ms"], _ = profiled("profiled bf16 DiT sweep (S=8190)",
+                                                  sweep_of(pipe))
+    mark("bf16 request and sweep")
+
+    # W8A8 calibration: three points of a 10-step dense rollout, each through
+    # the blocks under the channel-amax tap
+    noise = torch.randn((1, 48, lat_f, 30, 52), generator=torch.Generator("cuda").manual_seed(52),
+                        device="cuda").to(bf)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    samples = rollout_calibration_samples(pipe.dit_params, cfg, noise, ctx, rollout_steps=10)
+    act_amax = calibrate_wan_dit_act_amax(pipe.dit_params, cfg, samples)
+    torch.cuda.synchronize()
+    report["act_amax_s"] = time.perf_counter() - t
+    fc2 = act_amax["ffn"]["fc2"]
+    report["fc2_amax_over_median"] = float((fc2.max(-1) / np.median(fc2, -1)).max())
+    print(f"  act_amax from {len(samples)} samples of a 10-step rollout in "
+          f"{report['act_amax_s']:.3f} s: {sum(len(v) for v in act_amax.values())} denses a "
+          f"block, ffn.fc2 {fc2.shape}, its largest channel over the median "
+          f"{report['fc2_amax_over_median']:.2f}", flush=True)
+    del samples
+    mark("act_amax")
+
+    # TeaCache: calibrate, pick the threshold, then the gated request
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    coeffs, (xs, ys) = calibrate_wan_tea_cache(pipe.dit_params, cfg, [noise], [ctx],
+                                               num_inference_steps=TEA_STEPS)
+    report["tea_calibration_s"] = time.perf_counter() - t
+    del noise
+    register_tea_cache_coefficients(TEA_MODEL_ID, coeffs)
+    thresh = pick_threshold(coeffs, xs, TEA_STEPS, TEA_TARGET_CALC_FRAC)
+    replay, margins = tea_replay(coeffs, xs, thresh, TEA_STEPS)
+    print(f"  TeaCache calibration over one {TEA_STEPS}-step rollout: "
+          f"{report['tea_calibration_s']:.3f} s; coefficients {coeffs}; t_mod drift "
+          f"{xs.min():.4e}..{xs.max():.4e}, output drift {ys.min():.4e}..{ys.max():.4e}; "
+          f"threshold {thresh!r} for {TEA_TARGET_CALC_FRAC} of the steps; replayed schedule "
+          f"{replay.astype(int).tolist()}; the replayed accumulator (step, value, distance "
+          f"from the threshold, relative) {[(i, a, d) for i, a, d in margins]}", flush=True)
+    _, r, decided = request(pipe, f"TeaCache request ({size}, {TEA_STEPS} steps, CFG 5)",
+                            TEA_STEPS, tea_cache_l1_thresh=thresh,
+                            tea_cache_model_id=TEA_MODEL_ID)
+    pos, neg = decided[0::2], decided[1::2]
+    # the gate sums the drift on the card in fp32, the replay on the host:
+    # pick_threshold leaves the threshold at a replayed accumulator, so that
+    # step may go either way; the schedule must be the replay's at a
+    # threshold within 1e-5 of the picked one
+    near = {tuple(simulate_calc_schedule(coeffs, xs, thresh * f, TEA_STEPS).tolist())
+            for f in (1 - 1e-5, 1.0, 1 + 1e-5)}
+    flips = [i for i in range(TEA_STEPS) if pos[i] != replay[i]]
+    r.update(threshold=thresh, coefficients=coeffs, computed_steps=sum(pos),
+             skipped_sweeps=2 * TEA_STEPS - sum(decided), replay_steps=int(replay.sum()),
+             flips=flips)
+    print(f"  TeaCache request: computed {sum(pos)} of {TEA_STEPS} steps (the replay "
+          f"{int(replay.sum())}), skipped {r['skipped_sweeps']} of {2 * TEA_STEPS} sweeps; "
+          f"schedule {[int(d) for d in pos]}; steps where it differs from the replay "
+          f"{flips}", flush=True)
+    if len(decided) != 2 * TEA_STEPS or pos != neg or tuple(pos) not in near:
+        raise RuntimeError(f"TeaCache request: the CFG branches' schedules {pos} / {neg} "
+                           f"differ from each other or from the replay's at the threshold "
+                           f"within 1e-5 ({sorted(near)})")
+    report["tea_cache"] = r
+    mark("TeaCache")
+
+    # W8A8: the request again with the DiT quantized
+    n = cfg.num_layers
+    modes = (("int8_ffn", "int8_ffn", {}),
+             ("int8", "int8", {}),
+             ("int8 + act_amax", "int8", dict(act_amax=act_amax,
+                                              outlier_k={"ffn": {"fc2": 8}})))
+    for i, (label, mode, kw) in enumerate(modes):
+        if i:
+            del pipe
+            pipe = fresh()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = tree_bytes(pipe.dit_params)
+        t = time.perf_counter()
+        pipe.quantize(mode, **kw)
+        torch.cuda.synchronize()
+        q = {"quantize_s": time.perf_counter() - t,
+             "quantize_peak_gib": torch.cuda.max_memory_allocated() / gib,
+             "dit_gib_before": before / gib}
+        per_sweep, per_ctx = WAN_INT_MM[mode]
+        lat, r, _ = request(pipe, f"W8A8 {label} request ({size}, 4 steps, CFG 5)",
+                            SPEED_STEPS, 2 * SPEED_STEPS,
+                            int_mm=n * (per_sweep * 2 * SPEED_STEPS + per_ctx * 2))
+        r.update(q, rel_l2_to_bf16=rel_l2(lat, ref_lat))
+        r["sweep_busy_ms"], r["ranges"] = profiled(f"profiled W8A8 {label} DiT sweep (S=8190)",
+                                                   sweep_of(pipe))
+        print(f"    quantized in {q['quantize_s']:.3f} s, peak {q['quantize_peak_gib']:.2f} GiB "
+              f"while quantizing ({q['dit_gib_before']:.3f} GiB of bf16 DiT weights before); "
+              f"the final latents' relative L2 to the bf16 request's "
+              f"{r['rel_l2_to_bf16']:.4e}", flush=True)
+        report[label] = r
+        mark(label)
+    del pipe
+    torch.cuda.empty_cache()
+    print("speed: " + json.dumps(report, default=float), flush=True)
+    return total
+
+
+def capture_decoded(module):
+    """Keep the latents each call of ``module.vae_decode`` gets (the FLUX.1
+    and Z-Image pipelines decode x / scaling + shift in fp32).  Returns
+    (the list, a function that undoes it)."""
+    kept, real = [], module.vae_decode
+
+    def keep(params, cfg, z, *args, **kw):
+        kept.append(z.detach().clone())
+        return real(params, cfg, z, *args, **kw)
+
+    module.vae_decode = keep
+    return kept, lambda: setattr(module, "vae_decode", real)
+
+
+def latents_of(z, vae_cfg):
+    """The final latents x of a decode input z = x / scaling + shift."""
+    return (z - vae_cfg.shift_factor) * vae_cfg.scaling_factor
+
+
+def image_w8a8(label, pipe, request, want_per_sweep, steps, int_mm_per_sweep, ref_z, kept,
+               sweep, **kw):
+    """The image pipelines' W8A8 request: ``pipe.quantize()`` (timed, with
+    its peak), ``request`` (the phase's own, exact kernel launches), its
+    _int_mm calls, the final latents' relative L2 to the bf16 request's
+    (both from what the decode got, ``ref_z`` and the last of ``kept``; a
+    number to record: the weights are random) and one profiled sweep.
+    Returns the report."""
+    import torch
+
+    from fairygen_tpu_torch.ops import quant
+
+    gib = 2 ** 30
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = tree_bytes(pipe.dit_params)
+    t = time.perf_counter()
+    pipe.quantize()
+    torch.cuda.synchronize()
+    r = {"quantize_s": time.perf_counter() - t,
+         "quantize_peak_gib": torch.cuda.max_memory_allocated() / gib,
+         "dit_gib_before": before / gib, "dit_gib": tree_bytes(pipe.dit_params) / gib}
+    quant.reset_launches()
+    t = time.perf_counter()
+    request(f"{label} W8A8 request", want_per_sweep, **kw)
+    r.update(request_s=time.perf_counter() - t, int_mm_calls=quant.launches["int_mm"],
+             peak_gib=torch.cuda.max_memory_allocated() / gib,
+             rel_l2_to_bf16=rel_l2(latents_of(kept[-1], pipe.vae_cfg),
+                                   latents_of(ref_z, pipe.vae_cfg)))
+    if r["int_mm_calls"] != int_mm_per_sweep * steps:
+        raise RuntimeError(f"{label} W8A8 request: {r['int_mm_calls']} _int_mm calls != "
+                           f"{int_mm_per_sweep} x {steps}")
+    r["sweep_busy_ms"], r["ranges"] = profiled(f"profiled {label} W8A8 sweep", sweep, 14)
+    print(f"    {label} quantized in {r['quantize_s']:.3f} s (peak {r['quantize_peak_gib']:.2f} "
+          f"GiB; DiT weights {r['dit_gib_before']:.3f} -> {r['dit_gib']:.3f} GiB); the request "
+          f"{r['request_s']:.3f} s with {r['int_mm_calls']} _int_mm calls, peak "
+          f"{r['peak_gib']:.2f} GiB; the final latents' relative L2 to the bf16 request's "
+          f"{r['rel_l2_to_bf16']:.4e}", flush=True)
+    print(f"{label} w8a8: " + json.dumps(r, default=float), flush=True)
+    return r
+
+
+def _middle_threshold(coeffs, xs, n):
+    """A threshold in the middle (geometrically) of the widest run of a log
+    grid over which the replayed schedule stays one that skips and
+    computes a step the rule decides."""
+    import numpy as np
+
+    from fairygen_tpu_torch.training.tea_cache_experiment import simulate_calc_schedule
+
+    grid = np.geomspace(1e-4, 1e2, 400)
+    sched = [tuple(simulate_calc_schedule(coeffs, xs, v, n).tolist()) for v in grid]
+    best, start = (0, 0, 0), 0
+    for i in range(1, len(grid) + 1):
+        if i == len(grid) or sched[i] != sched[start]:
+            if 2 < sum(sched[start]) < n and i - start > best[0]:
+                best = (i - start, start, i - 1)
+            start = i
+    if not best[0]:
+        raise RuntimeError(f"no threshold skips and computes over the drifts {xs}")
+    return float(np.sqrt(grid[best[1]] * grid[best[2]]))
+
+
+def reference_speed_check():
+    """The speed modes on a tiny head-dim-128 pipeline (reference_check's
+    DiT and VAE) on the card in bf16 against the CPU, with reference_check's
+    bar (relative L2 error to the CPU fp32 run at most twice the CPU bf16
+    run's + 1e-3): quantized to "int8", 4 steps of CFG 5 (the card's
+    _int_mm calls exact); and an 8-step TeaCache request over linear
+    coefficients (the gate accumulates the drift itself) at a threshold in
+    the middle of a run of one schedule over the fp32 drift trace, which
+    the card, the CPU in bf16 and the CPU in fp32 must all compute."""
+    import numpy as np
+    import torch
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.diffusion.flow_match import FlowMatchScheduler
+    from fairygen_tpu_torch.models.wan.dit import WanDiTConfig, time_embedding
+    from fairygen_tpu_torch.models.wan.vae import WanVAEConfig
+    from fairygen_tpu_torch.ops import _kernels, quant
+    from fairygen_tpu_torch.pipelines.wan_video import WanVideoPipeline
+    from fairygen_tpu_torch.utils.tea_cache import TEACACHE_COEFFICIENTS
+
+    cfg = WanDiTConfig(dim=256, in_dim=4, ffn_dim=512, out_dim=4, text_dim=64, freq_dim=64,
+                       num_heads=2, num_layers=2, seperated_timestep=True,
+                       require_vae_embedding=False, require_clip_embedding=False,
+                       fuse_vae_embedding_in_latents=True)
+    vae_cfg = WanVAEConfig.tiny()
+    dit = convert.init_dit_params(cfg, "cpu", torch.float32, seed=3)
+    vae = convert.init_vae_params(vae_cfg, "cpu", torch.float32, seed=4)
+    g = torch.Generator("cpu").manual_seed(5)
+    ctx, nctx = torch.randn(1, 40, 64, generator=g), torch.randn(1, 40, 64, generator=g)
+    kw = dict(context=ctx, negative_context=nctx, input_image=seeded_image(6, 512, 512), seed=7,
+              height=512, width=512, num_frames=17, cfg_scale=5.0, output_type="latents",
+              torch_compat_noise=True)
+
+    def run(dev, dt, mode=None, **extra):
+        pipe = WanVideoPipeline(to(dit, dev, dt), cfg, to(vae, dev, dt), vae_cfg, dtype=dt,
+                                device=dev)
+        if mode:
+            pipe.quantize(mode)
+        _kernels.reset_launches()
+        quant.reset_launches()
+        out = pipe(**kw, **extra).float().cpu()
+        return out, dict(_kernels.launches), quant.launches["int_mm"]
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    ref, _, _ = run("cpu", torch.float32, "int8", num_inference_steps=4)
+    rel16 = rel(run("cpu", torch.bfloat16, "int8", num_inference_steps=4)[0], ref)
+    out, ran, n_int_mm = run("cuda", torch.bfloat16, "int8", num_inference_steps=4)
+    r, tol = rel(out, ref), 2 * rel16 + 1e-3
+    print(f"  tiny W8A8 int8 pipeline: relative L2 error to CPU fp32 {r:.4e} (card bf16), "
+          f"{rel16:.4e} (CPU bf16); tolerance {tol:.4e}; _int_mm {n_int_mm}, kernel launches "
+          f"{ {k: v for k, v in ran.items() if v} }", flush=True)
+    if n_int_mm != 2 * (8 * 8 + 2 * 2) or not ran["flash_bounded"] or not r <= tol:
+        raise RuntimeError(f"tiny W8A8 pipeline: {r:.4e} > {tol:.4e}, or _int_mm {n_int_mm} "
+                           f"!= 136, or the kernels did not run ({ran})")
+
+    steps = 8
+    ts = FlowMatchScheduler("Wan").set_timesteps(steps, shift=5.0).timesteps.astype(np.float32)
+    tm = [time_embedding(dit, cfg, torch.tensor([[0.0, float(t)]]))[1] for t in ts]
+    xs = [float((tm[i] - tm[i - 1]).abs().mean() / tm[i - 1].abs().mean())
+          for i in range(1, steps)]
+    linear = [0.0, 0.0, 0.0, 1.0, 0.0]
+    thresh = _middle_threshold(linear, xs, steps)
+    replay, margins = tea_replay(linear, xs, thresh, steps)
+    TEACACHE_COEFFICIENTS["chip-smoke-linear"] = linear
+    schedules, outs = {}, {}
+    try:
+        for dev, dt in (("cpu", torch.float32), ("cpu", torch.bfloat16),
+                        ("cuda", torch.bfloat16)):
+            decided, undo = spy_tea_decisions()
+            try:
+                outs[dev, dt] = run(dev, dt, num_inference_steps=steps,
+                                    tea_cache_l1_thresh=thresh,
+                                    tea_cache_model_id="chip-smoke-linear")[0]
+            finally:
+                undo()
+            schedules[dev, dt] = [int(d) for d in decided[0::2]]
+    finally:
+        del TEACACHE_COEFFICIENTS["chip-smoke-linear"]
+    ref = outs["cpu", torch.float32]
+    rel16, r = rel(outs["cpu", torch.bfloat16], ref), rel(outs["cuda", torch.bfloat16], ref)
+    tol = 2 * rel16 + 1e-3
+    print(f"  tiny TeaCache request ({steps} steps, threshold {thresh:.4f}, the replayed "
+          f"accumulator at least {min(d for _, _, d in margins):.3f} from it, relative): "
+          f"schedules {schedules} (replay {replay.astype(int).tolist()}); relative L2 error "
+          f"to CPU fp32 {r:.4e} (card bf16), {rel16:.4e} (CPU bf16); tolerance {tol:.4e}",
+          flush=True)
+    if len({tuple(v) for v in schedules.values()}) != 1 or \
+            schedules["cuda", torch.bfloat16] != replay.astype(int).tolist() or not r <= tol:
+        raise RuntimeError(f"tiny TeaCache request: schedules {schedules} differ from each "
+                           f"other or the replay, or {r:.4e} > {tol:.4e}")
 
 
 def upstream_wan_state_dicts(dit, dit_cfg, vae, vae_cfg, te, te_cfg):
@@ -3154,8 +3783,10 @@ def zimage_phase():
     requests at the Turbo defaults (8 steps, cfg_scale 1) and one
     image-to-image request (a seeded 1024x1024 image, strength 0.6,
     cfg_scale 2 with a seeded 64-id negative prompt), each with exact
-    launch counts of K9, K7, K3 and K4; then one sweep under torch.profiler.
-    Returns the launches of the three requests."""
+    launch counts of K9, K7, K3 and K4; then one sweep under torch.profiler;
+    then the DiT quantized to W8A8 (``pipe.quantize()``) and the seed-21
+    request again (image_w8a8).  Returns the launches of the four
+    requests."""
     import torch
 
     from fairygen_tpu_torch import convert
@@ -3163,6 +3794,7 @@ def zimage_phase():
     from fairygen_tpu_torch.models.sdxl.vae import AutoencoderKLConfig
     from fairygen_tpu_torch.models.z_image.dit import ZImageDiTConfig, z_image_dit_forward
     from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines import z_image
     from fairygen_tpu_torch.pipelines.z_image import ZImagePipeline
 
     bf = torch.bfloat16
@@ -3226,6 +3858,7 @@ def zimage_phase():
     negs = zimage_per_sweep(ZIMAGE_NEG_IDS)
     print(f"  expected launches per sweep: prompt {pos}, negative prompt {negs}", flush=True)
     t2i = {k: v * ZIMAGE_STEPS for k, v in pos.items()}
+    decoded, undo_decoded = capture_decoded(z_image)
     for seed in (21, 22):
         request(f"Z-Image-Turbo request seed={seed}", t2i, prompt_emb=emb, seed=seed)
     request("Z-Image-Turbo img2img request (strength 0.6, cfg 2)",
@@ -3251,7 +3884,17 @@ def zimage_phase():
             wall = time.perf_counter() - t1
     device_table(prof, wall, "profiled Z-Image-Turbo sweep (4096 image + 320 caption tokens)",
                  14)
-    del pipe, dit, te, vae, emb, neg, lat
+
+    # W8A8: every block's 7 projections quantized (2 + 2 refiner and 30
+    # unified blocks), the seed-21 request again
+    del dit
+    try:
+        image_w8a8("Z-Image-Turbo", pipe, request, t2i, ZIMAGE_STEPS, 34 * 7, decoded[0],
+                   decoded, lambda: z_image_dit_forward(pipe.dit_params, dit_cfg, lat, t, emb),
+                   prompt_emb=emb, seed=21)
+    finally:
+        undo_decoded()
+    del pipe, te, vae, emb, neg, lat
     torch.cuda.empty_cache()
     return total
 

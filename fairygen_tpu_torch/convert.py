@@ -30,26 +30,35 @@ from .models.sdxl.vae import AutoencoderKLConfig
 from .models.wan.dit import WanDiTConfig
 from .models.wan.text_encoder import UMT5Config
 from .models.wan.vae import VAE38_MEAN, VAE38_STD, WanVAEConfig
+from .ops.quant import int_mm_layout
 
 
 def _leaf(a, key, device, dtype):
-    t = torch.as_tensor(np.array(a))
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, which torch cannot read
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.as_tensor(a)
     if key == "w" and t.dim() == 5:
         t = t.permute(4, 3, 0, 1, 2)
     elif key == "w" and t.dim() == 4:
         t = t.permute(3, 2, 0, 1)
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
-    return t.contiguous().to(device)
+    t = t.contiguous().to(device)
+    return int_mm_layout(t) if key == "w_int8" and t.dim() == 2 else t
 
 
 _STACKED = ("blocks", "double_blocks", "single_blocks", "layers")
+# leaves that keep their own dtype under ``dtype=``: LoRA subtrees (fp32)
+# and a W8A8 layer's scales (fp32) and outlier operands (bf16)
+_OWN_DTYPE = ("lora", "w_scale", "act_smooth", "outlier_sel", "w_outlier")
 
 
 def _tree(node, device, dtype, key=None):
     if isinstance(node, dict):
-        # LoRA leaves stay in their own dtype (fp32), whatever the base's
-        out = {k: _tree(v, device, None if k == "lora" else dtype, k) for k, v in node.items()}
+        out = {k: _tree(v, device, None if k in _OWN_DTYPE else dtype, k)
+               for k, v in node.items()}
         for key in _STACKED:  # stacked DiT blocks -> list
             if isinstance(node.get(key), dict):
                 stacked = out[key]
@@ -71,19 +80,20 @@ def _leaves(node):
         yield node
 
 
-def _index(node, i):
+def _index(node, i, key=None):
     if isinstance(node, dict):
-        return {k: _index(v, i) for k, v in node.items()}
-    return node[i].contiguous()
+        return {k: _index(v, i, k) for k, v in node.items()}
+    return int_mm_layout(node[i]) if key == "w_int8" else node[i].contiguous()
 
 
 def from_jax_params(tree, device="cuda", dtype=None) -> Dict[str, Any]:
     """A JAX-package param tree (numpy leaves) of the Wan DiT, UMT5, VAE38,
     FLUX.1 DiT, T5, CLIP text tower, AutoencoderKL, Z-Image DiT, Qwen3
     text encoder, SDXL UNet or BrushNet (with their LoRA / DoRA adapters)
-    -> port state on
-    ``device`` (optionally cast to ``dtype``; LoRA
-    subtrees keep their dtype)."""
+    -> port state on ``device``, optionally cast to ``dtype``.  LoRA
+    subtrees keep their dtype, and so do the scales and outlier operands
+    of W8A8 layers (``ops/quant.py``); their ``w_int8`` stays int8, laid
+    out column-major."""
     return _tree(tree, resolve_device(device), dtype)
 
 

@@ -28,7 +28,6 @@ _VARIANTS = "ROADMAP.md Queue 1 item 6, the other Wan variants"
 # flag -> the ROADMAP item that ports its path; given at other than its
 # default value, the flag ends the run
 UNPORTED_FLAGS = {
-    "quantize": "ROADMAP.md Queue 1 item 4, W8A8",
     "usp": "ROADMAP.md Queue 1 item 9, parallel/",
     "sp_strategy": "ROADMAP.md Queue 1 item 9, parallel/",
     "vace_video": _VARIANTS, "vace_video_mask": _VARIANTS, "vace_reference_image": _VARIANTS,
@@ -36,8 +35,6 @@ UNPORTED_FLAGS = {
     "camera_control_speed": _VARIANTS, "motion_bucket_id": _VARIANTS, "end_image": _VARIANTS,
     "reference_image": _VARIANTS, "audio": _VARIANTS, "audio_sample_rate": _VARIANTS,
     "longcat_video": _VARIANTS,
-    "tea_cache_l1_thresh": "ROADMAP.md Queue 1 item 5, TeaCache",
-    "tea_cache_model_id": "ROADMAP.md Queue 1 item 5, TeaCache",
 }
 
 
@@ -67,7 +64,8 @@ def parser():
     p.add_argument("--sliding_window_stride", type=int, default=None)
     p.add_argument("--tea_cache_l1_thresh", type=float, default=None)
     p.add_argument("--tea_cache_model_id", type=str, default="Wan2.1-T2V-1.3B")
-    p.add_argument("--quantize", type=str, default=None, choices=["int8_ffn", "int8"])
+    p.add_argument("--quantize", type=str, default=None, choices=["int8_ffn", "int8"],
+                   help="W8A8 int8 DiT projections (the FFN, or all block projections)")
     p.add_argument("--usp", type=int, default=0)
     p.add_argument("--sp_strategy", type=str, default="ulysses", choices=["ulysses", "ring"])
     p.add_argument("--vace_video", type=str, default=None)
@@ -109,6 +107,8 @@ def main(argv=None):
                                             device=args.device)
     if args.lora:
         pipe.load_lora(args.lora, alpha=args.lora_alpha)
+    if args.quantize:
+        pipe.quantize(args.quantize)
     image = (Image.open(args.input_image).convert("RGB").resize((args.width, args.height))
              if args.input_image else None)
     frames = pipe(
@@ -117,7 +117,9 @@ def main(argv=None):
         num_inference_steps=args.num_inference_steps, cfg_scale=args.cfg_scale,
         seed=args.seed, streaming_vae=True, vae_frames_per_chunk=args.vae_frames_per_chunk,
         tiled=args.tiled, sliding_window_size=args.sliding_window_size,
-        sliding_window_stride=args.sliding_window_stride)
+        sliding_window_stride=args.sliding_window_stride,
+        tea_cache_l1_thresh=args.tea_cache_l1_thresh,
+        tea_cache_model_id=args.tea_cache_model_id)
     out = save_video(frames, args.output, fps=args.fps, quality=5)
     print(f"saved {out}")
     return 0

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from ...core.params import Init, generator, linear, to_tensors
 from ...device import resolve_device
+from ...ops import quant
 from ...ops.attention import attention
 from ...ops.flash_attention import LOG2E
 from ...ops.fused_norms import ln_modulate
@@ -70,6 +71,11 @@ class FluxDiTConfig:
 
 # ------------------------------------------------------------------ helpers
 def _dense(p, x):
+    if quant._ACT_TAP is not None:  # a calibration tap (a no-op when none is active)
+        w = p.get("w", p.get("w_int8"))
+        quant.record_activation_stats(f"dense_{x.shape[-1]}x{w.shape[-1]}", x)
+    if "w_int8" in p:  # W8A8 (ops/quant.quantize_image_dit_params)
+        return quant.quantized_dense(p, x)
     y = torch.matmul(x, p["w"].to(x.dtype))
     return y + p["b"].to(x.dtype) if "b" in p else y
 

@@ -32,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..adapters import apply_adapter
 from ...core.params import linear, to_tensors
+from ...ops import quant
 from ...ops.attention import LOG2E, attention
 from ...ops.fused_norms import affine_rows, layer_norm_modulate
 from ...ops.fused_qk import build_freqs_full, fused_q_attention, fused_qk_attention
@@ -75,9 +76,18 @@ class WanDiTConfig:
 
 
 def _dense(p, x):
-    y = torch.matmul(x, p["w"])
-    if "b" in p:
-        y = y + p["b"]
+    """x @ w + b, or the W8A8 product of a quantized layer ("w_int8",
+    ``ops/quant.py``); then the layer's hot LoRA.  Records x's statistics
+    while a calibration tap is active."""
+    if quant._ACT_TAP is not None:
+        w = p.get("w", p.get("w_int8"))
+        quant.record_activation_stats(f"dense_{x.shape[-1]}x{w.shape[-1]}", x)
+    if "w_int8" in p:
+        y = quant.quantized_dense(p, x)
+    else:
+        y = torch.matmul(x, p["w"])
+        if "b" in p:
+            y = y + p["b"]
     if "lora" in p:
         y = apply_adapter(y, x, p)
     return y
@@ -121,13 +131,17 @@ def _self_attention(p, x, freqs, freqs_full, num_heads, eps):
     return _dense(p["o"], o.reshape(b, s, d))
 
 
-def _cross_attention(p, x, kv, num_heads, eps, fused, img_kv=None):
-    """Text cross-attention on precomputed (k, v) (B, Lk, N, hd); ``img_kv``
-    adds the CLIP-image branch of the I2V configs."""
+def _cross_attention(p, x, kv, num_heads, eps, fused, img_kv=None, ctx=None):
+    """Text cross-attention on precomputed (k, v) (B, Lk, N, hd), or with
+    ``kv`` None on (k, v) projected here from the embedded text ``ctx``
+    (after q, the JAX package's order of the projections); ``img_kv`` adds
+    the CLIP-image branch of the I2V configs."""
     b, s, d = x.shape
     hd = d // num_heads
     gamma_q = _q_gamma(p, hd)
     xq = _dense(p["q"], x)
+    if kv is None:
+        kv = _cross_kv(p, ctx, num_heads, eps)
     branches = [kv] + ([img_kv] if img_kv is not None else [])
     o = 0
     for k, v in branches:
@@ -151,8 +165,6 @@ def dit_block(p, x, t_mod, freqs, freqs_full, cfg: WanDiTConfig, cross_kv,
     form.  t_mod: (B, 1, 6, D) uniform or (B, 2, 6, D) two-segment rows with
     boundary ``seg``.  ``cross_kv`` None: the block projects its (k, v) from
     the embedded text ``ctx`` itself."""
-    if cross_kv is None:
-        cross_kv = _cross_kv(p["cross_attn"], ctx, cfg)
     mod = (p["modulation"][None, None].float() + t_mod.float()).to(x.dtype)
     rows = mod if mod.shape[1] == 2 else torch.cat([mod, mod], dim=1)
     if seg is not None:
@@ -170,7 +182,7 @@ def dit_block(p, x, t_mod, freqs, freqs_full, cfg: WanDiTConfig, cross_kv,
     sh3, sc3 = affine_rows(p["norm3"]["w"], p["norm3"]["b"], x.shape[0])
     y = layer_norm_modulate(x, sh3, sc3, 0, cfg.eps)
     x = x + _cross_attention(p["cross_attn"], y, cross_kv, cfg.num_heads, cfg.eps,
-                             fused, img_kv)
+                             fused, img_kv, ctx)
     y = layer_norm_modulate(x, rows[:, :, 3].contiguous(), rows[:, :, 4].contiguous(),
                             seg_val, cfg.eps)
     ff = _dense(p["ffn"]["fc2"], _gelu_tanh(_dense(p["ffn"]["fc1"], y)))
@@ -182,13 +194,13 @@ def text_embedding(params, ctx):
     return _dense(params["text_embed"]["fc2"], _gelu_tanh(h))
 
 
-def _cross_kv(ca, ctx, cfg: WanDiTConfig):
+def _cross_kv(ca, ctx, num_heads, eps):
     """One block's text (k, v), each (B, Lk, N, hd), from the embedded text."""
-    b, lk, _ = ctx.shape
-    k = rms_norm(_dense(ca["k"], ctx), ca["norm_k"], cfg.eps)
+    b, lk, d = ctx.shape
+    k = rms_norm(_dense(ca["k"], ctx), ca["norm_k"], eps)
     v = _dense(ca["v"], ctx)
-    return (k.reshape(b, lk, cfg.num_heads, cfg.head_dim),
-            v.reshape(b, lk, cfg.num_heads, cfg.head_dim))
+    return (k.reshape(b, lk, num_heads, d // num_heads),
+            v.reshape(b, lk, num_heads, d // num_heads))
 
 
 def precompute_cross_kv(params, cfg: WanDiTConfig, context):
@@ -196,7 +208,8 @@ def precompute_cross_kv(params, cfg: WanDiTConfig, context):
     prompt context — step-independent, so the pipeline computes them once
     per prompt (same ops, same order as in the block)."""
     ctx = text_embedding(params, context)
-    return [_cross_kv(blk["cross_attn"], ctx, cfg) for blk in params["blocks"]]
+    return [_cross_kv(blk["cross_attn"], ctx, cfg.num_heads, cfg.eps)
+            for blk in params["blocks"]]
 
 
 def _image_cross_kv(params, cfg: WanDiTConfig, clip_feature):
@@ -329,14 +342,17 @@ class offload_saved_carry:
 
 def wan_dit_forward(params, cfg: WanDiTConfig, latents, timestep, context=None, *,
                     y=None, clip_feature=None, fuse_vae_embedding_in_latents: bool = False,
-                    cross_kv=None, remat=False):
+                    cross_kv=None, remat=False, tea_cache_state=None, tea_cache_opts=None):
     """Denoiser forward (upstream model_fn_wan_video, wan_video.py:1122-1388,
     text / first-frame / I2V-y conditioning).  latents (B, C, F, H, W);
     timestep (B,); context (B, L, text_dim) or ``cross_kv`` from
     :func:`precompute_cross_kv`.  ``remat=True`` recomputes each block in
     the backward pass from its input; ``remat="offload"`` also keeps that
     input in pinned host memory in between (:class:`offload_saved_carry`).
-    Returns (B, out_dim, F, H, W)."""
+    Returns (B, out_dim, F, H, W); with ``tea_cache_state``
+    (``utils.tea_cache``; ``tea_cache_opts``: model_id, rel_l1_thresh,
+    num_inference_steps) the block stack runs or is skipped by the TeaCache
+    gate, and the call returns (output, new state)."""
     if remat not in (False, True, "offload"):
         raise ValueError(f"remat must be False, True or 'offload', got {remat!r}")
     b, _, _, H, W = latents.shape
@@ -371,17 +387,28 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, timestep, context=None, 
     freqs = build_freqs_grid(precompute_freqs_3d(cfg.head_dim), *grid, device=x.device)
     freqs_full = build_freqs_full(freqs) if cfg.head_dim == 128 else None
     side = torch.cuda.Stream(x.device) if remat == "offload" and x.is_cuda else None
-    for i, blk in enumerate(params["blocks"]):
-        args = (blk, x, t_mod, freqs, freqs_full, cfg, cross_kv[i], seg, img_kv[i], ctx)
-        if remat == "offload":
-            with offload_saved_carry(x, side):
+
+    def blocks(x):
+        for i, blk in enumerate(params["blocks"]):
+            args = (blk, x, t_mod, freqs, freqs_full, cfg, cross_kv[i], seg, img_kv[i], ctx)
+            if remat == "offload":
+                with offload_saved_carry(x, side):
+                    x = checkpoint(dit_block, *args, use_reentrant=False)
+            elif remat:
                 x = checkpoint(dit_block, *args, use_reentrant=False)
-        elif remat:
-            x = checkpoint(dit_block, *args, use_reentrant=False)
-        else:
-            x = dit_block(*args)
+            else:
+                x = dit_block(*args)
+        return x
+
+    if tea_cache_state is not None:
+        from ...utils.tea_cache import tea_cache_blocks
+
+        x, new_state = tea_cache_blocks(tea_cache_state, x, t_mod, blocks, **tea_cache_opts)
+    else:
+        x = blocks(x)
     x = head_forward(params["head"], x, t, cfg, seg=seg)
-    return unpatchify(x, grid, cfg)
+    out = unpatchify(x, grid, cfg)
+    return (out, new_state) if tea_cache_state is not None else out
 
 
 # ------------------------------------------------------------------ converter

@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ...core.params import Init, generator, linear, to_tensors
 from ...device import resolve_device
+from ...ops import quant
 from ...ops.attention import attention
 from ...ops.fused_norms import rms_modulate
 from ...ops.fused_qk import fused_qk_attention_per_head
@@ -76,6 +77,8 @@ class ZImageDiTConfig:
 
 
 def _dense(p, x):
+    if "w_int8" in p:  # W8A8 (ops/quant.quantize_image_dit_params)
+        return quant.quantized_dense(p, x)
     y = torch.matmul(x, p["w"].to(x.dtype))
     return y + p["b"].to(x.dtype) if "b" in p else y
 

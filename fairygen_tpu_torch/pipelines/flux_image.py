@@ -7,8 +7,9 @@ embedded guidance, optional EliGen entity regions, then the fp32 VAE decode
 with the (shift, scale) latent normalization.  Prompts arrive as T5 and
 CLIP embeddings (:meth:`FluxImagePipeline.encode_ids` runs both encoders on
 token ids); the tokenizers need files the repository does not hold.
-Image-to-image, Kontext, ControlNet, IP-Adapter, LoRA, TeaCache, tiling and
-the other extras of the JAX pipeline are not ported and raise.
+:meth:`FluxImagePipeline.quantize` swaps the DiT's block projections to
+W8A8.  Image-to-image, Kontext, ControlNet, IP-Adapter, LoRA, TeaCache,
+tiling and the other extras of the JAX pipeline are not ported and raise.
 """
 from __future__ import annotations
 
@@ -43,6 +44,16 @@ class FluxImagePipeline:
         self.te_clip_params, self.te_clip_cfg = te_clip_params, te_clip_cfg
         self.te_t5_params, self.te_t5_cfg = te_t5_params, te_t5_cfg
         self.dtype, self.prescaled = dtype, prescaled
+
+    def quantize(self):
+        """Swap the double- and single-block projections to W8A8
+        (``ops/quant.py``); the embedders, the modulation linears and the
+        output head stay in their float dtype.  Each float weight is dropped
+        as its int8 copy is made."""
+        from ..ops.quant import quantize_image_dit_params
+
+        self.dit_params = quantize_image_dit_params(self.dit_params, consume=True)
+        return self
 
     @torch.no_grad()
     def encode_ids(self, t5_ids, clip_ids):

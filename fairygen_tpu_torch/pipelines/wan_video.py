@@ -15,9 +15,12 @@ window, whose sweeps take the context as the JAX package's do.
 ``from_pretrained`` finds the DiT, the VAE38 and UMT5 among checkpoint
 files by their key hash (``core.model_pool``).  LoRAs load fused into the
 DiT weights or hot (``load_lora(hotload=True)``, cleared by
-``clear_lora``).  The JAX pipeline's other paths (VACE, S2V, camera,
-animate, VAP, LongCat, TeaCache, the I2V and two-expert models,
-video-to-video, W8A8) are not ported: their keywords raise.
+``clear_lora``).  :meth:`WanVideoPipeline.quantize` swaps the DiT's
+projections to W8A8 (``ops/quant.py``); ``tea_cache_l1_thresh`` gates each
+sweep's block stack by TeaCache (``utils/tea_cache.py``), one state per CFG
+branch.  The JAX pipeline's other paths (VACE, S2V, camera, animate, VAP,
+LongCat, the I2V and two-expert models, video-to-video) are not ported:
+their keywords raise.
 """
 from __future__ import annotations
 
@@ -46,9 +49,7 @@ _UNPORTED = {name: (None, _VARIANTS) for name in (
 _UNPORTED.update(
     switch_dit_boundary=(0.875, _VARIANTS), vace_scale=(1.0, _VARIANTS),
     audio_sample_rate=(16000, _VARIANTS), camera_control_speed=(1 / 54, _VARIANTS),
-    vap_prompt=(" ", _VARIANTS), negative_vap_prompt=(" ", _VARIANTS),
-    tea_cache_l1_thresh=(None, "ROADMAP.md Queue 1 item 5, TeaCache"),
-    tea_cache_model_id=("Wan2.1-T2V-1.3B", "ROADMAP.md Queue 1 item 5, TeaCache"))
+    vap_prompt=(" ", _VARIANTS), negative_vap_prompt=(" ", _VARIANTS))
 
 
 def _as_pil(image, width, height):
@@ -108,9 +109,27 @@ class WanVideoPipeline:
                    te[0] if te else None, te[1] if te else None, dtype=dtype, device=device,
                    tokenizer=tokenizer)
 
-    def quantize(self, *args, **kwargs):
-        raise NotImplementedError("W8A8 DiT projections are not ported (ROADMAP.md Queue 1 "
-                                  "item 4, ops/quant.py)")
+    def quantize(self, mode: str = "int8_ffn", *, act_amax=None, alpha: float = 0.5,
+                 outlier_k=0):
+        """Swap the DiT's block projections to W8A8 (``ops/quant.py``): mode
+        "int8_ffn" (the FFN) or "int8" (the FFN and the self- and
+        cross-attention projections).  Call after :meth:`load_lora`: a fused
+        LoRA is in the float weights it quantizes.  ``act_amax``:
+        {group: {name: (L, K)}} calibration statistics
+        (``training.quant_experiment.calibrate_wan_dit_act_amax``, or
+        ``tools/calibrate_quant.py``'s npz through ``load_act_amax``) for
+        the outlier-robust form at ``alpha`` with ``outlier_k`` bf16
+        fallback channels (an int, or e.g. {"ffn": {"fc2": 8}}).  Each float
+        weight is dropped as its int8 copy is made."""
+        from ..ops.quant import quantize_wan_dit_linears
+
+        if mode not in ("int8_ffn", "int8"):
+            raise ValueError(f"quantize mode must be 'int8_ffn' or 'int8', got {mode!r}")
+        groups = ("ffn",) if mode == "int8_ffn" else ("ffn", "self_attn", "cross_attn")
+        self.dit_params = quantize_wan_dit_linears(self.dit_params, groups, consume=True,
+                                                   act_amax=act_amax, alpha=alpha,
+                                                   outlier_k=outlier_k)
+        return self
 
     # ------------------------------------------------------------- adapters
     def load_lora(self, lora_path_or_sd, alpha: float = 1.0, hotload: bool = False):
@@ -182,10 +201,15 @@ class WanVideoPipeline:
                  sliding_window_size: Optional[int] = None,
                  sliding_window_stride: Optional[int] = None, streaming_vae: bool = False,
                  vae_frames_per_chunk: int = 1, output_type: str = "quantized",
-                 torch_compat_noise: bool = False, progress_callback=None, **unported):
+                 torch_compat_noise: bool = False, progress_callback=None,
+                 tea_cache_l1_thresh: Optional[float] = None,
+                 tea_cache_model_id: str = "Wan2.1-T2V-1.3B", **unported):
         """The JAX pipeline's keywords; ``progress_callback(steps_done,
-        total_steps)`` runs after each step.  A keyword of a path that is
-        not ported is accepted at the JAX default and raises otherwise."""
+        total_steps)`` runs after each step.  ``tea_cache_l1_thresh``: the
+        TeaCache gate's threshold over ``tea_cache_model_id``'s polynomial
+        (``utils.tea_cache``; not with the sliding window).  A keyword of a
+        path that is not ported is accepted at the JAX default and raises
+        otherwise."""
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"__call__() got an unexpected keyword argument {name!r}")
@@ -226,26 +250,65 @@ class WanVideoPipeline:
         args = (latents, context, negative_context if use_cfg else None, scheduler, first,
                 cfg_scale, progress_callback)
         if sliding_window_size is not None:
+            if tea_cache_l1_thresh is not None:
+                raise ValueError("TeaCache and the temporal sliding window are mutually "
+                                 "exclusive (per-window hidden-state shapes break the cache)")
             latents = self._denoise_windowed(*args, sliding_window_size, sliding_window_stride)
         else:
-            latents = self._denoise(*args, cfg_merge)
+            tea_opts = None
+            if tea_cache_l1_thresh is not None:
+                tea_opts = dict(model_id=tea_cache_model_id,
+                                rel_l1_thresh=float(tea_cache_l1_thresh),
+                                num_inference_steps=int(num_inference_steps))
+            latents = self._denoise(*args, cfg_merge, tea_opts)
         return self._decode_output(latents, output_type=output_type,
                                    streaming_vae=streaming_vae,
                                    frames_per_chunk=vae_frames_per_chunk, tiled=tiled,
                                    tile_size=tile_size, tile_stride=tile_stride)
 
-    def _sweep(self, latents, t1, fuse, cross_kv=None, context=None):
+    def _sweep(self, latents, t1, fuse, cross_kv=None, context=None, **tea):
+        """One DiT sweep; with ``tea`` (tea_cache_state, tea_cache_opts) it
+        returns (output, new state)."""
         return wan_dit_forward(self.dit_params, self.dit_cfg, latents, t1, context,
-                               fuse_vae_embedding_in_latents=fuse, cross_kv=cross_kv)
+                               fuse_vae_embedding_in_latents=fuse, cross_kv=cross_kv, **tea)
+
+    def _init_tea_states(self, latents, *, use_cfg, cfg_merge, fuse):
+        """fp32 TeaCache states shaped for the DiT's tokens and t_mod rows:
+        one per CFG branch, or one batch-2 state with ``cfg_merge``."""
+        from ..utils.tea_cache import init_tea_cache_state
+
+        cfg = self.dit_cfg
+        b, _, f, h, w = latents.shape
+        pt, ph, pw = cfg.patch_size
+        b_eff = 2 * b if (use_cfg and cfg_merge) else b
+        seg = cfg.seperated_timestep and fuse
+        t_mod_shape = (b_eff, 2 if seg else 1, 6, cfg.dim)
+        hidden_shape = (b_eff, (f // pt) * (h // ph) * (w // pw), cfg.dim)
+        tea_a = init_tea_cache_state(t_mod_shape, hidden_shape, device=self.device)
+        tea_b = (init_tea_cache_state(t_mod_shape, hidden_shape, device=self.device)
+                 if (use_cfg and not cfg_merge) else None)
+        return tea_a, tea_b
 
     def _denoise(self, latents, context, negative_context, scheduler, first, cfg_scale,
-                 progress_callback, cfg_merge):
+                 progress_callback, cfg_merge, tea_opts=None):
         """The steps: two batch-1 sweeps for CFG, or with ``cfg_merge`` one
         batch-2 sweep over [prompt, negative prompt]; the guidance combine
-        in fp32, as in the JAX package."""
+        in fp32, as in the JAX package.  ``tea_opts``: TeaCache's options,
+        with one gate state per sweep of a step."""
         timesteps = torch.tensor(scheduler.timesteps, dtype=torch.float32)
         n, fuse = len(scheduler.timesteps), first is not None
         merge = negative_context is not None and cfg_merge
+        tea = [None, None]
+        if tea_opts is not None:
+            tea = list(self._init_tea_states(latents, use_cfg=negative_context is not None,
+                                             cfg_merge=cfg_merge, fuse=fuse))
+
+        def sweep(lat, t, kv, branch):
+            if tea_opts is None:
+                return self._sweep(lat, t, fuse, kv)
+            v, tea[branch] = self._sweep(lat, t, fuse, kv, tea_cache_state=tea[branch],
+                                         tea_cache_opts=tea_opts)
+            return v
         if merge:
             ckv = precompute_cross_kv(self.dit_params, self.dit_cfg,
                                       torch.cat([context, negative_context]))
@@ -256,12 +319,12 @@ class WanVideoPipeline:
         for i in range(n):
             t1 = timesteps[i:i + 1].to(self.device)
             if merge:
-                v2 = self._sweep(torch.cat([latents, latents]), t1.repeat(2), fuse, ckv)
+                v2 = sweep(torch.cat([latents, latents]), t1.repeat(2), ckv, 0)
                 v, v_n = v2[:1], v2[1:]
             else:
-                v = self._sweep(latents, t1, fuse, ckv)
+                v = sweep(latents, t1, ckv, 0)
                 if negative_context is not None:
-                    v_n = self._sweep(latents, t1, fuse, ckv_n)
+                    v_n = sweep(latents, t1, ckv_n, 1)
             if negative_context is not None:
                 v = v_n.float() + cfg_scale * (v - v_n).float()
             latents = scheduler.step(v, i, latents)

@@ -9,8 +9,9 @@ the fp32 decode of the (shift, scale)-normalized latents by the FLUX.1
 16-channel VAE.  Prompts arrive as Qwen3 hidden states;
 :meth:`ZImagePipeline.encode_ids` runs the encoder on token ids, in place
 of the JAX package's tokenizer and chat template, which need files the
-repository does not hold.  ``from_pretrained``, ``quantize`` and string
-prompts are not ported and raise.
+repository does not hold.  :meth:`ZImagePipeline.quantize` swaps the DiT's
+block projections to W8A8.  ``from_pretrained`` and string prompts are not
+ported and raise.
 """
 from __future__ import annotations
 
@@ -53,8 +54,14 @@ class ZImagePipeline:
                                   "ported yet")
 
     def quantize(self):
-        raise NotImplementedError("W8A8 quantize (ops/quant.py; ROADMAP Queue 1 item 4) is not "
-                                  "ported yet")
+        """Swap the DiT's unified and refiner blocks' projections to W8A8
+        (``ops/quant.py``); AdaLN, the embedders and the head stay in their
+        float dtype.  Each float weight is dropped as its int8 copy is
+        made."""
+        from ..ops.quant import quantize_image_dit_params
+
+        self.dit_params = quantize_image_dit_params(self.dit_params, consume=True)
+        return self
 
     @torch.no_grad()
     def encode_ids(self, ids, attention_mask=None):

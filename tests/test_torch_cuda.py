@@ -1336,3 +1336,118 @@ def test_tiny_dora_step_launches_the_fp32_kernels(card):
         assert _rel_l2(torch.cat([g_card[k].ravel() for k in keys]),
                        torch.cat([g_cpu[k].ravel() for k in keys])) < 1e-3, kind
 
+
+
+# ------------------------------------------------------------------ W8A8
+def _dense_on(dev, seed, k=3072, n=1024, rows=300, dtype=torch.bfloat16):
+    g = torch.Generator("cpu").manual_seed(seed)
+    x = torch.randn(rows, k, generator=g).to(dtype)
+    w = (0.02 * torch.randn(k, n, generator=g)).to(dtype)
+    amax = 1 + 3 * torch.rand(k, generator=g)
+    return x.to(dev), w.to(dev), amax
+
+
+@pytest.mark.parametrize("rows", [5, 17, 300])
+def test_quantized_dense_on_the_card_matches_the_cpu(card, rows):
+    """torch._int_mm's int32 products equal the CPU's exact product; the
+    plain form's whole output equals the CPU's bit for bit (every step is
+    one IEEE-rounded op on both, the divisions true divisions); 5 rows are
+    padded to 17 for cuBLASLt.  The robust form's thin fp32 outlier product
+    sums 8 terms in cuBLAS's order: within an fp32 ulp of the largest
+    output.  Each call counts one _int_mm launch."""
+    from fairygen_tpu_torch.ops import quant
+
+    x, w, amax = _dense_on("cpu", rows)
+    for robust in (False, True):
+        p = (quant.quantize_weight_int8_robust(w, amax, outlier_k=8) if robust
+             else quant.quantize_weight_int8(w))
+        pc = {k: v.cuda() for k, v in p.items()}
+        pc["w_int8"] = quant.int_mm_layout(pc["w_int8"])
+        quant.reset_launches()
+        out = quant.quantized_dense(pc, x.cuda()).cpu()
+        assert quant.launches["int_mm"] == 1
+        ref = quant.quantized_dense(p, x)
+        if robust:
+            torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                                       atol=float(ref.float().abs().max()) * 2 ** -7)
+        else:
+            assert torch.equal(out, ref)
+    xq = torch.randint(-127, 128, (rows, 3072), dtype=torch.int8)
+    wq = quant.int_mm_layout(torch.randint(-127, 128, (3072, 1024), dtype=torch.int8))
+    assert torch.equal(quant.int8_matmul(xq.cuda(), wq.cuda()).cpu(), quant.int8_matmul(xq, wq))
+
+
+def test_int8_matmul_refuses_what_cublaslt_does_not_take(card):
+    from fairygen_tpu_torch.ops import quant
+
+    xq = torch.zeros(32, 64, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        quant.int8_matmul(xq[:, :60], quant.int_mm_layout(torch.zeros(60, 32, dtype=torch.int8,
+                                                                        device="cuda")))
+    with pytest.raises(ValueError, match="column-major"):
+        quant.int8_matmul(xq, torch.zeros(64, 32, dtype=torch.int8, device="cuda"))
+
+
+def test_tiny_quantized_tea_cache_pipeline_on_the_card(card):
+    """A tiny head-dim-128 pipeline quantized to "int8" launches K1-K4 as
+    before and _int_mm for every block projection (8 a sweep per block, 2 a
+    context per block for the hoisted cross k/v).  With TeaCache over the
+    drift itself (linear coefficients) at 0.8, both the card and the CPU
+    in bf16 compute steps 0, 2, 4, 6 and 7 of 8: the drifts of this DiT's
+    t_mod are 0.42-0.73, so every accumulator lies at least 0.2 from the
+    threshold."""
+    import numpy as np
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.core.params import cast_tree
+    from fairygen_tpu_torch.models.wan.dit import WanDiTConfig
+    from fairygen_tpu_torch.ops import _kernels, quant
+    from fairygen_tpu_torch.pipelines.wan_video import WanVideoPipeline
+    from fairygen_tpu_torch.utils import tea_cache
+
+    cfg = WanDiTConfig(dim=256, in_dim=4, ffn_dim=512, out_dim=4, text_dim=32, freq_dim=32,
+                       num_heads=2, num_layers=2, seperated_timestep=True,
+                       require_vae_embedding=False, require_clip_embedding=False,
+                       fuse_vae_embedding_in_latents=True)
+    dit = convert.init_dit_params(cfg, "cpu", torch.float32, seed=4)
+    vae, vcfg = _tiny_vae(5)
+    g = torch.Generator().manual_seed(7)
+    ctx, nctx = torch.randn(1, 20, 32, generator=g), torch.randn(1, 20, 32, generator=g)
+    kw = dict(input_image=np.random.default_rng(8).integers(0, 256, (512, 512, 3), np.uint8),
+              seed=9, height=512, width=512, num_frames=17, num_inference_steps=2,
+              output_type="latents", torch_compat_noise=True)
+    pipe = WanVideoPipeline(cast_tree(_to(dit, "cuda"), torch.bfloat16), cfg,
+                            cast_tree(_to(vae, "cuda"), torch.bfloat16), vcfg,
+                            dtype=torch.bfloat16, device="cuda").quantize("int8")
+    _kernels.reset_launches()
+    quant.reset_launches()
+    out = pipe(context=ctx, negative_context=nctx, **kw)
+    assert torch.isfinite(out).all()
+    sweeps, layers = 4, 2
+    assert quant.launches["int_mm"] == layers * (8 * sweeps + 2 * 2)
+    assert _kernels.launches["flash_bounded"] == layers * sweeps
+
+    decided = {}
+    real = tea_cache.tea_cache_blocks
+    tea_cache.TEACACHE_COEFFICIENTS["card-test-linear"] = [0.0, 0.0, 0.0, 1.0, 0.0]
+    try:
+        for dev in ("cpu", "cuda"):
+            seen = decided.setdefault(dev, [])
+
+            def spy(state, x, t_mod, blocks_fn, **opts):
+                calls = []
+                y = real(state, x, t_mod, lambda v: calls.append(1) or blocks_fn(v), **opts)
+                seen.append(bool(calls))
+                return y
+
+            tea_cache.tea_cache_blocks = spy
+            p = WanVideoPipeline(cast_tree(_to(dit, dev), torch.bfloat16), cfg,
+                                 cast_tree(_to(vae, dev), torch.bfloat16), vcfg,
+                                 dtype=torch.bfloat16, device=dev)
+            p(context=ctx, negative_context=nctx, tea_cache_l1_thresh=0.8,
+              tea_cache_model_id="card-test-linear", **dict(kw, num_inference_steps=8))
+    finally:
+        tea_cache.tea_cache_blocks = real
+        del tea_cache.TEACACHE_COEFFICIENTS["card-test-linear"]
+    schedule = [True, False, True, False, True, False, True, True]
+    assert decided["cuda"] == decided["cpu"] == [m for m in schedule for _ in range(2)]

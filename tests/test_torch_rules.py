@@ -38,7 +38,7 @@ from fairygen_tpu_torch.pipelines.flux_image import FluxImagePipeline
 from fairygen_tpu_torch.pipelines.sdxl_brushnet import SDXLBrushNetPipeline
 from fairygen_tpu_torch.pipelines.wan_video import WanVideoPipeline
 from fairygen_tpu_torch.pipelines.z_image import ZImagePipeline
-from fairygen_tpu_torch.tools import create_mask
+from fairygen_tpu_torch.tools import calibrate_quant, calibrate_tea_cache, create_mask
 from fairygen_tpu_torch.training.dora_trainer import make_sdxl_dora_train_step
 from fairygen_tpu_torch.training.runner import launch_training_task
 from fairygen_tpu_torch.training.train_step import (make_wan_distill_train_step,
@@ -112,7 +112,8 @@ UNET0_SD = {f"time_embedding.linear_{i}.{k}": np.zeros((2, 2) if k == "weight" e
                                    "model_pool", "cli_twin", "batch_cli_twin",
                                    "train_cli_twin", "launch_training_task", "distill_step",
                                    "init_isnet", "convert_isnet", "dora_step", "mask_cli_twin",
-                                   "dora_cli_twin", "stylize_cli_twin", "story_cli_twin"])
+                                   "dora_cli_twin", "stylize_cli_twin", "story_cli_twin",
+                                   "calibrate_quant_cli", "calibrate_tea_cache_cli"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
@@ -163,6 +164,8 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
              "--tokenizer1", "x", "--tokenizer2", "x", "--image", "x", "--mask", "x",
              "--prompt_dir", "x"]),
         "story_cli_twin": lambda: fairygen_story.main(["--workspace", "x"]),
+        "calibrate_quant_cli": lambda: calibrate_quant.main(["--model_paths", "[]"]),
+        "calibrate_tea_cache_cli": lambda: calibrate_tea_cache.main(["--model_paths", "[]"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

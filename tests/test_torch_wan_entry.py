@@ -366,18 +366,15 @@ def test_hot_lora_refuses_a_training_adapter_and_takes_the_2d_branch():
 def test_unported_keywords_raise(pipes):
     _, pipe = pipes
     for kw in ({"vace_video": [np.zeros((32, 32, 3), np.uint8)]},
-               {"tea_cache_l1_thresh": 0.1}, {"end_image": np.zeros((32, 32, 3), np.uint8)},
+               {"end_image": np.zeros((32, 32, 3), np.uint8)},
                {"motion_bucket_id": 3}, {"input_video": []}, {"vace_scale": 0.5},
                {"switch_dit_boundary": 0.9}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
             pipe(**REQUEST, **kw)
     # the JAX defaults ask for nothing
-    pipe(**REQUEST, output_type="latents", vace_scale=1.0, tea_cache_model_id="Wan2.1-T2V-1.3B",
-         vace_video=None)
+    pipe(**REQUEST, output_type="latents", vace_scale=1.0, vace_video=None)
     with pytest.raises(TypeError, match="unexpected keyword"):
         pipe(**REQUEST, no_such_keyword=1)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        pipe.quantize("int8")
 
 
 def test_from_pretrained_refuses_a_mesh(ckpts):
@@ -440,9 +437,9 @@ def test_cli_twins_keep_the_jax_examples_flags_and_prompt():
     assert flags == ref
 
 
-@pytest.mark.parametrize("flag", ["--quantize int8", "--usp 2", "--vace_video v.mp4",
+@pytest.mark.parametrize("flag", ["--usp 2", "--vace_video v.mp4",
                                   "--camera_control_direction Left", "--audio a.wav",
-                                  "--longcat_video v.mp4", "--tea_cache_l1_thresh 0.1",
+                                  "--longcat_video v.mp4",
                                   "--end_image e.png", "--reference_image r.png",
                                   "--motion_bucket_id 3"])
 def test_cli_refuses_unported_flags(flag, capsys):

@@ -150,9 +150,8 @@ def test_add_noise_matches_jax(dtype):
      ValueError),
     (lambda p, kw: p(prompt_emb=torch.zeros(1, 4, 48), **dict(kw, height=100)), ValueError),
     (lambda p, kw: ZImagePipeline.from_pretrained("model.safetensors"), NotImplementedError),
-    (lambda p, kw: p.quantize(), NotImplementedError),
 ], ids=["string-prompt", "no-prompt-emb", "cfg-without-negative", "output-type", "height",
-        "from_pretrained", "quantize"])
+        "from_pretrained"])
 def test_unported_and_bad_arguments_raise(golden, call, err):
     with pytest.raises(err):
         call(_port_pipe(golden), dict(num_inference_steps=1, height=128, width=192,
