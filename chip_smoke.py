@@ -11,6 +11,9 @@
     python3 chip_smoke.py --speed-only    # device, build, then only the speed modes: the
                                           # speed, flux and zimage phases and their
                                           # reference check; no result line
+    python3 chip_smoke.py --variants-only # device, build, then only the variants phase,
+                                          # its A14B request at the flagship's 81 frames
+                                          # (S = 32760); no result line
 
 Phases, each printing its wall seconds:
   1. device   — card name/count, nvidia-smi name and power limit, TF32 off.
@@ -178,6 +181,21 @@ Phases, each printing its wall seconds:
                 A, B, mag moved; one profiled step; the adapter through
                 safetensors into the bf16 serving pipeline at 0.66 and one
                 4-step 1024x1024 request with the sdxl phase's launches.
+ 10c. variants — the two-expert Wan2.2-I2V-A14B, video-to-video and the
+                CLIP-conditioned Wan2.1-I2V-14B at full width (dim 5120, 40
+                heads, 40 blocks) with the Wan2.1 VAE, from seeded bf16
+                weights: K1-K4 at the 14B shapes (S = 7800, D = 5120), K1 at
+                S = 32760, K4 over the 257 CLIP keys, each against its
+                plain version; the expert pair (peak memory printed) answers
+                one 480x832x17, 4-step, CFG 5 request with first and end
+                image at boundary 0.9 (sweeps per expert 4 and 4, exact
+                launches of K1-K4 and of K11 in the VAE's 384-channel
+                stages; denoise and decode walls) and a 17-frame
+                video-to-video request (strength 0.7, 2 steps); one
+                profiled sweep of each expert; the latents decoded streamed
+                against full-sequence; then Wan2.1-I2V-14B with a full-width
+                ViT-H answers a 2-step request; a tiny two-expert CLIP
+                pipeline on the card against the CPU.
  11. reference — a tiny-width pipeline on the card (kernels, bf16) against
                 the same pipeline on the CPU (plain versions, fp32), a tiny
                 pipeline loaded by from_pretrained(hints=...) from
@@ -196,6 +214,7 @@ Any failure exits non-zero; past BUDGET_S seconds the run stops, naming
 the phase it was in.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -384,37 +403,50 @@ def bounded_sdpa(qh, kh, v, n, sq, sk):
     return lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=0.6931471805599453)
 
 
-def kernel_checks(S, grid, tag):
-    """K1-K4 at one shape set; returns {kernel: numbers}."""
+def k1_check(S, D, seg, g):
+    """K1 against its plain version on (1, S, D) rows with the segment
+    boundary ``seg`` (bf16 output; 1 bf16 ulp is <= 2^-7 relative): error,
+    event and device ms, the plain version's ms and the bound (bytes: x read
+    and the output written once)."""
+    import torch
+
+    from fairygen_tpu_torch.ops.fused_norms import layer_norm_modulate, layer_norm_modulate_plain
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
+
+    x = randn(1, S, D)
+    sh, sc = randn(1, 2, D, scale=0.1), randn(1, 2, D, scale=0.1)
+    out = layer_norm_modulate(x, sh, sc, seg, 1e-6)
+    ref = layer_norm_modulate_plain(x, sh, sc, seg, 1e-6)
+    err = check_close(f"K1 ln_modulate S={S} D={D}", out, ref, rtol=2 ** -7, atol=1e-5)
+    nbytes = 2 * S * D * 2 + 2 * 2 * D * 2
+    return dict(
+        max_abs_err=err, ms=time_ms(lambda: layer_norm_modulate(x, sh, sc, seg, 1e-6)),
+        device_ms=device_ms(lambda: layer_norm_modulate(x, sh, sc, seg, 1e-6)),
+        plain_ms=time_ms(lambda: layer_norm_modulate_plain(x, sh, sc, seg, 1e-6)),
+        bound=bound_ms(nbytes, 8 * S * D), library_ms=None)
+
+
+def kernel_checks(S, grid, tag, N=24, D=3072, seg=390):
+    """K1-K4 at one shape set (the 5B DiT's 24 heads of 128 by default, the
+    14B's 40 with D = 5120 and seg 0); returns {kernel: numbers}."""
     import torch
 
     from fairygen_tpu_torch.ops import fused_qk as fq
     from fairygen_tpu_torch.ops.flash_attention import (
         flash_attention_heads_major, flash_attention_heads_major_plain)
-    from fairygen_tpu_torch.ops.fused_norms import (
-        layer_norm_modulate, layer_norm_modulate_plain)
     from fairygen_tpu_torch.ops.rope import build_freqs_grid, precompute_freqs_3d
 
     dev, bf = "cuda", torch.bfloat16
     g = torch.Generator(dev).manual_seed(1234 + S)
-    N, hd, D, seg, lk = 24, 128, 3072, 390, 512
+    hd, lk = 128, 512
     res = {}
 
     def randn(*shape, scale=1.0, dtype=bf):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
-    # K1 (bf16 output; 1 bf16 ulp is <= 2^-7 relative)
-    x = randn(1, S, D)
-    sh, sc = randn(1, 2, D, scale=0.1), randn(1, 2, D, scale=0.1)
-    out = layer_norm_modulate(x, sh, sc, seg, 1e-6)
-    ref = layer_norm_modulate_plain(x, sh, sc, seg, 1e-6)
-    err = check_close(f"K1 ln_modulate S={S}", out, ref, rtol=2 ** -7, atol=1e-5)
-    nbytes = 2 * S * D * 2 + 2 * 2 * D * 2
-    res["ln_modulate"] = dict(
-        max_abs_err=err, ms=time_ms(lambda: layer_norm_modulate(x, sh, sc, seg, 1e-6)),
-        device_ms=device_ms(lambda: layer_norm_modulate(x, sh, sc, seg, 1e-6)),
-        plain_ms=time_ms(lambda: layer_norm_modulate_plain(x, sh, sc, seg, 1e-6)),
-        bound=bound_ms(nbytes, 8 * S * D), library_ms=None)
+    res["ln_modulate"] = k1_check(S, D, seg, g)
 
     # K2 (the kernel rounds where the plain version does: expect 0)
     s_pad, bq, bk = fq._pad_for_flash(S)
@@ -655,15 +687,22 @@ def f32_build_report(log):
     """The fp32 kernels: K6a, K6b and K6c on the tensor cores as
     hopper_build_report reports and checks them (HGMMA and UTMALDG
     counts; a spill, a count of 0 or C7511 / C7512 / C7520 fails), then the
-    registers and spills (ptxas -v) of K6a's pre-pass
+    registers and spills (ptxas -v, ``ptxas_report``) of K6a's pre-pass
     (csrc/flash_attention_fp32.cu), the backward's pre-pass and the reduce
-    pass (csrc/flash_attention_fp32_bwd.cu); raises on a spill or a kernel
-    ptxas did not report."""
+    pass (csrc/flash_attention_fp32_bwd.cu)."""
+    hopper_build_report(log, F32_TC_KERNELS)
+    ptxas_report(log, ("fa_f32_fwd_prep_kernel", "fa_f32_bwd_prep_kernel",
+                       "fa_f32_dkv_reduce_kernel"),
+                 ("flash_fwd_prep_f32", "flash_bwd_prep_f32", "flash_bwd_dkv_reduce_f32"))
+
+
+def ptxas_report(log, names, labels):
+    """The registers and spills (ptxas -v) of the kernels ``names`` (a
+    function is matched by its name followed by 'E', the end of the name or
+    of its template arguments in the mangled symbol), printed with their
+    ``labels``; raises on a spill or a kernel ptxas did not report."""
     import re
 
-    hopper_build_report(log, F32_TC_KERNELS)
-    names = ("fa_f32_fwd_prep_kernel", "fa_f32_bwd_prep_kernel", "fa_f32_dkv_reduce_kernel")
-    counters = ("flash_fwd_prep_f32", "flash_bwd_prep_f32", "flash_bwd_dkv_reduce_f32")
     props, current = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -678,9 +717,9 @@ def f32_build_report(log):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             props.setdefault(current, {})["registers"] = int(m.group(1))
-    for i, n in enumerate(names):
+    for label, n in zip(labels, names):
         p = props.get(n, {})
-        print(f"  {counters[i]} ({n}): registers {p.get('registers')}, spill bytes "
+        print(f"  {label} ({n}): registers {p.get('registers')}, spill bytes "
               f"{p.get('spill_bytes')}", flush=True)
         if p.get("registers") is None or p.get("spill_bytes") != 0:
             raise RuntimeError(f"{n}: ptxas -v shows spills or no such kernel: {p}")
@@ -1161,6 +1200,9 @@ def main(argv):
         _kernels.lib()
         hopper_build_report(build_log)
         f32_build_report(build_log)
+        # K1's two forms: 16 vectors a lane (D <= 4096) and 32 (D <= 8192)
+        ptxas_report(build_log, ("ln_modulate_kernelILi16E", "ln_modulate_kernelILi32E"),
+                     ("ln_modulate D <= 4096", "ln_modulate D <= 8192"))
         turns_log, _ = turns_proc.communicate(timeout=300)
     finally:
         if turns_proc.poll() is None:
@@ -1173,6 +1215,12 @@ def main(argv):
 
     if "--speed-only" in argv:
         speed_only()
+        timer.cancel()
+        return 0
+    if "--variants-only" in argv:
+        t0 = phase("variants")
+        variants_phase(frames=81)
+        done("variants", t0)
         timer.cancel()
         return 0
 
@@ -1191,7 +1239,7 @@ def main(argv):
     torch.cuda.synchronize()
     done("kernels", t0)
 
-    expected, k11_main = None, {}
+    expected, k11_main, k14 = None, {}, None
     if not kernels_only:
         from fairygen_tpu_torch import convert
         from fairygen_tpu_torch.models.wan.dit import WanDiTConfig
@@ -1308,6 +1356,13 @@ def main(argv):
               f"{launches}", flush=True)
         done("dora", t0)
 
+        t0 = phase("variants")
+        k14, variant_launches = variants_phase()
+        launches = {k: launches[k] + variant_launches[k] for k in launches}
+        print(f"  launches, serving, training, FLUX.1, Z-Image, SDXL, its DoRA front end and "
+              f"the Wan variants: {launches}", flush=True)
+        done("variants", t0)
+
         t0 = phase("reference")
         reference_check()
         reference_from_pretrained_check()
@@ -1338,6 +1393,17 @@ def main(argv):
             "flagship_library_ms": f["library_ms"]})
         if "device_ms" in r:
             rows[-1].update(device_ms=r["device_ms"], flagship_device_ms=f["device_ms"])
+        if k14:  # the 14B DiTs' shapes (variants phase): 40 heads, D = 5120, S = 7800
+            shapes = {"S=7800": k14[k]}
+            shapes.update({tag.split(" ", 1)[1]: v for tag, v in k14.items()
+                           if tag.startswith(k + " ")})
+            rows[-1]["wan14b"] = {tag: {"ms": v["ms"], "device_ms": v.get("device_ms"),
+                                        "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0],
+                                        "bound_by": v["bound"][1], "library_ms": v["library_ms"],
+                                        "max_abs_err": v["max_abs_err"]}
+                                  for tag, v in shapes.items()}
+            rows[-1]["max_abs_err"] = max([rows[-1]["max_abs_err"]] +
+                                          [v["max_abs_err"] for v in shapes.values()])
         if k in dit_attn:
             rows[-1]["max_abs_err"] = max([rows[-1]["max_abs_err"]] +
                                           [v["max_abs_err"] for v in dit_attn[k].values()])
@@ -1410,6 +1476,11 @@ def main(argv):
                                                         for v in k11_main.values())
             rows[-1]["main_path_bound_ms_total"] = sum(v["calls"] * v["bound"][0]
                                                        for v in k11_main.values())
+        if k == "vae_rms_silu" and k14:  # the Wan2.1 VAE's widest shapes (variants phase)
+            rows[-1]["wan21_vae"] = k14["vae_rms_silu wan21"]
+            rows[-1]["max_abs_err"] = max([rows[-1]["max_abs_err"]] +
+                                          [v["max_abs_err"] for v in k14["vae_rms_silu wan21"]
+                                           .values()])
     sdxl_sources = {
         "flash_small_kv_max": ("csrc/flash_attention_online.cu",
                                "fairygen_tpu/ops/flash_attention.py:133", "self 40x1024"),
@@ -2361,9 +2432,9 @@ K11_DECODE_REL_L2 = 2 ** -5
 
 
 def vae_norm_silu_calls(cfg):
-    """K11 launches of one VAE38 encoder pass and one decoder pass: the
-    channel norm + SiLU of each residual block (two), of the two middle
-    blocks and of the head."""
+    """K11 launches of one encoder pass and one decoder pass of the VAE38
+    or the Wan2.1 VAE: the channel norm + SiLU of each residual block
+    (two), of the two middle blocks and of the head."""
     stages = len(cfg.dim_mult)
     return stages * cfg.num_res_blocks * 2 + 5, stages * (cfg.num_res_blocks + 1) * 2 + 5
 
@@ -2411,7 +2482,7 @@ def rel_l2(a, b, dims=None):
 
 
 def record_k11_shapes(wvae):
-    """Count the shapes the VAE38 hands K11 (through the name its module
+    """Count the shapes the VAE hands K11 (through the name its module
     calls); returns (the {shape: calls} dict, a function that undoes it)."""
     shapes, k11 = {}, wvae.fused_vae_rms_silu
 
@@ -2686,8 +2757,8 @@ def tree_bytes(tree):
     return tree.numel() * tree.element_size() if hasattr(tree, "numel") else 0
 
 
-def profiled(label, fn, top=12):
-    """One warm call of ``fn``, then one under torch.profiler: device_table
+def profiled(label, fn, top=12, warm=True):
+    """One warm call of ``fn`` (with ``warm``), then one under torch.profiler: device_table
     (the int8 GEMM's kernels named too) and the device time of the W8A8
     passes' record_function ranges (ops/quant.py) and of aten::_int_mm.
     Returns (busy ms, {range: (device ms, calls)}): a range's device ms is
@@ -2696,7 +2767,8 @@ def profiled(label, fn, top=12):
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.no_grad():
-        fn()
+        if warm:
+            fn()
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
             t = time.perf_counter()
@@ -5171,6 +5243,414 @@ def reference_dora_check():
             raise RuntimeError(f"tiny DoRA step: kernel launches {ran}, expected {want}")
         if not (e_loss <= 1e-4 and max(worst.values()) <= 1e-3):
             raise RuntimeError("tiny DoRA step disagrees with the CPU reference")
+
+
+# ------------------------------------------------------------------ variants
+VARIANT_FRAMES = 17  # the whole smoke's; --variants-only runs the A14B request at 81
+VARIANT_STEPS = 4
+A14B_BOUNDARY = 0.9  # 4 steps at shift 5 (t = 1000, 937.5, 833.3, 625): 2 steps an expert
+V2V_STEPS, V2V_STRENGTH = 2, 0.7
+CLIP_STEPS = 1  # CFG 5: two sweeps, each through the CLIP branch
+# a 14B DiT sweep's launches: 40 blocks of K1 x 3, K2 for q, k and the text
+# cross-attention's q, K3 and K4 once; the CLIP branch adds K2 (its own pass
+# over q) and K4 (the 257 image keys) once a block
+WAN14B_PER_SWEEP = {"ln_modulate": 120, "rms_rope_heads_major": 120, "flash_bounded": 40,
+                    "flash_small_kv": 40}
+WAN14B_CLIP_PER_SWEEP = dict(WAN14B_PER_SWEEP, rms_rope_heads_major=160, flash_small_kv=80)
+
+
+def wan14b_cfg(clip=False):
+    """A Wan2.2-I2V-A14B expert (configs/model_registry.json:572, hash
+    5b013604280dd715f8457c6ed6d6a626) or, with ``clip``, Wan2.1-I2V-14B
+    (:272, 6bfcfb3b342cb286ce886889d519a77e, the CLIP branch)."""
+    from fairygen_tpu_torch.models.wan.dit import WanDiTConfig
+
+    return WanDiTConfig(dim=5120, in_dim=36, ffn_dim=13824, out_dim=16, text_dim=4096,
+                        freq_dim=256, num_heads=40, num_layers=40, has_image_input=clip,
+                        require_clip_embedding=clip)
+
+
+def seeded_context(seed, n, length=512, dim=4096):
+    """A UMT5-shaped prompt embedding on the card: ``n`` seeded rows, zeros
+    past them (as mask_pad_tokens leaves an encoded prompt)."""
+    import torch
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    ctx = 0.2 * torch.randn((1, length, dim), generator=g, device="cuda")
+    ctx[:, n:] = 0
+    return ctx.to(torch.bfloat16)
+
+
+def count_expert_sweeps(pipe):
+    """Count the pipeline's DiT sweeps per expert (0: ``dit``, 1: ``dit2``)
+    through the name its module calls; returns (counts, undo)."""
+    from fairygen_tpu_torch.pipelines import wan_video
+
+    counts, real = [0, 0], wan_video.wan_dit_forward
+
+    def counted(params, *a, **k):
+        counts[0 if params is pipe.dit_params else 1] += 1
+        return real(params, *a, **k)
+
+    wan_video.wan_dit_forward = counted
+
+    def undo():
+        wan_video.wan_dit_forward = real
+
+    return counts, undo
+
+
+def k4_clip_check(S=7800, N=40):
+    """K4's bounded form over the 257 CLIP keys of the 14B I2V DiT's image
+    branch (padded to a 384-key tile, ``l -= pad``) at 40 heads of 128 and
+    one 17-frame request's S = 7800 queries, against its plain version."""
+    import torch
+
+    from fairygen_tpu_torch.ops import fused_qk as fq
+    from fairygen_tpu_torch.ops.flash_attention import (flash_attention_heads_major,
+                                                         flash_attention_heads_major_plain)
+
+    g = torch.Generator("cuda").manual_seed(4257)
+    bf, hd, lk, pad = torch.bfloat16, 128, 257, 384
+    x = torch.randn((1, S, N * hd), generator=g, device="cuda").to(bf)
+    gq = (torch.randn(N * hd, generator=g, device="cuda") * hd ** -0.5 * 1.4427).to(bf)
+    s_pad, bq, _ = fq._pad_for_flash(S)
+    qh = fq.rms_rope_heads_major(x, gq, fq._rowscale(x, 1e-6), None, N, s_pad, rope=False)
+    k = torch.randn((1, lk, N, hd), generator=g, device="cuda")
+    k = (k * torch.rsqrt(k.pow(2).mean(-1, keepdim=True) + 1e-6)).to(bf)
+    kh = torch.zeros((N, pad, hd), dtype=bf, device="cuda")
+    kh[:, :lk] = k[0].permute(1, 0, 2)
+    v = torch.randn((1, lk, N, hd), generator=g, device="cuda").to(bf)
+
+    def run():
+        return flash_attention_heads_major(qh, kh, v, b=1, n=N, sq=S, sk_actual=lk, bq=bq,
+                                           bk=pad)
+
+    err = check_close(f"K4 flash_small_kv over {lk} CLIP keys, {N} x {S} queries", run(),
+                      flash_attention_heads_major_plain(qh, kh, v, b=1, n=N, sq=S,
+                                                        sk_actual=lk),
+                      rtol=2 ** -7, atol=1e-3)
+    r = dict(max_abs_err=err, ms=time_ms(run), device_ms=device_ms(run, 20),
+             plain_ms=time_ms(lambda: flash_attention_heads_major_plain(
+                 qh, kh, v, b=1, n=N, sq=S, sk_actual=lk), 2, 3),
+             bound=bound_ms((2 * S + 2 * lk) * hd * N * 2, 4 * S * lk * hd * N),
+             library_ms=time_ms(bounded_sdpa(qh, kh, v, N, S, lk)))
+    print(f"  K4 over {lk} keys: ms {r['ms']:.4f} device_ms {r['device_ms']:.4f} plain_ms "
+          f"{r['plain_ms']:.4f} bound_ms {r['bound'][0]:.4f} ({r['bound'][1]}) library_ms "
+          f"{r['library_ms']:.4f}", flush=True)
+    return r
+
+
+def k11_v1_checks(shapes):
+    """K11 against its plain version at each channel-last shape a Wan2.1
+    VAE request handed it (``record_k11_shapes``), held by
+    ``check_bracketed``; at the shape with the most rows of each width (96,
+    192, 384), its time, its plain version's and its bound.  Returns
+    {width tag: numbers}."""
+    import torch
+
+    from fairygen_tpu_torch.ops import fused_norms as fn
+
+    g = torch.Generator("cuda").manual_seed(921)
+    widest = {}
+    for shape in shapes:
+        c, rows = shape[-1], math.prod(shape[:-1])
+        if rows > widest.get(c, (0, None))[0]:
+            widest[c] = (rows, shape)
+    res, worst = {}, 0.0
+    for shape, calls in sorted(shapes.items()):
+        c = shape[-1]
+        x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        gamma = (1 + 0.3 * torch.randn(c, generator=g, device="cuda")).to(torch.bfloat16)
+        tag = "x".join(map(str, shape))
+        err, ndiff = check_bracketed(f"K11 at the Wan2.1 VAE's {tag} ({calls} calls)",
+                                     fn.fused_vae_rms_silu(x, gamma),
+                                     fn.vae_rms_silu_plain(x, gamma), *_k11_bracket(x, gamma, True))
+        worst = max(worst, err)
+        if widest[c][1] == shape:
+            b = bound_ms(2 * x.numel() * 2 + c * 2, 10 * x.numel(), H100_FP32_FLOP_PER_S)
+            res[f"C={c} {tag}"] = dict(
+                calls=calls, differ=ndiff, ms=time_ms(lambda: fn.fused_vae_rms_silu(x, gamma)),
+                plain_ms=time_ms(lambda: fn.vae_rms_silu_plain(x, gamma), 5, 3),
+                bound_ms=b[0], bound_by=b[1])
+        del x, gamma
+    torch.cuda.empty_cache()
+    for tag, r in res.items():
+        print(f"  K11 Wan2.1 VAE {tag}: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    for r in res.values():
+        r["max_abs_err"] = worst
+    return res
+
+
+def stream_vs_full(label, streamed, full):
+    """Hold a streamed encode or decode against the full-sequence one under
+    the flagship's bars (STREAM_VS_FULL_*); frames on axis 2."""
+    streamed, full = streamed.float(), full.float()
+    err = (streamed - full).abs().max().item()
+    rel, rel_frame = rel_l2(streamed, full), rel_l2(streamed, full, dims=(0, 1, 3, 4))
+    print(f"  {label}, streamed against full-sequence: max abs error {err:.3e} (tolerance "
+          f"{STREAM_VS_FULL_ATOL:.4f}), relative L2 {rel:.3e} (tolerance "
+          f"{STREAM_VS_FULL_REL_L2:.4f}), in the worst frame {rel_frame:.3e} (tolerance "
+          f"{STREAM_VS_FULL_FRAME_REL_L2:.4f})", flush=True)
+    if not (err <= STREAM_VS_FULL_ATOL and rel <= STREAM_VS_FULL_REL_L2
+            and rel_frame <= STREAM_VS_FULL_FRAME_REL_L2):
+        raise RuntimeError(f"{label}: the streamed form disagrees with the full-sequence one")
+
+
+def sweep_profile(label, params, cfg, frames, ctx):
+    """One profiled DiT sweep of ``params`` at 480x832 x ``frames`` with the
+    I2V y channels and the hoisted text (k, v): its device busy ms.  No
+    warm call: the request before it ran the same shapes."""
+    import torch
+
+    from fairygen_tpu_torch.models.wan.dit import precompute_cross_kv, wan_dit_forward
+
+    g = torch.Generator("cuda").manual_seed(77)
+    t = (frames - 1) // 4 + 1
+    lat = torch.randn((1, 16, t, 60, 104), generator=g, device="cuda").to(torch.bfloat16)
+    y = torch.randn((1, 20, t, 60, 104), generator=g, device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        ckv = precompute_cross_kv(params, cfg, ctx)
+    busy, _ = profiled(label, lambda: wan_dit_forward(
+        params, cfg, lat, torch.tensor([900.0], device="cuda"), None, y=y, cross_kv=ckv),
+        warm=False)
+    return busy
+
+
+def variants_phase(frames=VARIANT_FRAMES):
+    """The first slice of the other Wan variants at full width, from seeded
+    bf16 weights: K1-K4 at the 14B DiTs' shapes (40 heads, D = 5120, S =
+    7800: 17 frames at 480x832 through the Wan2.1 VAE's x8), K1 also at S =
+    32760 (81 frames), K4 over the 257 CLIP keys; the Wan2.2-I2V-A14B
+    expert pair (2 x 40 blocks) with the Wan2.1 VAE answering one 480x832 x
+    ``frames`` request (first and end image, 4 steps, CFG 5, boundary 0.9,
+    the streamed decode and encodes) with its sweeps counted per expert
+    (4 and 4), exact launches, the denoise and decode walls, the pair's
+    peak memory, K11 at each shape the Wan2.1 VAE gave it, one profiled
+    sweep of each expert, and (17 frames) the streamed I2V ``y``, input
+    video latents and decode of the request's latents against the
+    full-sequence forms; a 17-frame video-to-video request on the same
+    pair (strength 0.7, 2 steps); then, the pair freed, Wan2.1-I2V-14B with a full-width CLIP ViT-H
+    answering one 17-frame 1-step CFG 5 request; and the tiny two-expert
+    CLIP reference against the CPU.  Returns (the kernel numbers, the
+    phase's launches)."""
+    import torch
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.diffusion.flow_match import FlowMatchScheduler
+    from fairygen_tpu_torch.models.wan.image_encoder import ViTConfig
+    from fairygen_tpu_torch.models.wan import vae as wvae
+    from fairygen_tpu_torch.models.wan.vae import WanVAEConfig, vae38_decode
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines.wan_video import WanVideoPipeline
+
+    bf, gib = torch.bfloat16, 2 ** 30
+    start = time.perf_counter()
+
+    def mark(what):
+        print(f"  [{time.perf_counter() - start:.1f} s] {what}", flush=True)
+
+    torch.cuda.empty_cache()
+    k14 = kernel_checks(7800, (5, 30, 52), "14B S=7800", N=40, D=5120, seg=0)
+    k14["ln_modulate S=32760"] = k1_check(32760, 5120, 0, torch.Generator("cuda").manual_seed(5))
+    r = k14["ln_modulate S=32760"]
+    print(f"  14B S=32760 ln_modulate: ms {r['ms']:.4f} device_ms {r['device_ms']:.4f} plain_ms "
+          f"{r['plain_ms']:.4f} bound_ms {r['bound'][0]:.4f} ({r['bound'][1]})", flush=True)
+    k14["flash_small_kv clip 257"] = k4_clip_check()
+    torch.cuda.empty_cache()
+    mark("kernel checks")
+
+    vae_cfg = WanVAEConfig.wan21_16()
+    enc_k11, dec_k11 = vae_norm_silu_calls(vae_cfg)
+    vae = convert.init_vae_params(vae_cfg, "cuda", bf, seed=31)
+    cfg = wan14b_cfg()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        dit = convert.init_dit_params(cfg, "cuda", bf, seed=32)
+        dit2 = convert.init_dit_params(cfg, "cuda", bf, seed=33)
+    except torch.cuda.OutOfMemoryError as e:
+        raise RuntimeError(f"the two 14B experts do not fit on the card: {e}") from e
+    torch.cuda.synchronize()
+    print(f"  A14B pair: 2 x {convert.count_params(dit):,} params ({tree_bytes(dit) / gib:.2f} "
+          f"GiB each), Wan2.1 VAE {convert.count_params(vae):,}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB", flush=True)
+    mark("the pair seeded")
+    pipe = WanVideoPipeline(dit, cfg, vae, vae_cfg, dtype=bf, device="cuda", dit2_params=dit2)
+    ctx, nctx = seeded_context(41, 120), seeded_context(42, 1)
+    img, end = seeded_image(43, 480, 832), seeded_image(44, 480, 832)
+    total = {k: 0 for k in _kernels.launches}
+
+    def request(label, per_sweep, steps, boundary_at, sweeps_want, nframes, k11_shapes=None,
+                **kw):
+        counts, undo = count_expert_sweeps(pipe)
+        if k11_shapes is not None:
+            shapes, unrecord = record_k11_shapes(wvae)
+        walls, peaks = {}, {}
+        wrap_timed(pipe, "_denoise", walls)
+        wrap_timed(pipe, "_decode_output", walls)
+        decode = pipe._decode_output
+
+        def peak_then_decode(latents, **kw):  # the peak of the encodes and the denoise
+            peaks["before_decode"] = torch.cuda.max_memory_allocated() / gib
+            return decode(latents, **kw)
+
+        pipe._decode_output = peak_then_decode
+        kept = capture_latents(pipe)
+        before = dict(_kernels.launches)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        try:
+            video = pipe(context=ctx, negative_context=nctx, input_image=img, seed=45,
+                         height=480, width=832, num_frames=nframes, cfg_scale=5.0,
+                         num_inference_steps=steps, streaming_vae=True,
+                         output_type="floatpoint", **kw)
+            torch.cuda.synchronize()
+        finally:
+            undo()
+            if k11_shapes is not None:
+                unrecord()
+                k11_shapes.update(shapes)
+            for name in ("_denoise", "_decode_output"):
+                delattr(pipe, name)
+        wall = time.perf_counter() - t
+        got = {k: _kernels.launches[k] - before[k] for k in before}
+        lat_t = (nframes - 1) // 4 + 1
+        encodes = 1 + (1 if kw.get("input_video") is not None else 0)
+        sweeps = sum(counts)
+        want = {k: per_sweep.get(k, 0) * sweeps for k in got}
+        want["vae_rms_silu"] = encodes * lat_t * enc_k11 + lat_t * dec_k11
+        finite = bool(torch.isfinite(video).all())
+        print(f"  {label}: {wall:.3f} s (denoise {walls['_denoise']:.3f} s, decode "
+              f"{walls['_decode_output']:.3f} s), boundary step {boundary_at}, sweeps per expert "
+              f"{counts}, output {tuple(video.shape)} finite {finite}; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB ({peaks['before_decode']:.2f} "
+              f"before the decode); launches "
+              f"{ {k: v for k, v in got.items() if v} }", flush=True)
+        if tuple(video.shape) != (1, 3, nframes, 480, 832) or not finite:
+            raise RuntimeError(f"{label}: wrong shape or non-finite output")
+        if counts != sweeps_want:
+            raise RuntimeError(f"{label}: sweeps per expert {counts} != {sweeps_want}")
+        if got != want:
+            raise RuntimeError(f"{label}: launches {got} != expected {want}")
+        for k in total:
+            total[k] += got[k]
+        return kept[-1]
+
+    def sched(steps, strength=1.0):
+        s = FlowMatchScheduler("Wan").set_timesteps(steps, denoising_strength=strength,
+                                                     shift=5.0)
+        b = pipe._boundary_index(s, A14B_BOUNDARY)
+        return b, [2 * b, 2 * (steps - b)]
+
+    b, want = sched(VARIANT_STEPS)
+    if want != [4, 4]:
+        raise RuntimeError(f"boundary {A14B_BOUNDARY} at 4 steps gives sweeps {want}, not [4, 4]")
+    k11_shapes = {}
+    latents = request(f"A14B request 480x832x{frames}, 4 steps, CFG 5, end image",
+                      WAN14B_PER_SWEEP, VARIANT_STEPS, b, want, frames, end_image=end,
+                      switch_dit_boundary=A14B_BOUNDARY, k11_shapes=k11_shapes)
+    pair_peak = torch.cuda.max_memory_allocated() / gib
+    mark("A14B request")
+    k14["vae_rms_silu wan21"] = k11_v1_checks(k11_shapes)
+    mark("K11 at the Wan2.1 VAE's shapes")
+    s = 1560 * ((frames - 1) // 4 + 1)
+    busy = [sweep_profile(f"A14B {name} sweep, S = {s}", p, cfg, frames, ctx)
+            for name, p in (("dit", dit), ("dit2", dit2))]
+    mark("profiled sweeps")
+    clip17 = [seeded_image(50 + i, 480, 832) for i in range(VARIANT_FRAMES)]
+    if frames == VARIANT_FRAMES:  # the full-sequence forms fit at 17 frames
+        stream_vs_full("Wan2.1 VAE, the 17-frame I2V y (first and end image)", *(
+            pipe.encode_i2v_conditioning(img, 480, 832, frames, end_image=end, streaming=st)
+            for st in (True, False)))
+        stream_vs_full("Wan2.1 VAE, the 17-frame input video's latents", *(
+            pipe.encode_input_video(clip17, streaming=st) for st in (True, False)))
+        with torch.no_grad():
+            stream_vs_full("Wan2.1 VAE, the 17-frame decode",
+                           vae38_decode(vae, vae_cfg, latents.to(bf), streaming=True),
+                           vae38_decode(vae, vae_cfg, latents.to(bf)))
+        mark("streamed against full-sequence")
+    b, want = sched(V2V_STEPS, V2V_STRENGTH)
+    request(f"A14B video-to-video 480x832x17, strength {V2V_STRENGTH}, {V2V_STEPS} steps",
+            WAN14B_PER_SWEEP, V2V_STEPS, b, want, VARIANT_FRAMES, input_video=clip17,
+            denoising_strength=V2V_STRENGTH, switch_dit_boundary=A14B_BOUNDARY)
+    mark("video-to-video")
+    del pipe, dit, dit2, latents
+    torch.cuda.empty_cache()
+
+    cfg = wan14b_cfg(clip=True)
+    vit_cfg = ViTConfig.vit_h_14()
+    torch.cuda.reset_peak_memory_stats()
+    dit = convert.init_dit_params(cfg, "cuda", bf, seed=34)
+    vit = convert.init_vit_params(vit_cfg, "cuda", bf, seed=35)
+    pipe = WanVideoPipeline(dit, cfg, vae, vae_cfg, dtype=bf, device="cuda",
+                            image_encoder_params=vit, image_encoder_cfg=vit_cfg)
+    print(f"  Wan2.1-I2V-14B: {convert.count_params(dit):,} params, ViT-H "
+          f"{convert.count_params(vit):,}", flush=True)
+    request(f"Wan2.1-I2V-14B with CLIP, 480x832x17, {CLIP_STEPS} step, CFG 5",
+            WAN14B_CLIP_PER_SWEEP, CLIP_STEPS, CLIP_STEPS, [2 * CLIP_STEPS, 0], VARIANT_FRAMES)
+    mark("CLIP request")
+    del pipe, dit, vit, vae
+    torch.cuda.empty_cache()
+    reference_variants_check()
+    mark("tiny reference")
+    print(f"  variants: A14B pair peak {pair_peak:.2f} GiB, profiled sweeps busy "
+          f"{busy[0]:.1f} / {busy[1]:.1f} ms (dit / dit2) at S = {s}; launches {total}",
+          flush=True)
+    return k14, total
+
+
+def reference_variants_check():
+    """A tiny two-expert I2V pipeline with the CLIP branch (head dim 128, so
+    the serving kernels run; a 1280-wide one-block ViT at 224 pixels for
+    the 257 CLIP tokens), the tiny Wan2.1 VAE, first and end image, 2 steps
+    (t = 1000, 833.3: one an expert at boundary 0.9), CFG 5, on the card in
+    bf16 against the same weights on the CPU in fp32 (plain versions); the
+    bound as reference_check's: at most twice the CPU bf16 run's relative
+    L2 error plus 1e-3."""
+    import torch
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.wan.dit import WanDiTConfig
+    from fairygen_tpu_torch.models.wan.image_encoder import ViTConfig
+    from fairygen_tpu_torch.models.wan.vae import WanVAEConfig
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines.wan_video import WanVideoPipeline
+
+    cfg = WanDiTConfig(dim=256, in_dim=12, ffn_dim=512, out_dim=4, text_dim=64, freq_dim=64,
+                       num_heads=2, num_layers=2, has_image_input=True)
+    vae_cfg = WanVAEConfig.tiny_v1()
+    vit_cfg = ViTConfig(image_size=224, patch_size=14, dim=1280, num_heads=16, num_layers=2)
+    dit = convert.init_dit_params(cfg, "cpu", torch.float32, seed=61)
+    dit2 = convert.init_dit_params(cfg, "cpu", torch.float32, seed=62)
+    vae = convert.init_vae_params(vae_cfg, "cpu", torch.float32, seed=63)
+    vit = convert.init_vit_params(vit_cfg, "cpu", torch.float32, seed=64)
+    g = torch.Generator("cpu").manual_seed(65)
+    ctx, nctx = torch.randn(1, 40, 64, generator=g), torch.randn(1, 40, 64, generator=g)
+    # 256x512x9 -> 3 x 16 x 32 = 1536 tokens: two 1024-key tiles, so K3 runs
+    kw = dict(context=ctx, negative_context=nctx, input_image=seeded_image(66, 256, 512),
+              end_image=seeded_image(67, 256, 512), seed=68, height=256, width=512,
+              num_frames=9, cfg_scale=5.0, num_inference_steps=2, output_type="latents",
+              switch_dit_boundary=A14B_BOUNDARY, torch_compat_noise=True)
+
+    def pipe(dev, dt):
+        return WanVideoPipeline(to(dit, dev, dt), cfg, to(vae, dev, dt), vae_cfg, dtype=dt,
+                                device=dev, dit2_params=to(dit2, dev, dt),
+                                image_encoder_params=to(vit, dev, dt), image_encoder_cfg=vit_cfg)
+
+    ref = pipe("cpu", torch.float32)(**kw)
+    rel16 = rel_l2(pipe("cpu", torch.bfloat16)(**kw), ref)
+    before = dict(_kernels.launches)
+    out = pipe("cuda", torch.bfloat16)(**kw).float().cpu()
+    ran = {k: _kernels.launches[k] - before[k] for k in before}
+    rel, tol = rel_l2(out, ref), 2 * rel16 + 1e-3
+    print(f"  tiny two-expert CLIP pipeline latents {tuple(out.shape)}: relative L2 error to "
+          f"CPU fp32 {rel:.4e} (card bf16), {rel16:.4e} (CPU bf16); tolerance {tol:.4e}; "
+          f"kernel launches { {k: v for k, v in ran.items() if v} }", flush=True)
+    if not all(ran[k] for k in WAN14B_PER_SWEEP):
+        raise RuntimeError(f"a serving kernel did not run in the tiny two-expert pipeline: {ran}")
+    if not rel <= tol:
+        raise RuntimeError(f"tiny two-expert pipeline disagrees with the CPU reference: {rel:.4e}")
 
 
 if __name__ == "__main__":

@@ -24,12 +24,13 @@ from .device import resolve_device
 from .models.flux.dit import init_flux_dit_params  # noqa: F401  (the FLUX.1 DiT's init)
 from .models.qwen.text_encoder import init_qwen_text_params  # noqa: F401  (Qwen3's init)
 from .models.sdxl.unet2d import init_unet2d_params  # noqa: F401  (the SDXL UNet's and BrushNet's)
+from .models.wan.image_encoder import init_vit_params  # noqa: F401  (the CLIP ViT-H's init)
 from .models.z_image.dit import init_z_image_dit_params  # noqa: F401  (the Z-Image DiT's init)
 from .models.sdxl.clip import CLIPTextConfig
 from .models.sdxl.vae import AutoencoderKLConfig
 from .models.wan.dit import WanDiTConfig
 from .models.wan.text_encoder import UMT5Config
-from .models.wan.vae import VAE38_MEAN, VAE38_STD, WanVAEConfig
+from .models.wan.vae import WanVAEConfig, latent_stats
 from .ops.quant import int_mm_layout
 
 
@@ -87,9 +88,10 @@ def _index(node, i, key=None):
 
 
 def from_jax_params(tree, device="cuda", dtype=None) -> Dict[str, Any]:
-    """A JAX-package param tree (numpy leaves) of the Wan DiT, UMT5, VAE38,
-    FLUX.1 DiT, T5, CLIP text tower, AutoencoderKL, Z-Image DiT, Qwen3
-    text encoder, SDXL UNet or BrushNet (with their LoRA / DoRA adapters)
+    """A JAX-package param tree (numpy leaves) of the Wan DiT (with the I2V
+    image branch), UMT5, VAE38 or the Wan2.1 VAE, the CLIP ViT-H, FLUX.1
+    DiT, T5, CLIP text tower, AutoencoderKL, Z-Image DiT, Qwen3 text
+    encoder, SDXL UNet or BrushNet (with their LoRA / DoRA adapters)
     -> port state on ``device``, optionally cast to ``dtype``.  LoRA
     subtrees keep their dtype, and so do the scales and outlier operands
     of W8A8 layers (``ops/quant.py``); their ``w_int8`` stays int8, laid
@@ -100,17 +102,23 @@ def from_jax_params(tree, device="cuda", dtype=None) -> Dict[str, Any]:
 # ------------------------------------------------------------------ init
 def init_dit_params(cfg: WanDiTConfig, device="cuda", dtype=torch.bfloat16, seed=0):
     """Random DiT params at the JAX package's ``init_dit_params`` scales:
-    dense N(0, 1/d_in), zero biases, modulation N(0, 1/D), unit norms."""
+    dense N(0, 1/d_in), zero biases, modulation N(0, 1/D), unit norms; for
+    ``has_image_input`` the CLIP branch too (``img_emb`` over 1280-wide CLIP
+    tokens, each block's k_img / v_img / norm_k_img; a zero ``pos`` of 514
+    rows with ``has_image_pos_emb``)."""
     device = resolve_device(device)
     r = Init(device, dtype, generator(device, seed))
     D = cfg.dim
     pt, ph, pw = cfg.patch_size
 
-    def attn():
-        return {"q": r.dense(D, D), "k": r.dense(D, D), "v": r.dense(D, D), "o": r.dense(D, D),
-                "norm_q": r.ones((D,)), "norm_k": r.ones((D,))}
+    def attn(img=False):
+        p = {"q": r.dense(D, D), "k": r.dense(D, D), "v": r.dense(D, D), "o": r.dense(D, D),
+             "norm_q": r.ones((D,)), "norm_k": r.ones((D,))}
+        if img:
+            p.update(k_img=r.dense(D, D), v_img=r.dense(D, D), norm_k_img=r.ones((D,)))
+        return p
 
-    return {
+    params = {
         "patch_embed": r.dense(cfg.in_dim * pt * ph * pw, D),
         "text_embed": {"fc1": r.dense(cfg.text_dim, D), "fc2": r.dense(D, D)},
         "time_embed": {"fc1": r.dense(cfg.freq_dim, D), "fc2": r.dense(D, D)},
@@ -118,13 +126,20 @@ def init_dit_params(cfg: WanDiTConfig, device="cuda", dtype=torch.bfloat16, seed
         "head": {**r.dense(D, cfg.out_dim * pt * ph * pw),
                  "modulation": r.normal((2, D), D ** -0.5)},
         "blocks": [
-            {"self_attn": attn(), "cross_attn": attn(),
+            {"self_attn": attn(), "cross_attn": attn(cfg.has_image_input),
              "norm3": {"w": r.ones((D,)), "b": r.zeros((D,))},
              "ffn": {"fc1": r.dense(D, cfg.ffn_dim), "fc2": r.dense(cfg.ffn_dim, D)},
              "modulation": r.normal((6, D), D ** -0.5)}
             for _ in range(cfg.num_layers)
         ],
     }
+    if cfg.has_image_input:
+        params["img_emb"] = {"norm1": {"w": r.ones((1280,)), "b": r.zeros((1280,))},
+                             "fc1": r.dense(1280, 1280), "fc2": r.dense(1280, D),
+                             "norm2": {"w": r.ones((D,)), "b": r.zeros((D,))}}
+        if cfg.has_image_pos_emb:
+            params["img_emb"]["pos"] = r.zeros((1, 514, 1280))
+    return params
 
 
 def init_umt5_params(cfg: UMT5Config, device="cuda", dtype=torch.bfloat16, seed=0):
@@ -149,10 +164,10 @@ def init_umt5_params(cfg: UMT5Config, device="cuda", dtype=torch.bfloat16, seed=
 
 
 def init_vae_params(cfg: WanVAEConfig, device="cuda", dtype=torch.bfloat16, seed=0):
-    """Random VAE38 params in the tree of the JAX package's
-    ``init_vae_params``, unit norm gammas and zero biases as there, but
-    conv weights N(0, 1/fan_in) instead of zeros, so that encode and
-    decode carry signal through every layer."""
+    """Random VAE38 or Wan2.1 VAE (``cfg.arch``) params in the tree of the
+    JAX package's ``init_vae_params``, unit norm gammas and zero biases as
+    there, but conv weights N(0, 1/fan_in) instead of zeros, so that encode
+    and decode carry signal through every layer."""
     device = resolve_device(device)
     r = Init(device, dtype, generator(device, seed))
 
@@ -181,17 +196,21 @@ def init_vae_params(cfg: WanVAEConfig, device="cuda", dtype=torch.bfloat16, seed
             if cfg.temperal_downsample[i]:
                 stage["resample"]["time_conv"] = conv(enc[i + 1], enc[i + 1], 3, 1, 1)
         down.append(stage)
+    v1 = cfg.arch != "38"  # the Wan2.1 decoder's spatial upsample halves the channels
     up = []
     for i in range(nm):
-        blocks = [res(dec[i] if j == 0 else dec[i + 1], dec[i + 1])
+        cin = dec[i] // 2 if v1 and i > 0 else dec[i]
+        blocks = [res(cin if j == 0 else dec[i + 1], dec[i + 1])
                   for j in range(cfg.num_res_blocks + 1)]
         stage = {"blocks": blocks}
         if i != nm - 1:
-            stage["resample"] = {"conv": conv(dec[i + 1], dec[i + 1], 3, 3)}
+            stage["resample"] = {"conv": conv(dec[i + 1] // 2 if v1 else dec[i + 1],
+                                              dec[i + 1], 3, 3)}
             if cfg.temperal_upsample[i]:
                 stage["resample"]["time_conv"] = conv(2 * dec[i + 1], dec[i + 1], 3, 1, 1)
         up.append(stage)
     z2, cin = 2 * cfg.z_dim, cfg.conv_in_channels
+    mean, std = latent_stats(cfg)
     return {
         "encoder": {
             "conv1": conv(enc[0], cin, 3, 3, 3), "down": down,
@@ -208,8 +227,8 @@ def init_vae_params(cfg: WanVAEConfig, device="cuda", dtype=torch.bfloat16, seed
             "up": up,
             "head": {"norm": r.ones((dec[-1],)), "conv": conv(cin, dec[-1], 3, 3, 3)},
         },
-        "latent_mean": torch.from_numpy(VAE38_MEAN[: cfg.z_dim]).to(device, dtype),
-        "latent_std": torch.from_numpy(VAE38_STD[: cfg.z_dim]).to(device, dtype),
+        "latent_mean": torch.from_numpy(mean).to(device, dtype),
+        "latent_std": torch.from_numpy(std).to(device, dtype),
     }
 
 

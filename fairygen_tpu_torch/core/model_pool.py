@@ -3,10 +3,10 @@ fairygen_tpu/core/model_pool.py).
 
 Each file's ``key:shape`` hash is looked up in the registry and the
 recognized models are built on ``device`` by the port's converters.  The
-port builds the three Wan roles of the TI2V pipeline (the DiT, VAE38 and
-UMT5) and the FLUX.1 and Z-Image families whose converters it has; a
-registry name without a builder, or a Wan variant the port does not run
-yet (LongCat-Video, S2V, the Wan2.1 VAE, ...), raises
+port builds the Wan roles (the DiTs, with the I2V image branch; the VAE38
+and the Wan2.1 VAE; UMT5) and the FLUX.1 and Z-Image families whose
+converters it has; a registry name without a builder, or a Wan variant
+the port does not run yet (LongCat-Video, S2V, Fun-Reference, ...), raises
 ``NotImplementedError`` naming its ROADMAP item.  A file whose hash the
 registry does not know is reported and left out, as in the JAX package.
 """
@@ -39,8 +39,8 @@ def _build_wan_dit(state_dict, extra_kwargs, dtype, device):
     if "audio_dim" in extra_kwargs or "cond_dim" in extra_kwargs:
         raise NotImplementedError(f"the Wan S2V DiT is not ported ({_VARIANTS})")
     kwargs = _dataclass_kwargs(WanDiTConfig, extra_kwargs)
-    # fields of the JAX config that the port's DiT lacks are accepted only
-    # at their defaults (off)
+    # fields of the JAX config that the port's DiT lacks (has_ref_conv, the
+    # Fun-Reference conv) are accepted only at their defaults (off)
     unknown = {k: v for k, v in extra_kwargs.items() if k not in kwargs and v}
     if unknown:
         raise NotImplementedError(f"Wan DiT options {sorted(unknown)} are not ported ({_VARIANTS})")
@@ -51,22 +51,21 @@ def _build_wan_dit(state_dict, extra_kwargs, dtype, device):
 
 
 def _build_wan_vae(state_dict, extra_kwargs, dtype, device):
-    from ..models.wan.vae import WanVAEConfig, convert_vae38_state_dict
+    from ..models.wan.vae import (WanVAEConfig, convert_vae38_state_dict,
+                                  convert_vae_v1_state_dict)
 
     kwargs = _dataclass_kwargs(WanVAEConfig, extra_kwargs)
     for tup in ("dim_mult", "temperal_downsample"):
         if tup in kwargs:
             kwargs[tup] = tuple(kwargs[tup])
-    if kwargs or "arch" in extra_kwargs:  # resized or test checkpoints, through hints
-        if extra_kwargs.get("arch", "38") != "38":
-            raise NotImplementedError(f"the Wan2.1 VAE is not ported ({_VARIANTS})")
+    if kwargs:  # resized or test checkpoints, through hints (arch "38" or "v1")
         cfg = WanVAEConfig(**kwargs)
-    else:
+    else:  # the published VAEs, told apart by their latent width
         probe = "model.conv2.weight" if "model.conv2.weight" in state_dict else "conv2.weight"
-        if state_dict[probe].shape[0] != 48:
-            raise NotImplementedError(f"the Wan2.1 VAE (z 16) is not ported ({_VARIANTS})")
-        cfg = WanVAEConfig.wan22_38()
-    return convert_vae38_state_dict(state_dict, cfg, dtype=dtype, device=device), cfg
+        cfg = (WanVAEConfig.wan22_38() if state_dict[probe].shape[0] == 48
+               else WanVAEConfig.wan21_16())
+    convert = convert_vae38_state_dict if cfg.arch == "38" else convert_vae_v1_state_dict
+    return convert(state_dict, cfg, dtype=dtype, device=device), cfg
 
 
 def _build_umt5(state_dict, extra_kwargs, dtype, device):

@@ -8,10 +8,13 @@
 // Bound on the H100: bytes.  The work is ~8 flops per element against 4
 // bytes moved per element (read x, write out), far below the card's
 // ~295 flop/byte ridge, so the floor is 2 * B*S*D * 2 bytes / 3.35 TB/s.
-// Design: one warp per token row; the row (D <= 4096) is read ONCE with
-// 16-byte loads into registers, mean and variance are two warp-shuffle
-// reductions over those registers, and the modulated row is written with
-// 16-byte stores.  The (B, 2, D) shift/scale rows are tiny and stay in L1/L2.
+// Design: one warp per token row; the row is read ONCE with 16-byte loads
+// into registers, mean and variance are two warp-shuffle reductions over
+// those registers, and the modulated row is written with 16-byte stores.
+// The (B, 2, D) shift/scale rows are tiny and stay in L1/L2.  A lane holds
+// up to kVec 16-byte vectors of its row: 16 for D <= 4096 (the 5B DiT's
+// 3072, FLUX.1's 3072), 32 for D <= 8192 (the 14B DiTs' 5120), a template
+// argument so that the narrow form keeps its registers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -19,7 +22,8 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-constexpr int kMaxVecPerLane = 16;  // 32 lanes * 16 vectors * 8 = 4096 elements
+constexpr int kNarrowVec = 16;  // 32 lanes * 16 vectors * 8 = 4096 elements
+constexpr int kWideVec = 32;    // 32 lanes * 32 vectors * 8 = 8192 elements
 
 __device__ __forceinline__ void unpack8(const uint4& v, float* f) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
@@ -45,6 +49,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <int kVec>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 ln_modulate_kernel(const __nv_bfloat16* __restrict__ x,
                    const __nv_bfloat16* __restrict__ shift2,
@@ -58,10 +63,10 @@ ln_modulate_kernel(const __nv_bfloat16* __restrict__ x,
   const int nvec = D / 8;
   const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * D);
 
-  uint4 reg[kMaxVecPerLane];
+  uint4 reg[kVec];
   float sum = 0.f;
 #pragma unroll
-  for (int i = 0; i < kMaxVecPerLane; ++i) {
+  for (int i = 0; i < kVec; ++i) {
     const int v = lane + 32 * i;
     if (v < nvec) {
       reg[i] = xr[v];
@@ -74,7 +79,7 @@ ln_modulate_kernel(const __nv_bfloat16* __restrict__ x,
   const float mean = warp_sum(sum) / D;
   float sq = 0.f;
 #pragma unroll
-  for (int i = 0; i < kMaxVecPerLane; ++i) {
+  for (int i = 0; i < kVec; ++i) {
     const int v = lane + 32 * i;
     if (v < nvec) {
       float f[8];
@@ -93,7 +98,7 @@ ln_modulate_kernel(const __nv_bfloat16* __restrict__ x,
   const uint4* scr = reinterpret_cast<const uint4*>(scale2 + ((size_t)b * 2 + sel) * D);
   uint4* orow = reinterpret_cast<uint4*>(out + (size_t)row * D);
 #pragma unroll
-  for (int i = 0; i < kMaxVecPerLane; ++i) {
+  for (int i = 0; i < kVec; ++i) {
     const int v = lane + 32 * i;
     if (v < nvec) {
       float f[8], sh[8], sc[8], o[8];
@@ -110,13 +115,16 @@ ln_modulate_kernel(const __nv_bfloat16* __restrict__ x,
 }  // namespace
 
 // x, out: (B, S, D) bf16; shift2, scale2: (B, 2, D) bf16; all contiguous,
-// 16-byte aligned, D % 8 == 0 and D <= 4096 (checked by the Python wrapper).
+// 16-byte aligned, D % 8 == 0 and D <= 8192 (checked by the Python wrapper).
 extern "C" int fg_ln_modulate(const void* x, const void* shift2, const void* scale2,
                               void* out, int B, int S, int D, int seg, float eps,
                               void* stream) {
   const int rows = B * S;
   const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  ln_modulate_kernel<<<blocks, kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
+  if (D > 32 * kWideVec * 8) return (int)cudaErrorInvalidValue;
+  auto* kernel = D <= 32 * kNarrowVec * 8 ? ln_modulate_kernel<kNarrowVec>
+                                          : ln_modulate_kernel<kWideVec>;
+  kernel<<<blocks, kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)shift2,
       (const __nv_bfloat16*)scale2, (__nv_bfloat16*)out, S, D, rows, seg, eps);
   return (int)cudaGetLastError();

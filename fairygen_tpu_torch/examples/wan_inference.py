@@ -1,5 +1,7 @@
-"""Single-shot TI2V generation on the port: load Wan2.2-TI2V-5B (UMT5 +
-DiT + VAE38) by hash detection, optionally fuse a LoRA, animate a still.
+"""Single-shot video generation on the port: load a Wan model (UMT5 + the
+DiT, or the two-expert DiT pair, + VAE38 or the Wan2.1 VAE) by hash
+detection, optionally fuse a LoRA, animate a still (and, with
+``--end_image``, end on a second one: the I2V models).
 
 The twin of examples/wan_inference.py, with its flags and its negative
 prompt, plus ``--device`` (default cuda).  Flags of paths the port does not
@@ -32,7 +34,7 @@ UNPORTED_FLAGS = {
     "sp_strategy": "ROADMAP.md Queue 1 item 9, parallel/",
     "vace_video": _VARIANTS, "vace_video_mask": _VARIANTS, "vace_reference_image": _VARIANTS,
     "vace_scale": _VARIANTS, "camera_control_direction": _VARIANTS,
-    "camera_control_speed": _VARIANTS, "motion_bucket_id": _VARIANTS, "end_image": _VARIANTS,
+    "camera_control_speed": _VARIANTS, "motion_bucket_id": _VARIANTS,
     "reference_image": _VARIANTS, "audio": _VARIANTS, "audio_sample_rate": _VARIANTS,
     "longcat_video": _VARIANTS,
 }
@@ -109,10 +111,13 @@ def main(argv=None):
         pipe.load_lora(args.lora, alpha=args.lora_alpha)
     if args.quantize:
         pipe.quantize(args.quantize)
-    image = (Image.open(args.input_image).convert("RGB").resize((args.width, args.height))
-             if args.input_image else None)
+    def load_image(path):
+        return (Image.open(path).convert("RGB").resize((args.width, args.height))
+                if path else None)
+
     frames = pipe(
-        prompt=args.prompt, negative_prompt=args.negative_prompt, input_image=image,
+        prompt=args.prompt, negative_prompt=args.negative_prompt,
+        input_image=load_image(args.input_image), end_image=load_image(args.end_image),
         height=args.height, width=args.width, num_frames=args.num_frames,
         num_inference_steps=args.num_inference_steps, cfg_scale=args.cfg_scale,
         seed=args.seed, streaming_vae=True, vae_frames_per_chunk=args.vae_frames_per_chunk,

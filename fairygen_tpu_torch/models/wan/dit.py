@@ -7,7 +7,9 @@ entry (``models/adapters.py``).  Each block runs the fused-norm form of the JAX 
 (models/wan/dit.py:386-426): K1 ``layer_norm_modulate`` three times, the
 self-attention through K2 (q and k) + K3/K4, the text cross-attention
 through K2 (``rope=False``) + K4 with the per-prompt (k, v) hoisted by
-:func:`precompute_cross_kv`.  Those ops take their hand-written kernels on
+:func:`precompute_cross_kv`; the I2V configs' CLIP image branch adds its own
+(k_img, v_img) over the first 257 context tokens, through K2 + K4 beside
+the text's.  Those ops take their hand-written kernels on
 CUDA tensors and their plain versions on CPU tensors.  A head_dim other
 than 128 (the tiny golden configs) runs the plain rms-norm -> RoPE ->
 attention chain, as in the JAX package; on CUDA that is refused.
@@ -53,6 +55,7 @@ class WanDiTConfig:
     num_heads: int = 24
     num_layers: int = 30
     has_image_input: bool = False
+    has_image_pos_emb: bool = False
     seperated_timestep: bool = False
     require_vae_embedding: bool = True
     require_clip_embedding: bool = True
@@ -212,14 +215,46 @@ def precompute_cross_kv(params, cfg: WanDiTConfig, context):
             for blk in params["blocks"]]
 
 
-def _image_cross_kv(params, cfg: WanDiTConfig, clip_feature):
-    """Per-block (k_img, v_img) of the CLIP branch (I2V configs)."""
+def img_embedding(params, clip_feature):
+    """The CLIP feature MLP (upstream wan_video_dit.py:232-249), with the
+    FLF2V position embedding ``pos`` added first where the model has one."""
     pe = params["img_emb"]
-    x = layer_norm(clip_feature, 1e-5, pe["norm1"]["w"], pe["norm1"]["b"])
+    x = clip_feature
+    if "pos" in pe:
+        x = x + pe["pos"]
+    x = layer_norm(x, 1e-5, pe["norm1"]["w"], pe["norm1"]["b"])
     x = _dense(pe["fc1"], x)
     x = F.gelu(x.float()).to(x.dtype)
     x = _dense(pe["fc2"], x)
-    img = layer_norm(x, 1e-5, pe["norm2"]["w"], pe["norm2"]["b"])
+    return layer_norm(x, 1e-5, pe["norm2"]["w"], pe["norm2"]["b"])
+
+
+IMAGE_TOKENS = 257  # the cross-attention's image share of [image, text] context
+
+
+def split_image_context(params, ctx, clip_feature=None):
+    """The I2V configs' cross-attention context as the JAX package (and
+    upstream) splits it: [embedded CLIP tokens, embedded text ``ctx``], its
+    first 257 rows the image branch's and the rest the text branch's.
+    Returns (image tokens, text tokens); with 257 CLIP tokens the text
+    tokens are ``ctx`` itself."""
+    if clip_feature is not None:
+        ctx = torch.cat([img_embedding(params, clip_feature), ctx], dim=1)
+    return ctx[:, :IMAGE_TOKENS], ctx[:, IMAGE_TOKENS:]
+
+
+def text_kv_hoistable(cfg: WanDiTConfig, clip_feature) -> bool:
+    """Whether :func:`precompute_cross_kv` of the text alone gives the
+    blocks' text (k, v): always, but for an image-input config, whose text
+    branch starts after the 257th context row, unless 257 CLIP tokens are
+    given to fill the image branch."""
+    return not cfg.has_image_input or (clip_feature is not None and cfg.require_clip_embedding
+                                       and clip_feature.shape[1] == IMAGE_TOKENS)
+
+
+def _image_cross_kv(params, cfg: WanDiTConfig, img):
+    """Per-block (k_img, v_img) of the image branch (I2V configs) over the
+    embedded image tokens."""
     b, li, _ = img.shape
     out = []
     for blk in params["blocks"]:
@@ -375,10 +410,19 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, timestep, context=None, 
     ctx = None
     if cross_kv is None:
         ctx = text_embedding(params, context)
-        cross_kv = [None] * cfg.num_layers
+    elif not text_kv_hoistable(cfg, clip_feature):
+        raise ValueError("precomputed cross_kv are the text branch's only where 257 CLIP "
+                         "tokens fill the image branch")
     img_kv = [None] * cfg.num_layers
-    if cfg.has_image_input and clip_feature is not None and cfg.require_clip_embedding:
-        img_kv = _image_cross_kv(params, cfg, clip_feature)
+    if cfg.has_image_input:
+        clip = clip_feature if cfg.require_clip_embedding else None
+        if cross_kv is None:
+            img, ctx = split_image_context(params, ctx, clip)
+        else:  # the text branch is the hoisted (k, v)'s
+            img = img_embedding(params, clip)
+        img_kv = _image_cross_kv(params, cfg, img)
+    if cross_kv is None:
+        cross_kv = [None] * cfg.num_layers
 
     x = latents
     if y is not None and cfg.require_vae_embedding:
@@ -416,7 +460,7 @@ def convert_dit_state_dict(sd: Dict[str, Any], cfg: WanDiTConfig, dtype=None, de
     """Upstream (civitai layout) DiT state dict of numpy arrays -> port
     params on ``device``: patch_embedding / text_embedding.{0,2} /
     time_embedding.{0,2} / time_projection.1 / blocks.N.* / head.head, and
-    img_emb.proj.* for the image-input configs."""
+    img_emb.proj.* (and img_emb.emb_pos) for the image-input configs."""
     def g(name):
         return np.asarray(sd[name])
 
@@ -458,4 +502,6 @@ def convert_dit_state_dict(sd: Dict[str, Any], cfg: WanDiTConfig, dtype=None, de
             "fc2": linear(sd, "img_emb.proj.3"),
             "norm2": {"w": g("img_emb.proj.4.weight"), "b": g("img_emb.proj.4.bias")},
         }
+        if cfg.has_image_pos_emb:
+            params["img_emb"]["pos"] = g("img_emb.emb_pos")
     return to_tensors(params, device, dtype)

@@ -1,5 +1,8 @@
-"""Wan2.2 causal 3D video VAE, "VAE38" (port of the VAE38 path of
-fairygen_tpu/models/wan/vae.py).
+"""Wan causal 3D video VAEs: Wan2.2's "VAE38" (z 48, 2x2 pixel patches)
+and the Wan2.1 VAE (z 16; ``arch="v1"``) (port of
+fairygen_tpu/models/wan/vae.py).  The Wan2.1 networks are plain residual
+stacks and resamples without VAE38's averaging and duplicating shortcuts,
+and their decoder's spatial upsample halves the channels.
 
 Tensors are channels-first (B, C, T, H, W) inside, as PyTorch's
 convolutions want them; conv weights are (C_out, C_in, kt, kh, kw) /
@@ -17,7 +20,8 @@ frames on decode after a one-frame first chunk), so activation memory
 stays that of a chunk (same math; convolutions over other frame counts
 may sum in another order).  The channel RMS norm + SiLU runs through
 K11 (``ops.fused_norms.fused_vae_rms_silu``, its plain version on the
-CPU) over channel-last rows, and its output keeps that layout, which
+CPU) over channel-last rows, in both VAEs at every width (96 to 384 in
+the Wan2.1 VAE).  The output keeps that layout, which
 cuDNN's NHWC convolutions take without a conversion (on an H100 the
 streamed decode is ~3% faster so; with the output transposed back it is
 no faster than the plain chain).  The JAX package keeps the plain norm
@@ -55,6 +59,17 @@ VAE38_STD = np.array([
 ], dtype=np.float32)
 
 
+VAE16_MEAN = np.array([
+    -0.7571, -0.7089, -0.9113, 0.1075, -0.1745, 0.9653, -0.1517, 1.5508,
+    0.4134, -0.0715, 0.5517, -0.3632, -0.1922, -0.9497, 0.2503, -0.2921,
+], dtype=np.float32)
+
+VAE16_STD = np.array([
+    2.8184, 1.4541, 2.3275, 2.6558, 1.2196, 1.7708, 2.6052, 2.0743,
+    3.2687, 2.1526, 2.8652, 1.5579, 1.6382, 1.1253, 2.8251, 1.9160,
+], dtype=np.float32)
+
+
 @dataclasses.dataclass(frozen=True)
 class WanVAEConfig:
     dim: int = 160
@@ -63,8 +78,9 @@ class WanVAEConfig:
     dim_mult: Tuple[int, ...] = (1, 2, 4, 4)
     num_res_blocks: int = 2
     temperal_downsample: Tuple[bool, ...] = (False, True, True)
-    patch_size: int = 2
+    patch_size: int = 2  # pixel patches (VAE38); 1 for the Wan2.1 VAE
     in_channels: int = 3
+    arch: str = "38"  # "38" (Wan2.2, z 48) | "v1" (Wan2.1, z 16)
 
     @property
     def temperal_upsample(self):
@@ -91,10 +107,28 @@ class WanVAEConfig:
         return WanVAEConfig()
 
     @staticmethod
+    def wan21_16() -> "WanVAEConfig":
+        """The Wan2.1 causal VAE (upstream WanVideoVAE)."""
+        return WanVAEConfig(dim=96, z_dim=16, dec_dim=96, patch_size=1, arch="v1")
+
+    @staticmethod
     def tiny(**over) -> "WanVAEConfig":
         base = dict(dim=8, z_dim=4, dec_dim=8, num_res_blocks=1)
         base.update(over)
         return WanVAEConfig(**base)
+
+    @staticmethod
+    def tiny_v1(**over) -> "WanVAEConfig":
+        base = dict(dim=8, z_dim=4, dec_dim=8, num_res_blocks=1, patch_size=1, arch="v1")
+        base.update(over)
+        return WanVAEConfig(**base)
+
+
+def latent_stats(cfg: WanVAEConfig):
+    """The latent mean and std (numpy, ``z_dim`` long) the encode
+    normalises by: the Wan2.1 VAE's for ``arch="v1"``, else VAE38's."""
+    mean, std = (VAE16_MEAN, VAE16_STD) if cfg.arch == "v1" else (VAE38_MEAN, VAE38_STD)
+    return mean[: cfg.z_dim].copy(), std[: cfg.z_dim].copy()
 
 
 class CacheBank:
@@ -355,6 +389,50 @@ def decoder38_forward(p, cfg: WanVAEConfig, x, cache: CacheBank, first_chunk: bo
     return causal_conv3d(p["head"]["conv"], x, cache, t_pad=1, spatial_pad=1)
 
 
+def encoder_v1_forward(p, cfg: WanVAEConfig, x, cache: CacheBank):
+    """Encoder3d (Wan2.1, upstream wan_video_vae.py:517-617): residual
+    stacks and resamples, no averaging shortcuts."""
+    x = causal_conv3d(p["conv1"], x, cache, t_pad=1, spatial_pad=1)
+    for i, stage in enumerate(p["down"]):
+        for blk in stage["blocks"]:
+            x = residual_block(blk, x, cache)
+        if "resample" in stage:
+            t_down = cfg.temperal_downsample[i] if i < len(cfg.temperal_downsample) else False
+            x = resample38(stage["resample"], x,
+                           "downsample3d" if t_down else "downsample2d", cache)
+    x = residual_block(p["middle"]["res1"], x, cache)
+    x = attention_block(p["middle"]["attn"], x)
+    x = residual_block(p["middle"]["res2"], x, cache)
+    x = _norm_silu(p["head"]["norm"], x)
+    return causal_conv3d(p["head"]["conv"], x, cache, t_pad=1, spatial_pad=1)
+
+
+def decoder_v1_forward(p, cfg: WanVAEConfig, x, cache: CacheBank, first_chunk: bool = True):
+    """Decoder3d (Wan2.1, upstream wan_video_vae.py:736-838): the spatial
+    upsample's conv halves the channels; no duplicating shortcuts, so the
+    first chunk needs no rule of its own (``first_chunk`` is unused)."""
+    x = causal_conv3d(p["conv1"], x, cache, t_pad=1, spatial_pad=1)
+    x = residual_block(p["middle"]["res1"], x, cache)
+    x = attention_block(p["middle"]["attn"], x)
+    x = residual_block(p["middle"]["res2"], x, cache)
+    for i, stage in enumerate(p["up"]):
+        for blk in stage["blocks"]:
+            x = residual_block(blk, x, cache)
+        if "resample" in stage:
+            t_up = cfg.temperal_upsample[i] if i < len(cfg.temperal_upsample) else False
+            x = resample38(stage["resample"], x, "upsample3d" if t_up else "upsample2d", cache)
+    x = _norm_silu(p["head"]["norm"], x)
+    return causal_conv3d(p["head"]["conv"], x, cache, t_pad=1, spatial_pad=1)
+
+
+def _encoder(cfg: WanVAEConfig):
+    return encoder38_forward if cfg.arch == "38" else encoder_v1_forward
+
+
+def _decoder(cfg: WanVAEConfig):
+    return decoder38_forward if cfg.arch == "38" else decoder_v1_forward
+
+
 # ------------------------------------------------------------ patchify helpers
 def pixel_patchify(x, patch):
     """(B, C, T, H, W) -> (B, C·p·p, T, H/p, W/p), channel order (c, r, q)
@@ -380,8 +458,8 @@ def _chunk_fns(which: str):
 
     def fwd(params, cfg, xc, bank, first):
         if which == "enc":
-            return encoder38_forward(params["encoder"], cfg, xc, bank)
-        return decoder38_forward(params["decoder"], cfg, xc, bank, first_chunk=first)
+            return _encoder(cfg)(params["encoder"], cfg, xc, bank)
+        return _decoder(cfg)(params["decoder"], cfg, xc, bank, first_chunk=first)
 
     def first_fn(params, cfg, xc):
         bank = CacheBank("init")
@@ -395,11 +473,11 @@ def _chunk_fns(which: str):
 
 
 def vae38_encode_core(params, cfg: WanVAEConfig, x, streaming: bool = False):
-    """Patchified pixels (B, 12, T, H, W) -> normalized latent mu.  Streamed:
-    a 1-frame first chunk, then 4-frame chunks; as in the JAX package,
-    frames past the last whole chunk of 4 are not encoded."""
+    """Patchified pixels (B, 3·p², T, H, W) -> normalized latent mu.
+    Streamed: a 1-frame first chunk, then 4-frame chunks; as in the JAX
+    package, frames past the last whole chunk of 4 are not encoded."""
     if not streaming:
-        out = encoder38_forward(params["encoder"], cfg, x, CacheBank("full"))
+        out = _encoder(cfg)(params["encoder"], cfg, x, CacheBank("full"))
     else:
         t = x.shape[2]
         chunks = [x[:, :, :1]] + [x[:, :, 1 + 4 * i: 1 + 4 * (i + 1)]
@@ -429,7 +507,7 @@ def vae38_decode_core(params, cfg: WanVAEConfig, z, streaming: bool = False,
          + params["latent_mean"].to(z.dtype).reshape(shape))
     x = causal_conv3d(params["conv2"], z, CacheBank("full"), t_pad=0)
     if not streaming:
-        return decoder38_forward(params["decoder"], cfg, x, CacheBank("full"))
+        return _decoder(cfg)(params["decoder"], cfg, x, CacheBank("full"))
     first_fn, step_fn = _chunk_fns("dec")
     y, entries = first_fn(params, cfg, x[:, :, :1])
     outs = [y]
@@ -442,7 +520,8 @@ def vae38_decode_core(params, cfg: WanVAEConfig, z, streaming: bool = False,
 
 def vae38_encode(params, cfg: WanVAEConfig, video, streaming: bool = False):
     """video (B, C, T, H, W) in [-1, 1] -> normalized latents
-    (B, z, (T-1)/4+1, H/16, W/16)."""
+    (B, z, (T-1)/4+1, H/f, W/f), f = ``cfg.upsampling_factor`` (16 for the
+    VAE38, 8 for the Wan2.1 VAE)."""
     return vae38_encode_core(params, cfg, pixel_patchify(video, cfg.patch_size), streaming)
 
 
@@ -518,5 +597,77 @@ def convert_vae38_state_dict(sd, cfg: WanVAEConfig, dtype=None, device="cuda"):
         },
         "latent_mean": VAE38_MEAN[: cfg.z_dim].copy(),
         "latent_std": VAE38_STD[: cfg.z_dim].copy(),
+    }
+    return to_tensors(params, device, dtype)
+
+
+def convert_vae_v1_state_dict(sd, cfg: WanVAEConfig, dtype=None, device="cuda"):
+    """Upstream VideoVAE_ (Wan2.1) state dict of numpy arrays (optionally
+    'model.'-prefixed) -> port params on ``device``.  Encoder3d / Decoder3d
+    number their residual blocks and resamples in one flat nn.Sequential
+    (upstream wan_video_vae.py:543-558, 767-783); the decoder's spatial
+    upsample halves the channels, so each later stage's first block takes
+    dims[i] // 2 (":770-771")."""
+    if any(k.startswith("model.") for k in sd):
+        sd = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
+
+    def conv(prefix):
+        return {"w": np.asarray(sd[prefix + ".weight"]), "b": np.asarray(sd[prefix + ".bias"])}
+
+    def gamma(prefix):
+        return np.asarray(sd[prefix + ".gamma"]).reshape(-1)
+
+    def res(prefix, has_shortcut):
+        p = {"norm1": gamma(prefix + ".residual.0"), "conv1": conv(prefix + ".residual.2"),
+             "norm2": gamma(prefix + ".residual.3"), "conv2": conv(prefix + ".residual.6")}
+        if has_shortcut:
+            p["shortcut"] = conv(prefix + ".shortcut")
+        return p
+
+    def attn(prefix):
+        return {"norm": gamma(prefix + ".norm"), "qkv": conv(prefix + ".to_qkv"),
+                "proj": conv(prefix + ".proj")}
+
+    def stages(root, dims, n_res, temporal, halved):
+        out, idx = [], 0
+        for i in range(len(cfg.dim_mult)):
+            in_dim = dims[i] // 2 if halved and i > 0 else dims[i]
+            blocks = []
+            for _ in range(n_res):
+                blocks.append(res(f"{root}.{idx}", in_dim != dims[i + 1]))
+                in_dim, idx = dims[i + 1], idx + 1
+            stage = {"blocks": blocks}
+            if i != len(cfg.dim_mult) - 1:
+                stage["resample"] = {"conv": conv(f"{root}.{idx}.resample.1")}
+                if i < len(temporal) and temporal[i]:
+                    stage["resample"]["time_conv"] = conv(f"{root}.{idx}.time_conv")
+                idx += 1
+            out.append(stage)
+        return out
+
+    def middle(root):
+        return {"res1": res(root + ".0", False), "attn": attn(root + ".1"),
+                "res2": res(root + ".2", False)}
+
+    mean, std = latent_stats(cfg)
+    params = {
+        "encoder": {
+            "conv1": conv("encoder.conv1"),
+            "down": stages("encoder.downsamples", cfg.enc_dims, cfg.num_res_blocks,
+                           cfg.temperal_downsample, False),
+            "middle": middle("encoder.middle"),
+            "head": {"norm": gamma("encoder.head.0"), "conv": conv("encoder.head.2")},
+        },
+        "conv1": conv("conv1"),
+        "conv2": conv("conv2"),
+        "decoder": {
+            "conv1": conv("decoder.conv1"),
+            "middle": middle("decoder.middle"),
+            "up": stages("decoder.upsamples", cfg.dec_dims, cfg.num_res_blocks + 1,
+                         cfg.temperal_upsample, True),
+            "head": {"norm": gamma("decoder.head.0"), "conv": conv("decoder.head.2")},
+        },
+        "latent_mean": mean,
+        "latent_std": std,
     }
     return to_tensors(params, device, dtype)

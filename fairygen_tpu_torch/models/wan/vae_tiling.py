@@ -1,5 +1,6 @@
-"""Spatially tiled VAE38 encode and decode with linear feather blending
-(port of fairygen_tpu/models/wan/vae_tiling.py).
+"""Spatially tiled encode and decode of the Wan VAEs (VAE38 and, by the
+config's ``arch``, the Wan2.1 VAE) with linear feather blending (port of
+fairygen_tpu/models/wan/vae_tiling.py).
 
 Overlapping spatial tiles go through the (streamed) causal VAE one at a
 time and are blended with per-axis linear ramps ``(arange(border)+1)/border``

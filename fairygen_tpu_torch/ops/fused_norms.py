@@ -8,9 +8,9 @@
   ``csrc/rms_modulate.cu`` (bf16, fp32).
 * K11 (``_vae_rms_silu_kernel``): the VAE channel RMS (F.normalize·√C·γ)
   with an optional SiLU, :func:`vae_rms_silu`.  No path of the JAX package
-  calls it (its VAE38 keeps the plain norm and SiLU); here the VAE38's
-  ``_norm_silu`` (``models/wan/vae.py``) runs :func:`fused_vae_rms_silu` on
-  every encode and decode, output left channels-last.
+  calls it (its VAEs keep the plain norm and SiLU); here ``_norm_silu``
+  (``models/wan/vae.py``) runs :func:`fused_vae_rms_silu` on every encode
+  and decode of the VAE38 and the Wan2.1 VAE, output left channels-last.
   ``csrc/rms_modulate.cu`` (bf16, fp32).
 
 CUDA tensors go through the hand-written kernels; CPU tensors take the
@@ -51,8 +51,8 @@ def layer_norm_modulate(x, shift2, scale2, seg: int = 0, eps: float = 1e-6):
     if shift2.shape != (b, 2, d) or scale2.shape != (b, 2, d):
         raise ValueError(f"shift2/scale2 must be {(b, 2, d)}, got "
                          f"{tuple(shift2.shape)} / {tuple(scale2.shape)}")
-    if d % 8 or d > 4096:
-        raise ValueError(f"ln_modulate kernel needs D % 8 == 0 and D <= 4096, got {d}")
+    if d % 8 or d > 8192:
+        raise ValueError(f"ln_modulate kernel needs D % 8 == 0 and D <= 8192, got {d}")
     out = torch.empty_like(x)
     _kernels.launch("ln_modulate", "fg_ln_modulate", x.data_ptr(), shift2.data_ptr(),
                     scale2.data_ptr(), out.data_ptr(), b, s, d, int(seg), float(eps))

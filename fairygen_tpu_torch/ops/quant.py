@@ -107,10 +107,11 @@ def int_mm_layout(q: torch.Tensor) -> torch.Tensor:
 
 
 def _div127(t):
-    """t / 127 as a true division on every device: PyTorch's CUDA kernels
-    turn a division by a host scalar into a product with its reciprocal,
-    which rounds differently."""
-    return t / torch.full((), 127.0, dtype=torch.float32, device=t.device)
+    """t / 127 as the JAX package computes it under ``jax.jit``: XLA turns
+    the division by the constant into a product with fp32(1/127), so this is
+    that product, with the reciprocal in an fp32 tensor (one rounding on
+    every device, where a host scalar would be taken in double)."""
+    return t * torch.full((), 1.0 / 127.0, dtype=torch.float32, device=t.device)
 
 
 def quantize_weight_int8(w) -> Dict[str, torch.Tensor]:
@@ -204,13 +205,15 @@ def int8_matmul(xq: torch.Tensor, w_int8: torch.Tensor) -> torch.Tensor:
 
 def quantized_dense(p: Dict[str, Any], x):
     """y = (x_q @ w_q) · (row_scale ⊗ col_scale) [+ outliers], cast to
-    x.dtype, + b.  The JAX package's order of operations: the row scale
-    amax/127 clamped at 1e-12, then round(x·(sm/row_scale)) or
-    round(x/row_scale), clipped to ±127; the int32 product as fp32 times the
-    row scale, times the column scale; the outlier channels' fp32 product
-    added; the cast; the bias in x.dtype.  A row's max |x| is exact in x's
-    dtype, so it is taken there in one pass (the infinity norm), without an
-    fp32 copy of x; with ``act_smooth`` (>= 0) max |x·sm| is the same."""
+    x.dtype, + b.  The JAX package's order of operations, as it runs jitted:
+    the row scale amax·fp32(1/127) clamped at 1e-12, then round(x·(sm/row_scale))
+    or round(x/row_scale), clipped to ±127; the int32 product as fp32 times
+    the row scale; times the column scale and plus the outlier channels'
+    fp32 product in one fused multiply-add; the cast; the bias in x.dtype
+    (for an fp32 x without outliers, the bias is that fused add's addend).
+    A row's max |x| is exact in x's dtype, so it is taken there in one pass
+    (the infinity norm), without an fp32 copy of x; with ``act_smooth``
+    (>= 0) max |x·sm| is the same."""
     orig_shape = x.shape
     x2d = x.reshape(-1, orig_shape[-1])
     with torch.profiler.record_function("w8a8.quantize"):
@@ -226,14 +229,23 @@ def quantized_dense(p: Dict[str, Any], x):
         xq = xq.clamp_(-127, 127).to(torch.int8)
     with torch.profiler.record_function("w8a8.int_mm"):
         acc = int8_matmul(xq, p["w_int8"])
-    with torch.profiler.record_function("w8a8.rescale"):
-        y = (acc * row_scale).mul_(p["w_scale"][None, :])
+    # XLA contracts the column-scale product and the add after it into one
+    # fused multiply-add: the outlier term's, or an fp32 result's bias
+    bias_in_fma = "b" in p and "outlier_sel" not in p and x.dtype == torch.float32
     if "outlier_sel" in p:
         with torch.profiler.record_function("w8a8.outliers"):
             x_out = torch.matmul(x2d.to(p["outlier_sel"].dtype), p["outlier_sel"])
-            y += torch.matmul(x_out.to(p["w_outlier"].dtype).float(), p["w_outlier"].float())
+            addend = torch.matmul(x_out.to(p["w_outlier"].dtype).float(), p["w_outlier"].float())
+    elif bias_in_fma:
+        addend = p["b"].float()[None, :]
+    with torch.profiler.record_function("w8a8.rescale"):
+        y = acc * row_scale
+        if "outlier_sel" in p or bias_in_fma:
+            y = torch.addcmul(addend, y, p["w_scale"][None, :])
+        else:
+            y.mul_(p["w_scale"][None, :])
     y = y.to(x.dtype)
-    if "b" in p:
+    if "b" in p and not bias_in_fma:
         y = y + p["b"].to(x.dtype)
     return y.reshape(orig_shape[:-1] + (p["w_int8"].shape[1],))
 

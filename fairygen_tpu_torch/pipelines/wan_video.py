@@ -1,26 +1,38 @@
-"""Wan text+image-to-video pipeline, TI2V path (port of
-fairygen_tpu/pipelines/wan_video.py ``WanVideoPipeline``).
+"""Wan video pipeline: the TI2V, I2V, video-to-video and two-expert paths
+(port of fairygen_tpu/pipelines/wan_video.py ``WanVideoPipeline``).
 
 The call: prompt strings through the UMT5 tokenizer and encoder (or
-encoded ``context`` / ``negative_context``), noise (``core.noise``), VAE38
-encode of the first frame pinned into latent frame 0, flow-match Euler
-steps with CFG as two batch-1 DiT sweeps (or one batch-2 sweep with
-``cfg_merge``) and a re-pin of frame 0 after each step, then the VAE38
-decode: full-sequence, streamed chunk by chunk (``streaming_vae``) or in
-spatial tiles (``tiled``).  ``sliding_window_size``/``_stride`` denoise
-overlapping temporal windows and blend them.  The per-prompt
-cross-attention (k, v) are computed once per call, but for the sliding
-window, whose sweeps take the context as the JAX package's do.
+encoded ``context`` / ``negative_context``), noise (``core.noise``), then
+the conditioning: the TI2V VAE38 encode of the first frame pinned into
+latent frame 0; or, for the I2V DiTs (``require_vae_embedding``), the
+4-fold first-frame mask (and the last frame's with ``end_image``) beside
+the VAE encode of [first frame, zeros, (end frame)] as the DiT's ``y``
+channels, with the CLIP ViT-H features of the first frame where the DiT
+takes them (``require_clip_embedding``); ``input_video`` encoded and
+noised to the first step's sigma under ``denoising_strength``.
+Flow-match Euler steps with CFG as two batch-1 DiT sweeps (or one batch-2
+sweep with ``cfg_merge``) and a re-pin of frame 0 after each step, then
+the decode: full-sequence, streamed chunk by chunk (``streaming_vae``; the
+encodes stream too) or in spatial tiles (``tiled``).  A two-expert pair
+(Wan2.2-A14B: ``dit`` for high noise, ``dit2`` below
+``switch_dit_boundary``) switches at the first step whose timestep lies
+below boundary·1000.  ``sliding_window_size``/``_stride`` denoise
+overlapping temporal windows and blend them.  Each expert's per-prompt
+cross-attention (k, v) are computed once when it takes over (the first
+expert's freed first), but for the sliding window, whose sweeps take the
+context as the JAX package's do.
 
-``from_pretrained`` finds the DiT, the VAE38 and UMT5 among checkpoint
-files by their key hash (``core.model_pool``).  LoRAs load fused into the
-DiT weights or hot (``load_lora(hotload=True)``, cleared by
-``clear_lora``).  :meth:`WanVideoPipeline.quantize` swaps the DiT's
-projections to W8A8 (``ops/quant.py``); ``tea_cache_l1_thresh`` gates each
-sweep's block stack by TeaCache (``utils/tea_cache.py``), one state per CFG
-branch.  The JAX pipeline's other paths (VACE, S2V, camera, animate, VAP,
-LongCat, the I2V and two-expert models, video-to-video) are not ported:
-their keywords raise.
+``from_pretrained`` finds the DiTs (two files: the expert pair), the VAE38
+or the Wan2.1 VAE and UMT5 among checkpoint files by their key hash
+(``core.model_pool``); the CLIP image encoder is given to the constructor,
+as in the JAX package.  LoRAs load fused into the first expert's weights or
+hot (``load_lora(hotload=True)``, cleared by ``clear_lora`` on both).
+:meth:`WanVideoPipeline.quantize` swaps both experts' projections to W8A8
+(``ops/quant.py``); ``tea_cache_l1_thresh`` gates each sweep's block stack
+by TeaCache (``utils/tea_cache.py``), one state per CFG branch, carried
+across the expert switch.  The JAX pipeline's other paths (VACE, S2V,
+camera, animate, VAP, LongCat, Fun-Reference, the motion bucket) are not
+ported: their keywords raise.
 """
 from __future__ import annotations
 
@@ -29,11 +41,13 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.imaging import check_resize_height_width, postprocess_video, preprocess_image
+from ..core.imaging import (check_resize_height_width, postprocess_video, preprocess_image,
+                            preprocess_video)
 from ..core.noise import generate_noise
 from ..device import resolve_device
 from ..diffusion.flow_match import FlowMatchScheduler
-from ..models.wan.dit import WanDiTConfig, precompute_cross_kv, wan_dit_forward
+from ..models.wan.dit import (WanDiTConfig, precompute_cross_kv, text_kv_hoistable,
+                              wan_dit_forward)
 from ..models.wan.text_encoder import UMT5Config, mask_pad_tokens, umt5_encode
 from ..models.wan.vae import WanVAEConfig, vae38_decode, vae38_encode
 
@@ -41,13 +55,13 @@ _VARIANTS = "ROADMAP.md Queue 1 item 6, the other Wan variants"
 # keywords of the JAX pipeline's __call__ whose paths are not ported -> (the
 # JAX default, which asks for nothing, and the ROADMAP item that ports it)
 _UNPORTED = {name: (None, _VARIANTS) for name in (
-    "end_image", "input_video", "motion_bucket_id", "vace_video", "vace_video_mask",
+    "motion_bucket_id", "vace_video", "vace_video_mask",
     "vace_reference_image", "audio_embeds", "input_audio", "longcat_video", "s2v_pose_video",
     "s2v_pose_latents", "motion_video", "camera_control_direction", "reference_image",
     "animate_pose_video", "animate_face_video", "animate_inpaint_video", "animate_mask_video",
     "vap_video", "context_vap", "negative_context_vap")}
 _UNPORTED.update(
-    switch_dit_boundary=(0.875, _VARIANTS), vace_scale=(1.0, _VARIANTS),
+    vace_scale=(1.0, _VARIANTS),
     audio_sample_rate=(16000, _VARIANTS), camera_control_speed=(1 / 54, _VARIANTS),
     vap_prompt=(" ", _VARIANTS), negative_vap_prompt=(" ", _VARIANTS))
 
@@ -61,8 +75,11 @@ def _as_pil(image, width, height):
 
 
 class WanVideoPipeline:
-    """Wan2.2-TI2V-5B pipeline over port params (see ``convert`` and
-    ``from_pretrained``).
+    """Wan pipeline over port params (see ``convert`` and
+    ``from_pretrained``): Wan2.2-TI2V-5B, the I2V and T2V DiTs, and with
+    ``dit2_params`` the two-expert pairs (both experts under ``dit_cfg``);
+    ``image_encoder_params`` / ``image_encoder_cfg``: the CLIP ViT-H of the
+    DiTs that take CLIP features.
 
     ``device`` defaults to "cuda" and raises without a card unless "cpu" is
     asked for; params must already live on that device."""
@@ -70,22 +87,27 @@ class WanVideoPipeline:
     def __init__(self, dit_params: Any, dit_cfg: WanDiTConfig, vae_params: Any = None,
                  vae_cfg: Optional[WanVAEConfig] = None, te_params: Any = None,
                  te_cfg: Optional[UMT5Config] = None, dtype=torch.bfloat16, device="cuda",
-                 tokenizer=None):
+                 tokenizer=None, dit2_params: Any = None, image_encoder_params: Any = None,
+                 image_encoder_cfg=None):
         self.device = resolve_device(device)
         self.dit_params, self.dit_cfg = dit_params, dit_cfg
+        self.dit2_params = dit2_params
         self.vae_params, self.vae_cfg = vae_params, vae_cfg
         self.te_params, self.te_cfg = te_params, te_cfg
+        self.image_encoder_params, self.image_encoder_cfg = image_encoder_params, image_encoder_cfg
         self.tokenizer = tokenizer  # utils.tokenizer.HuggingfaceTokenizer
         self.dtype = dtype
 
     @classmethod
     def from_pretrained(cls, model_paths, tokenizer_path=None, dtype=torch.bfloat16, hints=None,
                         mesh=None, device="cuda"):
-        """Hash-detected loading: the DiT, VAE38 and UMT5 files (paths or
+        """Hash-detected loading: the DiT, VAE and UMT5 files (paths or
         ``core.model_config.ModelConfig``s, in any order) are built on
-        ``device``; ``hints`` maps a path to (model_name, extra_kwargs) for
-        checkpoints the registry does not know.  ``tokenizer_path``: a
-        transformers tokenizer directory (UMT5's, 512 tokens)."""
+        ``device``; two DiT files become the (``dit``, ``dit2``) expert
+        pair in the order the pool loaded them.  ``hints`` maps a path to
+        (model_name, extra_kwargs) for checkpoints the registry does not
+        know.  ``tokenizer_path``: a transformers tokenizer directory
+        (UMT5's, 512 tokens)."""
         if mesh is not None:
             raise NotImplementedError("mesh= (sequence parallelism) waits for parallel/ on "
                                       "torch.distributed, ROADMAP.md Queue 1 item 9")
@@ -94,10 +116,8 @@ class WanVideoPipeline:
         device = resolve_device(device)
         pool = ModelPool().load(model_paths, dtype=dtype, hints=hints, device=device)
         dits = pool.fetch_model("wan_video_dit", index="all") or []
-        if len(dits) > 1:
-            raise NotImplementedError(f"two DiT files (the two-expert models) are not ported "
-                                      f"({_VARIANTS})")
         dit_params, dit_cfg = dits[0] if dits else (None, None)
+        dit2_params = dits[1][0] if len(dits) > 1 else None
         vae = pool.fetch_model("wan_video_vae")
         te = pool.fetch_model("wan_video_text_encoder")
         tokenizer = None
@@ -107,7 +127,7 @@ class WanVideoPipeline:
             tokenizer = HuggingfaceTokenizer(tokenizer_path, seq_len=512, clean="whitespace")
         return cls(dit_params, dit_cfg, vae[0] if vae else None, vae[1] if vae else None,
                    te[0] if te else None, te[1] if te else None, dtype=dtype, device=device,
-                   tokenizer=tokenizer)
+                   tokenizer=tokenizer, dit2_params=dit2_params)
 
     def quantize(self, mode: str = "int8_ffn", *, act_amax=None, alpha: float = 0.5,
                  outlier_k=0):
@@ -119,23 +139,28 @@ class WanVideoPipeline:
         (``training.quant_experiment.calibrate_wan_dit_act_amax``, or
         ``tools/calibrate_quant.py``'s npz through ``load_act_amax``) for
         the outlier-robust form at ``alpha`` with ``outlier_k`` bf16
-        fallback channels (an int, or e.g. {"ffn": {"fc2": 8}}).  Each float
-        weight is dropped as its int8 copy is made."""
+        fallback channels (an int, or e.g. {"ffn": {"fc2": 8}}); with two
+        experts the same statistics serve both.  Each float weight is
+        dropped as its int8 copy is made."""
         from ..ops.quant import quantize_wan_dit_linears
 
         if mode not in ("int8_ffn", "int8"):
             raise ValueError(f"quantize mode must be 'int8_ffn' or 'int8', got {mode!r}")
         groups = ("ffn",) if mode == "int8_ffn" else ("ffn", "self_attn", "cross_attn")
-        self.dit_params = quantize_wan_dit_linears(self.dit_params, groups, consume=True,
-                                                   act_amax=act_amax, alpha=alpha,
-                                                   outlier_k=outlier_k)
+        kw = dict(act_amax=act_amax, alpha=alpha, outlier_k=outlier_k)
+        self.dit_params = quantize_wan_dit_linears(self.dit_params, groups, consume=True, **kw)
+        if self.dit2_params is not None:
+            self.dit2_params = quantize_wan_dit_linears(self.dit2_params, groups, consume=True,
+                                                        **kw)
         return self
 
     # ------------------------------------------------------------- adapters
     def load_lora(self, lora_path_or_sd, alpha: float = 1.0, hotload: bool = False):
         """A Wan-DiT LoRA (a file or a state dict) fused into the DiT weights,
         or with ``hotload=True`` attached unfused (stacking by rank
-        concatenation across calls, removed by :meth:`clear_lora`)."""
+        concatenation across calls, removed by :meth:`clear_lora`).  With
+        two experts it goes to the first (``dit``) only, as in the JAX
+        package."""
         from ..core.io import load_state_dict
         from ..models.adapters import fuse_lora_into_wan_dit, hot_lora_into_wan_dit
 
@@ -152,10 +177,14 @@ class WanVideoPipeline:
         return self
 
     def clear_lora(self):
-        """Drop every hot-loaded LoRA (fused ones cannot be cleared)."""
+        """Drop every hot-loaded LoRA of both experts (fused ones cannot be
+        cleared)."""
         from ..models.adapters import clear_hot_lora
 
         self.dit_params, n = clear_hot_lora(self.dit_params)
+        if self.dit2_params is not None:
+            self.dit2_params, n2 = clear_hot_lora(self.dit2_params)
+            n += n2
         print(f"{n} LoRA layers cleared.")
         return self
 
@@ -188,13 +217,62 @@ class WanVideoPipeline:
         return vae38_encode(self.vae_params, self.vae_cfg,
                             img.to(self.device, self.dtype)).to(self.dtype)
 
+    @torch.no_grad()
+    def encode_input_video(self, input_video, tiled=False, tile_size=(34, 34),
+                           tile_stride=(18, 16), streaming=False):
+        """Video-to-video: frames (PIL images or HWC uint8 arrays) -> latents
+        (1, z, (T-1)/4+1, h, w), in spatial tiles with ``tiled`` (whose
+        encode streams), else full-sequence or ``streaming``."""
+        video = torch.from_numpy(preprocess_video(input_video)).to(self.device, self.dtype)
+        if tiled:
+            from ..models.wan.vae_tiling import vae38_tiled_encode
+
+            return vae38_tiled_encode(self.vae_params, self.vae_cfg, video, tile_size=tile_size,
+                                      tile_stride=tile_stride).to(self.dtype)
+        return vae38_encode(self.vae_params, self.vae_cfg, video,
+                            streaming=streaming).to(self.dtype)
+
+    @torch.no_grad()
+    def encode_i2v_conditioning(self, input_image, height, width, num_frames, end_image=None,
+                                streaming=False):
+        """The I2V DiTs' ``y`` (upstream ImageEmbedderVAE): the VAE encode of
+        [first frame, zeros, (end frame)] behind 4 mask channels, the
+        first frame's mask repeated 4-fold and regrouped into latent frames
+        (and the last frame's with ``end_image``).  Returns (1, 4 + z,
+        (F-1)/4+1, H/8, W/8)."""
+        dev, dt = self.device, self.dtype
+        img = torch.from_numpy(preprocess_image(input_image)).to(dev, dt)  # (3, H, W)
+        n_mid = num_frames - (2 if end_image is not None else 1)
+        parts = [img[:, None], torch.zeros((3, n_mid, height, width), device=dev, dtype=dt)]
+        msk = torch.zeros((1, num_frames, height // 8, width // 8), device=dev, dtype=dt)
+        msk[:, 0] = 1
+        if end_image is not None:
+            parts.append(torch.from_numpy(preprocess_image(end_image)).to(dev, dt)[:, None])
+            msk[:, -1] = 1
+        y = vae38_encode(self.vae_params, self.vae_cfg, torch.cat(parts, dim=1)[None],
+                         streaming=streaming)[0]
+        msk = torch.cat([msk[:, 0:1].repeat(1, 4, 1, 1), msk[:, 1:]], dim=1)
+        msk = msk.reshape(1, msk.shape[1] // 4, 4, height // 8, width // 8).transpose(1, 2)[0]
+        return torch.cat([msk, y.to(dt)])[None]
+
+    @torch.no_grad()
+    def encode_clip_feature(self, input_image):
+        """The CLIP ViT-H features (1, 257, 1280) of a PIL image (upstream
+        ImageEmbedderCLIP), in the pipeline's dtype."""
+        from ..models.wan.image_encoder import encode_image
+
+        img = torch.from_numpy(preprocess_image(input_image)[None]).to(self.device, self.dtype)
+        return encode_image(self.image_encoder_params, self.image_encoder_cfg,
+                            img).to(self.dtype)
+
     # ---------------------------------------------------------------- call
     @torch.no_grad()
     def __call__(self, prompt: Optional[str] = None, negative_prompt: str = "", *,
-                 context=None, negative_context=None, input_image=None,
-                 denoising_strength: float = 1.0, seed: Optional[int] = 0,
+                 context=None, negative_context=None, input_image=None, end_image=None,
+                 input_video=None, denoising_strength: float = 1.0, seed: Optional[int] = 0,
                  height: int = 480, width: int = 832, num_frames: int = 81,
                  cfg_scale: float = 5.0, cfg_merge: bool = False,
+                 switch_dit_boundary: float = 0.875,
                  num_inference_steps: int = 50, sigma_shift: float = 5.0,
                  tiled: bool = False, tile_size: Tuple[int, int] = (30, 52),
                  tile_stride: Tuple[int, int] = (15, 26),
@@ -207,9 +285,12 @@ class WanVideoPipeline:
         """The JAX pipeline's keywords; ``progress_callback(steps_done,
         total_steps)`` runs after each step.  ``tea_cache_l1_thresh``: the
         TeaCache gate's threshold over ``tea_cache_model_id``'s polynomial
-        (``utils.tea_cache``; not with the sliding window).  A keyword of a
-        path that is not ported is accepted at the JAX default and raises
-        otherwise."""
+        (``utils.tea_cache``; not with the sliding window).
+        ``streaming_vae`` streams the decode and, unlike the JAX package,
+        the I2V and video encodes too (the same math within fp32 summation
+        order; a full-sequence encode of 81 frames would not fit beside a
+        14B expert pair).  A keyword of a path that is not ported is
+        accepted at the JAX default and raises otherwise."""
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"__call__() got an unexpected keyword argument {name!r}")
@@ -237,18 +318,39 @@ class WanVideoPipeline:
         latents = generate_noise(self._latent_shape(height, width, num_frames), seed=seed,
                                  dtype=self.dtype, torch_compat=torch_compat_noise,
                                  device=self.device)
-        first = None
-        if input_image is not None:
-            if not self.dit_cfg.fuse_vae_embedding_in_latents:
-                raise NotImplementedError(f"only the TI2V first-frame conditioning is ported "
-                                          f"({_VARIANTS})")
-            first = self.encode_first_frame(_as_pil(input_image, width, height))
-            latents[:, :, 0:1] = first
-
         scheduler = FlowMatchScheduler("Wan").set_timesteps(
             num_inference_steps, denoising_strength=denoising_strength, shift=sigma_shift)
+        if input_video is not None:
+            # the call's tile size and stride, as the JAX pipeline passes them
+            video = self.encode_input_video(input_video, tiled=tiled, tile_size=tile_size,
+                                            tile_stride=tile_stride, streaming=streaming_vae)
+            latents = scheduler.add_noise(video, latents, 0)
+        first = y = clip_feature = None
+        if input_image is not None:
+            cfg = self.dit_cfg
+            if cfg.fuse_vae_embedding_in_latents:
+                first = self.encode_first_frame(_as_pil(input_image, width, height))
+                latents[:, :, 0:1] = first
+            elif cfg.require_vae_embedding:
+                y = self.encode_i2v_conditioning(
+                    _as_pil(input_image, width, height), height, width, num_frames,
+                    end_image=None if end_image is None else _as_pil(end_image, width, height),
+                    streaming=streaming_vae)
+            else:
+                raise NotImplementedError(
+                    f"input_image given but the loaded DiT config (fuse_vae="
+                    f"{cfg.fuse_vae_embedding_in_latents}, require_vae="
+                    f"{cfg.require_vae_embedding}) supports no image conditioning path")
+            if cfg.require_clip_embedding:
+                if self.image_encoder_params is None:
+                    raise ValueError("this DiT requires CLIP image conditioning "
+                                     "(require_clip_embedding=True) but no image encoder is "
+                                     "loaded")
+                clip_feature = self.encode_clip_feature(_as_pil(input_image, width, height))
+
         args = (latents, context, negative_context if use_cfg else None, scheduler, first,
-                cfg_scale, progress_callback)
+                cfg_scale, progress_callback, y, clip_feature,
+                self._boundary_index(scheduler, switch_dit_boundary))
         if sliding_window_size is not None:
             if tea_cache_l1_thresh is not None:
                 raise ValueError("TeaCache and the temporal sliding window are mutually "
@@ -266,11 +368,23 @@ class WanVideoPipeline:
                                    frames_per_chunk=vae_frames_per_chunk, tiled=tiled,
                                    tile_size=tile_size, tile_stride=tile_stride)
 
-    def _sweep(self, latents, t1, fuse, cross_kv=None, context=None, **tea):
-        """One DiT sweep; with ``tea`` (tea_cache_state, tea_cache_opts) it
-        returns (output, new state)."""
-        return wan_dit_forward(self.dit_params, self.dit_cfg, latents, t1, context,
-                               fuse_vae_embedding_in_latents=fuse, cross_kv=cross_kv, **tea)
+    def _boundary_index(self, scheduler, switch_dit_boundary):
+        """The first step of ``dit2``: the first whose timestep lies below
+        boundary·1000 (a step at the boundary stays with ``dit``); the step
+        count without a second expert."""
+        n = len(scheduler.timesteps)
+        if self.dit2_params is None:
+            return n
+        return int(np.searchsorted(-np.asarray(scheduler.timesteps),
+                                   -switch_dit_boundary * 1000, side="right"))
+
+    def _sweep(self, params, latents, t1, fuse, cross_kv=None, context=None, y=None,
+               clip_feature=None, **tea):
+        """One DiT sweep of ``params`` (an expert); with ``tea``
+        (tea_cache_state, tea_cache_opts) it returns (output, new state)."""
+        return wan_dit_forward(params, self.dit_cfg, latents, t1, context, y=y,
+                               clip_feature=clip_feature, fuse_vae_embedding_in_latents=fuse,
+                               cross_kv=cross_kv, **tea)
 
     def _init_tea_states(self, latents, *, use_cfg, cfg_merge, fuse):
         """fp32 TeaCache states shaped for the DiT's tokens and t_mod rows:
@@ -290,11 +404,15 @@ class WanVideoPipeline:
         return tea_a, tea_b
 
     def _denoise(self, latents, context, negative_context, scheduler, first, cfg_scale,
-                 progress_callback, cfg_merge, tea_opts=None):
+                 progress_callback, y, clip_feature, boundary, cfg_merge, tea_opts=None):
         """The steps: two batch-1 sweeps for CFG, or with ``cfg_merge`` one
         batch-2 sweep over [prompt, negative prompt]; the guidance combine
-        in fp32, as in the JAX package.  ``tea_opts``: TeaCache's options,
-        with one gate state per sweep of a step."""
+        in fp32, as in the JAX package.  Steps before ``boundary`` run
+        ``dit``, the rest ``dit2``; each expert's text (k, v) are made when
+        it takes over (for the I2V DiTs too, beside their image branch:
+        the JAX package projects them in every block there, the same ops).
+        ``tea_opts``: TeaCache's options, with one gate state per sweep of a
+        step, carried across the switch."""
         timesteps = torch.tensor(scheduler.timesteps, dtype=torch.float32)
         n, fuse = len(scheduler.timesteps), first is not None
         merge = negative_context is not None and cfg_merge
@@ -302,44 +420,62 @@ class WanVideoPipeline:
         if tea_opts is not None:
             tea = list(self._init_tea_states(latents, use_cfg=negative_context is not None,
                                              cfg_merge=cfg_merge, fuse=fuse))
-
-        def sweep(lat, t, kv, branch):
-            if tea_opts is None:
-                return self._sweep(lat, t, fuse, kv)
-            v, tea[branch] = self._sweep(lat, t, fuse, kv, tea_cache_state=tea[branch],
-                                         tea_cache_opts=tea_opts)
-            return v
+        hoist = text_kv_hoistable(self.dit_cfg, clip_feature)
         if merge:
-            ckv = precompute_cross_kv(self.dit_params, self.dit_cfg,
-                                      torch.cat([context, negative_context]))
-        else:
-            ckv = precompute_cross_kv(self.dit_params, self.dit_cfg, context)
-            if negative_context is not None:
-                ckv_n = precompute_cross_kv(self.dit_params, self.dit_cfg, negative_context)
-        for i in range(n):
-            t1 = timesteps[i:i + 1].to(self.device)
+            y2 = None if y is None else torch.cat([y, y])
+            clip2 = None if clip_feature is None else torch.cat([clip_feature, clip_feature])
+
+        for params, start, stop in ((self.dit_params, 0, boundary),
+                                    (self.dit2_params, boundary, n)):
+            if start >= stop:
+                continue
+
+            def sweep(lat, t, kv, ctx, branch, y_, clip_):
+                kw = dict(cross_kv=kv, context=None if hoist else ctx, y=y_, clip_feature=clip_)
+                if tea_opts is None:
+                    return self._sweep(params, lat, t, fuse, **kw)
+                v, tea[branch] = self._sweep(params, lat, t, fuse, **kw,
+                                             tea_cache_state=tea[branch],
+                                             tea_cache_opts=tea_opts)
+                return v
+
+            ckv = ckv_n = None
             if merge:
-                v2 = sweep(torch.cat([latents, latents]), t1.repeat(2), ckv, 0)
-                v, v_n = v2[:1], v2[1:]
-            else:
-                v = sweep(latents, t1, ckv, 0)
+                ctx2 = torch.cat([context, negative_context])
+                if hoist:
+                    ckv = precompute_cross_kv(params, self.dit_cfg, ctx2)
+            elif hoist:
+                ckv = precompute_cross_kv(params, self.dit_cfg, context)
                 if negative_context is not None:
-                    v_n = sweep(latents, t1, ckv_n, 1)
-            if negative_context is not None:
-                v = v_n.float() + cfg_scale * (v - v_n).float()
-            latents = scheduler.step(v, i, latents)
-            if fuse:
-                latents[:, :, 0:1] = first
-            if progress_callback is not None:
-                progress_callback(i + 1, n)
+                    ckv_n = precompute_cross_kv(params, self.dit_cfg, negative_context)
+            for i in range(start, stop):
+                t1 = timesteps[i:i + 1].to(self.device)
+                if merge:
+                    v2 = sweep(torch.cat([latents, latents]), t1.repeat(2), ckv, ctx2, 0, y2,
+                               clip2)
+                    v, v_n = v2[:1], v2[1:]
+                else:
+                    v = sweep(latents, t1, ckv, context, 0, y, clip_feature)
+                    if negative_context is not None:
+                        v_n = sweep(latents, t1, ckv_n, negative_context, 1, y, clip_feature)
+                if negative_context is not None:
+                    v = v_n.float() + cfg_scale * (v - v_n).float()
+                latents = scheduler.step(v, i, latents)
+                if fuse:
+                    latents[:, :, 0:1] = first
+                if progress_callback is not None:
+                    progress_callback(i + 1, n)
+            del ckv, ckv_n  # this expert's (k, v) go before the next expert's are made
         return latents
 
     def _denoise_windowed(self, latents, context, negative_context, scheduler, first,
-                          cfg_scale, progress_callback, window_size, window_stride):
+                          cfg_scale, progress_callback, y, clip_feature, boundary, window_size,
+                          window_stride):
         """Long videos: each step denoises overlapping temporal windows
-        (each sweep with the prompt's context; CFG combined per window in
-        the sweep's dtype, as the JAX package's windowed path does) and
-        blends them in fp32 (``utils.temporal_tiler``)."""
+        (each sweep with the prompt's context, the expert of its step, the
+        window's frames of ``y``; CFG combined per window in the sweep's
+        dtype, as the JAX package's windowed path does) and blends them in
+        fp32 (``utils.temporal_tiler``)."""
         from ..utils.temporal_tiler import temporal_tiled_model_fn
 
         if window_stride is None:
@@ -348,15 +484,18 @@ class WanVideoPipeline:
         n, fuse = len(scheduler.timesteps), first is not None
         for i in range(n):
             t1 = timesteps[i:i + 1].to(self.device)
+            params = self.dit_params if i < boundary else self.dit2_params
 
-            def model_fn(window):
-                v = self._sweep(window, t1, fuse, context=context)
+            def model_fn(window, y=None):
+                kw = dict(y=y, clip_feature=clip_feature)
+                v = self._sweep(params, window, t1, fuse, context=context, **kw)
                 if negative_context is not None:
-                    v_n = self._sweep(window, t1, fuse, context=negative_context)
+                    v_n = self._sweep(params, window, t1, fuse, context=negative_context, **kw)
                     v = v_n + float(torch.tensor(cfg_scale, dtype=v.dtype)) * (v - v_n)
                 return v
 
-            v = temporal_tiled_model_fn(model_fn, latents, window_size, window_stride)
+            v = temporal_tiled_model_fn(model_fn, latents, window_size, window_stride,
+                                        sliced_kwargs={"y": y})
             latents = scheduler.step(v, i, latents)
             if fuse:
                 latents[:, :, 0:1] = first

@@ -155,3 +155,108 @@ def test_the_profiler_window_records_the_calls_not_its_spin(smoke, monkeypatch):
     rows = smoke._window_rows(fn, 4, [torch.profiler.ProfilerActivity.CPU])
     assert sum(e.count for e in rows if e.key == "window_call") == 4
     assert not [e for e in rows if "spin" in e.key]
+
+
+# ------------------------------------------------------- the variants phase
+@pytest.mark.parametrize("clip,model_hash", [(False, "5b013604280dd715f8457c6ed6d6a626"),
+                                             (True, "6bfcfb3b342cb286ce886889d519a77e")])
+def test_the_14b_configs_are_the_registry_entries(smoke, clip, model_hash):
+    """The variants phase's seeded DiTs have the fields the registry gives
+    Wan2.2-I2V-A14B's experts and Wan2.1-I2V-14B."""
+    import json
+
+    entries = json.loads((REPO / "fairygen_tpu_torch" / "configs" /
+                          "model_registry.json").read_text())
+    extra = next(e["extra_kwargs"] for e in entries if e["model_hash"] == model_hash)
+    cfg = smoke.wan14b_cfg(clip)
+    for k, v in extra.items():
+        assert getattr(cfg, k) == (tuple(v) if isinstance(v, list) else v), k
+    assert cfg.require_clip_embedding == clip and cfg.require_vae_embedding
+
+
+def test_vae_norm_silu_calls_counts_the_v1_sites(smoke, monkeypatch):
+    """The K11 launches the phase expects of a Wan2.1 VAE pass are every
+    norm + SiLU site of it, as in the VAE38: counted on the CPU through the
+    name the VAE module calls, for a small v1 VAE over a 5-frame 32 x 32
+    clip (21 and 29 at the published width)."""
+    import numpy as np
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.wan import vae as tvae
+
+    cfg = tvae.WanVAEConfig.tiny_v1(dim_mult=(1, 2, 4, 4))
+    params = convert.init_vae_params(cfg, "cpu", torch.float32, seed=0)
+    calls = []
+    shapes, undo = smoke.record_k11_shapes(tvae)
+    x = torch.from_numpy(np.random.default_rng(0).uniform(-1, 1, (1, 3, 5, 32, 32))
+                         .astype(np.float32))
+    try:
+        with torch.no_grad():
+            z = tvae.vae38_encode(params, cfg, x)
+            calls.append(sum(shapes.values()))
+            tvae.vae38_decode(params, cfg, z)
+            calls.append(sum(shapes.values()) - calls[0])
+    finally:
+        undo()
+    assert tuple(calls) == smoke.vae_norm_silu_calls(cfg) and all(calls)
+    assert smoke.vae_norm_silu_calls(tvae.WanVAEConfig.wan21_16()) == (21, 29)
+
+
+def test_expert_sweeps_are_counted_per_expert(smoke):
+    """count_expert_sweeps tells the two experts' sweeps apart (a tiny
+    two-expert pipeline, 3 steps, boundary 0.9: 2 and 1 steps) and its undo
+    puts the pipeline's DiT forward back."""
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.wan.dit import WanDiTConfig
+    from fairygen_tpu_torch.models.wan.vae import WanVAEConfig
+    from fairygen_tpu_torch.pipelines import wan_video
+
+    cfg = WanDiTConfig(dim=48, in_dim=12, ffn_dim=64, out_dim=4, text_dim=16, freq_dim=16,
+                       num_heads=2, num_layers=1, require_clip_embedding=False)
+    vcfg = WanVAEConfig.tiny_v1()
+    pipe = wan_video.WanVideoPipeline(
+        convert.init_dit_params(cfg, "cpu", torch.float32, seed=0), cfg,
+        convert.init_vae_params(vcfg, "cpu", torch.float32, seed=1), vcfg, dtype=torch.float32,
+        device="cpu", dit2_params=convert.init_dit_params(cfg, "cpu", torch.float32, seed=2))
+    real = wan_video.wan_dit_forward
+    counts, undo = smoke.count_expert_sweeps(pipe)
+    pipe(context=torch.zeros(1, 3, 16), input_image=smoke.seeded_image(0, 32, 32), height=32,
+         width=32, num_frames=5, cfg_scale=1.0, num_inference_steps=3, switch_dit_boundary=0.9,
+         output_type="latents")
+    undo()
+    assert counts == [2, 1] and wan_video.wan_dit_forward is real
+
+
+PTXAS_LOG = """ptxas info : Compiling entry function '_Z18ln_modulate_kernelILi16EEvPK13bf16'
+ptxas info : Used 62 registers, used 0 barriers
+ptxas info :     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info : Compiling entry function '_Z18ln_modulate_kernelILi32EEvPK13bf16'
+ptxas info : Used 128 registers, used 0 barriers
+ptxas info :     0 bytes stack frame, {spill} bytes spill stores, 0 bytes spill loads
+"""
+
+
+def test_ptxas_report_tells_template_forms_apart(smoke, capsys):
+    """K1's two forms (16 and 32 vectors a lane) are matched by their
+    template arguments; a spill in either fails the build report."""
+    names = ("ln_modulate_kernelILi16E", "ln_modulate_kernelILi32E")
+    smoke.ptxas_report(PTXAS_LOG.format(spill=0), names, ("narrow", "wide"))
+    out = capsys.readouterr().out
+    assert "narrow" in out and "registers 62" in out and "registers 128" in out
+    with pytest.raises(RuntimeError, match="ILi32E"):
+        smoke.ptxas_report(PTXAS_LOG.format(spill=8), names, ("narrow", "wide"))
+    with pytest.raises(RuntimeError, match="no such kernel"):
+        smoke.ptxas_report(PTXAS_LOG.format(spill=0), names + ("other_kernel",),
+                           ("narrow", "wide", "other"))
+
+
+def test_stream_vs_full_holds_the_bars(smoke):
+    """stream_vs_full passes a rounding-sized difference and raises where a
+    frame is lost at a chunk seam (frames on axis 2)."""
+    g = torch.Generator().manual_seed(0)
+    full = torch.randn((1, 4, 5, 8, 8), generator=g)
+    smoke.stream_vs_full("close", full + 1e-3 * torch.randn(full.shape, generator=g), full)
+    broken = full.clone()
+    broken[:, :, 3] = 0
+    with pytest.raises(RuntimeError, match="streamed form disagrees"):
+        smoke.stream_vs_full("a lost frame", broken, full)

@@ -93,6 +93,24 @@ def test_k1_matches_plain(card, s, seg):
                                rtol=2 ** -7, atol=1e-5)
 
 
+@pytest.mark.parametrize("d,s,seg", [(5120, 1560, 0), (5120, 300, 77), (8192, 129, 0),
+                                     (4104, 65, 0)])
+def test_k1_wide_rows_match_plain(card, d, s, seg):
+    """K1's wide form (32 vectors a lane): the 14B DiTs' D = 5120, its
+    largest D = 8192 and the narrowest width that takes it (4104); the
+    same 1 bf16 ulp as at 3072.  D past 8192 raises."""
+    from fairygen_tpu_torch.ops.fused_norms import layer_norm_modulate, layer_norm_modulate_plain
+
+    x = _randn(card, 1, s, d)
+    sh, sc = _randn(card, 1, 2, d, scale=0.1), _randn(card, 1, 2, d, scale=0.1)
+    torch.testing.assert_close(layer_norm_modulate(x, sh, sc, seg).float(),
+                               layer_norm_modulate_plain(x, sh, sc, seg).float(),
+                               rtol=2 ** -7, atol=1e-5)
+    with pytest.raises(ValueError, match="8192"):
+        big = _randn(card, 1, 8, 8200)
+        layer_norm_modulate(big, _randn(card, 1, 2, 8200), _randn(card, 1, 2, 8200))
+
+
 @pytest.mark.parametrize("s", [60, 1100])
 @pytest.mark.parametrize("rope", [True, False])
 def test_k2_matches_plain_exactly(card, s, rope):
@@ -191,14 +209,17 @@ def _k3_k4_joint(card, b, n, s_i, s_t, monkeypatch):
     pytest.param(("generic", 1, 2, 300, 300), id="generic-64-row-remainder-k4"),
     pytest.param(("generic", 2, 2, 300, 1100), id="generic-64-row-remainder-k3"),
     pytest.param(("heads_major", 1, 30, 320, 320), id="z-image-caption-320"),
+    pytest.param(("heads_major", 1, 40, 1560, 257), id="clip-257-keys-40-heads"),
     pytest.param(("joint", 1, 2, 2100, 512), id="flux-joint-gap-972"),
 ])
 def test_k3_k4_match_plain(card, case, monkeypatch):
     """K3/K4 against the plain version: four DiT shapes at B = 1, two
     batches whose Lv stops short of the padded keys, q and key lengths
     padded to 64 rows (a 128-row tile of the kernel reaches past them), the
-    Z-Image caption refiner's 320 tokens in one 1024-key tile, and the
-    FLUX.1 joint layout with a zero gap longer than one key tile."""
+    Z-Image caption refiner's 320 tokens in one 1024-key tile, the 14B I2V
+    DiT's CLIP branch (40 heads, 257 image keys in a 384-key tile, one frame
+    of queries), and the FLUX.1 joint layout with a zero gap longer than
+    one key tile."""
     kind, b, n, sq, sk = case
     if kind == "heads_major":
         out, ref = _k3_k4_heads_major(card, b, n, sq, sk)
@@ -1351,7 +1372,8 @@ def _dense_on(dev, seed, k=3072, n=1024, rows=300, dtype=torch.bfloat16):
 def test_quantized_dense_on_the_card_matches_the_cpu(card, rows):
     """torch._int_mm's int32 products equal the CPU's exact product; the
     plain form's whole output equals the CPU's bit for bit (every step is
-    one IEEE-rounded op on both, the divisions true divisions); 5 rows are
+    one IEEE-rounded op on both, the divisions by 127 products with an fp32
+    1/127 tensor, as the jitted JAX package computes them); 5 rows are
     padded to 17 for cuBLASLt.  The robust form's thin fp32 outlier product
     sums 8 terms in cuBLAS's order: within an fp32 ulp of the largest
     output.  Each call counts one _int_mm launch."""

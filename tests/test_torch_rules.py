@@ -29,6 +29,7 @@ from fairygen_tpu_torch.models.sdxl.clip import CLIPTextConfig
 from fairygen_tpu_torch.models.sdxl.unet2d import UNet2DConfig, convert_unet2d_state_dict
 from fairygen_tpu_torch.models.sdxl.vae import AutoencoderKLConfig
 from fairygen_tpu_torch.models.wan.dit import WanDiTConfig
+from fairygen_tpu_torch.models.wan.image_encoder import ViTConfig, convert_vit_state_dict
 from fairygen_tpu_torch.models.wan.text_encoder import UMT5Config, convert_umt5_state_dict
 from fairygen_tpu_torch.models.wan.vae import WanVAEConfig
 from fairygen_tpu_torch.models.z_image.dit import ZImageDiTConfig
@@ -99,6 +100,8 @@ def _flux_sd(cfg):
 FLUX0 = FluxDiTConfig.tiny(num_double_blocks=0, num_single_blocks=0)
 UNET0 = UNet2DConfig(down_block_types=(), up_block_types=(), mid_block_type=None,
                      addition_embed_type=None)
+VIT0_SD = {"patch_embedding.weight": np.zeros((32, 3, 14, 14)),
+           "cls_embedding": np.zeros((1, 1, 32)), "pos_embedding": np.zeros((1, 5, 32))}
 UNET0_SD = {f"time_embedding.linear_{i}.{k}": np.zeros((2, 2) if k == "weight" else 2)
             for i in (1, 2) for k in ("weight", "bias")}
 
@@ -113,7 +116,9 @@ UNET0_SD = {f"time_embedding.linear_{i}.{k}": np.zeros((2, 2) if k == "weight" e
                                    "train_cli_twin", "launch_training_task", "distill_step",
                                    "init_isnet", "convert_isnet", "dora_step", "mask_cli_twin",
                                    "dora_cli_twin", "stylize_cli_twin", "story_cli_twin",
-                                   "calibrate_quant_cli", "calibrate_tea_cache_cli"])
+                                   "calibrate_quant_cli", "calibrate_tea_cache_cli",
+                                   "two_expert_pipeline", "init_vit", "convert_vit",
+                                   "init_vae_v1"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
@@ -166,6 +171,11 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
         "story_cli_twin": lambda: fairygen_story.main(["--workspace", "x"]),
         "calibrate_quant_cli": lambda: calibrate_quant.main(["--model_paths", "[]"]),
         "calibrate_tea_cache_cli": lambda: calibrate_tea_cache.main(["--model_paths", "[]"]),
+        "two_expert_pipeline": lambda: WanVideoPipeline({}, WanDiTConfig(), dit2_params={},
+                                                        image_encoder_params={}),
+        "init_vit": lambda: convert.init_vit_params(ViTConfig.tiny(num_layers=1)),
+        "convert_vit": lambda: convert_vit_state_dict(VIT0_SD, ViTConfig.tiny(num_layers=0)),
+        "init_vae_v1": lambda: convert.init_vae_params(WanVAEConfig.tiny_v1()),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

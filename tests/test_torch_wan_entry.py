@@ -161,14 +161,6 @@ def test_wan_dit_variants_raise(extra, match):
         ModelPool().registry.builder("wan_video_dit")({}, extra, torch.float32, "cpu")
 
 
-def test_wan21_vae_raises():
-    build = ModelPool().registry.builder("wan_video_vae")
-    with pytest.raises(NotImplementedError, match="Wan2.1 VAE"):
-        build({"conv2.weight": np.zeros((16, 16, 1, 1, 1))}, {}, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="Wan2.1 VAE"):
-        build({}, {"arch": "v1"}, torch.float32, "cpu")
-
-
 def test_model_config_resolves_local_paths(tmp_path, monkeypatch):
     (tmp_path / "org" / "m").mkdir(parents=True)
     for n in ("a.safetensors", "b.safetensors", "c.txt"):
@@ -366,9 +358,7 @@ def test_hot_lora_refuses_a_training_adapter_and_takes_the_2d_branch():
 def test_unported_keywords_raise(pipes):
     _, pipe = pipes
     for kw in ({"vace_video": [np.zeros((32, 32, 3), np.uint8)]},
-               {"end_image": np.zeros((32, 32, 3), np.uint8)},
-               {"motion_bucket_id": 3}, {"input_video": []}, {"vace_scale": 0.5},
-               {"switch_dit_boundary": 0.9}):
+               {"motion_bucket_id": 3}, {"vace_scale": 0.5}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
             pipe(**REQUEST, **kw)
     # the JAX defaults ask for nothing
@@ -439,8 +429,7 @@ def test_cli_twins_keep_the_jax_examples_flags_and_prompt():
 
 @pytest.mark.parametrize("flag", ["--usp 2", "--vace_video v.mp4",
                                   "--camera_control_direction Left", "--audio a.wav",
-                                  "--longcat_video v.mp4",
-                                  "--end_image e.png", "--reference_image r.png",
+                                  "--longcat_video v.mp4", "--reference_image r.png",
                                   "--motion_bucket_id 3"])
 def test_cli_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as e:
