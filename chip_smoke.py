@@ -80,6 +80,13 @@ Phases, each printing its wall seconds:
                 (494.7 / 3 TFLOP/s) bounds, and their sums over a step's
                 140 calls; with --ab-lib, the other build's fp32 K6a-c C
                 entries beside this build's wrappers, with host time a call.
+                Then K6a, K6b and K6c in bf16 at head dim 64 (the bf16 SDXL
+                UNet under a gradient) at the same four shapes against their
+                plain versions (the head-dim-128 tolerances), twice bit for
+                bit, events and device time against their bounds and exp2
+                counts, cuDNN's forward with its log-sum-exp and SDPA's
+                flash backward beside them, and their sums over a step's
+                140 calls.
   4. weights  — full-width Wan2.2-TI2V-5B DiT, UMT5-XXL and VAE38, made on
                 the card in bf16 from a seeded CUDA generator.
   5. requests — WanVideoPipeline answers two 480x832x17-frame, 4-step,
@@ -164,10 +171,20 @@ Phases, each printing its wall seconds:
  10. sdxl     — SDXL + BrushNet stylization at full width and depth (UNet,
                 BrushNet-SDXL, CLIP-L, OpenCLIP bigG, the SDXL VAE in fp32)
                 from seeded bf16 weights with a rank-32 Style DoRA loaded at
-                lora_scale 0.66: two 1024x1024, 50-step, CFG 7.5, BrushNet
-                0.7 requests on a seeded masked image with exact launch
-                counts (per step: K5 at head dim 64 10, K4 max form 61, K4
-                masked form 70), and one BrushNet + UNet step profiled.
+                lora_scale 0.66: two 1024x1024, CFG 7.5, BrushNet 0.7
+                requests on a seeded masked image, one with 50 DPM-Solver++
+                steps and one with 4 LCM steps (scheduler="lcm"), with exact
+                launch counts (per step: K5 at head dim 64 10, K4 max form
+                61, K4 masked form 70), and one BrushNet + UNet step
+                profiled.
+ 10a. sdxl_train — on the sdxl phase's UNet, BrushNet and VAE: two
+                1024x1024 BrushNet training steps (bf16 UNet frozen, fp32
+                BrushNet weights, AdamW; K6a-c bf16 at head dim 64 141 each
+                a step; the UNet bit for bit, every BrushNet tensor moved;
+                the second step profiled), one consistency-distillation step
+                at 1024x1024 and one direct step at 512x512 (4 student, 4
+                teacher steps), the student a bf16 copy of the UNet; walls,
+                peaks, exact launches.
  10b. dora    — FairyGen's stylization front end at full width as the CLI
                 twins run it (tools/create_mask.py, examples/dora_train.py,
                 examples/brushnet_stylize.py): the full-width ISNet's mask
@@ -205,6 +222,7 @@ Phases, each printing its wall seconds:
                 FLUX.1 DiT with and without EliGen likewise, a tiny
                 head-dim-128 Z-Image DiT and a tiny Qwen3 encoder likewise,
                 and a tiny head-dim-64 SDXL + BrushNet + DoRA pipeline
+                likewise, a tiny bf16 BrushNet step and a tiny LCM request
                 likewise, and a tiny head-dim-64 fp32 DoRA step (with and
                 without min-SNR-5) likewise, and the tiny pipeline quantized
                 to "int8" and with TeaCache likewise (the TeaCache schedule
@@ -605,6 +623,16 @@ HOPPER_KERNELS = (
      lambda lib: lib.fg_flash_bwd_smem_bytes(0)),
     ("flash_bwd_dkv", "fa_dkv_wgmma_kernel", "flash_attention_bwd.cu.o",
      lambda lib: lib.fg_flash_bwd_smem_bytes(1)),
+    ("flash_fwd_lse_d64", "fa_online_lse_d64_kernel", "flash_attention_online.cu.o",
+     lambda lib: lib.fg_flash_online_smem_bytes(0)),
+    ("flash_fwd_lse_d64 ragged", "fa_online_lse_d64_ragged_kernel",
+     "flash_attention_online.cu.o", lambda lib: lib.fg_flash_online_smem_bytes(0)),
+    ("flash_bwd_dq_d64", "fa_dq_d64_wgmma_kernel", "flash_attention_bwd.cu.o",
+     lambda lib: lib.fg_flash_bwd_smem_bytes(2)),
+    ("flash_bwd_dq_d64 ragged", "fa_dq_d64_wgmma_ragged_kernel", "flash_attention_bwd.cu.o",
+     lambda lib: lib.fg_flash_bwd_smem_bytes(2)),
+    ("flash_bwd_dkv_d64", "fa_dkv_d64_wgmma_kernel", "flash_attention_bwd.cu.o",
+     lambda lib: lib.fg_flash_bwd_smem_bytes(3)),
 )
 
 
@@ -986,7 +1014,7 @@ def turns_ab(lib_path):
             calls[t] = {
                 "K6a": lambda lib=lib, o=o, lse=lse, kh=kh, vh=vh: call(
                     lib, "fg_flash_fwd_lse", qh.data_ptr(), kh.data_ptr(), vh.data_ptr(),
-                    o.data_ptr(), lse.data_ptr(), bn, sq_pad, sk, sk_pad),
+                    o.data_ptr(), lse.data_ptr(), bn, sq_pad, sk, sk_pad, d),
                 "K5": lambda lib=lib, o5=o5, kh=kh, vh=vh: call(
                     lib, "fg_flash_fwd", qh.data_ptr(), kh.data_ptr(), vh.data_ptr(),
                     o5.data_ptr(), bn, sq_pad, sk, sk_pad)}
@@ -1234,6 +1262,7 @@ def main(argv):
     norm_k = norm_kernel_checks()
     sdxl_k = sdxl_kernel_checks()
     f32_k = f32_train_kernel_checks()
+    d64_k = bf16_d64_kernel_checks()
     k4_other = k4_ab(ab_lib) if ab_lib else None
     f32_other = f32_ab(ab_lib) if ab_lib else None
     torch.cuda.synchronize()
@@ -1344,10 +1373,19 @@ def main(argv):
         done("zimage", t0)
 
         t0 = phase("sdxl")
-        sdxl_launches = sdxl_phase()
+        sdxl_launches, sdxl_models = sdxl_phase()
         launches = {k: launches[k] + sdxl_launches[k] for k in launches}
         print(f"  launches, serving, training, FLUX.1, Z-Image and SDXL: {launches}", flush=True)
         done("sdxl", t0)
+
+        t0 = phase("sdxl_train")
+        sdxl_train_launches = sdxl_train_phase(**sdxl_models)
+        launches = {k: launches[k] + sdxl_train_launches[k] for k in launches}
+        print(f"  launches, serving, training, FLUX.1, Z-Image, SDXL and its training: "
+              f"{launches}", flush=True)
+        del sdxl_models
+        torch.cuda.empty_cache()
+        done("sdxl_train", t0)
 
         t0 = phase("dora")
         dora_launches = dora_phase()
@@ -1370,6 +1408,7 @@ def main(argv):
         reference_flux_check()
         reference_zimage_check()
         reference_sdxl_check()
+        reference_sdxl_train_check()
         reference_dora_check()
         reference_speed_check()
         done("reference", t0)
@@ -1567,6 +1606,29 @@ def main(argv):
             "by_shape": {tag: {"ms": v["ms"], "device_ms": v["device_ms"],
                                "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0]}
                          for tag, v in by.items()}})
+    d64_sources = {"flash_fwd_lse_d64": ("flash_attention_online.cu",
+                                         "fairygen_tpu/ops/flash_attention.py:253"),
+                   "flash_bwd_dq_d64": ("flash_attention_bwd.cu",
+                                        "fairygen_tpu/ops/flash_attention.py:295"),
+                   "flash_bwd_dkv_d64": ("flash_attention_bwd.cu",
+                                         "fairygen_tpu/ops/flash_attention.py:329")}
+    for k, (src, replaces) in d64_sources.items():
+        by = d64_k[k]
+        r = by["self 10x4096"]
+        rows.append({
+            "name": k, "route": "cuda", "source": "fairygen_tpu_torch/csrc/" + src,
+            "replaces": replaces, "launches": None if expected is None else launches[k],
+            "max_abs_err": max(v["max_abs_err"] for v in by.values()), "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"], "shape": "self 10x4096", "device_ms": r["device_ms"],
+            "exp2_ms": r["exp_ms"],
+            "step_device_ms": sum(v["calls"] * v["device_ms"] for v in by.values()),
+            "step_bound_ms": sum(v["calls"] * v["bound"][0] for v in by.values()),
+            "by_shape": {tag: {key: v.get(key) for key in (
+                "calls", "ms", "device_ms", "plain_ms", "exp_ms", "library_ms",
+                "library_flash_ms", "library_cudnn_ms", "library_device_ms", "max_abs_err",
+                "rel_l2")} | {"bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
+                for tag, v in by.items()}})
     timer.cancel()
     print(smi)
     print(json.dumps({"kernels": rows}))
@@ -1871,7 +1933,8 @@ TRAIN_PER_STEP = {"ln_modulate": 180, "rms_rope_heads_major": 180, "flash_bounde
                   "flash_small_kv_max": 0, "flash_small_kv_masked": 0, "flash_fwd_d64": 0,
                   "flash_fwd_lse_f32": 0, "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0,
                   "flash_bwd_prep_f32": 0, "flash_bwd_dkv_reduce_f32": 0,
-                  "flash_fwd_prep_f32": 0}
+                  "flash_fwd_prep_f32": 0, "flash_fwd_lse_d64": 0, "flash_bwd_dq_d64": 0,
+                  "flash_bwd_dkv_d64": 0}
 
 
 def train_phase(pipe, serving_per_request):
@@ -4042,6 +4105,7 @@ def reference_zimage_check():
 
 
 SDXL_STEPS = 50
+SDXL_LCM_STEPS = 4  # the second request: the few-step LCM rollout
 # per BrushNet + UNet step at 1024x1024, CFG batch 2 (checked on the CPU by
 # tests/test_torch_sdxl_kernels.py with the real block structure): the 10
 # transformer blocks at 64 x 64 latents (4096 tokens) self-attend through
@@ -4419,6 +4483,147 @@ def f32_train_kernel_checks():
     return res
 
 
+# the bf16 K6a-c at head dim 64, one launch each a flash_attention call with
+# a gradient (the bf16 SDXL UNet's: BrushNet training, SDXL distillation)
+BF16_D64_KERNELS = ("flash_fwd_lse_d64", "flash_bwd_dq_d64", "flash_bwd_dkv_d64")
+H100_MUFU_EXP2_PER_S = 132 * 16 * 1.98e9  # 16 exp2 a clock an SM at the 1.98 GHz boost clock
+
+
+def bf16_d64_kernel_checks():
+    """K6a, K6b and K6c in bf16 at head dim 64 against their plain versions
+    on the card at the shapes of the bf16 SDXL UNet's 1024x1024 step under a
+    gradient (DORA_ATTENTION_SHAPES, batch 1; a BrushNet step adds one 20 x
+    1024^2 call for BrushNet's mid attention).  Tolerances as at head dim
+    128 (train_kernel_checks): o within 2^-7 relative + 2^-8 absolute and a
+    relative L2 error below 2^-8 (p rounded to bf16 against its 128-key
+    tile's running max), lse within 1e-5 relative + 1e-4, dq, dk and dv
+    within 2^-7 relative + 1e-2 of the largest |gradient|; each kernel run
+    twice gives the same bits; dk and dv rows >= sk_actual exactly 0; one
+    launch of each d-64 counter a call.  Bounds: 4 (K6a), 6 (K6b) and 8
+    (K6c) x BN x Sq x Sk x 64 flops on the unpadded lengths at 989 TFLOP/s,
+    each input read and output written once at 3.35 TB/s; beside them the
+    exp2 count (BN Sq Sk: each kernel computes P anew) at 16 a clock on 132
+    SMs at 1.98 GHz.  Library yardsticks, timed here only: cuDNN's attention
+    forward with its log-sum-exp (K6a; SDPA's flash forward beside it) and
+    SDPA's flash backward (dq, dk and dv together; K6b and K6c), on the
+    unpadded heads.  Returns {kernel: {tag: numbers}}."""
+    import torch
+
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator("cuda").manual_seed(6464)
+    ln2, d, bf = 0.6931471805599453, 64, torch.bfloat16
+    f = 1 / 1.4426950408889634
+    res = {}
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(bf)
+
+    for tag, bn, sq, skp, ska, calls in DORA_ATTENTION_SHAPES:
+        qh = randn(bn, sq, d, scale=d ** -0.5 * 1.4426950408889634)
+        kh, vh = randn(bn, skp, d), randn(bn, skp, d)
+        kh[:, ska:], vh[:, ska:] = 0, 0
+        doh = randn(bn, sq, d, scale=0.05)
+        before = dict(_kernels.launches)
+        o, lse = fa.flash_fwd(qh, kh, vh, sk_actual=ska)
+        o_ref, lse_ref = fa.flash_fwd_plain(qh, kh, vh, sk_actual=ska)
+        delta = (doh.float() * o_ref.float()).sum(-1)
+        dq = fa.flash_bwd_dq(qh, kh, vh, doh, lse_ref, delta, sk_actual=ska, dq_factor=f)
+        dk, dv = fa.flash_bwd_dkv(qh, kh, vh, doh, lse_ref, delta, sq=sq, sk_actual=ska)
+        counted = {k: _kernels.launches[k] - before[k] for k in _kernels.launches
+                   if _kernels.launches[k] != before[k]}
+        if counted != {k: 1 for k in BF16_D64_KERNELS}:
+            raise RuntimeError(f"{tag}: the bf16 d-64 calls counted {counted}")
+        dq_ref = fa.flash_bwd_dq_plain(qh, kh, vh, doh, lse_ref, delta, sk_actual=ska,
+                                       dq_factor=f)
+        dk_ref, dv_ref = fa.flash_bwd_dkv_plain(qh, kh, vh, doh, lse_ref, delta, sq=sq,
+                                                sk_actual=ska)
+        e_o = check_close(f"K6a d64 o {tag}", o, o_ref, rtol=2 ** -7, atol=2 ** -8)
+        check_close(f"K6a d64 lse {tag}", lse, lse_ref, rtol=1e-5, atol=1e-4)
+        rel_l2 = ((o.float() - o_ref.float()).norm() / o_ref.float().norm()).item()
+        e_dq = check_close(f"K6b d64 dq {tag}", dq, dq_ref, rtol=2 ** -7,
+                           atol=1e-2 * dq_ref.float().abs().max().item())
+        e_dkv = max(check_close(f"K6c d64 dk {tag}", dk, dk_ref, rtol=2 ** -7,
+                                atol=1e-2 * dk_ref.float().abs().max().item()),
+                    check_close(f"K6c d64 dv {tag}", dv, dv_ref, rtol=2 ** -7,
+                                atol=1e-2 * dv_ref.float().abs().max().item()))
+        zero_rows = bool((dk[:, ska:] == 0).all() and (dv[:, ska:] == 0).all())
+        o2, lse2 = fa.flash_fwd(qh, kh, vh, sk_actual=ska)
+        dq2 = fa.flash_bwd_dq(qh, kh, vh, doh, lse_ref, delta, sk_actual=ska, dq_factor=f)
+        dk2, dv2 = fa.flash_bwd_dkv(qh, kh, vh, doh, lse_ref, delta, sq=sq, sk_actual=ska)
+        same = [torch.equal(a, b) for a, b in ((o, o2), (lse, lse2), (dq, dq2), (dk, dk2),
+                                               (dv, dv2))]
+        print(f"  bf16 K6a-c d64 {tag}: relative L2 error of o {rel_l2:.3e} (bound 2^-8); "
+              f"dk/dv rows >= {ska} exactly 0: {zero_rows}; run twice, o lse dq dk dv bit for "
+              f"bit {same}", flush=True)
+        if not (rel_l2 < 2 ** -8 and zero_rows and all(same)):
+            raise RuntimeError(f"bf16 K6a-c at head dim 64 disagree at {tag}")
+        del o2, lse2, dq2, dk2, dv2, dq_ref, dk_ref, dv_ref
+
+        q4, k4, v4, do4 = (t.view(1, bn, -1, d)[:, :, :n].contiguous() for t, n in
+                           ((qh, sq), (kh, ska), (vh, ska), (doh, sq)))
+        sdpa = torch.ops.aten._scaled_dot_product_flash_attention
+        fw = sdpa(q4, k4, v4, 0.0, False, False, scale=ln2)
+
+        def sdpa_bwd():
+            return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                do4, q4, k4, v4, fw[0], fw[1], fw[2], fw[3], fw[4], fw[5], 0.0, False, fw[6],
+                fw[7], scale=ln2)
+
+        def flash_fwd_lib():
+            return sdpa(q4, k4, v4, 0.0, False, False, scale=ln2)
+
+        lib_flash = time_ms(flash_fwd_lib, 10, 5)
+        lib_cudnn = cudnn_fwd_ms(q4, k4, v4, ln2, tag)
+        lib_bwd, lib_bwd_dev = time_ms(sdpa_bwd, 10, 5), device_ms(sdpa_bwd, 10)
+        rows, keys, work = bn * sq, bn * ska, bn * sq * ska * d
+        nb = {"flash_fwd_lse_d64": (2 * rows + 2 * keys) * d * 2 + rows * 4,
+              "flash_bwd_dq_d64": (3 * rows + 2 * keys) * d * 2 + 2 * rows * 4,
+              "flash_bwd_dkv_d64": (2 * rows + 4 * keys) * d * 2 + 2 * rows * 4}
+        exp_ms = bn * sq * ska / H100_MUFU_EXP2_PER_S * 1e3
+        runs = {
+            "flash_fwd_lse_d64": (e_o, 4, lambda: fa.flash_fwd(qh, kh, vh, sk_actual=ska),
+                                  lambda: fa.flash_fwd_plain(qh, kh, vh, sk_actual=ska),
+                                  lib_cudnn if lib_cudnn is not None else lib_flash),
+            "flash_bwd_dq_d64": (e_dq, 6, lambda: fa.flash_bwd_dq(qh, kh, vh, doh, lse, delta,
+                                                                  sk_actual=ska, dq_factor=f),
+                                 lambda: fa.flash_bwd_dq_plain(qh, kh, vh, doh, lse, delta,
+                                                               sk_actual=ska, dq_factor=f),
+                                 lib_bwd),
+            "flash_bwd_dkv_d64": (e_dkv, 8, lambda: fa.flash_bwd_dkv(qh, kh, vh, doh, lse, delta,
+                                                                     sq=sq, sk_actual=ska),
+                                  lambda: fa.flash_bwd_dkv_plain(qh, kh, vh, doh, lse, delta,
+                                                                 sq=sq, sk_actual=ska),
+                                  lib_bwd),
+        }
+        for name, (err, mult, kern, plain, lib) in runs.items():
+            r = dict(max_abs_err=err, ms=time_ms(kern, 10, 5), device_ms=device_ms(kern, 10),
+                     plain_ms=time_ms(plain, 1, 3), bound=bound_ms(nb[name], mult * work),
+                     exp_ms=exp_ms, library_ms=lib, calls=calls)
+            if name == "flash_fwd_lse_d64":
+                r.update(library_flash_ms=lib_flash, library_cudnn_ms=lib_cudnn, rel_l2=rel_l2)
+            else:
+                r["library_device_ms"] = lib_bwd_dev
+            res.setdefault(name, {})[tag] = r
+            print(f"  {tag} {name}: ms {r['ms']:.4f} (device {r['device_ms']:.4f}) plain_ms "
+                  f"{r['plain_ms']:.4f} bound_ms {r['bound'][0]:.4f} ({r['bound'][1]}), exp2 "
+                  f"{exp_ms:.4f} library_ms {lib:.4f} ("
+                  + ("cuDNN forward with lse; SDPA flash forward " + f"{lib_flash:.4f}"
+                     if name == "flash_fwd_lse_d64" else
+                     f"SDPA flash backward, dq+dk+dv; device {lib_bwd_dev:.4f}") + ")",
+                  flush=True)
+        del qh, kh, vh, doh, o, lse, o_ref, lse_ref, dq, dk, dv, q4, k4, v4, do4, fw
+        torch.cuda.empty_cache()
+    for name in BF16_D64_KERNELS:
+        by = res[name]
+        print(f"  {name} over a 1024x1024 UNet step's 140 calls: device "
+              f"{sum(r['device_ms'] * r['calls'] for r in by.values()):.3f} ms, bound "
+              f"{sum(r['bound'][0] * r['calls'] for r in by.values()):.3f} ms, exp2 "
+              f"{sum(r['exp_ms'] * r['calls'] for r in by.values()):.3f} ms", flush=True)
+    return res
+
+
 def f32_ab(other_path):
     """The fp32 K6a, K6b and K6c of another build of the library
     (``--ab-lib``: an older tree's, through its C entries
@@ -4625,10 +4830,13 @@ def sdxl_phase():
     non-zero B and magnitudes off the column norms, through
     sdxl_dora_state_dict and load_sdxl_dora_state_dict at lora_scale
     0.66); seeded prompt ids through encode_ids; two 1024x1024 requests
-    (50 DPM-Solver++ steps, CFG 7.5, BrushNet scale 0.7) on a seeded
-    masked image, each with exact launch counts of K4's max and masked
-    forms and K5 at head dim 64 and none of the other kernels; then one
-    BrushNet + UNet step under torch.profiler.  Returns the launches."""
+    (CFG 7.5, BrushNet scale 0.7) on a seeded masked image, the first with
+    50 DPM-Solver++ steps, the second with 4 LCM steps (scheduler="lcm",
+    examples/brushnet_stylize.py --scheduler lcm --steps 4), each with
+    exact launch counts of K4's max and masked forms and K5 at head dim 64
+    and none of the other kernels; then one BrushNet + UNet step under
+    torch.profiler.  Returns the launches and the models, the prompt
+    embeddings and the configs (sdxl_train_phase trains on them)."""
     import numpy as np
     import torch
 
@@ -4699,23 +4907,25 @@ def sdxl_phase():
     npe, nppe = pipe.encode_ids(*neg_ids)
     masked, mask = sdxl_inputs(1024)
 
-    want = {k: SDXL_PER_STEP.get(k, 0) * SDXL_STEPS for k in _kernels.launches}
     total = {k: 0 for k in _kernels.launches}
-    for seed in (333, 334):
+    for seed, steps, scheduler in ((333, SDXL_STEPS, "dpm"), (334, SDXL_LCM_STEPS, "lcm")):
+        want = {k: SDXL_PER_STEP.get(k, 0) * steps for k in _kernels.launches}
         _kernels.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         img = pipe(prompt_embeds=pe, pooled_embeds=ppe, negative_prompt_embeds=npe,
                    negative_pooled_embeds=nppe, image=masked, mask=mask, height=1024,
-                   width=1024, num_inference_steps=SDXL_STEPS, guidance_scale=7.5,
-                   brushnet_conditioning_scale=0.7, seed=seed, output_type="np_pm1")
+                   width=1024, num_inference_steps=steps, guidance_scale=7.5,
+                   brushnet_conditioning_scale=0.7, seed=seed, scheduler=scheduler,
+                   output_type="np_pm1")
         torch.cuda.synchronize()
         dt = time.perf_counter() - t1
         got = dict(_kernels.launches)
         finite = bool(torch.isfinite(img).all())
         arr = postprocess_image(img[0].cpu().numpy())
-        print(f"  SDXL + BrushNet + DoRA request seed={seed}: {dt:.3f} s, output "
+        print(f"  SDXL + BrushNet + DoRA request seed={seed}, {steps} {scheduler} steps: "
+              f"{dt:.3f} s, output "
               f"{tuple(img.shape)} {img.dtype} -> {arr.shape} {arr.dtype}, all finite: "
               f"{finite}, std {img.std().item():.4f}, max_memory_allocated "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
@@ -4753,9 +4963,316 @@ def sdxl_phase():
             wall = time.perf_counter() - t1
     device_table(prof, wall, "profiled BrushNet + UNet step (1024x1024, CFG batch 2)", 18,
                  also=("fa_",))
-    del pipe, unet, bn, te1, te2, vae, img, x, cond
+    del pipe, te1, te2, img, x, cond
+    torch.cuda.empty_cache()
+    return total, dict(unet=unet, bn=bn, vae=vae, ucfg=ucfg, bcfg=bcfg, vcfg=vcfg, pe=pe,
+                       ppe=ppe)
+
+
+BRUSHNET_TRAIN_STEPS = 2
+DISTILL_DIRECT_SIZE = 512  # a cut: see sdxl_train_phase
+DISTILL_DIRECT_STEPS = (4, 4)  # student, teacher (the default teacher takes 50)
+# attention launches of one UNet sweep at batch 1 (the sdxl phase's per-step
+# counts at CFG batch 2, BrushNet's mid attention left out): under a
+# gradient every attention is K6a + K6b + K6c at head dim 64; without, the
+# 10 self-attentions over 4096 tokens are K5, the 60 over 1024 K4's max
+# form and the 70 cross-attentions K4's masked form; at 512x512 (1024 and
+# 256 tokens, each one k tile) all 70 self-attentions are K4's max form
+SDXL_SWEEP_GRAD = {k: 140 for k in BF16_D64_KERNELS}
+SDXL_SWEEP_NO_GRAD = {1024: {"flash_fwd_d64": 10, "flash_small_kv_max": 60,
+                             "flash_small_kv_masked": 70},
+                      512: {"flash_small_kv_max": 70, "flash_small_kv_masked": 70}}
+
+
+def strip_lora(tree):
+    """A copy of a param tree without its adapters (the converted base
+    weights)."""
+    if isinstance(tree, dict):
+        return {k: strip_lora(v) for k, v in tree.items() if k != "lora"}
+    if isinstance(tree, list):
+        return [strip_lora(v) for v in tree]
+    return tree.detach().clone()
+
+
+def sdxl_train_phase(unet, bn, vae, ucfg, bcfg, vcfg, pe, ppe):
+    """SDXL's bf16 training at full width on the card, on the sdxl phase's
+    seeded UNet (with its Style DoRA at 0.66), BrushNet-SDXL and fp32 VAE:
+      brushnet    — two make_brushnet_train_step steps
+                    (training/brushnet_trainer.py, upstream's
+                    train_brushnet_sdxl.py: AdamW at lr 1e-5, the BrushNet
+                    branch's fp32 weights computing in bf16 beside the frozen
+                    bf16 UNet) at 1024x1024 on a seeded image with a
+                    random_mask_gen mask, the masked image VAE-encoded as
+                    the conditioning latents: each step's wall, peak GiB, a
+                    finite loss, exact launches (K6a, K6b and K6c bf16 at
+                    head dim 64 141 each: the 70 transformer blocks' self-
+                    and cross-attention, all downstream of BrushNet's first
+                    residual, and BrushNet's mid attention; no other
+                    kernel), every BrushNet tensor moved and the UNet bit
+                    for bit against a copy on the card; the second step
+                    under torch.profiler (busy share, kernel times);
+      consistency — one make_sdxl_distill_train_step(method="consistency")
+                    step at 1024x1024 (training/distill.py), the student a
+                    bf16 copy of the UNet's base weights (no DoRA), the
+                    teacher the phase's UNet, AdamW at lr 1e-6: the
+                    student's sweep under a gradient (K6a-c 140 each), the
+                    teacher's and the target's without;
+      direct      — one method="direct" step at 512x512 with 4 student and
+                    4 teacher steps, a cut: the default 50 teacher steps at
+                    1024x1024, with 4 student backwards held at once, fit
+                    neither the phase's budget nor the card's memory.
+    Returns the launches."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from fairygen_tpu_torch.models.adapters import leaves_with_path
+    from fairygen_tpu_torch.models.sdxl.unet2d import unet2d_forward
+    from fairygen_tpu_torch.models.sdxl.vae import vae_encode
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines.sdxl_brushnet import _nearest_resize
+    from fairygen_tpu_torch.training.brushnet_trainer import (make_brushnet_train_step,
+                                                              random_mask_gen)
+    from fairygen_tpu_torch.training.distill import make_sdxl_distill_train_step
+    from fairygen_tpu_torch.training.optimizers import make_optimizer
+
+    bf, gib = torch.bfloat16, 2 ** 30
+    total = {k: 0 for k in _kernels.launches}
+    t_phase = time.perf_counter()
+
+    def count(got, want, label):
+        print(f"  {label}: launches { {k: v for k, v in got.items() if v} }", flush=True)
+        if got != {k: want.get(k, 0) for k in got}:
+            raise RuntimeError(f"{label}: launches {got} != {want}")
+        for k, v in got.items():
+            total[k] += v
+
+    # the batch: a seeded 1024x1024 image, its random brush mask (1 =
+    # reserved, 0 = hole), the image and the masked image through the VAE
+    t1 = time.perf_counter()
+    image = seeded_image(71, 1024, 1024).astype(np.float32) / 127.5 - 1.0
+    reserved = random_mask_gen(np.random.RandomState(72), 1024, 1024)
+    with torch.no_grad():
+        pixel = torch.from_numpy(image).permute(2, 0, 1)[None].cuda()
+        hole = torch.from_numpy(1.0 - reserved)[None, None].cuda()
+        latents = vae_encode(vae, vcfg, pixel) * vcfg.scaling_factor
+        cond = vae_encode(vae, vcfg, pixel * (1.0 - hole)) * vcfg.scaling_factor
+        mask_lat = _nearest_resize(hole, *latents.shape[-2:])
+    time_ids = torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]], device="cuda")
+    batch = {"latents": latents.to(bf), "cond_latents": cond.to(bf),
+             "mask_latents": mask_lat.to(bf), "prompt_embeds": pe.to(bf), "pooled": ppe.float(),
+             "time_ids": time_ids}
+    torch.cuda.synchronize()
+    print(f"  BrushNet batch in {time.perf_counter() - t1:.3f} s: latents "
+          f"{tuple(latents.shape)}, hole share of the mask {float(hole.mean()):.4f} "
+          f"({float(mask_lat.mean()):.4f} on the latent grid)", flush=True)
+
+    # brushnet: fp32 weights of the branch, the frozen bf16 UNet
+    bn32 = to(bn, "cuda", torch.float32)
+    init, step = make_brushnet_train_step(ucfg, bcfg, unet, make_optimizer("adamw", 1e-5),
+                                          device="cuda")
+    state = init(bn32)
+    ref_unet = [t.detach().clone() for _, t in leaves_with_path(unet) if torch.is_tensor(t)]
+    ref_gib = sum(t.numel() * t.element_size() for t in ref_unet) / gib
+    print(f"  {len(state.trainable)} BrushNet tensors ({sum(t.numel() for t in state.trainable):,}"
+          f" fp32 values) train; a {ref_gib:.2f} GiB copy of the UNet's {len(ref_unet)} tensors "
+          f"holds it", flush=True)
+    want = {k: v + 1 for k, v in SDXL_SWEEP_GRAD.items()}  # + BrushNet's mid attention
+    gen = torch.Generator("cuda").manual_seed(73)
+    # the device's activity only: a step runs ~36,000 kernels from ~10^5
+    # host ops, whose records took the tracer longer to sort than the step
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    for i in range(BRUSHNET_TRAIN_STEPS):
+        before = [t.detach().clone() for t in state.trainable]
+        _kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        profiler = (torch.profiler.profile(activities=acts) if i == BRUSHNET_TRAIN_STEPS - 1
+                    else contextlib.nullcontext())
+        with profiler as prof:
+            t1 = time.perf_counter()
+            state, loss = step(state, batch, gen)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        moved = sum(not torch.equal(t, b) for t, b in zip(state.trainable, before))
+        same = all(torch.equal(t, r) for t, r in zip(
+            (t for _, t in leaves_with_path(unet) if torch.is_tensor(t)), ref_unet))
+        peak = torch.cuda.max_memory_allocated() / gib - ref_gib
+        print(f"  BrushNet step {i + 1}{' (profiled)' if prof else ''}: {wall:.3f} s, loss "
+              f"{float(loss):.6f}, max_memory_allocated {peak:.2f} GiB (without the UNet's "
+              f"copy), BrushNet tensors moved {moved} of {len(before)}, UNet bit for bit as "
+              f"before: {same}", flush=True)
+        count(dict(_kernels.launches), want, f"BrushNet step {i + 1}")
+        if not (torch.isfinite(loss) and same and moved == len(before)):
+            raise RuntimeError(f"BrushNet step {i + 1} failed its checks")
+        if prof:
+            t1 = time.perf_counter()
+            device_table(prof, wall, "profiled BrushNet step (1024x1024, bf16 UNet, fp32 "
+                         "BrushNet weights)", 16, also=("fa_",))
+            print(f"  (the trace's table took {time.perf_counter() - t1:.3f} s)", flush=True)
+        del before
+    del state, step, init, bn32, ref_unet
+    torch.cuda.empty_cache()
+    print(f"  BrushNet part of the phase: {time.perf_counter() - t_phase:.3f} s", flush=True)
+
+    # distillation: the student a bf16 copy of the UNet's base weights
+    def unet_fn(params, x, t, ctx):
+        return unet2d_forward(params, ucfg, x, t, ctx["pe"], text_embeds=ctx["pooled"],
+                              time_ids=ctx["time_ids"])
+
+    student = strip_lora(unet)
+    ctx = {"pe": pe.to(bf), "pooled": ppe.float(), "time_ids": time_ids}
+    for method, size in (("consistency", 1024), ("direct", DISTILL_DIRECT_SIZE)):
+        n_s, n_t = DISTILL_DIRECT_STEPS if method == "direct" else (1, 0)
+        init, step = make_sdxl_distill_train_step(
+            unet_fn, make_optimizer("adamw", 1e-6), unet, method=method, num_student_steps=n_s,
+            num_teacher_steps=n_t or 50, device="cuda")
+        state = init(student)
+        c = {**ctx, "time_ids": torch.tensor([[float(size), size, 0, 0, size, size]],
+                                             device="cuda")}
+        x = latents if size == 1024 else torch.randn(
+            (1, 4, size // 8, size // 8), generator=gen, device="cuda")
+        b = {"ctx": c, ("latents" if method == "consistency" else "noise"): x.to(bf)}
+        # consistency: the student under a gradient once, the teacher and the
+        # target without; direct: the teacher's n_t sweeps without, the
+        # student's n_s under a gradient
+        sweeps = (2 if method == "consistency" else n_t)
+        want = {k: v * n_s for k, v in SDXL_SWEEP_GRAD.items()}
+        for k, v in SDXL_SWEEP_NO_GRAD[size].items():
+            want[k] = v * sweeps
+        _kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, loss = step(state, b, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        print(f"  distill step, method={method} at {size}x{size}"
+              + (f" ({n_s} student, {n_t} teacher steps)" if method == "direct" else "")
+              + f": {wall:.3f} s, loss {float(loss):.6f}, max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB", flush=True)
+        count(dict(_kernels.launches), want, f"distill step ({method})")
+        if not torch.isfinite(loss):
+            raise RuntimeError(f"the {method} distill step's loss is not finite")
+        del state, step, init
+        torch.cuda.empty_cache()
+    del student
     torch.cuda.empty_cache()
     return total
+
+
+def tiny_sdxl_cfgs():
+    """The tiny head-dim-64 SDXL UNet, BrushNet and VAE of the reference
+    checks: channels (64, 128) at 1 and 2 heads, one transformer block per
+    attention, a BrushNet mid attention of head dim 64, the 4-level VAE at
+    width 32."""
+    from fairygen_tpu_torch.models.sdxl.unet2d import UNet2DConfig
+    from fairygen_tpu_torch.models.sdxl.vae import AutoencoderKLConfig
+
+    kw = dict(block_out_channels=(64, 128), num_attention_heads=(1, 2),
+              down_block_types=("CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+              up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D"),
+              transformer_layers_per_block=(1, 1), cross_attention_dim=64,
+              addition_time_embed_dim=8, projection_class_embeddings_input_dim=80)
+    bcfg = UNet2DConfig(**{**kw, "down_block_types": ("DownBlock2D",) * 2,
+                           "up_block_types": ("UpBlock2D",) * 2,
+                           "mid_block_type": "UNetMidBlock2D", "attention_head_dim": 64,
+                           "conditioning_channels": 5})
+    return UNet2DConfig(**kw), bcfg, AutoencoderKLConfig(block_out_channels=(32, 32, 32, 32),
+                                                         norm_num_groups=8)
+
+
+def reference_sdxl_train_check():
+    """A tiny bf16 BrushNet step and a tiny LCM request on the card against
+    the CPU: the tiny head-dim-64 UNet and BrushNet (tiny_sdxl_cfgs) at
+    256x256 (32 x 32 latents: 1024 and 256 tokens), the same CPU-drawn
+    timestep and noise.  The step's loss and its BrushNet gradients, and
+    the request's final latents (2 LCM steps at CFG 7.5, BrushNet 0.7,
+    torch-compatible noise), on the card in bf16 must lie within twice the
+    CPU bf16 run's relative L2 error to the CPU fp32 run + 1e-3.  The step
+    launches K6a, K6b and K6c in bf16 at head dim 64 23 times each (11
+    transformer blocks' two attentions and BrushNet's mid attention), the
+    request K4's max form for every self-attention and its masked form for
+    the cross-attention."""
+    import torch
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines.sdxl_brushnet import SDXLBrushNetPipeline
+    from fairygen_tpu_torch.training.brushnet_trainer import make_brushnet_train_step
+    from fairygen_tpu_torch.training.optimizers import make_optimizer
+
+    ucfg, bcfg, vcfg = tiny_sdxl_cfgs()
+    f32 = torch.float32
+    base = (convert.init_unet2d_params(ucfg, "cpu", f32, seed=110),
+            convert.init_unet2d_params(bcfg, "cpu", f32, seed=111, brushnet=True),
+            convert.init_autoencoder_kl_params(vcfg, "cpu", f32, seed=112))
+    g = torch.Generator("cpu").manual_seed(113)
+    batch = {"latents": torch.randn(1, 4, 32, 32, generator=g),
+             "cond_latents": torch.randn(1, 4, 32, 32, generator=g),
+             "mask_latents": (torch.rand(1, 1, 32, 32, generator=g) > 0.5).float(),
+             "prompt_embeds": torch.randn(1, 77, 64, generator=g),
+             "pooled": torch.randn(1, 32, generator=g),
+             "time_ids": torch.tensor([[256.0, 256, 0, 0, 256, 256]])}
+    draws = {"timesteps": torch.tensor([601]), "noise": torch.randn(1, 4, 32, 32, generator=g)}
+
+    def fresh(tree, dev, dt):  # a copy: the step sets requires_grad on its tensors
+        return strip_lora(to(tree, dev, dt))
+
+    def step_run(dev, dt):
+        init, step = make_brushnet_train_step(ucfg, bcfg, fresh(base[0], dev, dt),
+                                              make_optimizer(), conditioning_scale=0.7,
+                                              device=dev)
+        b = {k: v.to(dev, dt if k not in ("time_ids", "pooled") else f32)
+             for k, v in batch.items()}
+        loss, grads = step.loss_and_grads(init(fresh(base[1], dev, dt)), b, **draws)
+        return float(loss), torch.cat([grads[k].float().cpu().reshape(-1) for k in sorted(grads)])
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    ref = step_run("cpu", f32)
+    cpu16 = step_run("cpu", torch.bfloat16)
+    _kernels.reset_launches()
+    card = step_run("cuda", torch.bfloat16)
+    ran = {k: v for k, v in _kernels.launches.items() if v}
+    tol = 2 * rel(cpu16[1], ref[1]) + 1e-3
+    loss_tol = 2 * abs(cpu16[0] - ref[0]) + 1e-3 * abs(ref[0])
+    print(f"  tiny bf16 BrushNet step: loss {card[0]:.6f} (card bf16), {cpu16[0]:.6f} (CPU "
+          f"bf16), {ref[0]:.6f} (CPU fp32; tolerance {loss_tol:.3e}); gradients' relative L2 "
+          f"error to CPU fp32 {rel(card[1], ref[1]):.4e} (card bf16), {rel(cpu16[1], ref[1]):.4e}"
+          f" (CPU bf16), tolerance {tol:.4e}; launches {ran}", flush=True)
+    if ran != {k: 23 for k in BF16_D64_KERNELS}:
+        raise RuntimeError(f"tiny BrushNet step: launches {ran}, expected 23 of each bf16 K6")
+    if not (rel(card[1], ref[1]) <= tol and abs(card[0] - ref[0]) <= loss_tol):
+        raise RuntimeError("tiny bf16 BrushNet step disagrees with the CPU reference")
+
+    masked, mask = sdxl_inputs(256)
+    call = dict(prompt_embeds=batch["prompt_embeds"], pooled_embeds=batch["pooled"],
+                negative_prompt_embeds=torch.randn(1, 77, 64, generator=g),
+                negative_pooled_embeds=torch.randn(1, 32, generator=g), image=masked,
+                mask=mask, height=256, width=256, num_inference_steps=2, guidance_scale=7.5,
+                brushnet_conditioning_scale=0.7, seed=114, scheduler="lcm",
+                torch_compat_noise=True, output_type="latent")
+
+    def request(dev, dt):
+        pipe = SDXLBrushNetPipeline(to(base[0], dev, dt), ucfg, to(base[2], dev, dt), vcfg,
+                                    to(base[1], dev, dt), bcfg, dtype=dt, device=dev)
+        return pipe(**call).float().cpu()
+
+    lat = request("cpu", f32)
+    rel16 = rel(request("cpu", torch.bfloat16), lat)
+    _kernels.reset_launches()
+    out = request("cuda", torch.bfloat16)
+    ran = {k: v for k, v in _kernels.launches.items() if v}
+    tol = 2 * rel16 + 1e-3
+    print(f"  tiny LCM request latents {tuple(out.shape)}: relative L2 error to CPU fp32 "
+          f"{rel(out, lat):.4e} (card bf16), {rel16:.4e} (CPU bf16); tolerance {tol:.4e}; "
+          f"launches {ran}", flush=True)
+    want = {"flash_small_kv_max": 12 * 2, "flash_small_kv_masked": 11 * 2}
+    if ran != want or not rel(out, lat) <= tol:
+        raise RuntimeError(f"tiny LCM request disagrees with the CPU reference: {ran}")
 
 
 def reference_sdxl_check():
@@ -4771,8 +5288,6 @@ def reference_sdxl_check():
     import torch
 
     from fairygen_tpu_torch import convert
-    from fairygen_tpu_torch.models.sdxl.unet2d import UNet2DConfig
-    from fairygen_tpu_torch.models.sdxl.vae import AutoencoderKLConfig
     from fairygen_tpu_torch.ops import _kernels
     from fairygen_tpu_torch.ops import flash_attention as fa
     from fairygen_tpu_torch.pipelines.sdxl_brushnet import SDXLBrushNetPipeline
@@ -4780,17 +5295,7 @@ def reference_sdxl_check():
                                                           load_sdxl_dora_state_dict,
                                                           sdxl_dora_state_dict)
 
-    kw = dict(block_out_channels=(64, 128), num_attention_heads=(1, 2),
-              down_block_types=("CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
-              up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D"),
-              transformer_layers_per_block=(1, 1), cross_attention_dim=64,
-              addition_time_embed_dim=8, projection_class_embeddings_input_dim=80)
-    ucfg = UNet2DConfig(**kw)
-    bcfg = UNet2DConfig(**{**kw, "down_block_types": ("DownBlock2D",) * 2,
-                           "up_block_types": ("UpBlock2D",) * 2,
-                           "mid_block_type": "UNetMidBlock2D", "attention_head_dim": 64,
-                           "conditioning_channels": 5})
-    vcfg = AutoencoderKLConfig(block_out_channels=(32, 32, 32, 32), norm_num_groups=8)
+    ucfg, bcfg, vcfg = tiny_sdxl_cfgs()
     f32 = torch.float32
     base = (convert.init_unet2d_params(ucfg, "cpu", f32, seed=100),
             convert.init_unet2d_params(bcfg, "cpu", f32, seed=101, brushnet=True),

@@ -12,10 +12,10 @@
 //   K5  _fa_kernel          the generic no-gradient forward (entry flash_fwd
 //                           with with_lse=False), at head dims 64 and 128
 //   K6a _fa_fwd_lse_kernel  the forward of the gradient path (flash_fwd with
-//                           with_lse=True), head dim 128: K5 at d 128 plus
+//                           with_lse=True), head dims 64 and 128: K5 plus
 //                           lse = m + log2(l), one fp32 value a row; its o
-//                           equals K5's bit for bit (one instantiation but
-//                           for the lse store)
+//                           equals K5's bit for bit at the same head dim
+//                           (one instantiation but for the lse store)
 //   K10 _fa_bias_kernel     the same with a head-shared additive bias (entry
 //                           flash_attention_bias), head dim 128: FLUX.1's EliGen
 // Contract: q carries hd^-1/2 * log2(e).  K5, K6a: s = q.k, key columns >=
@@ -47,6 +47,12 @@
 //     GHz) is 0.080-0.090 ms.  So the two consumer warpgroups take turns
 //     (one's exp2 runs under the other's wgmma), and the masking select is
 //     compiled only into the ragged form (sk_actual not a multiple of 128).
+//   - K6a at head dim 64 (the bf16 SDXL UNet under a gradient: BrushNet
+//     training, SDXL distillation) at 10 x 4096^2 and 20 x 1024^2 is K5 d
+//     64's problem (operations, with exp2 as costly as the products: 0.0869
+//     ms at 20 x 4096^2 and the same again in exp2), plus the lse store; at
+//     the cross-attention's 77 keys (one 128-key tile) q in and o out bound
+//     it (bytes).
 //   - K6a (and K5) at the training shapes, 24 x 8190 x 8190 x 128 and 24 x
 //     8190 x 512 x 128: 0.833 and 0.0521 ms (operations); exp2 (1.6e9 at
 //     the self shape, 0.39-0.44 ms) is about half of the products.  On
@@ -776,6 +782,22 @@ fa_online_lse_ragged_kernel(const __grid_constant__ CUtensorMap tq,
   attend<128, false, true, true, false>(&tq, &tk, &tv, &tb, pr);
 }
 
+// K6a at head dim 64 (the bf16 SDXL UNet's gradient path), aligned
+__global__ void __launch_bounds__(kThreads, 1)
+fa_online_lse_d64_kernel(const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tb, const Params pr) {
+  attend<64, false, false, true, false>(&tq, &tk, &tv, &tb, pr);
+}
+
+// K6a at head dim 64, ragged (the cross-attention's 77 text keys)
+__global__ void __launch_bounds__(kThreads, 1)
+fa_online_lse_d64_ragged_kernel(const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tb, const Params pr) {
+  attend<64, false, true, true, false>(&tq, &tk, &tv, &tb, pr);
+}
+
 // K10, sq = sq_pad and sk = sk_pad multiples of 128 (FLUX.1's 5632): the
 // bias through shared memory
 __global__ void __launch_bounds__(kThreads, 1)
@@ -896,10 +918,10 @@ Params fwd_params(void* out, void* lse, int sk_actual) {
 
 }  // namespace
 
-// K5 at head dim 128 (lse null) and K6a.  qh, out: (BN, sq_pad, 128) bf16;
-// kh, vh: (BN, sk_pad, 128) bf16; lse: (BN, sq_pad) fp32; 1 <= sk_actual <=
-// sk_pad; sq_pad and sk_pad multiples of 64; every pointer 16-byte aligned
-// (checked by the Python wrapper).
+// K5 at head dim 128 and K6a at head dim d = 64 or 128.  qh, out: (BN,
+// sq_pad, d) bf16; kh, vh: (BN, sk_pad, d) bf16; lse: (BN, sq_pad) fp32; 1
+// <= sk_actual <= sk_pad; sq_pad and sk_pad multiples of 64; every pointer
+// 16-byte aligned (checked by the Python wrapper).
 extern "C" int fg_flash_fwd(const void* qh, const void* kh, const void* vh, void* out, int BN,
                             int sq_pad, int sk_actual, int sk_pad, void* stream) {
   static int rc_even = allow_smem<128, false>(fa_online_d128_kernel);
@@ -911,14 +933,22 @@ extern "C" int fg_flash_fwd(const void* qh, const void* kh, const void* vh, void
 }
 
 extern "C" int fg_flash_fwd_lse(const void* qh, const void* kh, const void* vh, void* out,
-                                void* lse, int BN, int sq_pad, int sk_actual, int sk_pad,
+                                void* lse, int BN, int sq_pad, int sk_actual, int sk_pad, int d,
                                 void* stream) {
   static int rc_even = allow_smem<128, false>(fa_online_lse_kernel);
   static int rc_ragged = allow_smem<128, false>(fa_online_lse_ragged_kernel);
+  static int rc64_even = allow_smem<64, false>(fa_online_lse_d64_kernel);
+  static int rc64_ragged = allow_smem<64, false>(fa_online_lse_d64_ragged_kernel);
   const bool ragged = sk_actual % kBN != 0;
+  const Params pr = fwd_params(out, lse, sk_actual);
+  if (d == 64)
+    return launch<64, false>(ragged ? fa_online_lse_d64_ragged_kernel : fa_online_lse_d64_kernel,
+                             ragged ? rc64_ragged : rc64_even, qh, kh, vh, BN, sq_pad, sk_pad,
+                             pr, stream);
+  if (d != 128) return (int)cudaErrorInvalidValue;
   return launch<128, false>(ragged ? fa_online_lse_ragged_kernel : fa_online_lse_kernel,
-                            ragged ? rc_ragged : rc_even, qh, kh, vh, BN, sq_pad, sk_pad,
-                            fwd_params(out, lse, sk_actual), stream);
+                            ragged ? rc_ragged : rc_even, qh, kh, vh, BN, sq_pad, sk_pad, pr,
+                            stream);
 }
 
 // K5 at head dim 64.  qh, out: (BN, sq_pad, 64) bf16; kh, vh: (BN, sk_pad,
@@ -992,9 +1022,9 @@ extern "C" int fg_flash_bias(const void* qh, const void* kh, const void* vh, con
 }
 
 // dynamic shared memory of the kernels in bytes (printed by chip_smoke.py):
-// which 0, K4 and K5 at head dim 64; 1, K4 and K5 at 128, K6a and K10's
-// ragged form; 2,
-// K10's aligned form (the bias tile in the second Q buffer's room)
+// which 0, K4, K5 and K6a at head dim 64; 1, K4, K5 and K6a at 128 and
+// K10's ragged form; 2, K10's aligned form (the bias tile in the second Q
+// buffer's room)
 extern "C" int fg_flash_online_smem_bytes(int which) {
   return which == 0 ? Smem<64, false>::kBytes
                     : which == 1 ? Smem<128, false>::kBytes : Smem<128, true>::kBytes;

@@ -3,7 +3,8 @@ adapter and BrushNet masked inpainting, one image per prompt ``.txt`` of
 ``--prompt_dir``.  The twin of examples/brushnet_stylize.py, with its flags
 and dtypes (bf16 UNet, BrushNet and text encoders, the fp32 VAE), plus
 ``--device`` (default cuda).  ``--mesh_data`` above 0 exits with status 2
-(ROADMAP.md Queue 1 item 9); ``--scheduler lcm`` raises (item 7).
+(ROADMAP.md Queue 1 item 9); ``--scheduler lcm`` takes the few-step LCM
+rollout.
 
   python -m fairygen_tpu_torch.examples.brushnet_stylize --unet unet.safetensors \\
       --brushnet brushnet.safetensors --vae vae.safetensors --te1 te1.safetensors \\
@@ -34,7 +35,8 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=50)
     p.add_argument("--guidance_scale", type=float, default=7.5)
     p.add_argument("--brushnet_conditioning_scale", type=float, default=0.7)
-    p.add_argument("--scheduler", type=str, default="dpm", choices=["dpm", "lcm"])
+    p.add_argument("--scheduler", type=str, default="dpm", choices=["dpm", "lcm"],
+                   help="lcm = few-step sampling for LCM-LoRA/distilled UNets")
     p.add_argument("--seed", type=int, default=333)
     p.add_argument("--size", type=int, default=1024)
     p.add_argument("--batch_size", type=int, default=1, help="prompts per pipeline call")

@@ -12,7 +12,9 @@ headers, so the build takes seconds.
 ``ops/`` since the last :func:`reset_launches`.  K4's three forms count
 apart (``flash_small_kv`` bounded, ``flash_small_kv_max``,
 ``flash_small_kv_masked``), K5 counts per head dim (``flash_fwd`` at
-128, ``flash_fwd_d64`` at 64: two instantiations of one template), and
+128, ``flash_fwd_d64`` at 64: two instantiations of one template), so do
+K6a-c in bf16 (``flash_fwd_lse``, ``flash_bwd_dq``, ``flash_bwd_dkv`` at 128;
+``flash_fwd_lse_d64``, ``flash_bwd_dq_d64``, ``flash_bwd_dkv_d64`` at 64), and
 K6a-c's fp32 forms at head dim 64 count apart from their bf16 ones
 (``flash_fwd_lse_f32``, ``flash_bwd_dq_f32``, ``flash_bwd_dkv_f32``).  The
 fp32 K6a-c on the tensor cores have three helper kernels with counters of
@@ -49,7 +51,8 @@ KERNELS = ("ln_modulate", "rms_rope_heads_major", "flash_bounded", "flash_small_
            "rms_rope_per_head", "rms_rope_joint", "flash_bias", "rms_modulate", "vae_rms_silu",
            "flash_small_kv_max", "flash_small_kv_masked", "flash_fwd_d64",
            "flash_fwd_lse_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32",
-           "flash_bwd_prep_f32", "flash_bwd_dkv_reduce_f32", "flash_fwd_prep_f32")
+           "flash_bwd_prep_f32", "flash_bwd_dkv_reduce_f32", "flash_fwd_prep_f32",
+           "flash_fwd_lse_d64", "flash_bwd_dq_d64", "flash_bwd_dkv_d64")
 
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
@@ -64,9 +67,9 @@ _SIGNATURES = {
     "fg_flash_small_kv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fg_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fg_flash_fwd_d64": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "fg_flash_fwd_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "fg_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P],
-    "fg_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "fg_flash_fwd_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "fg_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P],
+    "fg_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "fg_rms_rope_per_head": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "fg_rms_rope_joint": [_P, _L, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "fg_flash_bias": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

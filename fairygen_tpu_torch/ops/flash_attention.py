@@ -92,9 +92,10 @@ def flash_attention_heads_major(qh, kh, v, *, b, n, sq, sk_actual, bq=2048,
 # gradient (port of ``flash_attention`` with its custom VJP,
 # ``_flash_fwd_impl``, ``_flash_fwd`` and ``_flash_bwd``).  The kernels take
 # head-major (B*N, S_pad, d) q/k/v, zero rows past the sequence, S_pad a
-# multiple of 64: bf16 at d 64 or 128 for K4 and K5 and at d 128 for K6a-c,
-# and fp32 at d 64 for K6a-c (the fp32 SDXL UNet of the Style-DoRA train
-# step).  Other forms raise a ValueError that names ROADMAP.md Queue 2.  lse
+# multiple of 64: bf16 at d 64 or 128 for K4, K5 and K6a-c (d 64: the bf16
+# SDXL UNet under a gradient, BrushNet training and SDXL distillation), and
+# fp32 at d 64 for K6a-c (the fp32 SDXL UNet of the Style-DoRA train step).
+# Other forms raise a ValueError that names ROADMAP.md Queue 2.  lse
 # and delta are one fp32 value per row.  CPU tensors take the ``*_plain``
 # versions, which compute what the Pallas kernels compute on one tile: fp32
 # logits, keys >= sk_actual masked, p rounded to the value dtype before each
@@ -117,28 +118,33 @@ DEFAULT_BQ = 1024
 DEFAULT_BK = 1024
 LOG2E = 1.4426950408889634
 _ROW_TILE = 64  # the CUDA kernels take padded lengths that are multiples of this
-_FWD_DIMS = (64, 128)  # head dims of the K4 max/masked and K5 kernels
-_TRAIN_DIMS = (128,)   # head dims of K6a-c in bf16 (and K10)
+_FWD_DIMS = (64, 128)    # head dims of the K4 max/masked and K5 kernels
+_TRAIN_DIMS = (64, 128)  # head dims of K6a-c in bf16
+_BIAS_DIMS = (128,)      # head dims of K10
 _F32_TRAIN_DIMS = (64,)  # head dims of K6a-c in fp32
 _DKV_Q_TILE = 32   # queries a tile of the fp32 K6c
 _DKV_KEYS = 128    # keys an item of the fp32 K6c (two consumers of 64)
 
 
-def _refuse_unported(qh, grad):
-    """Raise for an attention form whose kernel is not ported yet: bf16 with
-    a gradient at a head dim other than 128, fp32 without a gradient, fp32
-    with one at a head dim other than 64."""
+def _refuse_unported(qh, grad, bounded_kv_len=False):
+    """Raise for an attention form whose kernel is not ported yet (ROADMAP.md
+    Queue 2): bf16 at a head dim other than 64 and 128 (B: SD1.5's 40, 80,
+    160), the bounded K3 / K4 with a caller's ``kv_len`` (C), fp32 without
+    a gradient, and fp32 with one at a head dim other than 64."""
     d = qh.shape[-1]
-    if qh.dtype == torch.float32 and not grad:
-        form = "fp32 attention without a gradient (the fp32 K3/K4/K5/K10 forms)"
+    if bounded_kv_len:
+        form, item = "bounded attention (K3 / K4 bounded) with a caller's kv_len", "C"
+    elif qh.dtype == torch.float32 and not grad:
+        form, item = "fp32 attention without a gradient (the fp32 K3/K4/K5/K10 forms)", "A"
     elif qh.dtype == torch.float32 and d not in _F32_TRAIN_DIMS:
-        form = f"fp32 attention with a gradient at head dim {d}"
-    elif qh.dtype == torch.bfloat16 and grad and d not in _TRAIN_DIMS:
-        form = f"bf16 attention with a gradient at head dim {d}"
+        form, item = f"fp32 attention with a gradient at head dim {d}", "A"
+    elif qh.dtype == torch.bfloat16 and d not in _FWD_DIMS:
+        form, item = f"bf16 attention at head dim {d}", "B"
     else:
         return
-    raise ValueError(f"{form} has no kernel on the card yet: K6a-c take bf16 at head dim 128 "
-                     "and fp32 at 64, K3/K4/K5/K10 bf16 (ROADMAP.md Queue 2 A)")
+    raise ValueError(f"{form} has no kernel on the card yet: K4/K5 and K6a-c take bf16 at head "
+                     f"dims 64 and 128, K6a-c fp32 at 64, K3/K4 bounded no kv_len (ROADMAP.md "
+                     f"Queue 2 {item})")
 
 
 def _masked_logits(qh, kh, bn, sk_actual):
@@ -339,12 +345,13 @@ def _check_rows(t, name, shape):
 
 
 def flash_fwd(qh, kh, vh, *, sk_actual, with_lse=True):
-    """K6a (``with_lse``: bf16 at d 128, fp32 at d 64) or K5 (bf16, d = 64
-    or 128) on head-major q/k/v (see the section note).  Returns o, and lse
-    with ``with_lse``.  On the card the bf16 forms are the TMA + wgmma
-    kernels of ``csrc/flash_attention_online.cu`` (at d 128 K5's o equals
-    K6a's bit for bit), the fp32 form the pre-pass and the 3xTF32 TMA +
-    wgmma kernel of ``csrc/flash_attention_fp32.cu``."""
+    """K6a (``with_lse``: bf16 at d 64 or 128, fp32 at d 64) or K5 (bf16, d
+    = 64 or 128) on head-major q/k/v (see the section note).  Returns o, and
+    lse with ``with_lse``.  On the card the bf16 forms are the TMA + wgmma
+    kernels of ``csrc/flash_attention_online.cu`` (K5's o equals K6a's bit
+    for bit at the same head dim; K6a counts as ``flash_fwd_lse`` at d 128,
+    ``flash_fwd_lse_d64`` at 64), the fp32 form the pre-pass and the 3xTF32
+    TMA + wgmma kernel of ``csrc/flash_attention_fp32.cu``."""
     if not qh.is_cuda:
         return flash_fwd_plain(qh, kh, vh, sk_actual=sk_actual, with_lse=with_lse)
     _refuse_unported(qh, grad=with_lse)
@@ -361,9 +368,9 @@ def flash_fwd(qh, kh, vh, *, sk_actual, with_lse=True):
     _check_heads_major(qh, kh, vh, sk_actual, dims=_TRAIN_DIMS if with_lse else _FWD_DIMS)
     if with_lse:
         lse = torch.empty((bn, sq_p), dtype=torch.float32, device=qh.device)
-        _kernels.launch("flash_fwd_lse", "fg_flash_fwd_lse", qh.data_ptr(), kh.data_ptr(),
-                        vh.data_ptr(), out.data_ptr(), lse.data_ptr(), bn, sq_p,
-                        int(sk_actual), kh.shape[1])
+        _kernels.launch("flash_fwd_lse" if d == 128 else "flash_fwd_lse_d64", "fg_flash_fwd_lse",
+                        qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
+                        lse.data_ptr(), bn, sq_p, int(sk_actual), kh.shape[1], d)
         return out, lse
     kernel, fn = ("flash_fwd", "fg_flash_fwd") if d == 128 else ("flash_fwd_d64",
                                                                  "fg_flash_fwd_d64")
@@ -416,15 +423,16 @@ def _check_bwd(qh, kh, vh, doh, lse, delta, sk_actual):
 
 def flash_bwd_dq(qh, kh, vh, doh, lse, delta, *, sk_actual, dq_factor):
     """K6b: dQ (BN, Sq_pad, d) from the forward's lse and delta (bf16 at d
-    128, fp32 at d 64); every row below Sq_pad is written.  On the card the
-    bf16 form is the TMA + wgmma kernel of ``csrc/flash_attention_bwd.cu``,
-    the fp32 form the pre-pass and the 3xTF32 TMA + wgmma kernel of
-    ``csrc/flash_attention_fp32_bwd.cu``."""
+    64 or 128, fp32 at d 64); every row below Sq_pad is written.  On the
+    card the bf16 form is the TMA + wgmma kernel of
+    ``csrc/flash_attention_bwd.cu`` (counted as ``flash_bwd_dq`` at d 128,
+    ``flash_bwd_dq_d64`` at 64), the fp32 form the pre-pass and the 3xTF32
+    TMA + wgmma kernel of ``csrc/flash_attention_fp32_bwd.cu``."""
     if not qh.is_cuda:
         return flash_bwd_dq_plain(qh, kh, vh, doh, lse, delta, sk_actual=sk_actual,
                                   dq_factor=dq_factor)
     f32 = _check_bwd(qh, kh, vh, doh, lse, delta, sk_actual)
-    bn, sq_p, _ = qh.shape
+    bn, sq_p, d = qh.shape
     dq = torch.empty_like(qh)
     if f32:
         ws = _bwd_prep_f32(qh, kh, vh, doh, 0)
@@ -432,17 +440,19 @@ def flash_bwd_dq(qh, kh, vh, doh, lse, delta, *, sk_actual, dq_factor):
                         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), float(dq_factor), bn,
                         sq_p, int(sk_actual), kh.shape[1])
         return dq
-    _kernels.launch("flash_bwd_dq", "fg_flash_bwd_dq", qh.data_ptr(), kh.data_ptr(),
-                    vh.data_ptr(), doh.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                    dq.data_ptr(), float(dq_factor), bn, sq_p, int(sk_actual), kh.shape[1])
+    _kernels.launch("flash_bwd_dq" if d == 128 else "flash_bwd_dq_d64", "fg_flash_bwd_dq",
+                    qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), doh.data_ptr(), lse.data_ptr(),
+                    delta.data_ptr(), dq.data_ptr(), float(dq_factor), bn, sq_p, int(sk_actual),
+                    kh.shape[1], d)
     return dq
 
 
 def flash_bwd_dkv(qh, kh, vh, doh, lse, delta, *, sq, sk_actual):
-    """K6c: (dK, dV), each (BN, Sk_pad, d) (bf16 at d 128, fp32 at d 64);
-    queries >= sq are skipped and key rows >= sk_actual come out exactly
-    0.  On the card the bf16 form is the TMA + wgmma kernel of
-    ``csrc/flash_attention_bwd.cu``, the fp32 form the pre-pass and the
+    """K6c: (dK, dV), each (BN, Sk_pad, d) (bf16 at d 64 or 128, fp32 at d
+    64); queries >= sq are skipped and key rows >= sk_actual come out
+    exactly 0.  On the card the bf16 form is the TMA + wgmma kernel of
+    ``csrc/flash_attention_bwd.cu`` (counted as ``flash_bwd_dkv`` at d 128,
+    ``flash_bwd_dkv_d64`` at 64), the fp32 form the pre-pass and the
     3xTF32 TMA + wgmma kernel of ``csrc/flash_attention_fp32_bwd.cu``, its
     query loop split as :func:`dkv_splits` says and, when split, the reduce
     pass."""
@@ -451,7 +461,7 @@ def flash_bwd_dkv(qh, kh, vh, doh, lse, delta, *, sq, sk_actual):
     f32 = _check_bwd(qh, kh, vh, doh, lse, delta, sk_actual)
     if not 1 <= sq <= qh.shape[1]:
         raise ValueError(f"sq {sq} outside [1, {qh.shape[1]}]")
-    bn, sq_p, _ = qh.shape
+    bn, sq_p, d = qh.shape
     sk_p = kh.shape[1]
     dk, dv = torch.empty_like(kh), torch.empty_like(vh)
     if f32:
@@ -466,9 +476,10 @@ def flash_bwd_dkv(qh, kh, vh, doh, lse, delta, *, sq, sk_actual):
             _kernels.launch("flash_bwd_dkv_reduce_f32", "fg_flash_bwd_dkv_reduce_f32",
                             part.data_ptr(), dk.data_ptr(), dv.data_ptr(), n_split, dk.numel())
         return dk, dv
-    _kernels.launch("flash_bwd_dkv", "fg_flash_bwd_dkv", qh.data_ptr(), kh.data_ptr(),
-                    vh.data_ptr(), doh.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                    dk.data_ptr(), dv.data_ptr(), bn, int(sq), sq_p, int(sk_actual), sk_p)
+    _kernels.launch("flash_bwd_dkv" if d == 128 else "flash_bwd_dkv_d64", "fg_flash_bwd_dkv",
+                    qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), doh.data_ptr(), lse.data_ptr(),
+                    delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bn, int(sq), sq_p,
+                    int(sk_actual), sk_p, d)
     return dk, dv
 
 
@@ -519,10 +530,12 @@ def _flash_fwd_impl(q, k, v, scale=None, prescaled=False, kv_len=None, bounded_l
     form (masked when keys are padded or cut by ``kv_len``) when the padded
     keys fit one k tile (Sk_pad == bk, i.e. Sk <= 1024), K5 otherwise.
 
-    One divergence: with ``bounded_logits`` and a ``kv_len`` the JAX
-    package runs the bounded kernels with an explicit mask and no max; the
-    port runs K4's masked form or K5 (the same softmax, p rounded against
-    the row's max).  No ported model makes such a call."""
+    With ``bounded_logits`` and a ``kv_len`` the JAX package runs the
+    bounded kernels with an explicit mask and no max; that form is not
+    ported, and on the card such a call raises (ROADMAP.md Queue 2 C).  No
+    ported model makes one."""
+    if bounded_logits and kv_len is not None and q.is_cuda:
+        _refuse_unported(q, grad=False, bounded_kv_len=True)
     b, sq, n, _ = q.shape
     sk = k.shape[1]
     qh, kh = _layout(q, k, scale, prescaled, 2048 if bounded_logits else DEFAULT_BQ)
@@ -544,8 +557,9 @@ def _flash_fwd_impl(q, k, v, scale=None, prescaled=False, kv_len=None, bounded_l
 class _FlashAttention(torch.autograd.Function):
     """``flash_attention`` with a gradient: forward K6a (saves o and the
     per-row lse), backward K6b then K6c, δ = Σ dO·O in PyTorch.  On the
-    card bf16 q/k/v at head dim 128 take the TMA + wgmma kernels, fp32 at
-    head dim 64 (the fp32 SDXL UNet's) the 3xTF32 TMA + wgmma K6a of
+    card bf16 q/k/v at head dims 64 (the bf16 SDXL UNet's) and 128 take the
+    TMA + wgmma kernels, fp32 at head dim 64 (the fp32 SDXL UNet's) the
+    3xTF32 TMA + wgmma K6a of
     ``csrc/flash_attention_fp32.cu`` and K6b and K6c of
     ``csrc/flash_attention_fp32_bwd.cu``; other forms raise (ROADMAP.md
     Queue 2)."""
@@ -623,7 +637,7 @@ def flash_attention_bias_heads_major(qh, kh, vh, bias, *, n, sq, sk):
     if not qh.is_cuda:
         return flash_attention_bias_plain(qh, kh, vh, bias, n=n, sq=sq, sk=sk)
     _refuse_unported(qh, grad=False)
-    _check_heads_major(qh, kh, vh, sk)
+    _check_heads_major(qh, kh, vh, sk, dims=_BIAS_DIMS)
     _kernels.check_cuda(bias, "bias", torch.float32, 3)
     bn = qh.shape[0]
     if bn % n or bias.shape[0] not in (1, bn // n) or tuple(bias.shape[1:]) != (sq, sk) \

@@ -4,15 +4,16 @@
 
 The call: seeded noise, the masked image through the VAE encoder (times
 the scaling factor) beside the nearest-resized background mask as
-BrushNet's conditioning latents, then per DPM-Solver++(2M) step one
-BrushNet sweep and one UNet sweep at CFG batch 2 (uncond first), the
+BrushNet's conditioning latents, then per DPM-Solver++(2M) step (or, with
+``scheduler="lcm"``, per LCM step, fresh seeded noise injected between
+steps) one BrushNet sweep and one UNet sweep at CFG batch 2 (uncond first), the
 BrushNet features added into the UNet scaled by ``brushnet_conditioning_scale``
 times the ``brushnet_keep`` schedule, and the fp32 VAE decode.  The style
 DoRA rides inside the UNet params; ``scale_adapters`` rescales it.
 Prompts arrive as strings (through ``tokenizer1`` / ``tokenizer2``, the
 CLIP tokenizers of ``utils/tokenizer.py``, and the two text encoders), as
 embeddings, or as token ids through :meth:`SDXLBrushNetPipeline.encode_ids`.
-``scheduler="lcm"`` and a device ``mesh`` are not ported and raise.
+A device ``mesh`` is not ported and raises.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from ..core.noise import generate_noise
 from ..core.params import cast_tree
 from ..device import resolve_device
 from ..diffusion.dpm_solver import DPMSolverMultistepScheduler
+from ..diffusion.lcm import LCMScheduler
 from ..models.adapters import map_with_path
 from ..models.sdxl.clip import CLIPTextConfig, sdxl_encode_prompt
 from ..models.sdxl.unet2d import UNet2DConfig, brushnet_forward, unet2d_forward
@@ -121,10 +123,10 @@ class SDXLBrushNetPipeline:
         ``output_type``: "latent" (the final latents), "np" (a list of
         (H, W, 3) uint8 arrays), or "np_pm1" (the decoded (B, 3, H, W) fp32
         image in [-1, 1]).  A string ``prompt`` (and, with CFG, ``negative_prompt``) is
-        encoded where its embeddings are not given."""
-        if scheduler != "dpm":
-            raise NotImplementedError(f"scheduler {scheduler!r} (the LCM rollout; ROADMAP "
-                                      "Queue 1 item 7) is not ported yet")
+        encoded where its embeddings are not given.  ``scheduler``: "lcm"
+        for the few-step LCM rollout (LCM-LoRA or distilled UNets), whose
+        step i injects noise drawn with seed ``seed + 100003 + i``; any
+        other value takes DPM-Solver++(2M)."""
         if output_type not in OUTPUT_TYPES:
             raise ValueError(f"output_type {output_type!r}: one of {OUTPUT_TYPES}")
         do_cfg = guidance_scale > 1.0
@@ -146,11 +148,15 @@ class SDXLBrushNetPipeline:
                 negative_prompt_embeds = negative_prompt_embeds.expand(batch, -1, -1)
                 negative_pooled_embeds = negative_pooled_embeds.expand(batch, -1)
 
-        sched = DPMSolverMultistepScheduler()
-        sched.set_timesteps(num_inference_steps)
+        use_lcm = scheduler == "lcm"
+        if use_lcm:
+            sched = LCMScheduler().set_timesteps(num_inference_steps)
+        else:
+            sched = DPMSolverMultistepScheduler()
+            sched.set_timesteps(num_inference_steps)
         sf, f = self.vae_cfg.scaling_factor, self.vae_cfg.downscale_factor
         lat_shape = (1, self.vae_cfg.latent_channels, height // f, width // f)
-        # DPM-Solver has init_noise_sigma 1: the noise is the first latents
+        # DPM-Solver and LCM have init_noise_sigma 1: the noise is the first latents
         latents = torch.cat([generate_noise(lat_shape, seed=seed + i, dtype=torch.float32,
                                             torch_compat=torch_compat_noise, device=dev)
                              for i in range(batch)])
@@ -190,7 +196,7 @@ class SDXLBrushNetPipeline:
         keep = [1.0 - float(i / n < control_guidance_start or (i + 1) / n > control_guidance_end)
                 for i in range(n)]
         tables = sched.tables(dev)
-        state = sched.init_state(latents.shape, device=dev)
+        state = None if use_lcm else sched.init_state(latents.shape, device=dev)
         for i in range(n):
             t = tables["timesteps"][i]
             x_in = (torch.cat([latents, latents]) if do_cfg else latents).to(dt)
@@ -208,8 +214,15 @@ class SDXLBrushNetPipeline:
             if do_cfg:
                 uncond, text = noise_pred.chunk(2)
                 noise_pred = uncond + guidance_scale * (text - uncond)
-            latents, state = DPMSolverMultistepScheduler.step_from_tables(tables, state,
-                                                                          noise_pred, i, latents)
+            if use_lcm:
+                # fresh multistep noise, seeded (scheduling_lcm.py:578)
+                step_noise = generate_noise(latents.shape, seed=seed + 100003 + i,
+                                            dtype=torch.float32,
+                                            torch_compat=torch_compat_noise, device=dev)
+                latents, _ = sched.step_from_tables(tables, noise_pred, i, latents, step_noise)
+            else:
+                latents, state = DPMSolverMultistepScheduler.step_from_tables(
+                    tables, state, noise_pred, i, latents)
         if output_type == "latent":
             return latents
         # fp32 decode

@@ -260,3 +260,26 @@ def test_stream_vs_full_holds_the_bars(smoke):
     broken[:, :, 3] = 0
     with pytest.raises(RuntimeError, match="streamed form disagrees"):
         smoke.stream_vs_full("a lost frame", broken, full)
+
+
+def test_the_full_launch_tables_name_every_counter(smoke):
+    """TRAIN_PER_STEP, compared as a whole with a step's counters, lists
+    every counter of ops/_kernels.py, the new kernels' too (0 where the step
+    launches none); the SDXL tables name counters that exist."""
+    from fairygen_tpu_torch.ops import _kernels
+
+    assert set(smoke.TRAIN_PER_STEP) == set(_kernels.KERNELS)
+    for table in (smoke.SDXL_PER_STEP, smoke.SDXL_SWEEP_GRAD,
+                  *smoke.SDXL_SWEEP_NO_GRAD.values()):
+        assert set(table) <= set(_kernels.KERNELS)
+    assert set(smoke.BF16_D64_KERNELS) <= set(_kernels.KERNELS)
+
+
+def test_strip_lora_copies_the_base_weights(smoke):
+    """The distillation student: the UNet tree without its adapters, every
+    tensor a copy."""
+    w = torch.ones(2, 2)
+    tree = {"a": [{"w": w, "lora": {"A": torch.zeros(2, 1)}}], "b": torch.zeros(3)}
+    out = smoke.strip_lora(tree)
+    assert set(out["a"][0]) == {"w"} and torch.equal(out["a"][0]["w"], w)
+    assert out["a"][0]["w"].data_ptr() != w.data_ptr()

@@ -263,7 +263,9 @@ def test_tiny_pipeline_launches_every_kernel(card):
                                  "flash_small_kv_masked": 0, "flash_fwd_d64": 0,
                                  "flash_fwd_lse_f32": 0, "flash_bwd_dq_f32": 0,
                                  "flash_bwd_dkv_f32": 0, "flash_bwd_prep_f32": 0,
-                                 "flash_bwd_dkv_reduce_f32": 0, "flash_fwd_prep_f32": 0}
+                                 "flash_bwd_dkv_reduce_f32": 0, "flash_fwd_prep_f32": 0,
+                                 "flash_fwd_lse_d64": 0, "flash_bwd_dq_d64": 0,
+                                 "flash_bwd_dkv_d64": 0}
 
 
 def _close_grad(out, ref):
@@ -915,8 +917,8 @@ def test_k5_at_head_dim_64_ragged_edges_match_plain(card):
 
 def test_flash_kernels_refuse_what_they_do_not_take(card):
     """No fallback on the card: fp32 or a head dim outside {64, 128} raises
-    for K4's max/masked forms and K5; K6a-c take bf16 at head dim 128 (and
-    fp32 at 64, below)."""
+    for K4's max/masked forms and K5; K6a-c take bf16 at head dims 64 and
+    128 (and fp32 at 64, below), so head dim 96 raises for them."""
     from fairygen_tpu_torch.ops import flash_attention as fa
 
     def qkv(d, dtype=torch.bfloat16, s=128):
@@ -929,7 +931,7 @@ def test_flash_kernels_refuse_what_they_do_not_take(card):
             fa.flash_fwd(*qkv(d, dtype), sk_actual=128, with_lse=False)
     with pytest.raises(ValueError, match="1024"):
         fa.flash_small_kv_max(*qkv(64, s=1088), sk_actual=1088)
-    q, k, v = qkv(64)
+    q, k, v = qkv(96)
     rows = torch.zeros((2, 128), device="cuda")
     with pytest.raises(ValueError, match="128"):
         fa.flash_fwd(q, k, v, sk_actual=128)
@@ -937,6 +939,7 @@ def test_flash_kernels_refuse_what_they_do_not_take(card):
         fa.flash_bwd_dq(q, k, v, q, rows, rows, sk_actual=128, dq_factor=1.0)
     with pytest.raises(ValueError, match="128"):
         fa.flash_bwd_dkv(q, k, v, q, rows, rows, sq=128, sk_actual=128)
+    q, k, v = qkv(64)
     with pytest.raises(ValueError):
         fa.flash_attention(*(t.float().reshape(1, 256, 1, 64) for t in (q, k, v)))
 
@@ -1277,18 +1280,23 @@ def test_fp32_flash_attention_gradient_matches_autograd(card):
 
 
 def test_unported_attention_forms_raise_naming_queue_2(card):
-    """bf16 with a gradient at head dim 64, fp32 without one, and fp32 with
-    one at head dim 128 have no kernel yet: each raises, none falls back."""
+    """bf16 at head dims 80 and 40 with and without a gradient (Queue 2 B),
+    the bounded form with a kv_len (C), fp32 without a gradient, and fp32
+    with one at head dim 128 have no kernel yet: each raises, none falls
+    back."""
     from fairygen_tpu_torch.ops.flash_attention import flash_attention
 
     def qkv(d, dtype, grad):
         return [torch.randn((1, 256, 2, d), generator=card, device="cuda").to(dtype)
                 .requires_grad_(grad) for _ in range(3)]
 
-    for d, dtype, grad in ((64, torch.bfloat16, True), (64, torch.float32, False),
-                           (128, torch.float32, True), (128, torch.float32, False)):
+    for d, dtype, grad in ((80, torch.bfloat16, True), (40, torch.bfloat16, False),
+                           (64, torch.float32, False), (128, torch.float32, True),
+                           (128, torch.float32, False)):
         with pytest.raises(ValueError, match="Queue 2"):
             flash_attention(*qkv(d, dtype, grad))
+    with pytest.raises(ValueError, match="Queue 2 C"):
+        flash_attention(*qkv(128, torch.bfloat16, False), kv_len=200, bounded_logits=True)
 
 
 def test_tiny_dora_step_launches_the_fp32_kernels(card):
@@ -1473,3 +1481,159 @@ def test_tiny_quantized_tea_cache_pipeline_on_the_card(card):
         del tea_cache.TEACACHE_COEFFICIENTS["card-test-linear"]
     schedule = [True, False, True, False, True, False, True, True]
     assert decided["cuda"] == decided["cpu"] == [m for m in schedule for _ in range(2)]
+
+
+# ------------------------------------------- K6a-c in bf16 at head dim 64
+
+
+def _d64_inputs(g, bn, sq, sk_pad, sk_actual):
+    """Head-major bf16 q (prescaled), k, v and dO at head dim 64; key rows at
+    or past sk_actual zero, as the gradient path pads them."""
+    q = _randn(g, bn, sq, 64, scale=64 ** -0.5 * 1.4427)
+    k, v, do = _randn(g, bn, sk_pad, 64), _randn(g, bn, sk_pad, 64), _randn(g, bn, sq, 64)
+    k[:, sk_actual:], v[:, sk_actual:] = 0, 0
+    return q, k, v, do
+
+
+# the bf16 SDXL UNet's forms (10 heads of 4096 and 20 of 1024, self and to
+# 77 text keys in 128), narrowed to 2-4 heads, and ragged edges: sq - 5
+# queries real in K6c; 1100 keys with kv_len 1050; 4097 keys in 5120
+@pytest.mark.parametrize("bn,sq,sk_pad,sk_actual", [(2, 4096, 4096, 4096), (4, 1024, 1024, 1024),
+                                                   (4, 4096, 128, 77), (4, 1024, 128, 77),
+                                                   (3, 192, 1152, 1050), (2, 320, 5120, 4097)])
+def test_k6_bf16_d64_match_plain(card, bn, sq, sk_pad, sk_actual):
+    """o, lse, dq, dk and dv of the bf16 kernels at head dim 64 against their
+    plain versions (the tolerances of test_k5_k6_match_plain: K6a rounds p
+    against its key tile's running max), each d-64 counter once a call, K5's
+    o bit for bit K6a's, dk and dv rows at or past sk_actual exactly 0."""
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    qh, kh, vh, doh = _d64_inputs(card, bn, sq, sk_pad, sk_actual)
+    _kernels.reset_launches()
+    o, lse = fa.flash_fwd(qh, kh, vh, sk_actual=sk_actual)
+    o_ref, lse_ref = fa.flash_fwd_plain(qh, kh, vh, sk_actual=sk_actual)
+    delta = (doh.float() * o_ref.float()).sum(-1)
+    dq = fa.flash_bwd_dq(qh, kh, vh, doh, lse_ref, delta, sk_actual=sk_actual, dq_factor=0.5)
+    dk, dv = fa.flash_bwd_dkv(qh, kh, vh, doh, lse_ref, delta, sq=sq - 5, sk_actual=sk_actual)
+    assert {k: v for k, v in _kernels.launches.items() if v} == {
+        "flash_fwd_lse_d64": 1, "flash_bwd_dq_d64": 1, "flash_bwd_dkv_d64": 1}
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=2 ** -7, atol=2 ** -8)
+    assert _rel_l2(o, o_ref) < 2 ** -8
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
+    assert torch.equal(fa.flash_fwd(qh, kh, vh, sk_actual=sk_actual, with_lse=False), o)
+    _close_grad(dq, fa.flash_bwd_dq_plain(qh, kh, vh, doh, lse_ref, delta,
+                                          sk_actual=sk_actual, dq_factor=0.5))
+    dk_ref, dv_ref = fa.flash_bwd_dkv_plain(qh, kh, vh, doh, lse_ref, delta, sq=sq - 5,
+                                            sk_actual=sk_actual)
+    _close_grad(dk, dk_ref)
+    _close_grad(dv, dv_ref)
+    assert torch.all(dk[:, sk_actual:] == 0) and torch.all(dv[:, sk_actual:] == 0)
+
+
+def test_k6_bf16_d64_two_runs_give_the_same_bits(card):
+    """No atomics at head dim 64 either: two runs of K6a, K6b and K6c at 77
+    keys and at 1024 give the same bits."""
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    for sk_pad, ska in ((128, 77), (1024, 1000)):
+        qh, kh, vh, doh = _d64_inputs(card, 4, 1024, sk_pad, ska)
+        outs = []
+        for _ in range(2):
+            o, lse = fa.flash_fwd(qh, kh, vh, sk_actual=ska)
+            delta = (doh.float() * o.float()).sum(-1)
+            dq = fa.flash_bwd_dq(qh, kh, vh, doh, lse, delta, sk_actual=ska, dq_factor=0.5)
+            outs.append((o, lse, dq) + fa.flash_bwd_dkv(qh, kh, vh, doh, lse, delta, sq=1024,
+                                                        sk_actual=ska))
+        assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+@pytest.mark.parametrize("kv_len", [None, 450])
+def test_bf16_d64_flash_attention_gradient_matches_autograd(card, kv_len):
+    """flash_attention with a gradient in bf16 at head dim 64 (K6a, K6b, K6c
+    at d 64, once each) against fp32 autograd of the plain attention on the
+    same bf16 values: relative L2 error below 1e-2, as at head dim 128."""
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops.attention import xla_attention
+    from fairygen_tpu_torch.ops.flash_attention import flash_attention
+
+    q = _randn(card, 1, 500, 2, 64).requires_grad_(True)
+    k = _randn(card, 1, 500, 2, 64).requires_grad_(True)
+    v = _randn(card, 1, 500, 2, 64).requires_grad_(True)
+    w = _randn(card, 1, 500, 2, 64).float()
+    _kernels.reset_launches()
+    out = flash_attention(q, k, v, kv_len=kv_len)
+    grads = torch.autograd.grad((out.float() * w).sum(), (q, k, v))
+    assert {k_: n for k_, n in _kernels.launches.items() if n} == {
+        "flash_fwd_lse_d64": 1, "flash_bwd_dq_d64": 1, "flash_bwd_dkv_d64": 1}
+    ref_in = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    ref = xla_attention(*ref_in, kv_len=kv_len)
+    ref_grads = torch.autograd.grad((ref * w).sum(), ref_in)
+    for name, a, b in zip("qkv", grads, ref_grads):
+        rel = ((a.float() - b).norm() / b.norm()).item()
+        assert rel < 1e-2, (name, rel)
+
+
+def test_tiny_brushnet_and_distill_steps_launch_the_d64_kernels(card):
+    """The bf16 training path at head dim 64 (channels 64 and 128 at 1 and
+    2 heads, 64x64 latents): a BrushNet step launches K6a, K6b and K6c at
+    d 64 23 times each (the UNet's 11 transformer blocks' two attentions
+    and BrushNet's mid attention) and nothing else, leaves the UNet bit for
+    bit and moves every BrushNet tensor (fp32 weights, bf16 compute); a
+    consistency-distillation step launches them 22 times each for the
+    student's sweep under a gradient and K5 / K4 for the teacher's and the
+    target's sweeps."""
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.sdxl.unet2d import UNet2DConfig, unet2d_forward
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.training.brushnet_trainer import make_brushnet_train_step
+    from fairygen_tpu_torch.training.distill import make_sdxl_distill_train_step
+    from fairygen_tpu_torch.training.optimizers import make_optimizer
+
+    kw = dict(block_out_channels=(64, 128), num_attention_heads=(1, 2),
+              down_block_types=("CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+              up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D"),
+              transformer_layers_per_block=(1, 1), cross_attention_dim=64,
+              addition_time_embed_dim=8, projection_class_embeddings_input_dim=80)
+    ucfg = UNet2DConfig(**kw)
+    bcfg = UNet2DConfig(**{**kw, "down_block_types": ("DownBlock2D",) * 2,
+                           "up_block_types": ("UpBlock2D",) * 2, "mid_block_type": "UNetMidBlock2D",
+                           "attention_head_dim": 64, "conditioning_channels": 5})
+    unet = convert.init_unet2d_params(ucfg, seed=1)
+    kept = [t.clone() for t in _leaves(unet)]
+    init, step = make_brushnet_train_step(ucfg, bcfg, unet, make_optimizer("adamw", 1e-4))
+    state = init(convert.init_unet2d_params(bcfg, dtype=torch.float32, seed=3, brushnet=True))
+    time_ids = torch.tensor([[512.0, 512, 0, 0, 512, 512]], device="cuda")
+    batch = {"latents": _randn(card, 1, 4, 64, 64), "cond_latents": _randn(card, 1, 4, 64, 64),
+             "mask_latents": (_randn(card, 1, 1, 64, 64) > 0).to(torch.bfloat16),
+             "prompt_embeds": _randn(card, 1, 77, 64), "pooled": _randn(card, 1, 32).float(),
+             "time_ids": time_ids}
+    before = [t.detach().clone() for t in state.trainable]
+    _kernels.reset_launches()
+    state, loss = step(state, batch, card)
+    assert torch.isfinite(loss)
+    assert {k: v for k, v in _kernels.launches.items() if v} == {
+        "flash_fwd_lse_d64": 23, "flash_bwd_dq_d64": 23, "flash_bwd_dkv_d64": 23}
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(unet), kept))
+    assert all(not torch.equal(a, b) for a, b in zip(state.trainable, before))
+
+    def unet_fn(p, x, t, ctx):
+        return unet2d_forward(p, ucfg, x, t, ctx["pe"], text_embeds=ctx["pooled"],
+                              time_ids=ctx["time_ids"])
+
+    init, step = make_sdxl_distill_train_step(unet_fn, make_optimizer("adamw", 1e-5), unet,
+                                              method="consistency")
+    state = init(convert.init_unet2d_params(ucfg, seed=4))
+    ctx = {"pe": batch["prompt_embeds"], "pooled": batch["pooled"], "time_ids": time_ids}
+    _kernels.reset_launches()
+    state, loss = step(state, {"ctx": ctx, "latents": batch["latents"]}, card)
+    assert torch.isfinite(loss)
+    assert {k: v for k, v in _kernels.launches.items() if v} == {
+        "flash_fwd_lse_d64": 22, "flash_bwd_dq_d64": 22, "flash_bwd_dkv_d64": 22,
+        "flash_fwd_d64": 2 * 5, "flash_small_kv_max": 2 * 6, "flash_small_kv_masked": 2 * 11}
+
+
+def _leaves(tree):
+    from fairygen_tpu_torch.models.adapters import leaves_with_path
+
+    return [t for _, t in leaves_with_path(tree) if torch.is_tensor(t)]

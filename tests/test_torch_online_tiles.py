@@ -1,6 +1,7 @@
-"""The rounding of the port's Hopper K5 (head dim 128) and K6a kernels,
-emulated in plain PyTorch, against the JAX package's forward attention in
-interpret mode.
+"""The rounding of the port's Hopper K5 (head dim 128) and K6a kernels (head
+dims 128 and, for the bf16 SDXL UNet's gradient path, 64), emulated in
+plain PyTorch, against the JAX package's forward attention in interpret
+mode.
 
 The CUDA kernels (``csrc/flash_attention_online.cu``) walk the keys in
 128-key tiles with a running max m: p = exp2(s - m) is rounded to bf16
@@ -54,12 +55,12 @@ def online_tiles(qh, kh, vh, sk_actual):
     return (acc / l[..., None]).to(torch.bfloat16), m + torch.log2(l)
 
 
-def _inputs(sq, sk, seed):
+def _inputs(sq, sk, seed, d=D):
     """bf16 q (prescaled by d^-1/2 log2 e), k, v of BN heads: head-major
-    torch tensors (BN, S, D) and the same values in JAX as (1, S, BN, D)."""
+    torch tensors (BN, S, d) and the same values in JAX as (1, S, BN, d)."""
     rng = np.random.default_rng(seed)
-    scale = np.float32(D ** -0.5 * 1.4426950408889634)
-    arrays = [rng.standard_normal((BN, s, D)).astype(np.float32) * f
+    scale = np.float32(d ** -0.5 * 1.4426950408889634)
+    arrays = [rng.standard_normal((BN, s, d)).astype(np.float32) * f
               for s, f in ((sq, scale), (sk, 1.0), (sk, 1.0))]
     heads = [torch.from_numpy(a).to(torch.bfloat16) for a in arrays]
     natural = [jnp.asarray(t.float().numpy().transpose(1, 0, 2)[None]).astype(jnp.bfloat16)
@@ -76,7 +77,19 @@ SHAPES = [(300, 300, None), (300, 77, None), (1100, 1100, 1050)]
 @pytest.mark.parametrize("with_lse", [False, True], ids=["k5", "k6a"])
 @pytest.mark.parametrize("sq,sk,kv_len", SHAPES)
 def test_128_key_tiles_match_pallas(sq, sk, kv_len, with_lse):
-    (tq, tk, tv), (jq, jk, jv) = _inputs(sq, sk, seed=sq + sk)
+    _check_tiles(sq, sk, kv_len, with_lse, D)
+
+
+@pytest.mark.parametrize("sq,sk,kv_len", SHAPES)
+def test_128_key_tiles_match_pallas_k6a_at_head_dim_64(sq, sk, kv_len):
+    """K6a at head dim 64 (the bf16 SDXL UNet under a gradient) rounds as at
+    128: the same 128-key tiles against Pallas's 1024-key ones, the same
+    bounds (atol 2^-8 on o)."""
+    _check_tiles(sq, sk, kv_len, True, 64)
+
+
+def _check_tiles(sq, sk, kv_len, with_lse, d):
+    (tq, tk, tv), (jq, jk, jv) = _inputs(sq, sk, seed=sq + sk, d=d)
     o, lse = online_tiles(tq, tk, tv, sk if kv_len is None else kv_len)
     with pltpu.force_tpu_interpret_mode():
         if with_lse:

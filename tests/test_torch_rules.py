@@ -20,7 +20,7 @@ import torch
 
 from fairygen_tpu_torch import convert
 from fairygen_tpu_torch.core.model_pool import ModelPool
-from fairygen_tpu_torch.examples import (brushnet_stylize, dora_train, fairygen_story,
+from fairygen_tpu_torch.examples import (brushnet_stylize, dora_train, fairygen_story, sdxl_t2i,
                                          wan_batch_inference, wan_inference, wan_train)
 from fairygen_tpu_torch.models.isnet import ISNetConfig, convert_isnet_state_dict, init_isnet_params
 from fairygen_tpu_torch.models.flux.dit import FluxDiTConfig, convert_flux_dit_state_dict
@@ -40,6 +40,8 @@ from fairygen_tpu_torch.pipelines.sdxl_brushnet import SDXLBrushNetPipeline
 from fairygen_tpu_torch.pipelines.wan_video import WanVideoPipeline
 from fairygen_tpu_torch.pipelines.z_image import ZImagePipeline
 from fairygen_tpu_torch.tools import calibrate_quant, calibrate_tea_cache, create_mask
+from fairygen_tpu_torch.training.brushnet_trainer import make_brushnet_train_step
+from fairygen_tpu_torch.training.distill import make_sdxl_distill_train_step
 from fairygen_tpu_torch.training.dora_trainer import make_sdxl_dora_train_step
 from fairygen_tpu_torch.training.runner import launch_training_task
 from fairygen_tpu_torch.training.train_step import (make_wan_distill_train_step,
@@ -76,7 +78,8 @@ def test_the_scan_sees_the_whole_package():
             "loader.py", "parsers.py", "data_process.py", "train_logging.py", "runner.py",
             "optimizers.py", "losses.py", "train_step.py", "wan_train.py",
             "merge_weights.py", "ddpm.py", "isnet.py", "create_mask.py", "dora_train.py",
-            "brushnet_stylize.py", "fairygen_story.py"} <= names
+            "brushnet_stylize.py", "fairygen_story.py", "lcm.py", "sdxl_t2i.py",
+            "brushnet_trainer.py", "distill.py"} <= names
     assert REPO / "fairygen_tpu_torch" / "tools" / "create_mask.py" in PORT_FILES
     assert REPO / "fairygen_tpu_torch" / "data" / "__init__.py" in PORT_FILES
     assert REPO / "fairygen_tpu_torch" / "models" / "z_image" / "dit.py" in PORT_FILES
@@ -118,7 +121,8 @@ UNET0_SD = {f"time_embedding.linear_{i}.{k}": np.zeros((2, 2) if k == "weight" e
                                    "dora_cli_twin", "stylize_cli_twin", "story_cli_twin",
                                    "calibrate_quant_cli", "calibrate_tea_cache_cli",
                                    "two_expert_pipeline", "init_vit", "convert_vit",
-                                   "init_vae_v1"])
+                                   "init_vae_v1", "t2i_cli_twin", "brushnet_step",
+                                   "sdxl_distill_step"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
@@ -176,6 +180,11 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
         "init_vit": lambda: convert.init_vit_params(ViTConfig.tiny(num_layers=1)),
         "convert_vit": lambda: convert_vit_state_dict(VIT0_SD, ViTConfig.tiny(num_layers=0)),
         "init_vae_v1": lambda: convert.init_vae_params(WanVAEConfig.tiny_v1()),
+        "t2i_cli_twin": lambda: sdxl_t2i.main(["--unet", "x", "--vae", "x", "--te1", "x",
+                                               "--te2", "x", "--tokenizer1", "x",
+                                               "--tokenizer2", "x", "--prompt", "x"]),
+        "brushnet_step": lambda: make_brushnet_train_step(UNET0, UNET0, {}, None),
+        "sdxl_distill_step": lambda: make_sdxl_distill_train_step(None, None, {}),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

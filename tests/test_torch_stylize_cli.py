@@ -141,8 +141,9 @@ def test_fairygen_story_four_stages(tmp_path, monkeypatch, tiny_story_ckpts,  # 
 def test_twins_run_alone_and_refuse_what_is_not_ported(tmp_path, monkeypatch,
                                                        tiny_story_ckpts):  # noqa: F811
     """create_mask and dora_train run alone (SNR-weighted, Adafactor), the
-    stylize twin refuses a mesh (exit 2, item 9) and the LCM scheduler
-    (item 7), and the story refuses a stage without its weights."""
+    stylize twin refuses a mesh (exit 2, item 9) and takes the LCM
+    scheduler (a 1-step shot), and the story refuses a stage without its
+    weights."""
     sk = tiny_story_ckpts
     ws = _workspace(tmp_path)
     monkeypatch.setenv("FAIRYGEN_CONFIG_OVERRIDES", sk["overrides"])
@@ -166,7 +167,9 @@ def test_twins_run_alone_and_refuse_what_is_not_ported(tmp_path, monkeypatch,
     with pytest.raises(SystemExit) as e:
         brushnet_stylize.main(stylize + ["--mesh_data", "2"])
     assert e.value.code == 2
-    with pytest.raises(NotImplementedError, match="item 7"):
-        brushnet_stylize.main(stylize + ["--scheduler", "lcm"])
+    assert brushnet_stylize.main(stylize + ["--scheduler", "lcm"]) == 0
+    from PIL import Image
+
+    assert Image.open(ws / "shots" / "01.png").size == (64, 64)
     with pytest.raises(SystemExit):
         fairygen_story.main(["--workspace", str(ws), "--stages", "stylize", "--device", "cpu"])
