@@ -20,8 +20,9 @@ Phases, each printing its wall seconds:
   2. build    — one nvcc -c per source, all at once, and one link
                 (ptxas -v output printed once); the registers, shared
                 memory and spills of the TMA + wgmma kernels (K3, K4
-                bounded, K4 max/masked and K5 at head dims 64 and 128,
-                K6a, K10, K6b, K6c, each form), and
+                bounded, K4 max/masked and K5 at head dims 64, 128 and 160
+                (SD1.5's 8, 40 and 80 run the 64 and 128 kernels), K6a,
+                K10, K6b, K6c, each form), and
                 their HGMMA (wgmma) and UTMALDG (TMA load) counts from
                 cuobjdump's SASS of their own object files (a spill, a
                 count of 0 or wgmma that ptxas serialized, C7511 / C7512
@@ -87,6 +88,13 @@ Phases, each printing its wall seconds:
                 counts, cuDNN's forward with its log-sum-exp and SDPA's
                 flash backward beside them, and their sums over a step's
                 140 calls.
+                Then K5, K4's max form and K4's masked form at SD1.5's head
+                dims 8, 40, 80 and 160 at the shapes of a 512x512 and a
+                768x768 CFG request and, for the forms neither reaches, at
+                shapes of their own: within 2^-8 of the plain versions (K4
+                also a relative L2 error of 2^-10), twice bit for bit, the
+                bound at the true d (bytes, products or exp2), SDPA as the
+                yardstick, device time at each counter's row shape.
   4. weights  — full-width Wan2.2-TI2V-5B DiT, UMT5-XXL and VAE38, made on
                 the card in bf16 from a seeded CUDA generator.
   5. requests — WanVideoPipeline answers two 480x832x17-frame, 4-step,
@@ -172,8 +180,9 @@ Phases, each printing its wall seconds:
                 BrushNet-SDXL, CLIP-L, OpenCLIP bigG, the SDXL VAE in fp32)
                 from seeded bf16 weights with a rank-32 Style DoRA loaded at
                 lora_scale 0.66: two 1024x1024, CFG 7.5, BrushNet 0.7
-                requests on a seeded masked image, one with 50 DPM-Solver++
-                steps and one with 4 LCM steps (scheduler="lcm"), with exact
+                requests on a seeded masked image, one with 10 DPM-Solver++
+                steps (cut from the CLI's 50 to keep the smoke in its
+                budget) and one with 4 LCM steps (scheduler="lcm"), with exact
                 launch counts (per step: K5 at head dim 64 10, K4 max form
                 61, K4 masked form 70), and one BrushNet + UNet step
                 profiled.
@@ -185,7 +194,17 @@ Phases, each printing its wall seconds:
                 at 1024x1024 and one direct step at 512x512 (4 student, 4
                 teacher steps), the student a bf16 copy of the UNet; walls,
                 peaks, exact launches.
- 10b. dora    — FairyGen's stylization front end at full width as the CLI
+ 10b. sd15    — SD1.5 + BrushNet inpainting at full width and depth as the
+                brushnet_inpaint_sd15 twin answers a request: the SD1.5
+                UNet and BrushNet (its mid attention of head dim 8) from
+                seeded bf16 weights, the sdxl phase's CLIP-L and VAE (fp32,
+                scaling factor 0.18215); one 512x512, 50-step UniPC, CFG
+                7.5, BrushNet 1.0 request on a seeded masked image with the
+                blended paste: wall, peak memory, a finite image, exact
+                launches (per step K5 at d 40 5, K4 max at d 80 and 160 5
+                each, K4 masked at d 40 5, d 80 5, d 160 7, d 8 1); one
+                profiled BrushNet + UNet step.
+ 10c. dora    — FairyGen's stylization front end at full width as the CLI
                 twins run it (tools/create_mask.py, examples/dora_train.py,
                 examples/brushnet_stylize.py): the full-width ISNet's mask
                 of a seeded 1024x1024 drawing; the fp32 SDXL UNet, CLIP-L,
@@ -198,7 +217,7 @@ Phases, each printing its wall seconds:
                 A, B, mag moved; one profiled step; the adapter through
                 safetensors into the bf16 serving pipeline at 0.66 and one
                 4-step 1024x1024 request with the sdxl phase's launches.
- 10c. variants — the two-expert Wan2.2-I2V-A14B, video-to-video and the
+ 10d. variants — the two-expert Wan2.2-I2V-A14B, video-to-video and the
                 CLIP-conditioned Wan2.1-I2V-14B at full width (dim 5120, 40
                 heads, 40 blocks) with the Wan2.1 VAE, from seeded bf16
                 weights: K1-K4 at the 14B shapes (S = 7800, D = 5120), K1 at
@@ -223,7 +242,8 @@ Phases, each printing its wall seconds:
                 head-dim-128 Z-Image DiT and a tiny Qwen3 encoder likewise,
                 and a tiny head-dim-64 SDXL + BrushNet + DoRA pipeline
                 likewise, a tiny bf16 BrushNet step and a tiny LCM request
-                likewise, and a tiny head-dim-64 fp32 DoRA step (with and
+                likewise, a tiny SD1.5 + BrushNet pipeline at head dims 40,
+                80 and 8 likewise, and a tiny head-dim-64 fp32 DoRA step (with and
                 without min-SNR-5) likewise, and the tiny pipeline quantized
                 to "int8" and with TeaCache likewise (the TeaCache schedule
                 the same on the card as on the CPU in bf16 and fp32).
@@ -633,6 +653,16 @@ HOPPER_KERNELS = (
      lambda lib: lib.fg_flash_bwd_smem_bytes(2)),
     ("flash_bwd_dkv_d64", "fa_dkv_d64_wgmma_kernel", "flash_attention_bwd.cu.o",
      lambda lib: lib.fg_flash_bwd_smem_bytes(3)),
+    # head dim 160 (SD1.5's 1280-channel levels): three 64-column boxes, one
+    # K / V stage; d 8 and 40 run the d-64 kernels above, d 80 the d-128 ones
+    ("flash_fwd_d160 / K4 d160 (one key tile)", "fa_online_d160_kernel",
+     "flash_attention_online.cu.o", lambda lib: lib.fg_flash_online_smem_bytes(3)),
+    ("flash_fwd_d160 / K4 d160 ragged (one key tile)", "fa_online_d160_ragged_kernel",
+     "flash_attention_online.cu.o", lambda lib: lib.fg_flash_online_smem_bytes(3)),
+    ("flash_small_kv_max/masked d160 (2+ key tiles)", "fa_row_max_d160_kernel",
+     "flash_attention_online.cu.o", lambda lib: lib.fg_flash_online_smem_bytes(3)),
+    ("flash_small_kv_max/masked d160 ragged (2+ key tiles)", "fa_row_max_d160_ragged_kernel",
+     "flash_attention_online.cu.o", lambda lib: lib.fg_flash_online_smem_bytes(3)),
 )
 
 
@@ -1017,7 +1047,7 @@ def turns_ab(lib_path):
                     o.data_ptr(), lse.data_ptr(), bn, sq_pad, sk, sk_pad, d),
                 "K5": lambda lib=lib, o5=o5, kh=kh, vh=vh: call(
                     lib, "fg_flash_fwd", qh.data_ptr(), kh.data_ptr(), vh.data_ptr(),
-                    o5.data_ptr(), bn, sq_pad, sk, sk_pad)}
+                    o5.data_ptr(), bn, sq_pad, sk, sk_pad, d)}
             for f in calls[t].values():
                 f()
             outs[t] = (o, lse, o5)
@@ -1261,6 +1291,7 @@ def main(argv):
     flux_k = flux_kernel_checks()
     norm_k = norm_kernel_checks()
     sdxl_k = sdxl_kernel_checks()
+    sd15_k = sd15_kernel_checks()
     f32_k = f32_train_kernel_checks()
     d64_k = bf16_d64_kernel_checks()
     k4_other = k4_ab(ab_lib) if ab_lib else None
@@ -1373,7 +1404,7 @@ def main(argv):
         done("zimage", t0)
 
         t0 = phase("sdxl")
-        sdxl_launches, sdxl_models = sdxl_phase()
+        sdxl_launches, sdxl_models, sd15_shared = sdxl_phase()
         launches = {k: launches[k] + sdxl_launches[k] for k in launches}
         print(f"  launches, serving, training, FLUX.1, Z-Image and SDXL: {launches}", flush=True)
         done("sdxl", t0)
@@ -1386,6 +1417,15 @@ def main(argv):
         del sdxl_models
         torch.cuda.empty_cache()
         done("sdxl_train", t0)
+
+        t0 = phase("sd15")
+        sd15_launches = sd15_phase(**sd15_shared)
+        launches = {k: launches[k] + sd15_launches[k] for k in launches}
+        print(f"  launches, serving, training, FLUX.1, Z-Image, SDXL, its training and SD1.5: "
+              f"{launches}", flush=True)
+        del sd15_shared
+        torch.cuda.empty_cache()
+        done("sd15", t0)
 
         t0 = phase("dora")
         dora_launches = dora_phase()
@@ -1409,6 +1449,7 @@ def main(argv):
         reference_zimage_check()
         reference_sdxl_check()
         reference_sdxl_train_check()
+        reference_sd15_check()
         reference_dora_check()
         reference_speed_check()
         done("reference", t0)
@@ -1547,6 +1588,25 @@ def main(argv):
             rows[-1]["turns_ab_ms"] = {tag: turns[tag]["K4"] for tag, *_ in K4_TURNS_SHAPES}
             if k4_other:
                 rows[-1]["ab_lib_ms"] = k4_other
+    for k, main_shape in SD15_MAIN_SHAPE.items():
+        by = sd15_k[k]
+        r = by[main_shape]
+        rows.append({
+            "name": k, "route": "cuda",
+            "source": "fairygen_tpu_torch/csrc/flash_attention_online.cu",
+            "replaces": "fairygen_tpu/ops/flash_attention.py:" + ("35" if k.startswith(
+                "flash_fwd") else "133"),
+            "launches": None if expected is None else launches[k],
+            "max_abs_err": max(v["max_abs_err"] for v in by.values()), "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"], "shape": main_shape, "device_ms": r["device_ms"],
+            "ops_by": r["ops_by"], "rel_l2": max(v["rel_l2"] for v in by.values()),
+            "by_shape": {tag: {"ms": v["ms"], "device_ms": v["device_ms"],
+                               "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0],
+                               "bound_by": v["bound"][1], "ops_by": v["ops_by"],
+                               "exp2_ms": v["exp2_ms"], "library_ms": v["library_ms"],
+                               "max_abs_err": v["max_abs_err"], "rel_l2": v["rel_l2"]}
+                         for tag, v in by.items()}})
     f32_sources = {"flash_fwd_lse_f32": "fairygen_tpu/ops/flash_attention.py:253",
                    "flash_bwd_dq_f32": "fairygen_tpu/ops/flash_attention.py:295",
                    "flash_bwd_dkv_f32": "fairygen_tpu/ops/flash_attention.py:329"}
@@ -1934,7 +1994,9 @@ TRAIN_PER_STEP = {"ln_modulate": 180, "rms_rope_heads_major": 180, "flash_bounde
                   "flash_fwd_lse_f32": 0, "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0,
                   "flash_bwd_prep_f32": 0, "flash_bwd_dkv_reduce_f32": 0,
                   "flash_fwd_prep_f32": 0, "flash_fwd_lse_d64": 0, "flash_bwd_dq_d64": 0,
-                  "flash_bwd_dkv_d64": 0}
+                  "flash_bwd_dkv_d64": 0, **{f"{form}_d{d}": 0 for form in (
+                      "flash_fwd", "flash_small_kv_max", "flash_small_kv_masked")
+                                             for d in (8, 40, 80, 160)}}
 
 
 def train_phase(pipe, serving_per_request):
@@ -4104,7 +4166,7 @@ def reference_zimage_check():
 
 
 
-SDXL_STEPS = 50
+SDXL_STEPS = 10  # cut from the CLI's 50 to keep the smoke in its budget
 SDXL_LCM_STEPS = 4  # the second request: the few-step LCM rollout
 # per BrushNet + UNet step at 1024x1024, CFG batch 2 (checked on the CPU by
 # tests/test_torch_sdxl_kernels.py with the real block structure): the 10
@@ -4198,6 +4260,171 @@ def sdxl_kernel_checks():
               f"{r['plain_ms']:.4f} bound_ms {r['bound'][0]:.4f} ({r['bound'][1]}) library_ms "
               f"{r['library_ms']:.4f} (device {r['library_device_ms']:.4f})", flush=True)
         del qh, kh, vh, out, ref, q4, k4, v4
+    torch.cuda.empty_cache()
+    return res
+
+
+# K5, K4's max form and K4's masked form at SD1.5's head dims: (counter,
+# tag, BN, Sq, Sk_pad, sk_actual, d).  First the calls of a 512x512 CFG
+# request (B = 2 x 8 heads; BrushNet's mid attention 2 x 160 heads of d 8),
+# each of its shapes once (SD15_PER_STEP counts them), then those of the
+# 768x768 request the app allows, then the forms neither request reaches.
+# Query rows are padded to a multiple of 64 with zeros, as the entry pads
+# them (144 -> 192)
+SD15_SHAPES = (
+    ("flash_fwd_d40", "512: self 16x4096", 16, 4096, 4096, 4096, 40),
+    ("flash_small_kv_max_d80", "512: self 16x1024", 16, 1024, 1024, 1024, 80),
+    ("flash_small_kv_max_d160", "512: self 16x256", 16, 256, 256, 256, 160),
+    ("flash_small_kv_masked_d40", "512: cross 16x4096 q, 77 keys", 16, 4096, 128, 77, 40),
+    ("flash_small_kv_masked_d80", "512: cross 16x1024 q, 77 keys", 16, 1024, 128, 77, 80),
+    ("flash_small_kv_masked_d160", "512: cross 16x256 q, 77 keys", 16, 256, 128, 77, 160),
+    ("flash_small_kv_masked_d160", "512: mid self 16x64", 16, 64, 128, 64, 160),
+    ("flash_small_kv_masked_d160", "512: mid cross 16x64 q, 77 keys", 16, 64, 128, 77, 160),
+    ("flash_small_kv_masked_d8", "512: BrushNet mid 320x64", 320, 64, 128, 64, 8),
+    ("flash_fwd_d40", "768: self 16x9216", 16, 9216, 9216, 9216, 40),
+    ("flash_fwd_d80", "768: self 16x2304", 16, 2304, 2304, 2304, 80),
+    ("flash_small_kv_max_d160", "768: self 16x576", 16, 576, 576, 576, 160),
+    ("flash_small_kv_masked_d40", "768: cross 16x9216 q, 77 keys", 16, 9216, 128, 77, 40),
+    ("flash_small_kv_masked_d80", "768: cross 16x2304 q, 77 keys", 16, 2304, 128, 77, 80),
+    ("flash_small_kv_masked_d160", "768: mid self 16x144 (q in 192)", 16, 144, 192, 144, 160),
+    ("flash_small_kv_masked_d8", "768: BrushNet mid 320x144 (q in 192)", 320, 144, 192, 144,
+     8),
+    ("flash_fwd_d8", "off path: 320x1024 q, 1100 keys", 320, 1024, 1152, 1100, 8),
+    ("flash_fwd_d160", "off path: 16x1024 q, 2304 keys", 16, 1024, 2304, 2304, 160),
+    ("flash_small_kv_max_d8", "off path: 320x256", 320, 256, 256, 256, 8),
+    ("flash_small_kv_max_d40", "off path: 16x1024", 16, 1024, 1024, 1024, 40),
+)
+SD15_MAIN_SHAPE = {  # the shape of each counter's row (its largest on the path)
+    "flash_fwd_d40": "512: self 16x4096", "flash_fwd_d80": "768: self 16x2304",
+    "flash_fwd_d8": "off path: 320x1024 q, 1100 keys",
+    "flash_fwd_d160": "off path: 16x1024 q, 2304 keys",
+    "flash_small_kv_max_d80": "512: self 16x1024", "flash_small_kv_max_d160": "512: self 16x256",
+    "flash_small_kv_max_d8": "off path: 320x256", "flash_small_kv_max_d40": "off path: 16x1024",
+    "flash_small_kv_masked_d40": "512: cross 16x4096 q, 77 keys",
+    "flash_small_kv_masked_d80": "512: cross 16x1024 q, 77 keys",
+    "flash_small_kv_masked_d160": "512: cross 16x256 q, 77 keys",
+    "flash_small_kv_masked_d8": "512: BrushNet mid 320x64"}
+# the kernel function each counter's row shape runs (d 8 and 40 on the d-64
+# kernels, 80 on the d-128 ones; at most 80 keys the 80-column form), in two
+# groups whose functions differ, so that one profiled window a group gives
+# each row its device time
+SD15_ROW_KERNELS = (
+    {"flash_fwd_d40": "fa_online_d64_kernel", "flash_fwd_d80": "fa_online_d128_kernel",
+     "flash_fwd_d8": "fa_online_d64_ragged_kernel", "flash_fwd_d160": "fa_online_d160_kernel",
+     "flash_small_kv_max_d80": "fa_row_max_d128_kernel",
+     "flash_small_kv_max_d160": "fa_row_max_d160_kernel",
+     "flash_small_kv_max_d8": "fa_row_max_d64_kernel",
+     "flash_small_kv_masked_d40": "fa_online_d64_k80_kernel",
+     "flash_small_kv_masked_d80": "fa_online_d128_ragged_kernel",
+     "flash_small_kv_masked_d160": "fa_online_d160_ragged_kernel"},
+    {"flash_small_kv_max_d40": "fa_row_max_d64_kernel",
+     "flash_small_kv_masked_d8": "fa_online_d64_k80_kernel"},
+)
+
+
+def sd15_kernel_checks():
+    """K5, K4's max form and K4's masked form at SD1.5's head dims 8, 40, 80
+    and 160 against their plain versions on the card in bf16, at
+    SD15_SHAPES: within 2^-7 relative + 2^-8 absolute, K4 also within a
+    relative L2 error of o below 2^-10 (p rounded against the row's max,
+    which a running max exceeds); two launches give the same bits; one
+    launch under the form's own counter.  (A logit that sums in another
+    order may flip one p's bf16 rounding, 2^-8 of p, which moves o by up
+    to 2^-8 / l: over the 77 text keys at d 160 that passed the 1e-3 of
+    K4's d-64 check.)  The masked key rows hold
+    non-zero values.  Bounds at the true head dim d (the kernels compute 64,
+    128 or 192 columns, the ones past d zeros): q, k, v read and o written
+    once (3.35 TB/s), 4 x BN x Sq x Sk x d flops (989 TFLOP/s) and BN x Sq x
+    Sk exp2 (16 a clock on 132 SMs at 1.98 GHz), the largest of the three
+    ("operations" where the products or exp2 set it).  Device time from
+    torch.profiler beside the CUDA-event time at each row's shape
+    (SD15_MAIN_SHAPE), the rows' kernels traced together in the two windows
+    of SD15_ROW_KERNELS (each trace opens the profiler anew, and the card's
+    profiler drops more records the more often a process has opened it);
+    the yardstick is F.scaled_dot_product_attention on the unpadded heads,
+    timed here only.  Returns {counter: {tag: numbers}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator("cuda").manual_seed(1515)
+    ln2 = 0.6931471805599453
+    res = {}
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
+
+    rows = {}  # counter: its row shape's kernel call
+    for name, tag, bn, sq, skp, ska, d in SD15_SHAPES:
+        qh = torch.zeros((bn, fa._pad_len(sq, 64, True), d), dtype=torch.bfloat16,
+                         device="cuda")
+        qh[:, :sq] = randn(bn, sq, d, scale=d ** -0.5 * 1.4426950408889634)
+        kh, vh = randn(bn, skp, d), randn(bn, skp, d)
+        k5 = name.startswith("flash_fwd")
+        # the inputs bound now: a row's call runs again after the loop
+        if k5:
+            def kern(qh=qh, kh=kh, vh=vh, ska=ska):
+                return fa.flash_fwd(qh, kh, vh, sk_actual=ska, with_lse=False)
+
+            def plain():
+                return fa.flash_fwd_plain(qh, kh, vh, sk_actual=ska, with_lse=False)
+        else:
+            def kern(qh=qh, kh=kh, vh=vh, ska=ska):
+                return fa.flash_small_kv_max(qh, kh, vh, sk_actual=ska)
+
+            def plain():
+                return fa.flash_small_kv_max_plain(qh, kh, vh, sk_actual=ska)
+        before = dict(_kernels.launches)
+        out = kern()
+        counted = {k: v - before[k] for k, v in _kernels.launches.items() if v != before[k]}
+        if counted != {name: 1}:
+            raise RuntimeError(f"{tag}: counted {counted}, expected one launch of {name}")
+        ref = plain()
+        err = check_close(f"{name} {tag}", out, ref, rtol=2 ** -7, atol=2 ** -8)
+        rel_l2 = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+        same = torch.equal(out, kern())
+        print(f"  {name} {tag}: relative L2 error of o {rel_l2:.3e}"
+              + ("" if k5 else f" (bound 2^-10 = {2 ** -10:.3e})")
+              + f"; two launches bit for bit: {same}", flush=True)
+        if not same or (not k5 and not rel_l2 < 2 ** -10):
+            raise RuntimeError(f"{name} {tag} disagrees with its plain version or itself")
+        q4, k4, v4 = (t.view(1, bn, -1, d)[:, :, :n].contiguous()
+                      for t, n in ((qh, sq), (kh, ska), (vh, ska)))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q4, k4, v4, scale=ln2)
+        t_ops = bound_ms(0, 4 * bn * sq * ska * d)[0]
+        t_exp = bn * sq * ska / H100_MUFU_EXP2_PER_S * 1e3
+        t_bytes = bound_ms((2 * sq + 2 * ska) * bn * d * 2, 0)[0]
+        bound = max((t_bytes, "bytes"), (t_ops, "operations"), (t_exp, "operations"))
+        r = dict(max_abs_err=err, rel_l2=rel_l2, ms=time_ms(kern, 10, 3), device_ms=None,
+                 plain_ms=time_ms(plain, 1, 1), bound=bound,
+                 ops_by="exp2" if t_exp >= t_ops else "products", exp2_ms=t_exp,
+                 library_ms=time_ms(sdpa, 10, 3))
+        res.setdefault(name, {})[tag] = r
+        print(f"  {name} {tag} (d {d}): ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+              f"bound_ms {bound[0]:.4f} ({bound[1]}; bytes {t_bytes:.4f}, products "
+              f"{t_ops:.4f}, exp2 {t_exp:.4f}) library_ms (SDPA) {r['library_ms']:.4f}",
+              flush=True)
+        if SD15_MAIN_SHAPE[name] == tag:
+            rows[name] = kern
+        del out, ref, q4, k4, v4
+    for group in SD15_ROW_KERNELS:
+        def together(group=group):
+            for name in group:
+                rows[name]()
+        trace = device_trace(together, 10)
+        for name, fn in group.items():
+            hits = [ms for key, ms in trace.items() if f"::{fn}(" in key]
+            if len(hits) != 1:
+                raise RuntimeError(f"{name}: the trace holds {len(hits)} rows of {fn}: "
+                                   f"{sorted(trace)}")
+            res[name][SD15_MAIN_SHAPE[name]]["device_ms"] = hits[0]
+            print(f"  {name} {SD15_MAIN_SHAPE[name]}: device {hits[0]:.4f} ms ({fn})",
+                  flush=True)
+    del rows
     torch.cuda.empty_cache()
     return res
 
@@ -4831,12 +5058,14 @@ def sdxl_phase():
     sdxl_dora_state_dict and load_sdxl_dora_state_dict at lora_scale
     0.66); seeded prompt ids through encode_ids; two 1024x1024 requests
     (CFG 7.5, BrushNet scale 0.7) on a seeded masked image, the first with
-    50 DPM-Solver++ steps, the second with 4 LCM steps (scheduler="lcm",
+    SDXL_STEPS (10, cut from the CLI's 50) DPM-Solver++ steps, the second
+    with 4 LCM steps (scheduler="lcm",
     examples/brushnet_stylize.py --scheduler lcm --steps 4), each with
     exact launch counts of K4's max and masked forms and K5 at head dim 64
     and none of the other kernels; then one BrushNet + UNet step under
-    torch.profiler.  Returns the launches and the models, the prompt
-    embeddings and the configs (sdxl_train_phase trains on them)."""
+    torch.profiler.  Returns the launches, the models, the prompt
+    embeddings and the configs (sdxl_train_phase trains on them), and
+    CLIP-L and the VAE with their configs (sd15_phase reuses them)."""
     import numpy as np
     import torch
 
@@ -4963,10 +5192,10 @@ def sdxl_phase():
             wall = time.perf_counter() - t1
     device_table(prof, wall, "profiled BrushNet + UNet step (1024x1024, CFG batch 2)", 18,
                  also=("fa_",))
-    del pipe, te1, te2, img, x, cond
+    del pipe, te2, img, x, cond
     torch.cuda.empty_cache()
     return total, dict(unet=unet, bn=bn, vae=vae, ucfg=ucfg, bcfg=bcfg, vcfg=vcfg, pe=pe,
-                       ppe=ppe)
+                       ppe=ppe), dict(te=te1, te_cfg=te1_cfg, vae=vae, vae_cfg=vcfg)
 
 
 BRUSHNET_TRAIN_STEPS = 2
@@ -5160,6 +5389,190 @@ def sdxl_train_phase(unet, bn, vae, ucfg, bcfg, vcfg, pe, ppe):
     del student
     torch.cuda.empty_cache()
     return total
+
+
+SD15_STEPS = 50  # the CLI twin's default
+# per BrushNet + UNet step at 512x512, CFG batch 2 (checked on the CPU by
+# tests/test_torch_sd15_kernels.py with the real block structure): the 5
+# transformer blocks at 64 x 64 latents (4096 tokens, d 40) self-attend
+# through K5; the 5 at 32 x 32 (1024 tokens, d 80) and the 5 at 16 x 16
+# (256, d 160) through K4's max form; the 16 cross-attentions to the 77
+# text keys (padded to 128), the mid block's self-attention over 64 tokens
+# (d 160) and BrushNet's mid attention (64 tokens, 160 heads of d 8)
+# through K4's masked form
+SD15_PER_STEP = {"flash_fwd_d40": 5, "flash_small_kv_max_d80": 5, "flash_small_kv_max_d160": 5,
+                 "flash_small_kv_masked_d40": 5, "flash_small_kv_masked_d80": 5,
+                 "flash_small_kv_masked_d160": 7, "flash_small_kv_masked_d8": 1}
+
+
+def sd15_inputs(size):
+    """sdxl_inputs' seeded image and ellipse, the ellipse as the region to
+    inpaint: (the image in [0, 1], the mask HW1, the masked image)."""
+    masked, mask = sdxl_inputs(size)
+    return (seeded_image(31, size, size) / 255.0).astype("float32"), mask, masked
+
+
+def sd15_phase(te, te_cfg, vae, vae_cfg):
+    """SD1.5 + BrushNet inpainting at full width and depth on the card, as
+    fairygen_tpu_torch/examples/brushnet_inpaint_sd15.py answers a request:
+    the SD1.5 UNet (sd15_base) and BrushNet (brushnet_sd15, with its plain
+    mid attention of head dim 8) from seeded bf16 weights, the sdxl phase's
+    CLIP-L and VAE (the same architectures; the VAE fp32, at SD1.5's
+    scaling factor 0.18215); seeded prompt ids through encode_ids (the final
+    layer-norm states, 77 x 768); one 512x512 request on a seeded masked
+    image, SD15_STEPS UniPC steps, CFG 7.5, BrushNet scale 1.0, the blended
+    paste: wall time, peak memory, a finite image and exact launch counts
+    (SD15_PER_STEP a step, every other kernel 0); then one BrushNet + UNet
+    step under torch.profiler.  Returns the launches."""
+    import dataclasses
+
+    import torch
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.sdxl.unet2d import (UNet2DConfig, brushnet_forward,
+                                                       unet2d_forward)
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines.sd15_brushnet import SD15BrushNetPipeline
+
+    bf = torch.bfloat16
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    ucfg, bcfg = UNet2DConfig.sd15_base(), UNet2DConfig.brushnet_sd15()
+    vcfg = dataclasses.replace(vae_cfg, scaling_factor=0.18215)
+    unet = convert.init_unet2d_params(ucfg, "cuda", bf, seed=150)
+    bn = convert.init_unet2d_params(bcfg, "cuda", bf, seed=151, brushnet=True)
+    torch.cuda.synchronize()
+    print(f"  SD1.5 weights in {time.perf_counter() - t1:.3f} s: UNet "
+          f"{convert.count_params(unet):,} BrushNet {convert.count_params(bn):,} (its mid "
+          f"attention: {len(bn['mid_block']['attentions'])}), CLIP-L "
+          f"{convert.count_params(te):,} and VAE {convert.count_params(vae):,} of the sdxl "
+          f"phase; max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    pipe = SD15BrushNetPipeline(unet, ucfg, vae, vcfg, bn, bcfg, te, te_cfg, dtype=bf)
+    pe = pipe.encode_ids(sdxl_ids(152, 12)[0])
+    npe = pipe.encode_ids(sdxl_ids(153, 0)[0])
+    if tuple(pe.shape) != (1, 77, 768) or not torch.isfinite(pe).all():
+        raise RuntimeError(f"the SD1.5 prompt embedding is {tuple(pe.shape)} or not finite")
+    init, mask, masked = sd15_inputs(512)
+
+    want = {k: SD15_PER_STEP.get(k, 0) * SD15_STEPS for k in _kernels.launches}
+    _kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    img = pipe(prompt_embeds=pe, negative_prompt_embeds=npe, image=masked, mask=mask,
+               height=512, width=512, num_inference_steps=SD15_STEPS, guidance_scale=7.5,
+               brushnet_conditioning_scale=1.0, seed=1234, blended=True, original_image=init,
+               output_type="np_pm1")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    got = dict(_kernels.launches)
+    finite = bool(torch.isfinite(img).all())
+    print(f"  SD1.5 + BrushNet request (512x512, {SD15_STEPS} UniPC steps, CFG 7.5, BrushNet 1.0, "
+          f"blended): {dt:.3f} s ({dt / SD15_STEPS * 1e3:.2f} ms a step with the encode and the "
+          f"decode), output {tuple(img.shape)} {img.dtype}, all finite: {finite}, std "
+          f"{img.std().item():.4f}, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+          f"{ {k: v for k, v in got.items() if v} }", flush=True)
+    if tuple(img.shape) != (1, 3, 512, 512) or not finite:
+        raise RuntimeError("SD1.5 request output has the wrong shape or non-finite values")
+    if got != want:
+        raise RuntimeError(f"SD1.5 request launch counts {got} != expected {want}")
+
+    # where a step's time goes: one BrushNet sweep and one UNet sweep at CFG
+    # batch 2, as the pipeline runs them
+    gen = torch.Generator("cuda").manual_seed(154)
+    x = torch.randn((2, 4, 64, 64), generator=gen, device="cuda").to(bf)
+    cond = torch.randn((2, 5, 64, 64), generator=gen, device="cuda").to(bf)
+    ehs = torch.cat([npe, pe]).to(bf)
+    t = torch.tensor(981.0, device="cuda")
+    with torch.no_grad():
+        def step():
+            down, mid, up = brushnet_forward(bn, bcfg, x, t, ehs, cond)
+            return unet2d_forward(unet, ucfg, x, t, ehs, down_block_add_samples=down,
+                                  mid_block_add_sample=mid, up_block_add_samples=up)
+
+        step()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t1 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+    device_table(prof, wall, "profiled SD1.5 BrushNet + UNet step (512x512, CFG batch 2)", 18,
+                 also=("fa_",))
+    del pipe, unet, bn, img, x, cond
+    torch.cuda.empty_cache()
+    return got
+
+
+def reference_sd15_check():
+    """A tiny SD1.5 + BrushNet pipeline on the card (bf16, kernels) against
+    the same weights on the CPU in fp32 and in bf16 (plain versions): a
+    two-level UNet with channels 40 and 80 at one head a level (head dims 40
+    and 80), a BrushNet whose mid attention has head dim 8 (10 heads), the
+    4-level VAE at width 32; 256x256 (32 x 32 latents: K4's max form at d
+    40 over 1024 tokens, at d 80 over 256 and at d 8 for BrushNet's mid
+    attention, its masked form over the 77 text keys), 3 UniPC steps at CFG
+    7.5, BrushNet 1.0, torch-compatible noise.  The card's relative L2
+    error of the final latents to the CPU fp32 run must be at most twice
+    the CPU bf16 run's + 1e-3, and the launches exact."""
+    import torch
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.sdxl.unet2d import UNet2DConfig
+    from fairygen_tpu_torch.models.sdxl.vae import AutoencoderKLConfig
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines.sd15_brushnet import SD15BrushNetPipeline
+
+    kw = dict(block_out_channels=(40, 80), num_attention_heads=(1, 1),
+              down_block_types=("CrossAttnDownBlock2D",) * 2,
+              up_block_types=("CrossAttnUpBlock2D",) * 2, transformer_layers_per_block=(1, 1),
+              cross_attention_dim=32, norm_num_groups=8, addition_embed_type=None)
+    ucfg = UNet2DConfig(**kw)
+    bcfg = UNet2DConfig(**{**kw, "down_block_types": ("DownBlock2D",) * 2,
+                           "up_block_types": ("UpBlock2D",) * 2, "mid_block_type": "UNetMidBlock2D",
+                           "attention_head_dim": 8, "conditioning_channels": 5})
+    vcfg = AutoencoderKLConfig(block_out_channels=(32, 32, 32, 32), norm_num_groups=8,
+                               scaling_factor=0.18215)
+    f32 = torch.float32
+    base = (convert.init_unet2d_params(ucfg, "cpu", f32, seed=160),
+            convert.init_unet2d_params(bcfg, "cpu", f32, seed=161, brushnet=True),
+            convert.init_autoencoder_kl_params(vcfg, "cpu", f32, seed=162))
+    g = torch.Generator("cpu").manual_seed(163)
+    init, mask, masked = sd15_inputs(256)
+    steps = 3
+    call = dict(prompt_embeds=torch.randn(1, 77, 32, generator=g),
+                negative_prompt_embeds=torch.randn(1, 77, 32, generator=g), image=masked,
+                mask=mask, height=256, width=256, num_inference_steps=steps, guidance_scale=7.5,
+                brushnet_conditioning_scale=1.0, seed=164, torch_compat_noise=True,
+                output_type="latent")
+
+    def run(dev, dt):
+        pipe = SD15BrushNetPipeline(to(base[0], dev, dt), ucfg, to(base[2], dev, f32), vcfg,
+                                    to(base[1], dev, dt), bcfg, dtype=dt, device=dev)
+        return pipe(**call).float().cpu()
+
+    ref = run("cpu", f32)
+    rel16 = ((run("cpu", torch.bfloat16) - ref).norm() / ref.norm()).item()
+    _kernels.reset_launches()
+    out = run("cuda", torch.bfloat16)
+    ran = {k: v for k, v in _kernels.launches.items() if v}
+    rel = ((out - ref).norm() / ref.norm()).item()
+    tol = 2 * rel16 + 1e-3
+    print(f"  tiny SD1.5 + BrushNet pipeline latents {tuple(out.shape)}: relative L2 error to "
+          f"CPU fp32 {rel:.4e} (card bf16), {rel16:.4e} (CPU bf16); tolerance {tol:.4e}; "
+          f"kernel launches {ran}", flush=True)
+    # per step: 2 + 3 blocks at 32 x 32 (d 40), 2 + 1 (mid) + 3 at 16 x 16
+    # (d 80), BrushNet's mid attention at 16 x 16 (d 8)
+    want = {"flash_small_kv_max_d40": 5 * steps, "flash_small_kv_max_d80": 6 * steps,
+            "flash_small_kv_max_d8": steps, "flash_small_kv_masked_d40": 5 * steps,
+            "flash_small_kv_masked_d80": 6 * steps}
+    if ran != want:
+        raise RuntimeError(f"tiny SD1.5 pipeline: kernel launches {ran} != {want}")
+    if not rel <= tol:
+        raise RuntimeError("tiny SD1.5 pipeline disagrees with the CPU reference")
 
 
 def tiny_sdxl_cfgs():

@@ -91,8 +91,10 @@ def from_jax_params(tree, device="cuda", dtype=None) -> Dict[str, Any]:
     """A JAX-package param tree (numpy leaves) of the Wan DiT (with the I2V
     image branch), UMT5, VAE38 or the Wan2.1 VAE, the CLIP ViT-H, FLUX.1
     DiT, T5, CLIP text tower, AutoencoderKL, Z-Image DiT, Qwen3 text
-    encoder, SDXL UNet or BrushNet (with their LoRA / DoRA adapters)
-    -> port state on ``device``, optionally cast to ``dtype``.  LoRA
+    encoder, SDXL UNet or BrushNet (with their LoRA / DoRA adapters), or
+    the four-level SD1.5 UNet or BrushNet (its plain mid attention where
+    the tree has one) -> port state on ``device``, optionally cast to
+    ``dtype``.  LoRA
     subtrees keep their dtype, and so do the scales and outlier operands
     of W8A8 layers (``ops/quant.py``); their ``w_int8`` stays int8, laid
     out column-major."""

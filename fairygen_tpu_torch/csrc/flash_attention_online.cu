@@ -5,12 +5,14 @@
 // Replaces the TPU kernels fairygen_tpu/ops/flash_attention.py:
 //   K4  _fa_small_kv_kernel with bounded=False (entry flash_small_kv_max):
 //                           the generic forward where the keys fit one TPU k
-//                           tile (at most 1024), head dims 64 and 128; the
-//                           max form, and the masked form (key columns >=
-//                           sk_actual set to -1e30 first; those key and value
-//                           rows may hold non-zero values)
+//                           tile (at most 1024), head dims 64 and 128 and
+//                           SD1.5's 8, 40, 80 and 160; the max form, and the
+//                           masked form (key columns >= sk_actual set to
+//                           -1e30 first; those key and value rows may hold
+//                           non-zero values)
 //   K5  _fa_kernel          the generic no-gradient forward (entry flash_fwd
 //                           with with_lse=False), at head dims 64 and 128
+//                           and SD1.5's 8, 40, 80 and 160
 //   K6a _fa_fwd_lse_kernel  the forward of the gradient path (flash_fwd with
 //                           with_lse=True), head dims 64 and 128: K5 plus
 //                           lse = m + log2(l), one fp32 value a row; its o
@@ -60,6 +62,12 @@
 //     gain 2-3% at the cross shape, so they stay (chip_smoke.py times a
 //     copy of this file built without them).  The self shape is ragged
 //     (8190 keys in 8192 rows), the cross shape aligned.
+//   - K4 and K5 at SD1.5's head dims, bounded at the true d: at d 8 and 40
+//     exp2 costs more than the products (K5 at 16 x 4096^2 x 40: 0.064 ms
+//     of exp2, 0.043 of products), at d 80 and 160 the products; over the
+//     77 text keys and the 64- to 256-token levels q in and o out (bytes),
+//     at most a few microseconds, so launch and one item's chain set the
+//     time.
 //   - K10 at FLUX.1's EliGen 24 x 5632 x 5632: 0.394 ms (operations), exp2
 //     about half of that.  The bias is 127 MB of fp32, more than the 50 MB
 //     L2, and every one of the 24 heads reads it: 3.0 GB a call go through
@@ -141,6 +149,17 @@
 //     registers (rows >= sq_pad skipped); K6a's lse from one thread of each
 //     quad, with the finished item's max kept beside its sum (the running
 //     max restarts before the store);
+//   - SD1.5's head dims run the kernels of the next width up: d 8 and 40
+//     those of d 64 (the 80-column form too), d 80 those of d 128, d 160
+//     its own of width 192 (three boxes).  The TMA maps take the true width
+//     (rows of 2d bytes, 16 and 80 at d 8 and 40) under 64-column boxes, so
+//     the columns past d read zeros, which add exactly 0 to every product:
+//     the error is that of d 64 / 128; the store writes only the d columns
+//     (Params::d).  At 192 columns a tile is 48 KB, so d 160 keeps two Q
+//     buffers but one K and one V stage (192 KB; two stages would take 288
+//     KB of the 227 KB a block may have); S takes the first 10 k-steps (160
+//     columns), P V is m64n192k16 and O 96 fp32 registers a thread (no
+//     spill on the card);
 //   - only real work: ceil(sq_pad / 128) q tiles and ceil(sk_actual / 128)
 //     (K4, K5, K6a) or ceil(sk / 128) (K10) key tiles.  A 128-key box past
 //     sk_pad reads zero keys (s = 0), so the mask is on whenever sk_actual
@@ -171,13 +190,19 @@ constexpr int kBiasHalf = 128 * 64 * 4;  // 64 columns of a 128 x 128 fp32 bias 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kPadBias = -1e30f;
 
+// the 64-column boxes of a tile at head dim D (D = 160: three, the third
+// half zeros), and the columns of O they give (64, 128 or 192)
+__host__ __device__ constexpr int boxes(int d) { return (d + 63) / 64; }
+
 // shared-memory layout at head dim D: the Q buffers, the K and V rings,
 // K10's 128 x 128 fp32 bias tile (aligned form only: it takes the second Q
-// buffer's room), the mbarriers
+// buffer's room), the mbarriers.  At D = 160 a tile is three boxes (48 KB):
+// two Q buffers and one K and one V stage take 192 KB, where two stages
+// would take 288 KB of the 227 KB a block may have
 template <int D, bool kBiasSmem>
 struct Smem {
-  static constexpr int kTile = (D / 64) * kHalf;  // a 128 x D bf16 tile
-  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kTile = boxes(D) * kHalf;  // a 128 x D bf16 tile
+  static constexpr int kStages = D == 64 ? 4 : D == 128 ? 2 : 1;
   static constexpr int kQBufs = kBiasSmem ? 1 : 2;
   static constexpr int kQ = 0;
   static constexpr int kK = kQBufs * kTile;
@@ -190,7 +215,8 @@ struct Smem {
 struct Params {
   int N, n_qt, n_items, n_kt;
   int sq_pad;
-  void* out;           // (BN, sq_pad, D) bf16
+  int d;               // the head dim: the columns of q, k, v and out (<= D, a multiple of 8)
+  void* out;           // (BN, sq_pad, d) bf16
   float* lse;          // K6a: (BN, sq_pad) fp32
   int sk_actual;       // K4, K5, K6a: key columns >= sk_actual are masked (ragged form)
   const float* bias;   // K10: (bias_rows, sq, sk) fp32
@@ -392,8 +418,9 @@ __device__ __forceinline__ void softmax_rows(float* s, float mx0, float mx1, flo
 
 // the warpgroup's rows qr and qr + 8 of the item = O / l, rounded once to
 // bf16, stored from registers (once an item), and with kLse (K6a) their lse
-// = m + log2(l); rows >= sq_pad are skipped
-template <int D, bool kLse>
+// = m + log2(l); rows >= sq_pad are skipped, and so are O's columns >= d
+// (O is W columns wide: the boxes' columns, past d zeros)
+template <int W, bool kLse>
 __device__ __forceinline__ void store_rows(const Params& pr, const float* o, float l0, float l1,
                                            float m0, float m1, const Item& it, int qr, int tg) {
   // the four threads of a quad hold disjoint columns of the same two rows
@@ -402,20 +429,22 @@ __device__ __forceinline__ void store_rows(const Params& pr, const float* o, flo
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = __frcp_rn(l0), inv1 = __frcp_rn(l1);
-  const int row = it.q0 + qr;
+  const int row = it.q0 + qr, pitch = pr.d / 2;  // bf16 pairs a row
   // column 8j + 2tg of the row is the bf16 pair 4j + tg
   uint32_t* dst =
-      reinterpret_cast<uint32_t*>(pr.out) + ((size_t)it.bn * pr.sq_pad + row) * (D / 2) + tg;
+      reinterpret_cast<uint32_t*>(pr.out) + ((size_t)it.bn * pr.sq_pad + row) * pitch + tg;
   if (row < pr.sq_pad) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      dst[4 * j] = pack_bf16(div_rn(o[4 * j], l0, inv0), div_rn(o[4 * j + 1], l0, inv0));
+    for (int j = 0; j < W / 8; ++j)
+      if (8 * j < pr.d)
+        dst[4 * j] = pack_bf16(div_rn(o[4 * j], l0, inv0), div_rn(o[4 * j + 1], l0, inv0));
   }
   if (row + 8 < pr.sq_pad) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      dst[8 * (D / 2) + 4 * j] =
-          pack_bf16(div_rn(o[4 * j + 2], l1, inv1), div_rn(o[4 * j + 3], l1, inv1));
+    for (int j = 0; j < W / 8; ++j)
+      if (8 * j < pr.d)
+        dst[8 * pitch + 4 * j] =
+            pack_bf16(div_rn(o[4 * j + 2], l1, inv1), div_rn(o[4 * j + 3], l1, inv1));
   }
   if constexpr (kLse) {
     // one thread of each quad (all four hold the rows' m and summed l)
@@ -441,6 +470,10 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
   // accumulator of 40 floats a thread, every one of them read, or ptxas
   // serializes the wgmma for want of registers, C7511)
   constexpr int kNJ = kCols / 8;
+  // the boxes of a tile, and O's columns (D = 160: 192, the last 32 zeros,
+  // which P V computes and the store skips)
+  constexpr int kBoxes = boxes(D);
+  constexpr int kW = 64 * kBoxes;
   using L = Smem<D, kBiasSmem>;
   constexpr int kStages = L::kStages;
   constexpr int kQBufs = L::kQBufs;
@@ -503,7 +536,7 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
         uint8_t* q = smem + L::kQ + qb * L::kTile;
         mbar_wait(&q_empty[qb], ((i / kQBufs) & 1) ^ 1);
         mbar_arrive_expect_tx(&q_full[qb], L::kTile);
-        for (int h = 0; h < D / 64; ++h)
+        for (int h = 0; h < kBoxes; ++h)
           tma_load_3d(q + h * kHalf, tq, &q_full[qb], 64 * h, it.q0, it.bn);
       };
       // key tile j of head bn, the kc-th tile of the K stream, into its
@@ -513,7 +546,7 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
         uint8_t* kt = smem + L::kK + s * L::kTile;
         mbar_wait(&k_empty[s], ((kc / kStages) & 1) ^ 1);
         mbar_arrive_expect_tx(&k_full[s], L::kTile);
-        for (int h = 0; h < D / 64; ++h)
+        for (int h = 0; h < kBoxes; ++h)
           tma_load_3d(kt + h * kHalf, tk, &k_full[s], 64 * h, j * kBN, bn);
       };
       load_q(0);
@@ -530,7 +563,7 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
           load_k(j, it.bn, k_loop(t, i));
           mbar_wait(&v_empty[s], ph ^ 1);
           mbar_arrive_expect_tx(&v_full[s], L::kTile);
-          for (int h = 0; h < D / 64; ++h)
+          for (int h = 0; h < kBoxes; ++h)
             tma_load_3d(vt + h * kHalf, tv, &v_full[s], 64 * h, j * kBN, it.bn);
           if constexpr (kBiasSmem) {
             // each half of the bias tile (two boxes of 32 columns x 128
@@ -560,10 +593,10 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
     const int qr = cw * 64 + r;  // this thread's first row within the item
     const uint32_t base = smem_u32(smem);
     const uint32_t q_rows = base + L::kQ + cw * 64 * 128;  // this warpgroup's rows
-    float o[D / 2], sacc[64], b[kBias && kRagged ? 32 : 1];
+    float o[kW / 2], sacc[64], b[kBias && kRagged ? 32 : 1];
     uint32_t p[32];
 #pragma unroll
-    for (int k = 0; k < D / 2; ++k) o[k] = 0.f;
+    for (int k = 0; k < kW / 2; ++k) o[k] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, a0, a1;
     float l0_done = 0.f, l1_done = 0.f, m0_done = 0.f, m1_done = 0.f;
     const int total = mine * n_kt;
@@ -671,13 +704,13 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
       const uint32_t ph = (kc / kStages) & 1, php = ((t - 1) / kStages) & 1;
       mbar_wait(&k_full[s], ph);
       wait_turn();
-      fence_regs<D / 2>(o);
+      fence_regs<kW / 2>(o);
       fence_regs<kNJ * 2>(p);
       wgmma_fence();
       tile_scores<D, kCols>(sacc, q_rows + qb * L::kTile, base + L::kK + s * L::kTile);
       wgmma_commit();
       mbar_wait(&v_full[sp], php);
-      tile_pv<D, kNJ / 2>(o, p, base + L::kV + sp * L::kTile);
+      tile_pv<kW, kNJ / 2>(o, p, base + L::kV + sp * L::kTile);
       wgmma_commit();
       pass_turn(1);
       wgmma_wait<1>();  // S of tile t is in; P V of tile t-1 still runs
@@ -696,18 +729,18 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
       // the ragged form masks only the item's last tile (lim > 121 before)
       scores_to_p(t, lim0 - j * kBN, j == 0);
       wgmma_wait<0>();
-      fence_regs<D / 2>(o);
+      fence_regs<kW / 2>(o);
       mbar_arrive_if(&v_empty[sp], lane == 0);
       if (j == 0) {
-        store_rows<D, kLse>(pr, o, l0_done, l1_done, m0_done, m1_done, item(i - 1), qr, tg);
+        store_rows<kW, kLse>(pr, o, l0_done, l1_done, m0_done, m1_done, item(i - 1), qr, tg);
         if constexpr (kRowMax) {
 #pragma unroll
-          for (int k = 0; k < D / 2; ++k) o[k] = 0.f;
+          for (int k = 0; k < kW / 2; ++k) o[k] = 0.f;
         }
       }
       if constexpr (!kRowMax) {
 #pragma unroll
-        for (int k = 0; k < D / 8; ++k) {
+        for (int k = 0; k < kW / 8; ++k) {
           o[4 * k] *= a0;
           o[4 * k + 1] *= a0;
           o[4 * k + 2] *= a1;
@@ -720,15 +753,15 @@ __device__ __forceinline__ void attend(const CUtensorMap* tq, const CUtensorMap*
     const int sl = (total - 1) % kStages;
     mbar_wait(&v_full[sl], ((total - 1) / kStages) & 1);
     wait_turn();
-    fence_regs<D / 2>(o);
+    fence_regs<kW / 2>(o);
     fence_regs<kNJ * 2>(p);
     wgmma_fence();
-    tile_pv<D, kNJ / 2>(o, p, base + L::kV + sl * L::kTile);
+    tile_pv<kW, kNJ / 2>(o, p, base + L::kV + sl * L::kTile);
     wgmma_commit();
     pass_turn(cw == 0);  // warpgroup 2's last hand-over would have no taker
     wgmma_wait<0>();
-    fence_regs<D / 2>(o);
-    store_rows<D, kLse>(pr, o, l0, l1, m0, m1, item(mine - 1), qr, tg);
+    fence_regs<kW / 2>(o);
+    store_rows<kW, kLse>(pr, o, l0, l1, m0, m1, item(mine - 1), qr, tg);
   }
 }
 
@@ -857,6 +890,42 @@ fa_row_max_d128_ragged_kernel(const __grid_constant__ CUtensorMap tq,
   attend<128, false, true, false, true>(&tq, &tk, &tv, &tb, pr);
 }
 
+// K5 and K4 over one key tile at head dim 160 (SD1.5's 1280-channel
+// levels), sk_actual a multiple of 128
+__global__ void __launch_bounds__(kThreads, 1)
+fa_online_d160_kernel(const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tb, const Params pr) {
+  attend<160, false, false, false, false>(&tq, &tk, &tv, &tb, pr);
+}
+
+// K5 and K4 over one key tile at head dim 160, keys >= sk_actual masked (the
+// mid block's 64 tokens and the 77 text keys)
+__global__ void __launch_bounds__(kThreads, 1)
+fa_online_d160_ragged_kernel(const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tb, const Params pr) {
+  attend<160, false, true, false, false>(&tq, &tk, &tv, &tb, pr);
+}
+
+// K4 over more than one key tile at head dim 160, sk_actual a multiple of 128
+// (SD1.5's 256-token self-attention at 512x512)
+__global__ void __launch_bounds__(kThreads, 1)
+fa_row_max_d160_kernel(const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tb, const Params pr) {
+  attend<160, false, false, false, true>(&tq, &tk, &tv, &tb, pr);
+}
+
+// K4 over more than one key tile at head dim 160, keys >= sk_actual masked
+// (576 and 144 tokens at 768x768)
+__global__ void __launch_bounds__(kThreads, 1)
+fa_row_max_d160_ragged_kernel(const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tb, const Params pr) {
+  attend<160, false, true, false, true>(&tq, &tk, &tv, &tb, pr);
+}
+
 typedef void (*OnlineKernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap,
                              const CUtensorMap, const Params);
 
@@ -869,22 +938,27 @@ int allow_smem(OnlineKernel kernel) {
                                    Smem<D, kBiasSmem>::kBytes);
 }
 
-// q, out: (BN, sq_pad, D); k, v: (BN, sk_pad, D); pr's N, n_kt, out and
-// the mask or bias fields set
+// q, out: (BN, sq_pad, d); k, v: (BN, sk_pad, d), d = pr.d <= D; pr's N,
+// n_kt, d, out and the mask or bias fields set.  The maps have the true
+// width d (rows of 2d bytes), so where d < D the boxes' columns past d read
+// zeros, which add exactly 0 to every product: d 8 and 40 run the D-64
+// kernels, d 80 the D-128 ones
 template <int D, bool kBiasSmem>
 int launch(OnlineKernel kernel, int smem_rc, const void* qh, const void* kh, const void* vh,
            int BN, int sq_pad, int sk_pad, Params pr, void* stream) {
   if (smem_rc) return smem_rc;
   const int sms = sm_count();
   if (sms == 0) return (int)cudaErrorNoDevice;
+  if (pr.d < 8 || pr.d > D || pr.d % 8) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv, tb;
   const cuuint32_t box[3] = {64, kBM, 1};
-  const cuuint64_t qdims[3] = {D, (cuuint64_t)sq_pad, (cuuint64_t)BN};
-  const cuuint64_t qstrides[2] = {D * 2, (cuuint64_t)sq_pad * D * 2};
+  const cuuint64_t d = pr.d;
+  const cuuint64_t qdims[3] = {d, (cuuint64_t)sq_pad, (cuuint64_t)BN};
+  const cuuint64_t qstrides[2] = {d * 2, (cuuint64_t)sq_pad * d * 2};
   int rc = make_map_bf16(&tq, qh, 3, qdims, qstrides, box);
   if (rc) return rc;
-  const cuuint64_t kdims[3] = {D, (cuuint64_t)sk_pad, (cuuint64_t)BN};
-  const cuuint64_t kstrides[2] = {D * 2, (cuuint64_t)sk_pad * D * 2};
+  const cuuint64_t kdims[3] = {d, (cuuint64_t)sk_pad, (cuuint64_t)BN};
+  const cuuint64_t kstrides[2] = {d * 2, (cuuint64_t)sk_pad * d * 2};
   if ((rc = make_map_bf16(&tk, kh, 3, kdims, kstrides, box))) return rc;
   if ((rc = make_map_bf16(&tv, vh, 3, kdims, kstrides, box))) return rc;
   tb = tq;  // read only by the aligned K10 kernel
@@ -906,9 +980,10 @@ int launch(OnlineKernel kernel, int smem_rc, const void* qh, const void* kh, con
 }
 
 // K4, K5 and K6a: the fields the launch does not set
-Params fwd_params(void* out, void* lse, int sk_actual) {
+Params fwd_params(void* out, void* lse, int sk_actual, int d) {
   Params pr = {};
   pr.N = 1;
+  pr.d = d;
   pr.n_kt = (sk_actual + kBN - 1) / kBN;
   pr.out = out;
   pr.lse = (float*)lse;
@@ -916,22 +991,71 @@ Params fwd_params(void* out, void* lse, int sk_actual) {
   return pr;
 }
 
-}  // namespace
+// K5's kernels and, over more than one key tile, K4's row-max ones:
+// [row max][width 64, 128, 160][ragged], each with its shared-memory limit
+// set once (0 or a cudaError_t value)
+struct FwdKernels {
+  OnlineKernel kernel[2][3][2];
+  int rc[2][3][2];
+};
 
-// K5 at head dim 128 and K6a at head dim d = 64 or 128.  qh, out: (BN,
-// sq_pad, d) bf16; kh, vh: (BN, sk_pad, d) bf16; lse: (BN, sq_pad) fp32; 1
-// <= sk_actual <= sk_pad; sq_pad and sk_pad multiples of 64; every pointer
-// 16-byte aligned (checked by the Python wrapper).
-extern "C" int fg_flash_fwd(const void* qh, const void* kh, const void* vh, void* out, int BN,
-                            int sq_pad, int sk_actual, int sk_pad, void* stream) {
-  static int rc_even = allow_smem<128, false>(fa_online_d128_kernel);
-  static int rc_ragged = allow_smem<128, false>(fa_online_d128_ragged_kernel);
-  const bool ragged = sk_actual % kBN != 0;
-  return launch<128, false>(ragged ? fa_online_d128_ragged_kernel : fa_online_d128_kernel,
-                            ragged ? rc_ragged : rc_even, qh, kh, vh, BN, sq_pad, sk_pad,
-                            fwd_params(out, nullptr, sk_actual), stream);
+const FwdKernels& fwd_kernels() {
+  static const FwdKernels t = {
+      {{{fa_online_d64_kernel, fa_online_d64_ragged_kernel},
+        {fa_online_d128_kernel, fa_online_d128_ragged_kernel},
+        {fa_online_d160_kernel, fa_online_d160_ragged_kernel}},
+       {{fa_row_max_d64_kernel, fa_row_max_d64_ragged_kernel},
+        {fa_row_max_d128_kernel, fa_row_max_d128_ragged_kernel},
+        {fa_row_max_d160_kernel, fa_row_max_d160_ragged_kernel}}},
+      {{{allow_smem<64, false>(fa_online_d64_kernel),
+         allow_smem<64, false>(fa_online_d64_ragged_kernel)},
+        {allow_smem<128, false>(fa_online_d128_kernel),
+         allow_smem<128, false>(fa_online_d128_ragged_kernel)},
+        {allow_smem<160, false>(fa_online_d160_kernel),
+         allow_smem<160, false>(fa_online_d160_ragged_kernel)}},
+       {{allow_smem<64, false>(fa_row_max_d64_kernel),
+         allow_smem<64, false>(fa_row_max_d64_ragged_kernel)},
+        {allow_smem<128, false>(fa_row_max_d128_kernel),
+         allow_smem<128, false>(fa_row_max_d128_ragged_kernel)},
+        {allow_smem<160, false>(fa_row_max_d160_kernel),
+         allow_smem<160, false>(fa_row_max_d160_ragged_kernel)}}}};
+  return t;
 }
 
+// K5 (row_max false) or K4 over more than one key tile (row_max true) at
+// head dim d, on the kernels of the next width up; with `narrow`, at width
+// 64 and at most 80 keys, the 80-column form
+int launch_fwd(bool row_max, bool narrow, const void* qh, const void* kh, const void* vh,
+               void* out, int BN, int sq_pad, int sk_actual, int sk_pad, int d, void* stream) {
+  static const int rc80 = allow_smem<64, false>(fa_online_d64_k80_kernel);
+  const FwdKernels& t = fwd_kernels();
+  const int w = d <= 64 ? 0 : d <= 128 ? 1 : 2, ragged = sk_actual % kBN != 0;
+  narrow = narrow && w == 0 && sk_actual <= 80;
+  const OnlineKernel kernel = narrow ? fa_online_d64_k80_kernel : t.kernel[row_max][w][ragged];
+  const int smem_rc = narrow ? rc80 : t.rc[row_max][w][ragged];
+  const Params pr = fwd_params(out, nullptr, sk_actual, d);
+  if (w == 0)
+    return launch<64, false>(kernel, smem_rc, qh, kh, vh, BN, sq_pad, sk_pad, pr, stream);
+  if (w == 1)
+    return launch<128, false>(kernel, smem_rc, qh, kh, vh, BN, sq_pad, sk_pad, pr, stream);
+  return launch<160, false>(kernel, smem_rc, qh, kh, vh, BN, sq_pad, sk_pad, pr, stream);
+}
+
+}  // namespace
+
+// K5 at head dim d: 64 (SDXL), 128 (the Wan DiTs' training), and 8 <= d <=
+// 160, a multiple of 8 (SD1.5's 8, 40, 80 and 160), on the kernels of the
+// next width up (64, 128 or 160) with maps of the true width.  qh, out:
+// (BN, sq_pad, d) bf16; kh, vh: (BN, sk_pad, d) bf16; 1 <= sk_actual <=
+// sk_pad; sq_pad and sk_pad multiples of 64; every pointer 16-byte aligned
+// (checked by the Python wrapper).
+extern "C" int fg_flash_fwd(const void* qh, const void* kh, const void* vh, void* out, int BN,
+                            int sq_pad, int sk_actual, int sk_pad, int d, void* stream) {
+  return launch_fwd(false, false, qh, kh, vh, out, BN, sq_pad, sk_actual, sk_pad, d, stream);
+}
+
+// K6a at head dim d = 64 or 128: K5 plus lse: (BN, sq_pad) fp32; otherwise
+// as fg_flash_fwd.
 extern "C" int fg_flash_fwd_lse(const void* qh, const void* kh, const void* vh, void* out,
                                 void* lse, int BN, int sq_pad, int sk_actual, int sk_pad, int d,
                                 void* stream) {
@@ -940,7 +1064,7 @@ extern "C" int fg_flash_fwd_lse(const void* qh, const void* kh, const void* vh, 
   static int rc64_even = allow_smem<64, false>(fa_online_lse_d64_kernel);
   static int rc64_ragged = allow_smem<64, false>(fa_online_lse_d64_ragged_kernel);
   const bool ragged = sk_actual % kBN != 0;
-  const Params pr = fwd_params(out, lse, sk_actual);
+  const Params pr = fwd_params(out, lse, sk_actual, d);
   if (d == 64)
     return launch<64, false>(ragged ? fa_online_lse_d64_ragged_kernel : fa_online_lse_d64_kernel,
                              ragged ? rc64_ragged : rc64_even, qh, kh, vh, BN, sq_pad, sk_pad,
@@ -951,49 +1075,17 @@ extern "C" int fg_flash_fwd_lse(const void* qh, const void* kh, const void* vh, 
                             stream);
 }
 
-// K5 at head dim 64.  qh, out: (BN, sq_pad, 64) bf16; kh, vh: (BN, sk_pad,
-// 64) bf16; 1 <= sk_actual <= sk_pad; sq_pad and sk_pad multiples of 64;
-// every pointer 16-byte aligned (checked by the Python wrapper).
-extern "C" int fg_flash_fwd_d64(const void* qh, const void* kh, const void* vh, void* out,
-                                int BN, int sq_pad, int sk_actual, int sk_pad, void* stream) {
-  static int rc_even = allow_smem<64, false>(fa_online_d64_kernel);
-  static int rc_ragged = allow_smem<64, false>(fa_online_d64_ragged_kernel);
-  const bool ragged = sk_actual % kBN != 0;
-  return launch<64, false>(ragged ? fa_online_d64_ragged_kernel : fa_online_d64_kernel,
-                           ragged ? rc_ragged : rc_even, qh, kh, vh, BN, sq_pad, sk_pad,
-                           fwd_params(out, nullptr, sk_actual), stream);
-}
-
 // K4's max form (sk_actual == sk_pad) and masked form (sk_actual < sk_pad)
-// at head dim d = 64 or 128.  qh, out: (BN, sq_pad, d) bf16; kh, vh: (BN,
-// sk_pad, d) bf16; 1 <= sk_actual <= sk_pad <= 1024; sq_pad and sk_pad
-// multiples of 64; every pointer 16-byte aligned (checked by the Python
-// wrapper).  One key tile (sk_actual <= 128) runs K5's kernels (at d 64 and
-// at most 80 keys, on the tile's first 80 columns), more the row-max
-// kernels; the ragged kernels mask keys >= sk_actual.
+// at head dim d, as fg_flash_fwd takes it, over keys that are one TPU k
+// tile: 1 <= sk_actual <= sk_pad <= 1024; otherwise as fg_flash_fwd.  One
+// of the card's key tiles (sk_actual <= 128) runs K5's kernels (at width
+// 64 and at most 80 keys, on the tile's first 80 columns), more the
+// row-max kernels; the ragged kernels mask keys >= sk_actual.
 extern "C" int fg_flash_small_kv_max(const void* qh, const void* kh, const void* vh, void* out,
                                      int BN, int sq_pad, int sk_actual, int sk_pad, int d,
                                      void* stream) {
-  // [one key tile: K5's kernels; more: the row-max kernels][d 128][ragged]
-  static const OnlineKernel kernels[2][2][2] = {
-      {{fa_online_d64_kernel, fa_online_d64_ragged_kernel},
-       {fa_online_d128_kernel, fa_online_d128_ragged_kernel}},
-      {{fa_row_max_d64_kernel, fa_row_max_d64_ragged_kernel},
-       {fa_row_max_d128_kernel, fa_row_max_d128_ragged_kernel}}};
-  static const int rc80 = allow_smem<64, false>(fa_online_d64_k80_kernel);
-  static const int rc[2][2][2] = {
-      {{allow_smem<64, false>(kernels[0][0][0]), allow_smem<64, false>(kernels[0][0][1])},
-       {allow_smem<128, false>(kernels[0][1][0]), allow_smem<128, false>(kernels[0][1][1])}},
-      {{allow_smem<64, false>(kernels[1][0][0]), allow_smem<64, false>(kernels[1][0][1])},
-       {allow_smem<128, false>(kernels[1][1][0]), allow_smem<128, false>(kernels[1][1][1])}}};
-  if (d != 64 && d != 128) return (int)cudaErrorInvalidValue;
-  const Params pr = fwd_params(out, nullptr, sk_actual);
-  const int many = pr.n_kt > 1, wide = d == 128, ragged = sk_actual % kBN != 0;
-  const bool narrow = !wide && sk_actual <= 80;
-  OnlineKernel kernel = narrow ? fa_online_d64_k80_kernel : kernels[many][wide][ragged];
-  const int smem_rc = narrow ? rc80 : rc[many][wide][ragged];
-  return wide ? launch<128, false>(kernel, smem_rc, qh, kh, vh, BN, sq_pad, sk_pad, pr, stream)
-              : launch<64, false>(kernel, smem_rc, qh, kh, vh, BN, sq_pad, sk_pad, pr, stream);
+  const bool many = (sk_actual + kBN - 1) / kBN > 1;
+  return launch_fwd(many, true, qh, kh, vh, out, BN, sq_pad, sk_actual, sk_pad, d, stream);
 }
 
 // K10.  qh, out: (BN, sq_pad, 128) bf16; kh, vh: (BN, sk_pad, 128) bf16;
@@ -1007,6 +1099,7 @@ extern "C" int fg_flash_bias(const void* qh, const void* kh, const void* vh, con
   static int rc_ragged = allow_smem<128, false>(fa_online_bias_ragged_kernel);
   Params pr = {};
   pr.N = N;
+  pr.d = 128;
   pr.n_kt = (sk + kBN - 1) / kBN;
   pr.out = out;
   pr.bias = (const float*)bias;
@@ -1022,10 +1115,13 @@ extern "C" int fg_flash_bias(const void* qh, const void* kh, const void* vh, con
 }
 
 // dynamic shared memory of the kernels in bytes (printed by chip_smoke.py):
-// which 0, K4, K5 and K6a at head dim 64; 1, K4, K5 and K6a at 128 and
-// K10's ragged form; 2, K10's aligned form (the bias tile in the second Q
-// buffer's room)
+// which 0, K4, K5 and K6a at head dim 64 (and K4, K5 at 8 and 40); 1, K4,
+// K5 and K6a at 128 (and K4, K5 at 80) and K10's ragged form; 2, K10's
+// aligned form (the bias tile in the second Q buffer's room); 3, K4 and K5
+// at head dim 160
 extern "C" int fg_flash_online_smem_bytes(int which) {
-  return which == 0 ? Smem<64, false>::kBytes
-                    : which == 1 ? Smem<128, false>::kBytes : Smem<128, true>::kBytes;
+  return which == 0   ? Smem<64, false>::kBytes
+         : which == 1 ? Smem<128, false>::kBytes
+         : which == 2 ? Smem<128, true>::kBytes
+                      : Smem<160, false>::kBytes;
 }

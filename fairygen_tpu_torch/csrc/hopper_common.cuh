@@ -9,8 +9,9 @@
 //     bytes / parity wait, TMA tile loads that complete on an mbarrier, TMA
 //     tile stores in bulk groups, the async-proxy fence and named barriers
 //     (a predicated arrival too), the wgmma shared-memory descriptor of a
-//     128-byte-swizzled tile, the m64n128k16 and m64n64k16 bf16 products
-//     (A from shared memory or from registers), wgmma fence / commit /
+//     128-byte-swizzled tile, the m64n128k16, m64n80k16 and m64n64k16 bf16
+//     products (A from shared memory or from registers; m64n192k16 from
+//     registers), wgmma fence / commit /
 //     wait, setmaxnreg, and the small arithmetic the attention kernels
 //     share (bf16 packing, ex2, the correctly rounded quotient from a
 //     reciprocal).
@@ -355,6 +356,28 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float* d, const uint32_t* 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d (64 x 192, fp32) += A (64 x 16, bf16 in registers) · B (16 x 192), B
+// MN-major in shared memory (three 64-wide blocks): the m64n128k16 form's
+// accumulator layout, columns 8j + 2(lane % 4) + {0,1} for j < 24
+__device__ __forceinline__ void wgmma_m64n192k16_rs_tb(float* d, const uint32_t* a,
+                                                       uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}"
+      ", {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n"
+      "}\n"
+      : HP_D64(d), HP_D32((d + 64))
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 #undef HP_D8
 #undef HP_D32
 #undef HP_D64
@@ -379,7 +402,8 @@ __device__ __forceinline__ float ex2(float x) {
 
 // S (64 x N keys; N = 128, or the first 80 keys of the tile) = the Q rows
 // of one warpgroup · K^T: D/16 k-steps of 16, four in each 64-column box
-// (32 bytes apart in a 128-byte row)
+// (32 bytes apart in a 128-byte row); at D = 160 the third box's first two
+// k-steps only (its last 32 columns, zeros, are not read)
 template <int D, int N = 128>
 __device__ __forceinline__ void tile_scores(float* s, uint32_t q_base, uint32_t k_base) {
   static_assert(N == 128 || N == 80, "S is 128 or 80 keys wide");
@@ -395,16 +419,19 @@ __device__ __forceinline__ void tile_scores(float* s, uint32_t q_base, uint32_t 
   }
 }
 
-// O (64 x D) += P (64 x 16KS keys, registers; 128 by default) · V (16KS
-// keys x D): the 16 keys of k-step ks are 16 rows (2048 bytes) on; V's
-// 64-column boxes are 16 KB apart (the MN-block stride); m64n128k16 at D =
-// 128, m64n64k16 at 64
-template <int D, int KS = 8>
+// O (64 x W) += P (64 x 16KS keys, registers; 128 by default) · V (16KS
+// keys x W): the 16 keys of k-step ks are 16 rows (2048 bytes) on; V's
+// 64-column boxes are 16 KB apart (the MN-block stride); m64n192k16 at W =
+// 192, m64n128k16 at 128, m64n64k16 at 64
+template <int W, int KS = 8>
 __device__ __forceinline__ void tile_pv(float* o, const uint32_t* p, uint32_t v_base) {
+  static_assert(W == 64 || W == 128 || W == 192, "O is 64, 128 or 192 columns wide");
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
     const uint64_t desc = desc_sw128(v_base + ks * 2048, 128 * 128, 1024);
-    if constexpr (D == 128)
+    if constexpr (W == 192)
+      wgmma_m64n192k16_rs_tb(o, p + 4 * ks, desc);
+    else if constexpr (W == 128)
       wgmma_m64n128k16_rs_tb(o, p + 4 * ks, desc);
     else
       wgmma_m64n64k16_rs_tb(o, p + 4 * ks, desc);

@@ -1,7 +1,10 @@
-"""The SDXL UNet and BrushNet in one functional module (port of
-fairygen_tpu/models/sdxl/unet2d.py).
+"""The SDXL and SD1.5 UNets and their BrushNets in one functional module
+(port of fairygen_tpu/models/sdxl/unet2d.py).
 
-* SDXL ``UNet2DConditionModel``, with the BrushNet fork's per-sub-block
+* SDXL's and SD1.5's ``UNet2DConditionModel`` (SD1.5: four levels, a
+  trailing ``DownBlock2D`` and a leading ``UpBlock2D``, 8 heads at every
+  level, so head dims 40 / 80 / 160, no ``text_time`` embedding, 1x1-conv
+  projections in its checkpoints), with the BrushNet fork's per-sub-block
   residual consumption (``down_block_add_samples`` / ``mid_block_add_sample``
   / ``up_block_add_samples``, taken in the fork's pop(0) order) and the
   mask-gated LoRA / DoRA adapters inside the attention projections.
@@ -15,8 +18,8 @@ returns and :func:`unet2d_forward` takes are channels-first too (the JAX
 package's are NHWC).  Convolutions, GroupNorm, LayerNorm and GEGLU are
 plain PyTorch, as they are plain XLA in the JAX package; attention goes
 through ``ops.attention`` (on the card, K4's max and masked forms and K5 at
-head dim 64; with a gradient in fp32, the Style-DoRA train step's, K6a-c's
-fp32 forms).
+head dim 64, and at SD1.5's 8 (BrushNet's mid attention), 40, 80 and 160;
+with a gradient in fp32, the Style-DoRA train step's, K6a-c's fp32 forms).
 """
 from __future__ import annotations
 
@@ -62,6 +65,28 @@ class UNet2DConfig:
     @staticmethod
     def sdxl_base() -> "UNet2DConfig":
         return UNet2DConfig()
+
+    @staticmethod
+    def sd15_base() -> "UNet2DConfig":
+        """The SD1.5 UNet2DConditionModel (pipeline_brushnet.py's)."""
+        return UNet2DConfig(block_out_channels=(320, 640, 1280, 1280),
+                            down_block_types=("CrossAttnDownBlock2D",) * 3 + ("DownBlock2D",),
+                            up_block_types=("UpBlock2D",) + ("CrossAttnUpBlock2D",) * 3,
+                            transformer_layers_per_block=(1, 1, 1, 1),
+                            num_attention_heads=(8, 8, 8, 8), cross_attention_dim=768,
+                            addition_embed_type=None)
+
+    @staticmethod
+    def brushnet_sd15() -> "UNet2DConfig":
+        """BrushNet for SD1.5: plain blocks, no cross attention, a plain mid
+        attention of head dim 8 where the params carry one."""
+        return UNet2DConfig(block_out_channels=(320, 640, 1280, 1280),
+                            down_block_types=("DownBlock2D",) * 4,
+                            up_block_types=("UpBlock2D",) * 4, mid_block_type="UNetMidBlock2D",
+                            transformer_layers_per_block=(0, 0, 0, 0),
+                            num_attention_heads=(8, 8, 8, 8), attention_head_dim=8,
+                            cross_attention_dim=768, addition_embed_type=None,
+                            conditioning_channels=5)
 
     @staticmethod
     def brushnet_sdxl() -> "UNet2DConfig":

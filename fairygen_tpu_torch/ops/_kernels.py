@@ -12,8 +12,11 @@ headers, so the build takes seconds.
 ``ops/`` since the last :func:`reset_launches`.  K4's three forms count
 apart (``flash_small_kv`` bounded, ``flash_small_kv_max``,
 ``flash_small_kv_masked``), K5 counts per head dim (``flash_fwd`` at
-128, ``flash_fwd_d64`` at 64: two instantiations of one template), so do
-K6a-c in bf16 (``flash_fwd_lse``, ``flash_bwd_dq``, ``flash_bwd_dkv`` at 128;
+128, ``flash_fwd_d64`` at 64: two instantiations of one template), K4's
+max and masked forms and K5 at SD1.5's head dims 8, 40, 80 and 160 count
+apart from those at 64 and 128 (``flash_small_kv_max_d80``,
+``flash_small_kv_masked_d8``, ``flash_fwd_d40`` ...), so do K6a-c in bf16
+(``flash_fwd_lse``, ``flash_bwd_dq``, ``flash_bwd_dkv`` at 128;
 ``flash_fwd_lse_d64``, ``flash_bwd_dq_d64``, ``flash_bwd_dkv_d64`` at 64), and
 K6a-c's fp32 forms at head dim 64 count apart from their bf16 ones
 (``flash_fwd_lse_f32``, ``flash_bwd_dq_f32``, ``flash_bwd_dkv_f32``).  The
@@ -52,7 +55,9 @@ KERNELS = ("ln_modulate", "rms_rope_heads_major", "flash_bounded", "flash_small_
            "flash_small_kv_max", "flash_small_kv_masked", "flash_fwd_d64",
            "flash_fwd_lse_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32",
            "flash_bwd_prep_f32", "flash_bwd_dkv_reduce_f32", "flash_fwd_prep_f32",
-           "flash_fwd_lse_d64", "flash_bwd_dq_d64", "flash_bwd_dkv_d64")
+           "flash_fwd_lse_d64", "flash_bwd_dq_d64", "flash_bwd_dkv_d64") + tuple(
+               f"{form}_d{d}" for form in ("flash_fwd", "flash_small_kv_max",
+                                           "flash_small_kv_masked") for d in (8, 40, 80, 160))
 
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
@@ -65,8 +70,7 @@ _SIGNATURES = {
     "fg_rms_rope_heads_major": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fg_flash_bounded": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fg_flash_small_kv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "fg_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "fg_flash_fwd_d64": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fg_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fg_flash_fwd_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fg_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P],
     "fg_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -93,9 +93,12 @@ def flash_attention_heads_major(qh, kh, v, *, b, n, sq, sk_actual, bq=2048,
 # ``_flash_fwd_impl``, ``_flash_fwd`` and ``_flash_bwd``).  The kernels take
 # head-major (B*N, S_pad, d) q/k/v, zero rows past the sequence, S_pad a
 # multiple of 64: bf16 at d 64 or 128 for K4, K5 and K6a-c (d 64: the bf16
-# SDXL UNet under a gradient, BrushNet training and SDXL distillation), and
-# fp32 at d 64 for K6a-c (the fp32 SDXL UNet of the Style-DoRA train step).
-# Other forms raise a ValueError that names ROADMAP.md Queue 2.  lse
+# SDXL UNet under a gradient, BrushNet training and SDXL distillation), bf16
+# at d 8, 40, 80 and 160 for K4 and K5 (the SD1.5 UNet and BrushNet; on the
+# card the kernels of the next width up, 64, 128 or 160, on TMA maps of the
+# true width, whose columns past d read zeros), and fp32 at d 64 for K6a-c
+# (the fp32 SDXL UNet of the Style-DoRA train step).  Other forms raise a
+# ValueError that names ROADMAP.md Queue 2.  lse
 # and delta are one fp32 value per row.  CPU tensors take the ``*_plain``
 # versions, which compute what the Pallas kernels compute on one tile: fp32
 # logits, keys >= sk_actual masked, p rounded to the value dtype before each
@@ -105,6 +108,9 @@ def flash_attention_heads_major(qh, kh, v, *, b, n, sq, sk_actual, bq=2048,
 # against its tile's running max, K4 against the row's max over every key
 # (a pre-pass over the key tiles after the first finds it), as the Pallas
 # kernel does; K6b and K6c are those of ``csrc/flash_attention_bwd.cu``.
+# K4 and K5 at d 8, 40, 80 and 160 count apart from d 64 and 128
+# (``flash_fwd_d40``, ``flash_small_kv_max_d80``, ``flash_small_kv_masked_d8``
+# ...; :func:`_dim_counter`).
 # The fp32 K6a-c are TMA + wgmma kernels on the tensor cores (K6a in
 # ``csrc/flash_attention_fp32.cu``, K6b and K6c in
 # ``csrc/flash_attention_fp32_bwd.cu``), each product taken in three TF32
@@ -118,7 +124,8 @@ DEFAULT_BQ = 1024
 DEFAULT_BK = 1024
 LOG2E = 1.4426950408889634
 _ROW_TILE = 64  # the CUDA kernels take padded lengths that are multiples of this
-_FWD_DIMS = (64, 128)    # head dims of the K4 max/masked and K5 kernels
+_FWD_DIMS = (8, 40, 64, 80, 128, 160)  # head dims of the K4 max/masked and K5 kernels
+_SD15_DIMS = (8, 40, 80, 160)  # of them, those with counters of their own
 _TRAIN_DIMS = (64, 128)  # head dims of K6a-c in bf16
 _BIAS_DIMS = (128,)      # head dims of K10
 _F32_TRAIN_DIMS = (64,)  # head dims of K6a-c in fp32
@@ -128,9 +135,11 @@ _DKV_KEYS = 128    # keys an item of the fp32 K6c (two consumers of 64)
 
 def _refuse_unported(qh, grad, bounded_kv_len=False):
     """Raise for an attention form whose kernel is not ported yet (ROADMAP.md
-    Queue 2): bf16 at a head dim other than 64 and 128 (B: SD1.5's 40, 80,
-    160), the bounded K3 / K4 with a caller's ``kv_len`` (C), fp32 without
-    a gradient, and fp32 with one at a head dim other than 64."""
+    Queue 2): bf16 with a gradient at a head dim other than 64 and 128 (B:
+    K6a-c at SD1.5's 8, 40, 80, 160, wanted only if SD1.5 training is
+    ported), bf16 without one at a head dim K4 / K5 do not take (B), the
+    bounded K3 / K4 with a caller's ``kv_len`` (C), fp32 without a gradient,
+    and fp32 with one at a head dim other than 64 (A)."""
     d = qh.shape[-1]
     if bounded_kv_len:
         form, item = "bounded attention (K3 / K4 bounded) with a caller's kv_len", "C"
@@ -138,13 +147,23 @@ def _refuse_unported(qh, grad, bounded_kv_len=False):
         form, item = "fp32 attention without a gradient (the fp32 K3/K4/K5/K10 forms)", "A"
     elif qh.dtype == torch.float32 and d not in _F32_TRAIN_DIMS:
         form, item = f"fp32 attention with a gradient at head dim {d}", "A"
+    elif qh.dtype == torch.bfloat16 and grad and d not in _TRAIN_DIMS:
+        form, item = f"bf16 attention with a gradient (K6a-c) at head dim {d}", "B"
     elif qh.dtype == torch.bfloat16 and d not in _FWD_DIMS:
         form, item = f"bf16 attention at head dim {d}", "B"
     else:
         return
-    raise ValueError(f"{form} has no kernel on the card yet: K4/K5 and K6a-c take bf16 at head "
-                     f"dims 64 and 128, K6a-c fp32 at 64, K3/K4 bounded no kv_len (ROADMAP.md "
-                     f"Queue 2 {item})")
+    raise ValueError(f"{form} has no kernel on the card yet: K4/K5 take bf16 at head dims 8, 40, "
+                     f"64, 80, 128 and 160, K6a-c bf16 at 64 and 128 and fp32 at 64, K3/K4 "
+                     f"bounded no kv_len (ROADMAP.md Queue 2 {item})")
+
+
+def _dim_counter(name, d):
+    """The launch counter of K4's form or K5 ``name`` at head dim d: its own
+    name at d 64 and 128 (K5 at 64: ``flash_fwd_d64``), else name_d{d}."""
+    if d in _SD15_DIMS:
+        return f"{name}_d{d}"
+    return "flash_fwd_d64" if (name, d) == ("flash_fwd", 64) else name
 
 
 def _masked_logits(qh, kh, bn, sk_actual):
@@ -346,12 +365,13 @@ def _check_rows(t, name, shape):
 
 def flash_fwd(qh, kh, vh, *, sk_actual, with_lse=True):
     """K6a (``with_lse``: bf16 at d 64 or 128, fp32 at d 64) or K5 (bf16, d
-    = 64 or 128) on head-major q/k/v (see the section note).  Returns o, and
-    lse with ``with_lse``.  On the card the bf16 forms are the TMA + wgmma
-    kernels of ``csrc/flash_attention_online.cu`` (K5's o equals K6a's bit
-    for bit at the same head dim; K6a counts as ``flash_fwd_lse`` at d 128,
-    ``flash_fwd_lse_d64`` at 64), the fp32 form the pre-pass and the 3xTF32
-    TMA + wgmma kernel of ``csrc/flash_attention_fp32.cu``."""
+    = 8, 40, 64, 80, 128 or 160) on head-major q/k/v (see the section note).
+    Returns o, and lse with ``with_lse``.  On the card the bf16 forms are the
+    TMA + wgmma kernels of ``csrc/flash_attention_online.cu`` (K5's o equals
+    K6a's bit for bit at the same head dim; K6a counts as ``flash_fwd_lse``
+    at d 128, ``flash_fwd_lse_d64`` at 64; K5 as :func:`_dim_counter` says),
+    the fp32 form the pre-pass and the 3xTF32 TMA + wgmma kernel of
+    ``csrc/flash_attention_fp32.cu``."""
     if not qh.is_cuda:
         return flash_fwd_plain(qh, kh, vh, sk_actual=sk_actual, with_lse=with_lse)
     _refuse_unported(qh, grad=with_lse)
@@ -372,10 +392,8 @@ def flash_fwd(qh, kh, vh, *, sk_actual, with_lse=True):
                         qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
                         lse.data_ptr(), bn, sq_p, int(sk_actual), kh.shape[1], d)
         return out, lse
-    kernel, fn = ("flash_fwd", "fg_flash_fwd") if d == 128 else ("flash_fwd_d64",
-                                                                 "fg_flash_fwd_d64")
-    _kernels.launch(kernel, fn, qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(), bn,
-                    sq_p, int(sk_actual), kh.shape[1])
+    _kernels.launch(_dim_counter("flash_fwd", d), "fg_flash_fwd", qh.data_ptr(), kh.data_ptr(),
+                    vh.data_ptr(), out.data_ptr(), bn, sq_p, int(sk_actual), kh.shape[1], d)
     return out
 
 
@@ -388,10 +406,11 @@ def flash_small_kv_max_plain(qh, kh, vh, *, sk_actual):
 
 def flash_small_kv_max(qh, kh, vh, *, sk_actual):
     """K4's max form (sk_actual == Sk_pad) or masked form (keys >=
-    sk_actual masked) on head-major q/k/v (BN, S_pad, d), d = 64 or 128,
-    whose keys are one TPU k tile (Sk_pad <= 1024).  Returns head-major o.
-    On the card: the TMA + wgmma kernels of ``csrc/flash_attention_online.cu``
-    with each row's max taken before its first p (see the section note)."""
+    sk_actual masked) on head-major q/k/v (BN, S_pad, d), d = 8, 40, 64, 80,
+    128 or 160, whose keys are one TPU k tile (Sk_pad <= 1024).  Returns
+    head-major o.  On the card: the TMA + wgmma kernels of
+    ``csrc/flash_attention_online.cu`` with each row's max taken before its
+    first p (see the section note), counted as :func:`_dim_counter` says."""
     if not qh.is_cuda:
         return flash_small_kv_max_plain(qh, kh, vh, sk_actual=sk_actual)
     _refuse_unported(qh, grad=False)
@@ -401,9 +420,9 @@ def flash_small_kv_max(qh, kh, vh, *, sk_actual):
     if sk_p > DEFAULT_BK:
         raise ValueError(f"K4 takes one k tile of at most {DEFAULT_BK} keys, got {sk_p}")
     out = torch.empty_like(qh)
-    _kernels.launch("flash_small_kv_masked" if sk_actual < sk_p else "flash_small_kv_max",
-                    "fg_flash_small_kv_max", qh.data_ptr(), kh.data_ptr(), vh.data_ptr(),
-                    out.data_ptr(), bn, sq_p, int(sk_actual), sk_p, d)
+    form = "flash_small_kv_masked" if sk_actual < sk_p else "flash_small_kv_max"
+    _kernels.launch(_dim_counter(form, d), "fg_flash_small_kv_max", qh.data_ptr(), kh.data_ptr(),
+                    vh.data_ptr(), out.data_ptr(), bn, sq_p, int(sk_actual), sk_p, d)
     return out
 
 

@@ -265,14 +265,24 @@ def test_stream_vs_full_holds_the_bars(smoke):
 def test_the_full_launch_tables_name_every_counter(smoke):
     """TRAIN_PER_STEP, compared as a whole with a step's counters, lists
     every counter of ops/_kernels.py, the new kernels' too (0 where the step
-    launches none); the SDXL tables name counters that exist."""
+    launches none); the SDXL and SD1.5 tables name counters that exist,
+    every SD1.5 form checked on the card has its row's shape among those
+    checked, and the SD1.5 rows' trace groups cover every row once, each
+    with kernel functions of its own."""
     from fairygen_tpu_torch.ops import _kernels
 
     assert set(smoke.TRAIN_PER_STEP) == set(_kernels.KERNELS)
     for table in (smoke.SDXL_PER_STEP, smoke.SDXL_SWEEP_GRAD,
-                  *smoke.SDXL_SWEEP_NO_GRAD.values()):
+                  *smoke.SDXL_SWEEP_NO_GRAD.values(), smoke.SD15_PER_STEP,
+                  smoke.SD15_MAIN_SHAPE):
         assert set(table) <= set(_kernels.KERNELS)
     assert set(smoke.BF16_D64_KERNELS) <= set(_kernels.KERNELS)
+    assert {name for name, *_ in smoke.SD15_SHAPES} == set(smoke.SD15_MAIN_SHAPE)
+    assert all(tag in {t for _, t, *_ in smoke.SD15_SHAPES}
+               for tag in smoke.SD15_MAIN_SHAPE.values())
+    groups = smoke.SD15_ROW_KERNELS
+    assert sorted(k for g in groups for k in g) == sorted(smoke.SD15_MAIN_SHAPE)
+    assert all(len(set(g.values())) == len(g) for g in groups)
 
 
 def test_strip_lora_copies_the_base_weights(smoke):

@@ -8,7 +8,9 @@ bit for bit, a tiny FLUX.1 pipeline that must launch K1, K7, K8 and K3/K4, or
 K10 with EliGen regions, and a tiny Z-Image pipeline that must launch K9,
 K7 and K4, K4's max and masked forms and K5 at head dim 64 (and their
 refusals), and a tiny SDXL + BrushNet + DoRA pipeline that must launch
-them.  K10 and K5 at head dim 64 are also held at ragged tile edges
+them; the same forms at SD1.5's head dims 8, 40, 80 and 160 (twice bit
+for bit, the gradient form raising) and a tiny SD1.5 + BrushNet pipeline
+that must launch them.  K10 and K5 at head dim 64 are also held at ragged tile edges
 (sq = 129 with an odd Sk = 4097; sq = 300 with sk_actual = 4000 over
 non-zero keys) and K10 where a q tile's first key tiles are fully
 masked; K4's max and masked forms also at a half q tile, at 192 keys (a
@@ -265,7 +267,10 @@ def test_tiny_pipeline_launches_every_kernel(card):
                                  "flash_bwd_dkv_f32": 0, "flash_bwd_prep_f32": 0,
                                  "flash_bwd_dkv_reduce_f32": 0, "flash_fwd_prep_f32": 0,
                                  "flash_fwd_lse_d64": 0, "flash_bwd_dq_d64": 0,
-                                 "flash_bwd_dkv_d64": 0}
+                                 "flash_bwd_dkv_d64": 0, **{
+                                     f"{form}_d{d}": 0 for form in (
+                                         "flash_fwd", "flash_small_kv_max",
+                                         "flash_small_kv_masked") for d in (8, 40, 80, 160)}}
 
 
 def _close_grad(out, ref):
@@ -916,9 +921,10 @@ def test_k5_at_head_dim_64_ragged_edges_match_plain(card):
 
 
 def test_flash_kernels_refuse_what_they_do_not_take(card):
-    """No fallback on the card: fp32 or a head dim outside {64, 128} raises
-    for K4's max/masked forms and K5; K6a-c take bf16 at head dims 64 and
-    128 (and fp32 at 64, below), so head dim 96 raises for them."""
+    """No fallback on the card: fp32 or a head dim outside {8, 40, 64, 80,
+    128, 160} raises for K4's max/masked forms and K5; K6a-c take bf16 at
+    head dims 64 and 128 (and fp32 at 64, below), so head dim 96 raises for
+    them."""
     from fairygen_tpu_torch.ops import flash_attention as fa
 
     def qkv(d, dtype=torch.bfloat16, s=128):
@@ -1280,17 +1286,17 @@ def test_fp32_flash_attention_gradient_matches_autograd(card):
 
 
 def test_unported_attention_forms_raise_naming_queue_2(card):
-    """bf16 at head dims 80 and 40 with and without a gradient (Queue 2 B),
-    the bounded form with a kv_len (C), fp32 without a gradient, and fp32
-    with one at head dim 128 have no kernel yet: each raises, none falls
-    back."""
+    """bf16 at head dim 80 with a gradient and at 96 without one (Queue 2
+    B), the bounded form with a kv_len (C), fp32 without a gradient, and
+    fp32 with one at head dim 128 have no kernel yet: each raises, none
+    falls back."""
     from fairygen_tpu_torch.ops.flash_attention import flash_attention
 
     def qkv(d, dtype, grad):
         return [torch.randn((1, 256, 2, d), generator=card, device="cuda").to(dtype)
                 .requires_grad_(grad) for _ in range(3)]
 
-    for d, dtype, grad in ((80, torch.bfloat16, True), (40, torch.bfloat16, False),
+    for d, dtype, grad in ((80, torch.bfloat16, True), (96, torch.bfloat16, False),
                            (64, torch.float32, False), (128, torch.float32, True),
                            (128, torch.float32, False)):
         with pytest.raises(ValueError, match="Queue 2"):
@@ -1637,3 +1643,119 @@ def _leaves(tree):
     from fairygen_tpu_torch.models.adapters import leaves_with_path
 
     return [t for _, t in leaves_with_path(tree) if torch.is_tensor(t)]
+
+
+# K5, K4's max form and K4's masked form at SD1.5's head dims: (counter, BN,
+# sq, Sk_pad, sk_actual, d) at the 512x512 and 768x768 requests' shapes
+# (B = 2 x 8 heads; BrushNet's mid attention 2 x 160 heads of d 8) and, for
+# the forms those requests do not reach, at shapes that give each a ragged
+# and a partial tile
+SD15_FORMS = [
+    ("flash_fwd_d40", 16, 4096, 4096, 4096, 40), ("flash_fwd_d80", 16, 2304, 2304, 2304, 80),
+    ("flash_fwd_d8", 4, 320, 1152, 1100, 8), ("flash_fwd_d160", 4, 320, 1152, 1100, 160),
+    ("flash_fwd_d160", 4, 256, 1536, 1536, 160),
+    ("flash_small_kv_max_d80", 16, 1024, 1024, 1024, 80),
+    ("flash_small_kv_max_d160", 16, 256, 256, 256, 160),
+    ("flash_small_kv_max_d160", 16, 576, 576, 576, 160),
+    ("flash_small_kv_max_d8", 320, 256, 256, 256, 8),
+    ("flash_small_kv_max_d40", 4, 1024, 1024, 1024, 40),
+    ("flash_small_kv_masked_d40", 16, 4096, 128, 77, 40),
+    ("flash_small_kv_masked_d80", 16, 1024, 128, 77, 80),
+    ("flash_small_kv_masked_d160", 16, 256, 128, 77, 160),
+    ("flash_small_kv_masked_d160", 16, 64, 128, 64, 160),
+    ("flash_small_kv_masked_d160", 16, 144, 192, 144, 160),
+    ("flash_small_kv_masked_d8", 320, 64, 128, 64, 8),
+    ("flash_small_kv_masked_d8", 320, 144, 192, 144, 8),
+    ("flash_small_kv_masked_d40", 4, 300, 320, 250, 40),
+]
+
+
+@pytest.mark.parametrize("counter,bn,sq,sk_pad,sk_actual,d", SD15_FORMS)
+def test_sd15_forms_match_plain_twice(card, counter, bn, sq, sk_pad, sk_actual, d):
+    """Each form at SD1.5's head dims (the kernels of the next width up, 64,
+    128 or 160, on TMA maps of the true width) against its plain version:
+    within 2^-7 relative + 2^-8 (a logit summed in another order may flip
+    one p's bf16 rounding), K4 also within a relative L2 error of o below
+    2^-10; one launch under the form's own counter; two launches give the
+    same bits.  The masked key rows hold non-zero values."""
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    qh, kh, vh = _k4_inputs(card, bn, sq, sk_pad, d)
+    k5 = counter.startswith("flash_fwd")
+    if k5:
+        def run():
+            return fa.flash_fwd(qh, kh, vh, sk_actual=sk_actual, with_lse=False)
+        ref = fa.flash_fwd_plain(qh, kh, vh, sk_actual=sk_actual, with_lse=False)
+    else:
+        def run():
+            return fa.flash_small_kv_max(qh, kh, vh, sk_actual=sk_actual)
+        ref = fa.flash_small_kv_max_plain(qh, kh, vh, sk_actual=sk_actual)
+    _kernels.reset_launches()
+    out = run()
+    assert {k: v for k, v in _kernels.launches.items() if v} == {counter: 1}
+    assert out.shape == qh.shape
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=2 ** -8)
+    if not k5:
+        rel_l2 = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+        assert rel_l2 < 2 ** -10, f"relative L2 error of o {rel_l2:.3e}"
+    assert torch.equal(out, run())
+
+
+@pytest.mark.parametrize("d", [8, 40, 80, 160])
+def test_bf16_gradient_at_sd15_dims_raises_queue_2b(card, d):
+    """K6a-c in bf16 at SD1.5's head dims are not ported (ROADMAP.md Queue
+    2 B, wanted only if SD1.5 training is): with a gradient the call raises
+    naming it and reaches no kernel; without one it runs."""
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops.flash_attention import flash_attention
+
+    q, k, v = (torch.randn((1, 256, 2, d), generator=card, device="cuda").to(torch.bfloat16)
+               .requires_grad_(True) for _ in range(3))
+    _kernels.reset_launches()
+    with pytest.raises(ValueError, match="Queue 2 B"):
+        flash_attention(q, k, v)
+    assert not any(_kernels.launches.values())
+    with torch.no_grad():
+        assert torch.isfinite(flash_attention(q, k, v)).all()
+
+
+def test_tiny_sd15_brushnet_pipeline_launches_its_kernels(card):
+    """A two-level SD1.5-style UNet (channels 40 and 80 at one head a level)
+    and BrushNet (its mid attention at head dim 8 over 10 heads), 512x512
+    (64 x 64 latents), 2 UniPC steps at CFG 7.5, the blended paste: the
+    4096-token self-attention takes K5 at d 40, the 1024-token ones (and
+    the mid block's) K4's max form at d 80, BrushNet's mid attention K4's
+    max form at d 8, the 77 text keys K4's masked form at d 40 and 80."""
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.sdxl.unet2d import UNet2DConfig
+    from fairygen_tpu_torch.models.sdxl.vae import AutoencoderKLConfig
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines.sd15_brushnet import SD15BrushNetPipeline
+
+    kw = dict(block_out_channels=(40, 80), num_attention_heads=(1, 1),
+              down_block_types=("CrossAttnDownBlock2D",) * 2,
+              up_block_types=("CrossAttnUpBlock2D",) * 2, transformer_layers_per_block=(1, 1),
+              cross_attention_dim=32, norm_num_groups=8, addition_embed_type=None)
+    ucfg = UNet2DConfig(**kw)
+    bcfg = UNet2DConfig(**{**kw, "down_block_types": ("DownBlock2D",) * 2,
+                           "up_block_types": ("UpBlock2D",) * 2, "mid_block_type": "UNetMidBlock2D",
+                           "attention_head_dim": 8, "conditioning_channels": 5})
+    vcfg = AutoencoderKLConfig(block_out_channels=(32, 32, 32, 32), norm_num_groups=8,
+                               scaling_factor=0.18215)
+    vae = convert.init_autoencoder_kl_params(vcfg, dtype=torch.float32, seed=2)
+    pipe = SD15BrushNetPipeline(convert.init_unet2d_params(ucfg, seed=1), ucfg, vae, vcfg,
+                                convert.init_unet2d_params(bcfg, seed=3, brushnet=True), bcfg,
+                                dtype=torch.bfloat16)
+    img = torch.rand((512, 512, 3), generator=card, device="cuda").cpu().numpy()
+    mask = (torch.rand((512, 512, 1), generator=card, device="cuda") > 0.5).float().cpu().numpy()
+    _kernels.reset_launches()
+    out = pipe(prompt_embeds=_randn(card, 1, 77, 32),
+               negative_prompt_embeds=_randn(card, 1, 77, 32), image=img * (1 - mask), mask=mask,
+               num_inference_steps=2, blended=True, original_image=img, output_type="np_pm1")
+    assert torch.isfinite(out).all() and out.shape == (1, 3, 512, 512)
+    steps = 2  # UNet: 2 + 3 transformer blocks at 64 x 64, 2 + 1 (mid) + 3 at 32 x 32
+    assert {k: v for k, v in _kernels.launches.items() if v} == {
+        "flash_fwd_d40": 5 * steps, "flash_small_kv_max_d80": 6 * steps,
+        "flash_small_kv_max_d8": steps, "flash_small_kv_masked_d40": 5 * steps,
+        "flash_small_kv_masked_d80": 6 * steps}

@@ -1,5 +1,6 @@
-"""The rounding of the port's Hopper K5 (head dim 128) and K6a kernels (head
-dims 128 and, for the bf16 SDXL UNet's gradient path, 64), emulated in
+"""The rounding of the port's Hopper K5 (head dims 128 and SD1.5's 8, 40, 80
+and 160) and K6a kernels (head dims 128 and, for the bf16 SDXL UNet's
+gradient path, 64), emulated in
 plain PyTorch, against the JAX package's forward attention in interpret
 mode.
 
@@ -86,6 +87,15 @@ def test_128_key_tiles_match_pallas_k6a_at_head_dim_64(sq, sk, kv_len):
     128: the same 128-key tiles against Pallas's 1024-key ones, the same
     bounds (atol 2^-8 on o)."""
     _check_tiles(sq, sk, kv_len, True, 64)
+
+
+@pytest.mark.parametrize("d", [8, 40, 80, 160])
+@pytest.mark.parametrize("sq,sk,kv_len", SHAPES)
+def test_128_key_tiles_match_pallas_k5_at_sd15_head_dims(sq, sk, kv_len, d):
+    """K5 at SD1.5's head dims (8, 40, 80, 160; on the card the kernels of
+    the next width up over zero columns past d) rounds as at 128: the same
+    128-key tiles and running max, the same bounds on o."""
+    _check_tiles(sq, sk, kv_len, False, d)
 
 
 def _check_tiles(sq, sk, kv_len, with_lse, d):

@@ -79,7 +79,8 @@ def test_the_scan_sees_the_whole_package():
             "optimizers.py", "losses.py", "train_step.py", "wan_train.py",
             "merge_weights.py", "ddpm.py", "isnet.py", "create_mask.py", "dora_train.py",
             "brushnet_stylize.py", "fairygen_story.py", "lcm.py", "sdxl_t2i.py",
-            "brushnet_trainer.py", "distill.py"} <= names
+            "brushnet_trainer.py", "distill.py", "unipc.py", "sd15_brushnet.py",
+            "brushnet_inpaint_sd15.py", "app_brushnet.py"} <= names
     assert REPO / "fairygen_tpu_torch" / "tools" / "create_mask.py" in PORT_FILES
     assert REPO / "fairygen_tpu_torch" / "data" / "__init__.py" in PORT_FILES
     assert REPO / "fairygen_tpu_torch" / "models" / "z_image" / "dit.py" in PORT_FILES

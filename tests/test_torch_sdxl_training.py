@@ -119,17 +119,21 @@ def test_bf16_d64_plain_k6_match_pallas(sq, sk, kv_len):
 
 def test_refuse_unported_names_what_queue_2_still_lists():
     """On the card bf16 at head dims 64 and 128 and fp32 at 64 with a
-    gradient have kernels; bf16 at another head dim (B), the bounded form
-    with a kv_len (C), fp32 without a gradient and fp32 with one at another
-    head dim raise, naming the queue."""
+    gradient have kernels, and so has bf16 without one at SD1.5's head dims
+    40 and 160 too; bf16 with a gradient at another head dim, or without one
+    at a head dim K4 / K5 do not take (B), the bounded form with a kv_len
+    (C), fp32 without a gradient and fp32 with one at another head dim raise,
+    naming the queue."""
     def qh(d, dtype):
         return torch.zeros((2, 64, d), dtype=dtype)
 
     for d, dtype, grad in ((64, torch.bfloat16, True), (128, torch.bfloat16, True),
-                           (64, torch.bfloat16, False), (64, torch.float32, True)):
+                           (64, torch.bfloat16, False), (64, torch.float32, True),
+                           (40, torch.bfloat16, False), (160, torch.bfloat16, False)):
         tfa._refuse_unported(qh(d, dtype), grad)
-    for d, dtype, grad, item in ((80, torch.bfloat16, True, "B"), (40, torch.bfloat16, False, "B"),
-                                 (160, torch.bfloat16, False, "B"),
+    for d, dtype, grad, item in ((80, torch.bfloat16, True, "B"), (40, torch.bfloat16, True, "B"),
+                                 (160, torch.bfloat16, True, "B"),
+                                 (96, torch.bfloat16, False, "B"),
                                  (64, torch.float32, False, "A"),
                                  (128, torch.float32, True, "A")):
         with pytest.raises(ValueError, match=f"Queue 2 {item}"):

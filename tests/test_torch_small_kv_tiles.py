@@ -1,6 +1,6 @@
-"""The rounding of the port's Hopper K4 kernels (max and masked forms),
-emulated in plain PyTorch, against the JAX package's forward attention in
-interpret mode.
+"""The rounding of the port's Hopper K4 kernels (max and masked forms, at
+head dims 64 and 128 and SD1.5's 8, 40, 80 and 160), emulated in plain
+PyTorch, against the JAX package's forward attention in interpret mode.
 
 The CUDA kernels (``csrc/flash_attention_online.cu``) walk the keys in
 128-key tiles: over more than one tile a pre-pass finds each row's max m
@@ -89,7 +89,13 @@ def _rel_l2(o, ref):
 SHAPES = [(300, 77, None), (256, 1024, None), (320, 320, 250), (128, 192, None)]
 
 
-@pytest.mark.parametrize("d", [64, 128])
+# head dims: SDXL's 64 and the Wan DiTs' 128, then SD1.5's 8 (BrushNet's mid
+# attention), 40, 80 and 160, which the card computes in the kernels of the
+# next width up over boxes whose columns past d are zeros
+DIMS = [64, 128, 8, 40, 80, 160]
+
+
+@pytest.mark.parametrize("d", DIMS)
 @pytest.mark.parametrize("sq,sk,kv_len", SHAPES)
 def test_row_max_tiles_match_pallas(sq, sk, kv_len, d):
     (tq, tk, tv), natural = _inputs(sq, sk, d, seed=sq + sk + d)
@@ -100,7 +106,7 @@ def test_row_max_tiles_match_pallas(sq, sk, kv_len, d):
     assert rel_l2 < O_REL_L2, f"relative L2 error of o {rel_l2:.3e} (bound {O_REL_L2:.3e})"
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", DIMS)
 def test_l2_bound_rejects_a_running_max(d):
     """At 1024 keys p rounded against a running max passes the elementwise
     tolerance but not the L2 bound: the bound tells K4's rounding from
