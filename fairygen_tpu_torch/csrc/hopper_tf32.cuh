@@ -1,6 +1,7 @@
 // fp32 products on Hopper's tensor cores (3xTF32), shared by the fp32 flash
-// attention kernels at head dim 64: K6a (csrc/flash_attention_fp32.cu) and
-// K6b / K6c (csrc/flash_attention_fp32_bwd.cu).
+// attention kernels: the forward (K6a at head dim 64, K5 and K4's max and
+// masked forms at 8 to 160; csrc/flash_attention_fp32.cu) and K6b / K6c at
+// 64 (csrc/flash_attention_fp32_bwd.cu).
 //
 // wgmma multiplies TF32 (10 mantissa bits).  Each operand x is split as hi =
 // rna_tf32(x), lo = rna_tf32(x - hi) (x - hi is exact in fp32), and each
@@ -25,7 +26,7 @@
 
 namespace hopper {
 
-constexpr int kTf32D = 64;  // the head dim these products reduce over
+constexpr int kTf32D = 64;  // the head dim the backward's products reduce over
 
 // ------------------------------------------------------------ TF32 split
 
@@ -118,6 +119,24 @@ __device__ __forceinline__ void wgmma_n64_rs(float* d, const uint32_t* a, uint64
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 32) = [d +] A (64 x 8, TF32 in registers, as wgmma_n64_rs) B (8 x
+// 32), B K-major in shared memory
+template <bool kFirst>
+__device__ __forceinline__ void wgmma_n32_rs(float* d, const uint32_t* a, uint64_t db) {
+  if constexpr (kFirst)
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " R16
+                 ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+                 : F8(SET, d, 0), F8(SET, d, 8)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
+  else
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " R16
+                 ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+                 : F8(ADD, d, 0), F8(ADD, d, 8)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef F8
 #undef ADD
 #undef SET
@@ -134,18 +153,19 @@ __device__ __forceinline__ uint32_t opaque(uint32_t x) {
   return x;
 }
 
-// acc (64 x N) = A B^T over d = 64 in three passes (lo hi, hi lo, hi hi):
-// A's 64 rows and B's N rows K-major (d along the row) in 32-column boxes
-// a_box / b_box bytes apart; the lo copies lie lo_a / lo_b bytes after the
-// hi ones; k-step ks is 8 columns (32 bytes) on in box ks / 4
-template <int N>
+// acc (64 x N) = A B^T over d = 8 KSTEPS (64 unless given) in three passes
+// (lo hi, hi lo, hi hi): A's 64 rows and B's N rows K-major (d along the
+// row) in 32-column boxes a_box / b_box bytes apart; the lo copies lie lo_a
+// / lo_b bytes after the hi ones; k-step ks is 8 columns (32 bytes) on in
+// box ks / 4
+template <int N, int KSTEPS = kTf32D / 8>
 __device__ __forceinline__ void products_over_d(float* acc, uint32_t a, int a_box, int lo_a,
                                                 uint32_t b, int b_box, int lo_b) {
 #pragma unroll
   for (int pass = 0; pass < 3; ++pass) {
     const uint32_t pa = a + (pass == 0 ? lo_a : 0), pb = b + (pass == 1 ? lo_b : 0);
 #pragma unroll
-    for (int ks = 0; ks < kTf32D / 8; ++ks) {
+    for (int ks = 0; ks < KSTEPS; ++ks) {
       const uint64_t da = desc(pa + (ks / 4) * a_box + (ks % 4) * 32);
       const uint64_t db = desc(pb + (ks / 4) * b_box + (ks % 4) * 32);
       if (pass == 0 && ks == 0) {
@@ -163,24 +183,33 @@ __device__ __forceinline__ void products_over_d(float* acc, uint32_t a, int a_bo
   }
 }
 
-// acc (64 x 64 d) = A (64 x 8KS, registers: hi and lo fragments, 4 a
-// k-step) B (8KS x 64), B a transposed tile (64 d rows, the reduced index
-// along the row, permuted within each 8) in 32-column boxes 8 KB apart, lo
-// lo_b bytes after hi; three passes (lo hi, hi lo, hi hi)
-template <int KS>
+// acc (64 x N, N = 64 or 32) = A (64 x 8KS, registers: hi and lo
+// fragments, 4 a k-step) B (8KS x N), B N rows of a transposed tile (the
+// reduced index along the row, permuted within each 8) in 32-column boxes
+// `box` bytes apart (8 KB: 64 rows), lo lo_b bytes after hi; three passes
+// (lo hi, hi lo, hi hi)
+template <int KS, int N = 64>
 __device__ __forceinline__ void products_over_rows(float* acc, const uint32_t* hi,
-                                                   const uint32_t* lo, uint32_t b, int lo_b) {
+                                                   const uint32_t* lo, uint32_t b, int lo_b,
+                                                   int box = 64 * 128) {
 #pragma unroll
   for (int pass = 0; pass < 3; ++pass) {
     const uint32_t* a = pass == 0 ? lo : hi;
     const uint32_t pb = b + (pass == 1 ? lo_b : 0);
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      const uint64_t db = desc(pb + (kk / 4) * (64 * 128) + (kk % 4) * 32);
-      if (pass == 0 && kk == 0)
-        wgmma_n64_rs<true>(acc, a, db);
-      else
-        wgmma_n64_rs<false>(acc, a + 4 * kk, db);
+      const uint64_t db = desc(pb + (kk / 4) * box + (kk % 4) * 32);
+      if constexpr (N == 64) {
+        if (pass == 0 && kk == 0)
+          wgmma_n64_rs<true>(acc, a, db);
+        else
+          wgmma_n64_rs<false>(acc, a + 4 * kk, db);
+      } else {
+        if (pass == 0 && kk == 0)
+          wgmma_n32_rs<true>(acc, a, db);
+        else
+          wgmma_n32_rs<false>(acc, a + 4 * kk, db);
+      }
     }
   }
 }

@@ -19,10 +19,14 @@ apart from those at 64 and 128 (``flash_small_kv_max_d80``,
 (``flash_fwd_lse``, ``flash_bwd_dq``, ``flash_bwd_dkv`` at 128;
 ``flash_fwd_lse_d64``, ``flash_bwd_dq_d64``, ``flash_bwd_dkv_d64`` at 64), and
 K6a-c's fp32 forms at head dim 64 count apart from their bf16 ones
-(``flash_fwd_lse_f32``, ``flash_bwd_dq_f32``, ``flash_bwd_dkv_f32``).  The
-fp32 K6a-c on the tensor cores have three helper kernels with counters of
-their own: ``flash_fwd_prep_f32``, the pre-pass that writes a K6a call's
-TF32 hi / lo K and V^T (one launch a K6a call); ``flash_bwd_prep_f32``, the
+(``flash_fwd_lse_f32``, ``flash_bwd_dq_f32``, ``flash_bwd_dkv_f32``), and
+K5 and K4's max and masked forms in fp32 count per head dim, apart from
+their bf16 forms (``flash_fwd_f32_d40``, ``flash_small_kv_max_f32_d64``,
+``flash_small_kv_masked_f32_d8`` ..., at d 8, 16, 40, 64, 80 and 160).
+The fp32 kernels on the tensor cores have three helper kernels with
+counters of their own: ``flash_fwd_prep_f32``, the pre-pass that writes a
+forward call's TF32 hi / lo K and V^T (one launch a K6a, K5 or K4 call in
+fp32); ``flash_bwd_prep_f32``, the
 pre-pass that writes a backward call's TF32 hi / lo operands (one launch a
 K6b call and one a K6c call); and ``flash_bwd_dkv_reduce_f32``, which sums
 the fp32 K6c's split partials (one launch a K6c call whose query loop is
@@ -57,7 +61,10 @@ KERNELS = ("ln_modulate", "rms_rope_heads_major", "flash_bounded", "flash_small_
            "flash_bwd_prep_f32", "flash_bwd_dkv_reduce_f32", "flash_fwd_prep_f32",
            "flash_fwd_lse_d64", "flash_bwd_dq_d64", "flash_bwd_dkv_d64") + tuple(
                f"{form}_d{d}" for form in ("flash_fwd", "flash_small_kv_max",
-                                           "flash_small_kv_masked") for d in (8, 40, 80, 160))
+                                           "flash_small_kv_masked") for d in (8, 40, 80, 160)) + tuple(
+               f"{form}_f32_d{d}" for form in ("flash_fwd", "flash_small_kv_max",
+                                               "flash_small_kv_masked")
+               for d in (8, 16, 40, 64, 80, 160))
 
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
@@ -80,8 +87,8 @@ _SIGNATURES = {
     "fg_rms_modulate": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "fg_vae_rms_silu": [_P, _P, _P, _I, _I, _I, _I, _P],
     "fg_flash_small_kv_max": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "fg_flash_fwd_prep_f32": [_P, _P, _P, _I, _I, _P],
-    "fg_flash_fwd_lse_f32_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fg_flash_fwd_prep_f32": [_P, _P, _P, _I, _I, _I, _P],
+    "fg_flash_fwd_f32_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fg_flash_bwd_prep_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fg_flash_bwd_dq_f32_tc": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _P],
     "fg_flash_bwd_dkv_f32_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -89,7 +96,7 @@ _SIGNATURES = {
     "fg_flash_bounded_smem_bytes": [],
     "fg_flash_online_smem_bytes": [_I],
     "fg_flash_bwd_smem_bytes": [_I],
-    "fg_flash_f32_smem_bytes": [],
+    "fg_flash_f32_smem_bytes": [_I],
     "fg_flash_f32_tc_smem_bytes": [_I],
 }
 

@@ -64,7 +64,7 @@ def flash_attention_heads_major(qh, kh, v, *, b, n, sq, sk_actual, bq=2048,
     if not qh.is_cuda:
         return flash_attention_heads_major_plain(qh, kh, v, b=b, n=n, sq=sq,
                                                  sk_actual=sk_actual)
-    _refuse_unported(qh, grad=False)
+    _refuse_unported(qh, grad=False, kernel="bounded")
     _kernels.check_cuda(qh, "qh", torch.bfloat16, 3)
     _kernels.check_cuda(kh, "kh", torch.bfloat16, 3)
     _kernels.check_cuda(v, "v", torch.bfloat16, 4)
@@ -97,8 +97,9 @@ def flash_attention_heads_major(qh, kh, v, *, b, n, sq, sk_actual, bq=2048,
 # at d 8, 40, 80 and 160 for K4 and K5 (the SD1.5 UNet and BrushNet; on the
 # card the kernels of the next width up, 64, 128 or 160, on TMA maps of the
 # true width, whose columns past d read zeros), and fp32 at d 64 for K6a-c
-# (the fp32 SDXL UNet of the Style-DoRA train step).  Other forms raise a
-# ValueError that names ROADMAP.md Queue 2.  lse
+# (the fp32 SDXL UNet of the Style-DoRA train step), and fp32 at d 8, 16,
+# 40, 64, 80 and 160 for K4 and K5.  Other forms raise a ValueError that
+# names ROADMAP.md Queue 2.  lse
 # and delta are one fp32 value per row.  CPU tensors take the ``*_plain``
 # versions, which compute what the Pallas kernels compute on one tile: fp32
 # logits, keys >= sk_actual masked, p rounded to the value dtype before each
@@ -115,8 +116,15 @@ def flash_attention_heads_major(qh, kh, v, *, b, n, sq, sk_actual, bq=2048,
 # ``csrc/flash_attention_fp32.cu``, K6b and K6c in
 # ``csrc/flash_attention_fp32_bwd.cu``), each product taken in three TF32
 # passes (hi·hi + hi·lo + lo·hi, fp32 accumulation), after a pre-pass that
-# writes the operands' TF32 hi / lo and transposed copies to a workspace;
-# the fp32 K6c splits its query loop over CTAs where rounds of its 128-key
+# writes the operands' TF32 hi / lo and transposed copies to a workspace.
+# K5 and K4's max and masked forms take fp32 without a gradient at head dims
+# 8, 16, 40, 64, 80 and 160 (the SDXL and SD1.5 pipelines' default dtype)
+# on K6a's kernel (its lse store skipped) in instances of 32, 64, 96 and 160
+# columns on TMA maps of the true width; in fp32 the Pallas K4 rounds
+# nothing, so its max and masked forms run the online softmax as K5 does.
+# They count per form and head dim (``flash_fwd_f32_d40``,
+# ``flash_small_kv_masked_f32_d8`` ...; :func:`_f32_counter`).  The fp32
+# K6c splits its query loop over CTAs where rounds of its 128-key
 # items would leave SMs idle (:func:`dkv_splits`) and sums the splits'
 # partials in a second pass, in split order.
 
@@ -129,23 +137,30 @@ _SD15_DIMS = (8, 40, 80, 160)  # of them, those with counters of their own
 _TRAIN_DIMS = (64, 128)  # head dims of K6a-c in bf16
 _BIAS_DIMS = (128,)      # head dims of K10
 _F32_TRAIN_DIMS = (64,)  # head dims of K6a-c in fp32
+_F32_FWD_DIMS = (8, 16, 40, 64, 80, 160)  # head dims of the K4 max/masked and K5 kernels in fp32
 _DKV_Q_TILE = 32   # queries a tile of the fp32 K6c
 _DKV_KEYS = 128    # keys an item of the fp32 K6c (two consumers of 64)
 
 
-def _refuse_unported(qh, grad, bounded_kv_len=False):
+def _refuse_unported(qh, grad, bounded_kv_len=False, kernel="online"):
     """Raise for an attention form whose kernel is not ported yet (ROADMAP.md
     Queue 2): bf16 with a gradient at a head dim other than 64 and 128 (B:
     K6a-c at SD1.5's 8, 40, 80, 160, wanted only if SD1.5 training is
     ported), bf16 without one at a head dim K4 / K5 do not take (B), the
-    bounded K3 / K4 with a caller's ``kv_len`` (C), fp32 without a gradient,
-    and fp32 with one at a head dim other than 64 (A)."""
+    bounded K3 / K4 with a caller's ``kv_len`` (C), fp32 without a gradient
+    in K3 / K4's bounded form (``kernel`` "bounded") or K10 ("bias") or at a
+    head dim K4 / K5 do not take in fp32, and fp32 with a gradient at a head
+    dim other than 64 (A)."""
     d = qh.shape[-1]
+    f32 = qh.dtype == torch.float32
     if bounded_kv_len:
         form, item = "bounded attention (K3 / K4 bounded) with a caller's kv_len", "C"
-    elif qh.dtype == torch.float32 and not grad:
-        form, item = "fp32 attention without a gradient (the fp32 K3/K4/K5/K10 forms)", "A"
-    elif qh.dtype == torch.float32 and d not in _F32_TRAIN_DIMS:
+    elif f32 and not grad and kernel != "online":
+        form = {"bounded": "K3 / K4 bounded", "bias": "K10"}[kernel]
+        form, item = f"fp32 attention without a gradient in {form}", "A"
+    elif f32 and not grad and d not in _F32_FWD_DIMS:
+        form, item = f"fp32 attention without a gradient (K4 / K5) at head dim {d}", "A"
+    elif f32 and grad and d not in _F32_TRAIN_DIMS:
         form, item = f"fp32 attention with a gradient at head dim {d}", "A"
     elif qh.dtype == torch.bfloat16 and grad and d not in _TRAIN_DIMS:
         form, item = f"bf16 attention with a gradient (K6a-c) at head dim {d}", "B"
@@ -154,8 +169,9 @@ def _refuse_unported(qh, grad, bounded_kv_len=False):
     else:
         return
     raise ValueError(f"{form} has no kernel on the card yet: K4/K5 take bf16 at head dims 8, 40, "
-                     f"64, 80, 128 and 160, K6a-c bf16 at 64 and 128 and fp32 at 64, K3/K4 "
-                     f"bounded no kv_len (ROADMAP.md Queue 2 {item})")
+                     f"64, 80, 128 and 160 and fp32 at 8, 16, 40, 64, 80 and 160, K6a-c bf16 "
+                     f"at 64 and 128 and fp32 at 64, K3/K4 bounded and K10 bf16 and no kv_len "
+                     f"(ROADMAP.md Queue 2 {item})")
 
 
 def _dim_counter(name, d):
@@ -164,6 +180,12 @@ def _dim_counter(name, d):
     if d in _SD15_DIMS:
         return f"{name}_d{d}"
     return "flash_fwd_d64" if (name, d) == ("flash_fwd", 64) else name
+
+
+def _f32_counter(name, d):
+    """The launch counter of K4's form or K5 ``name`` in fp32 at head dim
+    d: name_f32_d{d}."""
+    return f"{name}_f32_d{d}"
 
 
 def _masked_logits(qh, kh, bn, sk_actual):
@@ -319,12 +341,25 @@ def fwd_prep_f32_plain(kh, vh):
 
 
 def _fwd_prep_f32(kh, vh):
-    """The fp32 K6a pre-pass into a new workspace (the layout of
+    """The fp32 forward's pre-pass into a new workspace (the layout of
     ``fwd_prep_f32_plain``)."""
     ws = torch.empty(4 * kh.numel(), dtype=torch.float32, device=kh.device)
     _kernels.launch("flash_fwd_prep_f32", "fg_flash_fwd_prep_f32", kh.data_ptr(), vh.data_ptr(),
-                    ws.data_ptr(), kh.shape[0], kh.shape[1])
+                    ws.data_ptr(), kh.shape[0], kh.shape[1], kh.shape[2])
     return ws
+
+
+def _fwd_f32(qh, kh, vh, sk_actual, counter, with_lse):
+    """The fp32 forward on the card (inputs checked): the pre-pass and the
+    3xTF32 kernel, counted as ``counter``; returns o, and lse with
+    ``with_lse`` (K6a, d 64)."""
+    bn, sq_p, d = qh.shape
+    out = torch.empty_like(qh)
+    lse = torch.empty((bn, sq_p), dtype=torch.float32, device=qh.device) if with_lse else None
+    ws = _fwd_prep_f32(kh, vh)
+    _kernels.launch(counter, "fg_flash_fwd_f32_tc", qh.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                    lse.data_ptr() if with_lse else None, bn, sq_p, int(sk_actual), kh.shape[1], d)
+    return (out, lse) if with_lse else out
 
 
 def _sm_count(device):
@@ -365,27 +400,26 @@ def _check_rows(t, name, shape):
 
 def flash_fwd(qh, kh, vh, *, sk_actual, with_lse=True):
     """K6a (``with_lse``: bf16 at d 64 or 128, fp32 at d 64) or K5 (bf16, d
-    = 8, 40, 64, 80, 128 or 160) on head-major q/k/v (see the section note).
-    Returns o, and lse with ``with_lse``.  On the card the bf16 forms are the
-    TMA + wgmma kernels of ``csrc/flash_attention_online.cu`` (K5's o equals
-    K6a's bit for bit at the same head dim; K6a counts as ``flash_fwd_lse``
-    at d 128, ``flash_fwd_lse_d64`` at 64; K5 as :func:`_dim_counter` says),
-    the fp32 form the pre-pass and the 3xTF32 TMA + wgmma kernel of
-    ``csrc/flash_attention_fp32.cu``."""
+    = 8, 40, 64, 80, 128 or 160; fp32, d = 8, 16, 40, 64, 80 or 160) on
+    head-major q/k/v (see the section note).  Returns o, and lse with
+    ``with_lse``.  On the card the bf16 forms are the TMA + wgmma kernels of
+    ``csrc/flash_attention_online.cu`` (K5's o equals K6a's bit for bit at
+    the same head dim; K6a counts as ``flash_fwd_lse`` at d 128,
+    ``flash_fwd_lse_d64`` at 64; K5 as :func:`_dim_counter` says), the fp32
+    forms the pre-pass and the 3xTF32 TMA + wgmma kernels of
+    ``csrc/flash_attention_fp32.cu`` (K6a counted as ``flash_fwd_lse_f32``,
+    K5 as :func:`_f32_counter` says)."""
     if not qh.is_cuda:
         return flash_fwd_plain(qh, kh, vh, sk_actual=sk_actual, with_lse=with_lse)
     _refuse_unported(qh, grad=with_lse)
+    if qh.dtype == torch.float32:
+        _check_heads_major(qh, kh, vh, sk_actual, dtype=torch.float32,
+                           dims=_F32_TRAIN_DIMS if with_lse else _F32_FWD_DIMS)
+        counter = "flash_fwd_lse_f32" if with_lse else _f32_counter("flash_fwd", qh.shape[2])
+        return _fwd_f32(qh, kh, vh, sk_actual, counter, with_lse)
+    _check_heads_major(qh, kh, vh, sk_actual, dims=_TRAIN_DIMS if with_lse else _FWD_DIMS)
     bn, sq_p, d = qh.shape
     out = torch.empty_like(qh)
-    if qh.dtype == torch.float32:
-        _check_heads_major(qh, kh, vh, sk_actual, dims=_F32_TRAIN_DIMS, dtype=torch.float32)
-        lse = torch.empty((bn, sq_p), dtype=torch.float32, device=qh.device)
-        ws = _fwd_prep_f32(kh, vh)
-        _kernels.launch("flash_fwd_lse_f32", "fg_flash_fwd_lse_f32_tc", qh.data_ptr(),
-                        ws.data_ptr(), out.data_ptr(), lse.data_ptr(), bn, sq_p, int(sk_actual),
-                        kh.shape[1])
-        return out, lse
-    _check_heads_major(qh, kh, vh, sk_actual, dims=_TRAIN_DIMS if with_lse else _FWD_DIMS)
     if with_lse:
         lse = torch.empty((bn, sq_p), dtype=torch.float32, device=qh.device)
         _kernels.launch("flash_fwd_lse" if d == 128 else "flash_fwd_lse_d64", "fg_flash_fwd_lse",
@@ -407,20 +441,28 @@ def flash_small_kv_max_plain(qh, kh, vh, *, sk_actual):
 def flash_small_kv_max(qh, kh, vh, *, sk_actual):
     """K4's max form (sk_actual == Sk_pad) or masked form (keys >=
     sk_actual masked) on head-major q/k/v (BN, S_pad, d), d = 8, 40, 64, 80,
-    128 or 160, whose keys are one TPU k tile (Sk_pad <= 1024).  Returns
-    head-major o.  On the card: the TMA + wgmma kernels of
-    ``csrc/flash_attention_online.cu`` with each row's max taken before its
-    first p (see the section note), counted as :func:`_dim_counter` says."""
+    128 or 160 in bf16 and 8, 16, 40, 64, 80 or 160 in fp32, whose keys are
+    one TPU k tile (Sk_pad <= 1024).  Returns head-major o.  On the card in
+    bf16: the TMA + wgmma kernels of ``csrc/flash_attention_online.cu`` with
+    each row's max taken before its first p (see the section note), counted
+    as :func:`_dim_counter` says; in fp32 the 3xTF32 kernels of
+    ``csrc/flash_attention_fp32.cu`` (p is not rounded, so the online
+    softmax computes the same function), counted as :func:`_f32_counter`
+    says."""
     if not qh.is_cuda:
         return flash_small_kv_max_plain(qh, kh, vh, sk_actual=sk_actual)
     _refuse_unported(qh, grad=False)
-    _check_heads_major(qh, kh, vh, sk_actual, dims=_FWD_DIMS)
+    f32 = qh.dtype == torch.float32
+    _check_heads_major(qh, kh, vh, sk_actual, dims=_F32_FWD_DIMS if f32 else _FWD_DIMS,
+                       dtype=qh.dtype if f32 else torch.bfloat16)
     bn, sq_p, d = qh.shape
     sk_p = kh.shape[1]
     if sk_p > DEFAULT_BK:
         raise ValueError(f"K4 takes one k tile of at most {DEFAULT_BK} keys, got {sk_p}")
-    out = torch.empty_like(qh)
     form = "flash_small_kv_masked" if sk_actual < sk_p else "flash_small_kv_max"
+    if f32:
+        return _fwd_f32(qh, kh, vh, sk_actual, _f32_counter(form, d), False)
+    out = torch.empty_like(qh)
     _kernels.launch(_dim_counter(form, d), "fg_flash_small_kv_max", qh.data_ptr(), kh.data_ptr(),
                     vh.data_ptr(), out.data_ptr(), bn, sq_p, int(sk_actual), sk_p, d)
     return out
@@ -655,7 +697,7 @@ def flash_attention_bias_heads_major(qh, kh, vh, bias, *, n, sq, sk):
     rows) and an unpadded fp32 bias (B|1, sq, sk).  Returns head-major o."""
     if not qh.is_cuda:
         return flash_attention_bias_plain(qh, kh, vh, bias, n=n, sq=sq, sk=sk)
-    _refuse_unported(qh, grad=False)
+    _refuse_unported(qh, grad=False, kernel="bias")
     _check_heads_major(qh, kh, vh, sk, dims=_BIAS_DIMS)
     _kernels.check_cuda(bias, "bias", torch.float32, 3)
     bn = qh.shape[0]

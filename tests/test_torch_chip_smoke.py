@@ -107,6 +107,18 @@ def test_a_kernel_missing_from_every_trace_raises(smoke, monkeypatch):
         smoke.device_ms(lambda: None, 10)
 
 
+def test_a_second_round_follows_three_traces_that_lost_a_kernel(smoke, monkeypatch):
+    """device_ms_twice: after a round of three traces that all lost the
+    kernel (device_ms raises), one more round, summed where it is whole;
+    two such rounds raise."""
+    asked = _profiler(smoke, monkeypatch, [ONE, PREP_ONLY] * 3 + [ONE, FULL])
+    assert smoke.device_ms_twice(lambda: None, 10) == pytest.approx(0.1)
+    assert asked == [1, 10] * 4
+    _profiler(smoke, monkeypatch, [ONE, PREP_ONLY] * 6)
+    with pytest.raises(RuntimeError, match="lost a kernel of the call"):
+        smoke.device_ms_twice(lambda: None, 10)
+
+
 def test_the_wrappers_counters_outvote_windows_that_all_lost_a_kernel(smoke, monkeypatch):
     """Every window lost the wrapper's second kernel: the traces look whole
     for the one kernel they hold, but the wrappers counted two launches a

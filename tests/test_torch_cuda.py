@@ -33,7 +33,12 @@ bit, key rows >= sk_actual exactly 0, their pre-passes and reduce pass
 bit for bit their plain versions, every counter once a call (the
 backward's pre-pass twice), flash_attention's fp32 gradient
 against autograd of the plain attention, a tiny head-dim-64 DoRA step that
-must launch them and agree with the CPU step, and the forms not ported yet
+must launch them and agree with the CPU step, K5 and K4's max and masked
+forms in fp32 at head dims 8, 16, 40, 64, 80 and 160 (the SD pipelines'
+default dtype) against their plain versions within a relative L2 error
+of 1e-5 and twice bit for bit, the forward's pre-pass bit for bit at each
+head dim, tiny fp32 SDXL and SD1.5 pipelines that must launch them and the
+two fp32 BrushNet goldens on the card, and the forms not ported yet
 raising a ValueError that names ROADMAP Queue 2.  They skip here
 when no card is present; on a card:
 
@@ -270,7 +275,10 @@ def test_tiny_pipeline_launches_every_kernel(card):
                                  "flash_bwd_dkv_d64": 0, **{
                                      f"{form}_d{d}": 0 for form in (
                                          "flash_fwd", "flash_small_kv_max",
-                                         "flash_small_kv_masked") for d in (8, 40, 80, 160)}}
+                                         "flash_small_kv_masked") for d in (8, 40, 80, 160)},
+                                 **{f"{form}_f32_d{d}": 0 for form in (
+                                     "flash_fwd", "flash_small_kv_max", "flash_small_kv_masked")
+                                    for d in (8, 16, 40, 64, 80, 160)}}
 
 
 def _close_grad(out, ref):
@@ -921,16 +929,17 @@ def test_k5_at_head_dim_64_ragged_edges_match_plain(card):
 
 
 def test_flash_kernels_refuse_what_they_do_not_take(card):
-    """No fallback on the card: fp32 or a head dim outside {8, 40, 64, 80,
-    128, 160} raises for K4's max/masked forms and K5; K6a-c take bf16 at
-    head dims 64 and 128 (and fp32 at 64, below), so head dim 96 raises for
-    them."""
+    """No fallback on the card: a head dim outside {8, 40, 64, 80, 128, 160}
+    in bf16, or outside {8, 16, 40, 64, 80, 160} in fp32, raises for K4's
+    max/masked forms and K5; K6a-c take bf16 at head dims 64 and 128 (and
+    fp32 at 64, below), so head dim 96 raises for them; the generic entry
+    in fp32 at head dim 128 raises (ROADMAP Queue 2 A)."""
     from fairygen_tpu_torch.ops import flash_attention as fa
 
     def qkv(d, dtype=torch.bfloat16, s=128):
         return [_heads(card, 2, s, d).to(dtype) for _ in range(3)]
 
-    for d, dtype in ((64, torch.float32), (96, torch.bfloat16), (128, torch.float32)):
+    for d, dtype in ((48, torch.float32), (96, torch.bfloat16), (128, torch.float32)):
         with pytest.raises(ValueError):
             fa.flash_small_kv_max(*qkv(d, dtype), sk_actual=100)
         with pytest.raises(ValueError):
@@ -945,9 +954,9 @@ def test_flash_kernels_refuse_what_they_do_not_take(card):
         fa.flash_bwd_dq(q, k, v, q, rows, rows, sk_actual=128, dq_factor=1.0)
     with pytest.raises(ValueError, match="128"):
         fa.flash_bwd_dkv(q, k, v, q, rows, rows, sq=128, sk_actual=128)
-    q, k, v = qkv(64)
+    q, k, v = qkv(128)
     with pytest.raises(ValueError):
-        fa.flash_attention(*(t.float().reshape(1, 256, 1, 64) for t in (q, k, v)))
+        fa.flash_attention(*(t.float().reshape(1, 256, 1, 128) for t in (q, k, v)))
 
 
 def test_tiny_sdxl_brushnet_pipeline_launches_its_kernels(card):
@@ -1287,22 +1296,33 @@ def test_fp32_flash_attention_gradient_matches_autograd(card):
 
 def test_unported_attention_forms_raise_naming_queue_2(card):
     """bf16 at head dim 80 with a gradient and at 96 without one (Queue 2
-    B), the bounded form with a kv_len (C), fp32 without a gradient, and
-    fp32 with one at head dim 128 have no kernel yet: each raises, none
-    falls back."""
-    from fairygen_tpu_torch.ops.flash_attention import flash_attention
+    B), the bounded form with a kv_len (C), fp32 without a gradient at head
+    dim 128, in K3 / K4's bounded form and in K10, and fp32 with one at
+    head dim 128 (A) have no kernel yet: each raises, none falls back and
+    none launches a kernel.  fp32 without a gradient at head dim 64 (K4 / K5,
+    ported since) runs."""
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bias
 
     def qkv(d, dtype, grad):
         return [torch.randn((1, 256, 2, d), generator=card, device="cuda").to(dtype)
                 .requires_grad_(grad) for _ in range(3)]
 
+    _kernels.reset_launches()
     for d, dtype, grad in ((80, torch.bfloat16, True), (96, torch.bfloat16, False),
-                           (64, torch.float32, False), (128, torch.float32, True),
-                           (128, torch.float32, False)):
+                           (128, torch.float32, True), (128, torch.float32, False)):
         with pytest.raises(ValueError, match="Queue 2"):
             flash_attention(*qkv(d, dtype, grad))
     with pytest.raises(ValueError, match="Queue 2 C"):
         flash_attention(*qkv(128, torch.bfloat16, False), kv_len=200, bounded_logits=True)
+    with pytest.raises(ValueError, match="Queue 2 A"):
+        flash_attention(*qkv(128, torch.float32, False), bounded_logits=True)
+    with pytest.raises(ValueError, match="Queue 2 A"):
+        flash_attention_bias(*qkv(128, torch.float32, False),
+                             torch.zeros((1, 256, 256), device="cuda"))
+    assert not any(_kernels.launches.values())
+    assert torch.isfinite(flash_attention(*qkv(64, torch.float32, False))).all()
+    assert _kernels.launches["flash_small_kv_max_f32_d64"] == 1
 
 
 def test_tiny_dora_step_launches_the_fp32_kernels(card):
@@ -1759,3 +1779,178 @@ def test_tiny_sd15_brushnet_pipeline_launches_its_kernels(card):
         "flash_fwd_d40": 5 * steps, "flash_small_kv_max_d80": 6 * steps,
         "flash_small_kv_max_d8": steps, "flash_small_kv_masked_d40": 5 * steps,
         "flash_small_kv_masked_d80": 6 * steps}
+
+
+# K5 and K4's max and masked forms in fp32 (the SDXL and SD1.5 pipelines'
+# default dtype): (counter, BN, Sq, Sk_pad, sk_actual, d)
+F32_FWD_FORMS = [
+    ("flash_fwd_f32_d64", 4, 1024, 2048, 2048, 64), ("flash_fwd_f32_d64", 2, 300, 4096, 4000, 64),
+    ("flash_fwd_f32_d40", 4, 1024, 4096, 4096, 40), ("flash_fwd_f32_d80", 4, 576, 2304, 2304, 80),
+    ("flash_fwd_f32_d160", 4, 320, 1152, 1100, 160), ("flash_fwd_f32_d8", 8, 320, 1152, 1100, 8),
+    ("flash_fwd_f32_d16", 4, 129, 1152, 1100, 16),
+    ("flash_small_kv_max_f32_d64", 8, 1024, 1024, 1024, 64),
+    ("flash_small_kv_max_f32_d80", 8, 1024, 1024, 1024, 80),
+    ("flash_small_kv_max_f32_d160", 8, 576, 576, 576, 160),
+    ("flash_small_kv_max_f32_d8", 32, 256, 256, 256, 8),
+    ("flash_small_kv_max_f32_d16", 8, 256, 256, 256, 16),
+    ("flash_small_kv_max_f32_d40", 4, 1024, 1024, 1024, 40),
+    ("flash_small_kv_masked_f32_d64", 8, 4096, 128, 77, 64),
+    ("flash_small_kv_masked_f32_d40", 8, 4096, 128, 77, 40),
+    ("flash_small_kv_masked_f32_d80", 8, 1024, 128, 77, 80),
+    ("flash_small_kv_masked_f32_d160", 8, 256, 128, 77, 160),
+    ("flash_small_kv_masked_f32_d160", 8, 144, 192, 144, 160),
+    ("flash_small_kv_masked_f32_d8", 32, 64, 128, 64, 8),
+    ("flash_small_kv_masked_f32_d16", 8, 256, 128, 7, 16),
+    ("flash_small_kv_masked_f32_d64", 4, 300, 1024, 1000, 64),
+]
+
+
+@pytest.mark.parametrize("counter,bn,sq,sk_pad,sk_actual,d", F32_FWD_FORMS)
+def test_fp32_forward_forms_match_plain_twice(card, counter, bn, sq, sk_pad, sk_actual, d):
+    """Each fp32 form on the 3xTF32 forward (instances of 32, 64, 96 and 160
+    columns on TMA maps of the true width) against its plain version: a
+    relative L2 error of o below 1e-5, the fp32 K6a's bound (both sides
+    fp32; three TF32 passes, sums in another order); one launch under the
+    form's own counter and one of the pre-pass; two launches give the same
+    bits.  The masked key rows hold non-zero values; ragged query counts."""
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    qh = torch.zeros((bn, -(-sq // 64) * 64, d), device="cuda")
+    qh[:, :sq] = torch.randn((bn, sq, d), generator=card, device="cuda") * d ** -0.5 * 1.4427
+    kh, vh = (torch.randn((bn, sk_pad, d), generator=card, device="cuda") for _ in range(2))
+    if counter.startswith("flash_fwd"):
+        def run():
+            return fa.flash_fwd(qh, kh, vh, sk_actual=sk_actual, with_lse=False)
+    else:
+        def run():
+            return fa.flash_small_kv_max(qh, kh, vh, sk_actual=sk_actual)
+    ref = fa.flash_fwd_plain(qh, kh, vh, sk_actual=sk_actual, with_lse=False)
+    _kernels.reset_launches()
+    out = run()
+    assert {k: v for k, v in _kernels.launches.items() if v} == {counter: 1,
+                                                                  "flash_fwd_prep_f32": 1}
+    assert out.shape == qh.shape and out.dtype == torch.float32
+    rel_l2 = ((out.double() - ref.double()).norm() / ref.double().norm()).item()
+    assert rel_l2 < 1e-5, f"relative L2 error of o {rel_l2:.3e}"
+    assert torch.equal(out, run())
+
+
+@pytest.mark.parametrize("d", [8, 16, 40, 64, 80, 160])
+def test_fp32_fwd_prep_matches_plain_bit_for_bit_at_each_dim(card, d):
+    """The forward's pre-pass at the true width d: K's TF32 hi / lo and V^T's
+    (transposed, each 8 keys permuted) bit for bit its plain version."""
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    kh, vh = (torch.randn((3, 192, d), generator=card, device="cuda") for _ in range(2))
+    assert torch.equal(fa._fwd_prep_f32(kh, vh), fa.fwd_prep_f32_plain(kh, vh))
+
+
+def _tiny_f32_sdxl(card, brushnet_d=64):
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.sdxl.unet2d import UNet2DConfig
+    from fairygen_tpu_torch.models.sdxl.vae import AutoencoderKLConfig
+
+    kw = dict(block_out_channels=(64, 128), num_attention_heads=(1, 2),
+              down_block_types=("CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+              up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D"),
+              transformer_layers_per_block=(1, 1), cross_attention_dim=64,
+              addition_time_embed_dim=8, projection_class_embeddings_input_dim=80)
+    bcfg = UNet2DConfig(**{**kw, "down_block_types": ("DownBlock2D",) * 2,
+                           "up_block_types": ("UpBlock2D",) * 2,
+                           "mid_block_type": "UNetMidBlock2D", "attention_head_dim": brushnet_d,
+                           "conditioning_channels": 5})
+    ucfg = UNet2DConfig(**kw)
+    vcfg = AutoencoderKLConfig(block_out_channels=(32, 32, 32, 32), norm_num_groups=8)
+    f32 = torch.float32
+    return (convert.init_unet2d_params(ucfg, dtype=f32, seed=1), ucfg,
+            convert.init_autoencoder_kl_params(vcfg, dtype=f32, seed=2), vcfg,
+            convert.init_unet2d_params(bcfg, dtype=f32, seed=3, brushnet=True), bcfg)
+
+
+def test_tiny_fp32_sdxl_pipeline_launches_the_fp32_kernels(card):
+    """A tiny head-dim-64 SDXL + BrushNet pipeline built without a dtype (its
+    default fp32): 512x512 (64 x 64 latents), 2 DPM steps at CFG 7.5: the
+    4096-token self-attention takes K5 in fp32, the 1024-token ones (and
+    BrushNet's mid attention) K4's max form, the 77 text keys its masked
+    form, each call one launch of the pre-pass; no bf16 kernel runs."""
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines.sdxl_brushnet import SDXLBrushNetPipeline
+
+    pipe = SDXLBrushNetPipeline(*_tiny_f32_sdxl(card))
+    assert pipe.dtype == torch.float32
+    img = torch.rand((512, 512, 3), generator=card, device="cuda").cpu().numpy()
+    mask = (torch.rand((512, 512, 1), generator=card, device="cuda") > 0.5).float().cpu().numpy()
+    _kernels.reset_launches()
+    out = pipe(prompt_embeds=torch.randn((1, 77, 64), generator=card, device="cuda"),
+               pooled_embeds=torch.randn((1, 32), generator=card, device="cuda"),
+               negative_prompt_embeds=torch.randn((1, 77, 64), generator=card, device="cuda"),
+               negative_pooled_embeds=torch.randn((1, 32), generator=card, device="cuda"),
+               image=img * (1 - mask), mask=mask, height=512, width=512, num_inference_steps=2,
+               output_type="np_pm1")
+    assert torch.isfinite(out).all() and out.shape == (1, 3, 512, 512)
+    steps = 2  # 2 + 3 blocks at 64 x 64, 2 + 1 (mid) + 3 and BrushNet's mid at 32 x 32
+    assert {k: v for k, v in _kernels.launches.items() if v} == {
+        "flash_fwd_f32_d64": 5 * steps, "flash_small_kv_max_f32_d64": 7 * steps,
+        "flash_small_kv_masked_f32_d64": 11 * steps, "flash_fwd_prep_f32": 23 * steps}
+
+
+def test_tiny_fp32_sd15_pipeline_launches_the_fp32_kernels(card):
+    """A two-level SD1.5-style UNet (channels 40 and 80 at one head a level)
+    and BrushNet (mid attention at head dim 8) built without a dtype (fp32),
+    512x512, 2 UniPC steps at CFG 7.5, blended: K5 at d 40, K4's max form at
+    d 80 and at d 8 (BrushNet's mid attention), its masked form at d 40 and
+    80, all in fp32."""
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.sdxl.unet2d import UNet2DConfig
+    from fairygen_tpu_torch.models.sdxl.vae import AutoencoderKLConfig
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines.sd15_brushnet import SD15BrushNetPipeline
+
+    kw = dict(block_out_channels=(40, 80), num_attention_heads=(1, 1),
+              down_block_types=("CrossAttnDownBlock2D",) * 2,
+              up_block_types=("CrossAttnUpBlock2D",) * 2, transformer_layers_per_block=(1, 1),
+              cross_attention_dim=32, norm_num_groups=8, addition_embed_type=None)
+    ucfg = UNet2DConfig(**kw)
+    bcfg = UNet2DConfig(**{**kw, "down_block_types": ("DownBlock2D",) * 2,
+                           "up_block_types": ("UpBlock2D",) * 2, "mid_block_type": "UNetMidBlock2D",
+                           "attention_head_dim": 8, "conditioning_channels": 5})
+    vcfg = AutoencoderKLConfig(block_out_channels=(32, 32, 32, 32), norm_num_groups=8,
+                               scaling_factor=0.18215)
+    f32 = torch.float32
+    pipe = SD15BrushNetPipeline(convert.init_unet2d_params(ucfg, dtype=f32, seed=1), ucfg,
+                                convert.init_autoencoder_kl_params(vcfg, dtype=f32, seed=2), vcfg,
+                                convert.init_unet2d_params(bcfg, dtype=f32, seed=3, brushnet=True),
+                                bcfg)
+    assert pipe.dtype == f32
+    img = torch.rand((512, 512, 3), generator=card, device="cuda").cpu().numpy()
+    mask = (torch.rand((512, 512, 1), generator=card, device="cuda") > 0.5).float().cpu().numpy()
+    _kernels.reset_launches()
+    out = pipe(prompt_embeds=torch.randn((1, 77, 32), generator=card, device="cuda"),
+               negative_prompt_embeds=torch.randn((1, 77, 32), generator=card, device="cuda"),
+               image=img * (1 - mask), mask=mask, num_inference_steps=2, blended=True,
+               original_image=img, output_type="np_pm1")
+    assert torch.isfinite(out).all() and out.shape == (1, 3, 512, 512)
+    steps = 2
+    assert {k: v for k, v in _kernels.launches.items() if v} == {
+        "flash_fwd_f32_d40": 5 * steps, "flash_small_kv_max_f32_d80": 6 * steps,
+        "flash_small_kv_max_f32_d8": steps, "flash_small_kv_masked_f32_d40": 5 * steps,
+        "flash_small_kv_masked_f32_d80": 6 * steps, "flash_fwd_prep_f32": 23 * steps}
+
+
+@pytest.mark.parametrize("which", ["SDXL", "SD1.5"])
+def test_fp32_goldens_match_on_the_card(card, which):
+    """The tiny fp32 golden pipelines (tests/goldens/brushnet_pipeline.npz,
+    sd15_pipeline.npz) on the card at their default fp32, through K4's max
+    and masked forms at d 16 and 8: every pixel within 3 levels and PSNR
+    above 45 dB, the JAX suite's bar (chip_smoke.py's
+    reference_fp32_goldens_check, one golden)."""
+    import importlib.util
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    smoke.reference_fp32_goldens_check(only=which)
+

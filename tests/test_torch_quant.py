@@ -41,6 +41,18 @@ WAN = dict(dim=96, in_dim=8, ffn_dim=128, out_dim=8, text_dim=32, freq_dim=32,
            patch_size=(1, 2, 2), num_heads=4, num_layers=2)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's tests, restored after: its
+    models are tiny, and under the suite's six workers on one machine
+    torch's thread pools contend with each other and slow the file down
+    many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 

@@ -62,6 +62,18 @@ from fairygen_tpu_torch.training.optimizers import make_optimizer
 from test_torch_sdxl_pipeline import BN_KW, UNET_KW, _call_kw, _port_pipe, _sd
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's tests, restored after: its
+    models are tiny, and under the suite's six workers on one machine
+    torch's thread pools contend with each other and slow the file down
+    many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 
@@ -120,24 +132,33 @@ def test_bf16_d64_plain_k6_match_pallas(sq, sk, kv_len):
 def test_refuse_unported_names_what_queue_2_still_lists():
     """On the card bf16 at head dims 64 and 128 and fp32 at 64 with a
     gradient have kernels, and so has bf16 without one at SD1.5's head dims
-    40 and 160 too; bf16 with a gradient at another head dim, or without one
-    at a head dim K4 / K5 do not take (B), the bounded form with a kv_len
-    (C), fp32 without a gradient and fp32 with one at another head dim raise,
-    naming the queue."""
+    40 and 160 too, and fp32 without one (K4 / K5) at 8, 16, 40, 64, 80 and
+    160; bf16 with a gradient at another head dim, or without one at a head
+    dim K4 / K5 do not take (B), the bounded form with a kv_len (C), fp32
+    without a gradient in K3 / K4's bounded form, in K10 or at head dim 128,
+    and fp32 with one at another head dim raise, naming the queue."""
     def qh(d, dtype):
         return torch.zeros((2, 64, d), dtype=dtype)
 
     for d, dtype, grad in ((64, torch.bfloat16, True), (128, torch.bfloat16, True),
                            (64, torch.bfloat16, False), (64, torch.float32, True),
-                           (40, torch.bfloat16, False), (160, torch.bfloat16, False)):
+                           (40, torch.bfloat16, False), (160, torch.bfloat16, False),
+                           (64, torch.float32, False), (8, torch.float32, False),
+                           (16, torch.float32, False), (40, torch.float32, False),
+                           (80, torch.float32, False), (160, torch.float32, False)):
         tfa._refuse_unported(qh(d, dtype), grad)
     for d, dtype, grad, item in ((80, torch.bfloat16, True, "B"), (40, torch.bfloat16, True, "B"),
                                  (160, torch.bfloat16, True, "B"),
                                  (96, torch.bfloat16, False, "B"),
-                                 (64, torch.float32, False, "A"),
-                                 (128, torch.float32, True, "A")):
+                                 (128, torch.float32, False, "A"),
+                                 (128, torch.float32, True, "A"),
+                                 (40, torch.float32, True, "A")):
         with pytest.raises(ValueError, match=f"Queue 2 {item}"):
             tfa._refuse_unported(qh(d, dtype), grad)
+    for kernel in ("bounded", "bias"):
+        with pytest.raises(ValueError, match="Queue 2 A"):
+            tfa._refuse_unported(qh(128, torch.float32), False, kernel=kernel)
+        tfa._refuse_unported(qh(128, torch.bfloat16), False, kernel=kernel)
     with pytest.raises(ValueError, match="Queue 2 C"):
         tfa._refuse_unported(qh(128, torch.bfloat16), False, bounded_kv_len=True)
 
