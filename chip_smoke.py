@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py                 # the whole run, one card
     python3 chip_smoke.py --kernels-only  # device, build and kernel checks only
-    python3 chip_smoke.py --ab-lib PATH   # also K4 and the fp32 K6a-c against another
-                                          # build's library
+    python3 chip_smoke.py --ab-lib PATH   # also K4, the fp32 K6a-c and K11 against
+                                          # another build's library
     python3 chip_smoke.py --dora-ab LIB   # only the dora phase, with DoRA steps in turns
                                           # through another build's fp32 K6a and this
                                           # one's, after the wrappers' host time a call
@@ -33,7 +33,11 @@ Phases, each printing its wall seconds:
                 csrc/flash_attention_fp32_bwd.cu with their HGMMA and
                 UTMALDG counts (the same failures as above), and the
                 registers and spills of K6a's pre-pass and of the
-                backward's pre-pass and reduce kernels.
+                backward's pre-pass and reduce kernels; K11's instances'
+                registers and spills (a spill fails), and for both Wan
+                VAEs' widths the ring's shared memory and the instructions
+                a lane issues per element on the consumer loop's
+                branch-free path (cuobjdump), which give its issue bound.
   3. kernels  — K1-K4 against their plain PyTorch versions on the card in
                 bf16 at the main path's shapes (480x832, 17 frames: S=1950)
                 and the flagship's (81 frames: S=8190); error, kernel ms,
@@ -59,7 +63,12 @@ Phases, each printing its wall seconds:
                 of 3840, with and without scale) and K11 at two VAE38
                 shapes (399,360 x 256 and 7800 x 1024, with and without
                 SiLU), F.rms_norm as their yardstick, and K7, K8 and K9's
-                device time (torch.profiler) beside their event times.
+                device time (torch.profiler) beside their event times;
+                with --ab-lib, another build's K11 (its first design's C
+                entry) beside this one's at the flagship's 17 shapes,
+                399,360 x 256 and the Wan2.1 VAE's widest shapes: device
+                time in turns, each build's count of outputs that differ
+                from the plain version, the two builds bit for bit.
                 Then K4's max and
                 masked forms and K5 at head dim 64 at the SDXL 1024x1024
                 CFG shapes (cross-attention to 77 text keys, 1024- and
@@ -1302,6 +1311,7 @@ def main(argv):
         _kernels.lib()
         hopper_build_report(build_log)
         f32_build_report(build_log)
+        k11_build_report(build_log)
         # K1's two forms: 16 vectors a lane (D <= 4096) and 32 (D <= 8192)
         ptxas_report(build_log, ("ln_modulate_kernelILi16E", "ln_modulate_kernelILi32E"),
                      ("ln_modulate D <= 4096", "ln_modulate D <= 8192"))
@@ -1341,6 +1351,7 @@ def main(argv):
     d64_k = bf16_d64_kernel_checks()
     k4_other = k4_ab(ab_lib) if ab_lib else None
     f32_other = f32_ab(ab_lib) if ab_lib else None
+    k11_other = k11_ab(ab_lib) if ab_lib else None
     torch.cuda.synchronize()
     done("kernels", t0)
 
@@ -1596,15 +1607,19 @@ def main(argv):
             "by_shape": {f"{n} {tag}": {"ms": v["ms"], "device_ms": v["device_ms"],
                                         "plain_ms": v["plain_ms"],
                                         "bound_ms": v["bound"][0], "library_ms": v["library_ms"],
-                                        "differ": v["differ"]}
+                                        "differ": v["differ"],
+                                        "issue_bound_ms": v.get("issue_ms")}
                          for (n, tag), v in norm_k[k].items()}})
+        if k == "vae_rms_silu" and k11_other:
+            rows[-1]["ab_lib_device_ms"] = k11_other
         if k == "vae_rms_silu" and k11_main:
             rows[-1]["max_abs_err"] = max([rows[-1]["max_abs_err"]] +
                                           [v["max_abs_err"] for v in k11_main.values()])
             rows[-1]["main_path_shapes"] = {
                 tag: {"calls": v["calls"], "ms": v["ms"], "device_ms": v["device_ms"],
                       "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0],
-                      "max_abs_err": v["max_abs_err"], "differ": v["differ"]}
+                      "issue_bound_ms": v["issue_ms"], "max_abs_err": v["max_abs_err"],
+                      "differ": v["differ"]}
                 for tag, v in k11_main.items()}
             rows[-1]["main_path_device_ms_total"] = sum(v["calls"] * v["device_ms"]
                                                         for v in k11_main.values())
@@ -2741,19 +2756,22 @@ def k11_main_path_checks(shapes):
             ms=time_ms(lambda: fn.fused_vae_rms_silu(x, gamma)),
             device_ms=device_ms(lambda: fn.fused_vae_rms_silu(x, gamma), 20),
             plain_ms=time_ms(lambda: fn.vae_rms_silu_plain(x, gamma), 5, 3),
-            bound=bound_ms(2 * x.numel() * 2 + c * 2, 10 * x.numel(), H100_FP32_FLOP_PER_S))
+            bound=bound_ms(2 * x.numel() * 2 + c * 2, 10 * x.numel(), H100_FP32_FLOP_PER_S),
+            issue_ms=k11_issue_ms(x.view(-1, c)))
         del x, out, ref
     torch.cuda.empty_cache()
     for tag, r in res.items():
         print(f"  K11 main path {tag} x{r['calls']}: ms {r['ms']:.4f} device_ms "
               f"{r['device_ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms {r['bound'][0]:.4f} "
-              f"({r['bound'][1]})", flush=True)
+              f"({r['bound'][1]}) issue bound {r['issue_ms']}", flush=True)
     total = {key: sum(r["calls"] * (r[key][0] if key == "bound" else r[key])
                       for r in res.values()) for key in ("device_ms", "ms", "bound", "plain_ms")}
+    issue = (None if any(r["issue_ms"] is None for r in res.values()) else
+             sum(r["calls"] * r["issue_ms"] for r in res.values()))
     print(f"  K11 over the request's {sum(r['calls'] for r in res.values())} calls: device "
           f"{total['device_ms']:.2f} ms, events {total['ms']:.2f} ms, bound "
           f"{total['bound']:.2f} ms ({total['device_ms'] / total['bound']:.2f}x by device "
-          f"time), plain {total['plain_ms']:.2f} ms", flush=True)
+          f"time), issue bound {issue} ms, plain {total['plain_ms']:.2f} ms", flush=True)
     return res
 
 
@@ -2818,6 +2836,9 @@ def flagship_phase(pipe, te_cfg, latents17, k8190):
         raise RuntimeError(f"K11 calls recorded by shape {k11_shapes} do not add up to "
                            f"{want['vae_rms_silu']}")
     print(f"  K11 shapes of the request (channels-last, calls): {k11_shapes}", flush=True)
+    if k11_shapes != K11_FLAGSHIP_SHAPES:
+        raise RuntimeError(f"K11's shapes in the flagship request {k11_shapes} are not "
+                           f"K11_FLAGSHIP_SHAPES, which the A/B (k11_ab) times")
     k11_main = k11_main_path_checks(k11_shapes)
     kernel_s = sum(want[k] * (k8190[k].get("device_ms", k8190[k]["ms"])) for k in
                    FLAGSHIP_PER_SWEEP) / 1e3
@@ -3964,6 +3985,234 @@ def check_bracketed(name, out, ref, lo, hi):
     return err.max().item(), ndiff
 
 
+# the flagship request's K11 shapes (channels-last) and calls: the VAE38's
+# first-frame encode and its 21 streamed decode chunks at 480x832x81
+# (flagship_phase holds the request to them; k11_ab times both builds there)
+K11_FLAGSHIP_SHAPES = {
+    (1, 1, 240, 416, 160): 4, (1, 1, 120, 208, 160): 1, (1, 1, 120, 208, 320): 3,
+    (1, 1, 60, 104, 320): 1, (1, 1, 60, 104, 640): 3, (1, 1, 30, 52, 640): 9,
+    (1, 1, 30, 52, 1024): 210, (1, 1, 60, 104, 1024): 6, (1, 1, 120, 208, 1024): 1,
+    (1, 1, 120, 208, 512): 5, (1, 1, 240, 416, 512): 1, (1, 1, 240, 416, 256): 6,
+    (1, 2, 60, 104, 1024): 120, (1, 4, 120, 208, 1024): 20, (1, 4, 120, 208, 512): 100,
+    (1, 4, 240, 416, 512): 20, (1, 4, 240, 416, 256): 120}
+# the Wan2.1 VAE's shape with the most rows at each of its widths (the
+# variants phase's 480x832x17 request)
+K11_WAN21_WIDEST = ((1, 4, 480, 832, 96), (1, 4, 240, 416, 192), (1, 2, 120, 208, 384))
+# warp instructions the H100 issues: four schedulers an SM, one a clock each,
+# at the 1.98 GHz boost clock (NVIDIA H100 SXM data sheet), 132 SMs
+H100_WARP_ISSUE_PER_S = 132 * 4 * 1.98e9
+# K11's fast-path instructions an element, by (dtype, G, V, predicated), from
+# the build's SASS (k11_build_report)
+K11_ISSUE = {}
+
+
+def sass_functions(obj, keep=lambda name: True):
+    """{function: [(address, instruction), ...]} of an object file's SASS
+    (cuobjdump -sass), for the functions whose names ``keep`` takes; {}
+    where cuobjdump is missing."""
+    import re
+    import shutil
+
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = os.path.join(home, "bin", "cuobjdump")
+    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    if not tool:
+        return {}
+    text = subprocess.run([tool, "-sass", str(obj)], capture_output=True, text=True,
+                          timeout=120).stdout
+    funcs = {}
+    for part in re.split(r"\n\s*Function : ", text)[1:]:
+        name, _, body = part.partition("\n")
+        if not keep(name.strip()):
+            continue
+        funcs[name.strip()] = [(int(a, 16), i.strip())
+                               for a, i in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    return funcs
+
+
+def k11_fast_path(ins, exps):
+    """The instructions a lane issues in one pass of K11's consumer loop
+    along its branch-free path: the loop is the shortest backward branch
+    around ``exps`` MUFU.EX2 (the SiLU's exp, one an element of the pass);
+    of its basic blocks, those that hold a CALL (the out-of-line __fdiv_rn,
+    sqrt and reciprocal slow paths and the reference vector) are left out.
+    Returns (instructions, the MUFU.EX2 among them), or None where no loop
+    holds the exps."""
+    import re
+
+    ex2 = [i for i, (_, s) in enumerate(ins) if "MUFU.EX2" in s]
+    at = {a: i for i, (a, _) in enumerate(ins)}
+    leaders, loop = {0}, None
+    for i, (a, s) in enumerate(ins):
+        for target in re.findall(r"\b(?:BRA|BSSY|CALL\S*)\b[^;]*?(0x[0-9a-f]+)", s):
+            t = at.get(int(target, 16))
+            if t is None:
+                continue
+            leaders.add(t)
+            if ("BRA" in s and t <= i and sum(t <= e <= i for e in ex2) >= exps
+                    and (loop is None or i - t < loop[1] - loop[0])):
+                loop = (t, i)
+        if re.search(r"\b(BRA|CALL|EXIT|RET|BREAK)\b", s):
+            leaders.add(i + 1)
+    if loop is None:
+        return None
+    starts = sorted(x for x in leaders if loop[0] <= x <= loop[1]) + [loop[1] + 1]
+    count = mufu = 0
+    for a, b in zip(starts, starts[1:]):
+        block = [s for _, s in ins[a:b]]
+        if any("CALL" in s for s in block):
+            continue
+        count += len(block)
+        mufu += sum("MUFU.EX2" in s for s in block)
+    return count, mufu
+
+
+def k11_build_report(log):
+    """K11's instances (csrc/rms_modulate.cu): the registers and spills
+    (ptxas -v) of each, and for the instances of both Wan VAEs' widths (in
+    bf16) the dynamic shared memory of the ring and the instructions a lane
+    issues per element along the pass loop's branch-free path (cuobjdump;
+    the row's sum, norm, SiLU and store included; k11_fast_path), which
+    gives the issue bound (k11_issue_ms).  Fills K11_ISSUE; fails on a
+    spill or an instance ptxas did not report."""
+    import re
+
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import fused_norms as fn
+
+    def key(name):  # (dtype, G, V, predicated, SiLU)
+        m = re.search(r"vae_rms_silu_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)ELb([01])ELb([01])E",
+                      name)
+        return m and ("bf16" if m.group(1) == "13__nv_bfloat16" else "fp32", int(m.group(2)),
+                      int(m.group(3)), m.group(4) == "1", m.group(5) == "1")
+
+    props, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = key(m.group(1))
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            props.setdefault(current, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            props.setdefault(current, {})["registers"] = int(m.group(1))
+    want = {("bf16",) + fn.k11_instance(c, 2) + (True,)
+            for c in (96, 160, 192, 256, 320, 384, 512, 640, 1024)}
+    for k in sorted(props):
+        print(f"  K11 {k[0]} G={k[1]} V={k[2]}{' predicated' if k[3] else ''}"
+              f"{' SiLU' if k[4] else ''}: registers {props[k].get('registers')}, spill bytes "
+              f"{props[k].get('spill_bytes')}", flush=True)
+    bad = [k for k in want if props.get(k, {}).get("registers") is None]
+    bad += [k for k, p in props.items() if p.get("spill_bytes") != 0]
+    if bad:
+        raise RuntimeError(f"K11: ptxas -v shows spills or no such instance: {bad}")
+    lib = _kernels.lib()
+    for name, ins in sass_functions(_kernels.BUILD_DIR / "rms_modulate.cu.o",
+                                    lambda name: key(name) in want).items():
+        k = key(name)
+        if k in want:
+            got = k11_fast_path(ins, k[2] * 8)
+            if got is None or got[1] != k[2] * 8:
+                raise RuntimeError(f"K11 {k}: no pass loop holding its {k[2] * 8} exps in its "
+                                   f"SASS: {got}")
+            K11_ISSUE[k[:4]] = got[0] / (k[2] * 8)
+    for c in (96, 160, 192, 256, 320, 384, 512, 640, 1024):
+        k = ("bf16",) + fn.k11_instance(c, 2)
+        print(f"  K11 bf16 C={c} (G={k[1]}, V={k[2]}): dynamic shared memory "
+              f"{lib.fg_vae_rms_silu_smem_bytes(c, 0, k[1])} bytes a block, "
+              f"{2 if k[2] <= 5 else 1} blocks an SM; fast path "
+              f"{K11_ISSUE.get(k, 'no cuobjdump')} instructions an element", flush=True)
+
+
+def k11_issue_ms(x):
+    """K11's issue bound on x (rows x C, bf16 or fp32): its elements x the
+    fast path's instructions an element (K11_ISSUE) / 32 lanes over the
+    card's warp-instruction rate; None where the build report has no count."""
+    from fairygen_tpu_torch.ops import fused_norms as fn
+
+    k = ({2: "bf16", 4: "fp32"}[x.element_size()],) + fn.k11_instance(x.shape[-1],
+                                                                    x.element_size())
+    if k not in K11_ISSUE:
+        return None
+    return x.numel() * K11_ISSUE[k] / 32 / H100_WARP_ISSUE_PER_S * 1e3
+
+
+def k11_ab(other_path):
+    """K11 of another build of the library (``--ab-lib``: an older tree's,
+    through its C entry fg_vae_rms_silu with the first design's arguments
+    (x, gamma, out, rows, C, silu, is_fp32, stream)) beside this build's
+    wrapper on the same inputs: the flagship's 17 shapes, 399,360 x 256 and
+    the Wan2.1 VAE's widest shape at 96, 192 and 384 channels (bf16, SiLU
+    on, seeded as k11_main_path_checks' inputs).  Each build's output is
+    held to the plain version by check_bracketed (its count of outputs that
+    differ from it printed), the two builds' outputs are compared bit for
+    bit, and device times (torch.profiler) taken in the order other, this,
+    this, other; with the sum over the flagship's 630 calls of each build.
+    Returns {shape: {"this"|"other": [device ms, ...], "differ_this",
+    "differ_other", "same_bits"}, "flagship": {"this"|"other": ms}}."""
+    import ctypes
+    import statistics
+
+    import torch
+
+    from fairygen_tpu_torch.ops import fused_norms as fn
+
+    p_, i_ = ctypes.c_void_p, ctypes.c_int
+    other = ctypes.CDLL(os.path.abspath(other_path)).fg_vae_rms_silu
+    other.argtypes, other.restype = [p_, p_, p_, i_, i_, i_, i_, p_], i_
+    g = torch.Generator("cuda").manual_seed(925)
+    res = {}
+    shapes = list(K11_FLAGSHIP_SHAPES) + [(399360, 256)] + list(K11_WAN21_WIDEST)
+    for shape in shapes:
+        c = shape[-1]
+        x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        gamma = (1 + 0.3 * torch.randn(c, generator=g, device="cuda")).to(torch.bfloat16)
+        o_other = torch.empty_like(x)
+
+        def call_other():
+            rc = other(x.data_ptr(), gamma.data_ptr(), o_other.data_ptr(), x.numel() // c, c, 1,
+                       0, torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"the other build's fg_vae_rms_silu: cudaError {rc}")
+            return o_other
+
+        def call_this():
+            return fn.fused_vae_rms_silu(x, gamma)
+
+        tag = "x".join(map(str, shape))
+        ref = fn.vae_rms_silu_plain(x, gamma)
+        lo, hi = _k11_bracket(x, gamma, True)
+        outs = {}
+        for who, call in (("other", call_other), ("this", call_this)):
+            outs[who] = call().clone()
+            torch.cuda.synchronize()
+            _, outs[who + "_differ"] = check_bracketed(f"K11 A/B {tag}, {who} build", outs[who],
+                                                       ref, lo, hi)
+        same = bool(torch.equal(outs["this"].view(torch.int16), outs["other"].view(torch.int16)))
+        times = {"this": [], "other": []}
+        for who in ("other", "this", "this", "other"):
+            times[who].append(device_ms(call_other if who == "other" else call_this, 20))
+        res[tag] = dict(times, differ_this=outs["this_differ"], differ_other=outs["other_differ"],
+                        same_bits=same)
+        print(f"  K11 A/B {tag}: device ms this " + " / ".join(f"{m:.4f}" for m in times["this"])
+              + ", other " + " / ".join(f"{m:.4f}" for m in times["other"]) +
+              f"; differ this {outs['this_differ']}, other {outs['other_differ']}; the two "
+              f"builds' outputs bit for bit the same: {same}", flush=True)
+        del x, gamma, o_other, ref, lo, hi, outs
+        torch.cuda.empty_cache()
+    res["flagship"] = {who: sum(n * statistics.median(res["x".join(map(str, shape))][who])
+                                for shape, n in K11_FLAGSHIP_SHAPES.items())
+                       for who in ("this", "other")}
+    print(f"  K11 A/B over the flagship's {sum(K11_FLAGSHIP_SHAPES.values())} calls (each "
+          f"shape's median device ms x its calls): this {res['flagship']['this']:.2f} ms, other "
+          f"{res['flagship']['other']:.2f} ms", flush=True)
+    return res
+
+
 def norm_kernel_checks():
     """K9 and K11 against their plain versions on the card.  K9 at the
     Z-Image-Turbo 1024x1024 shapes (dim 3840): the unified stream (4416
@@ -4027,6 +4276,7 @@ def norm_kernel_checks():
                 plain_ms=time_ms(lambda: fn.vae_rms_silu_plain(x, gamma, silu), 5, 3),
                 bound=bound_ms(2 * rows * c * 2 + c * 2, (10 if silu else 6) * rows * c,
                                H100_FP32_FLOP_PER_S),
+                issue_ms=k11_issue_ms(x),
                 library_ms=None if silu else time_ms(
                     lambda: F.rms_norm(x, (c,), gamma, 1e-12)))
         del x, out, ref
@@ -4034,8 +4284,9 @@ def norm_kernel_checks():
         for (n, tag), r in shapes.items():
             lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
             print(f"  {k} rows={n} {tag}: ms {r['ms']:.4f} device_ms {r['device_ms']:.4f} "
-                  f"plain_ms {r['plain_ms']:.4f} "
-                  f"bound_ms {r['bound'][0]:.4f} ({r['bound'][1]}) library_ms {lib}", flush=True)
+                  f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound'][0]:.4f} ({r['bound'][1]})"
+                  f"{'' if 'issue_ms' not in r else ' issue bound ' + str(r['issue_ms'])} "
+                  f"library_ms {lib}", flush=True)
     torch.cuda.empty_cache()
     return res
 
@@ -6778,6 +7029,7 @@ def k11_v1_checks(shapes):
     192, 384), its time, its plain version's and its bound.  Returns
     {width tag: numbers}."""
     import torch
+    import torch.nn.functional as F
 
     from fairygen_tpu_torch.ops import fused_norms as fn
 
@@ -6802,12 +7054,14 @@ def k11_v1_checks(shapes):
             res[f"C={c} {tag}"] = dict(
                 calls=calls, differ=ndiff, ms=time_ms(lambda: fn.fused_vae_rms_silu(x, gamma)),
                 plain_ms=time_ms(lambda: fn.vae_rms_silu_plain(x, gamma), 5, 3),
-                bound_ms=b[0], bound_by=b[1])
+                bound_ms=b[0], bound_by=b[1], issue_ms=k11_issue_ms(x.view(-1, c)),
+                library_ms=time_ms(lambda: F.rms_norm(x, (c,), gamma, 1e-12)))
         del x, gamma
     torch.cuda.empty_cache()
     for tag, r in res.items():
         print(f"  K11 Wan2.1 VAE {tag}: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
-              f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+              f"{r['bound_ms']:.4f} ({r['bound_by']}) issue bound {r['issue_ms']} library_ms "
+              f"{r['library_ms']:.4f} (F.rms_norm, eps 1e-12, no SiLU)", flush=True)
     for r in res.values():
         r["max_abs_err"] = worst
     return res

@@ -6,7 +6,8 @@
 //     cudaGetDriverEntryPointByVersion (CUDA >= 12.5) so that the library
 //     needs no -lcuda; the card's SM count;
 //   - device: mbarrier init / predicated arrive / arrive with expected
-//     bytes / parity wait, TMA tile loads that complete on an mbarrier, TMA
+//     bytes / parity wait, TMA tile loads that complete on an mbarrier (and
+//     the 1-D bulk copy of K11 in rms_modulate.cu, which needs no map), TMA
 //     tile stores in bulk groups, the async-proxy fence and named barriers
 //     (a predicated arrival too), the wgmma shared-memory descriptor of a
 //     128-byte-swizzled tile, the m64n128k16, m64n80k16 and m64n64k16 bf16
@@ -169,6 +170,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// a 1-D bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global to shared memory, counted in bytes on `bar`: no
+// tensor map, so nothing is encoded on the host (K11's row tiles)
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src, uint32_t bytes,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -85,7 +85,8 @@ _SIGNATURES = {
     "fg_rms_rope_joint": [_P, _L, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "fg_flash_bias": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fg_rms_modulate": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "fg_vae_rms_silu": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "fg_vae_rms_silu": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fg_vae_rms_silu_smem_bytes": [_I, _I, _I],
     "fg_flash_small_kv_max": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fg_flash_fwd_prep_f32": [_P, _P, _P, _I, _I, _I, _P],
     "fg_flash_fwd_f32_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

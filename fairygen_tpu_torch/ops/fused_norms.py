@@ -11,7 +11,8 @@
   calls it (its VAEs keep the plain norm and SiLU); here ``_norm_silu``
   (``models/wan/vae.py``) runs :func:`fused_vae_rms_silu` on every encode
   and decode of the VAE38 and the Wan2.1 VAE, output left channels-last.
-  ``csrc/rms_modulate.cu`` (bf16, fp32).
+  ``csrc/rms_modulate.cu`` (bf16, fp32): persistent blocks fed by 1-D bulk
+  copies, a group of G lanes a row, V vectors a lane (:func:`k11_instance`).
 
 CUDA tensors go through the hand-written kernels; CPU tensors take the
 ``*_plain`` versions, the same formulas in PyTorch.  Gradients
@@ -207,10 +208,43 @@ def vae_rms_silu_plain(x, gamma, silu: bool = True):
     return out
 
 
+# (G, V) of K11's instances without predicates (csrc/rms_modulate.cu, K11_EXACT)
+K11_EXACT = ((1, 1), (2, 1), (4, 1), (2, 4), (4, 3), (4, 4), (4, 5), (8, 3), (8, 4), (8, 5),
+             (16, 3), (16, 4), (16, 5), (32, 3), (32, 4), (32, 5), (32, 8))
+K11_MAX_V = 8  # 16-byte vectors a lane holds at most
+
+
+def k11_instance(c: int, element_size: int):
+    """K11's instance for rows of ``c`` channels of ``element_size`` bytes:
+    (G, V, predicated).  A row is n = c·element_size/16 vectors; a group of
+    G lanes (a power of two, 1-32) takes it, lane l the V vectors l, l + G,
+    ...  Rows of 1, 2 or 4 vectors take one a lane (the tiny VAEs' 8 / 16 /
+    32 bf16 channels: 1x1, 2x1, 4x1); otherwise G is the largest power of
+    two up to 32 that divides n and leaves V >= 3 (bf16: 96 -> 4x3, 160 ->
+    4x5, 192 -> 8x3, 256 -> 8x4, 320 -> 8x5, 384 -> 16x3, 512 -> 16x4, 640
+    -> 16x5, 1024 -> 32x4).  A pair that is not compiled (K11_EXACT) runs
+    the predicated instance, G = 32 and V = 8, the vectors past the row
+    off.  Raises for c no multiple of the vector or above 32·8 vectors."""
+    vec = 16 // element_size
+    if c % vec or not 0 < c <= 32 * K11_MAX_V * vec:
+        raise ValueError(f"vae_rms_silu kernel needs C % {vec} == 0 and "
+                         f"C <= {32 * K11_MAX_V * vec}, got {c}")
+    n = c // vec
+    if n in (1, 2, 4):
+        g = n
+    else:
+        g = 32
+        while n % g or n // g < 3:
+            g //= 2
+    if (g, n // g) in K11_EXACT:
+        return g, n // g, False
+    return 32, K11_MAX_V, True
+
+
 def fused_vae_rms_silu(x, gamma, silu: bool = True):
     """K11: x (..., C) viewed as (rows, C) rows; gamma (C,) cast to x.dtype,
-    as the Pallas wrapper casts it.  bf16 or fp32; one warp per row, so C
-    <= 256 x 16 bytes / element size."""
+    as the Pallas wrapper casts it.  bf16 or fp32; C <= 256 x 16 bytes /
+    element size (:func:`k11_instance`)."""
     if _needs_grad(x, gamma):
         return _VaeRmsSilu.apply(x, gamma, silu)
     if not x.is_cuda:
@@ -218,10 +252,7 @@ def fused_vae_rms_silu(x, gamma, silu: bool = True):
     c = x.shape[-1]
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"vae_rms_silu kernel takes bf16 or fp32, got {x.dtype}")
-    vec = 16 // x.element_size()
-    if c % vec or c > 32 * 8 * vec:
-        raise ValueError(f"vae_rms_silu kernel needs C % {vec} == 0 and C <= {256 * vec}, "
-                         f"got {c}")
+    g_lanes, v, pred = k11_instance(c, x.element_size())
     if not x.is_contiguous():
         raise ValueError("x: must be contiguous")
     x2 = x.view(-1, c)
@@ -232,7 +263,8 @@ def fused_vae_rms_silu(x, gamma, silu: bool = True):
         raise ValueError(f"gamma must be ({c},), got {tuple(gamma.shape)}")
     out = torch.empty_like(x)
     _kernels.launch("vae_rms_silu", "fg_vae_rms_silu", x2.data_ptr(), g.data_ptr(),
-                    out.data_ptr(), x2.shape[0], c, int(silu), int(x.dtype == torch.float32))
+                    out.data_ptr(), x2.shape[0], c, int(silu), int(x.dtype == torch.float32),
+                    g_lanes, v, int(pred))
     return out
 
 

@@ -39,7 +39,10 @@ default dtype) against their plain versions within a relative L2 error
 of 1e-5 and twice bit for bit, the forward's pre-pass bit for bit at each
 head dim, tiny fp32 SDXL and SD1.5 pipelines that must launch them and the
 two fp32 BrushNet goldens on the card, and the forms not ported yet
-raising a ValueError that names ROADMAP Queue 2.  They skip here
+raising a ValueError that names ROADMAP Queue 2; K11 at every width of
+both Wan VAEs and of the tiny VAEs, at a width that runs its predicated
+instance and at row counts that are no multiple of its tiles (1, 100,
+4097), and twice bit for bit.  They skip here
 when no card is present; on a card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -766,7 +769,21 @@ def test_k9_matches_plain(card, shape, dtype, with_scale):
 @pytest.mark.parametrize("rows,c,dtype,silu", [
     (6240, 256, torch.bfloat16, True), (7800, 1024, torch.bfloat16, True),
     (7800, 1024, torch.bfloat16, False), (600, 512, torch.float32, True),
-    (512, 2048, torch.bfloat16, False)])
+    (512, 2048, torch.bfloat16, False),
+    # every other width of the VAE38 and the Wan2.1 VAE, the tiny VAEs' and a
+    # width that runs the predicated instance
+    (6240, 96, torch.bfloat16, True), (6240, 160, torch.bfloat16, True),
+    (6240, 192, torch.bfloat16, True), (6240, 320, torch.bfloat16, True),
+    (6240, 384, torch.bfloat16, True), (6240, 640, torch.bfloat16, True),
+    (6240, 512, torch.bfloat16, True), (4097, 8, torch.bfloat16, True),
+    (4097, 16, torch.bfloat16, True), (4097, 32, torch.bfloat16, True),
+    (4097, 72, torch.bfloat16, True),
+    (600, 96, torch.float32, True), (600, 160, torch.float32, False),
+    # row counts that are no multiple of a tile: one row, fewer rows than
+    # SMs, 4097
+    (1, 256, torch.bfloat16, True), (1, 96, torch.bfloat16, True),
+    (100, 1024, torch.bfloat16, True), (100, 160, torch.bfloat16, True),
+    (4097, 96, torch.bfloat16, True), (4097, 640, torch.bfloat16, True)])
 def test_k11_matches_plain(card, rows, c, dtype, silu):
     from fairygen_tpu_torch.ops.fused_norms import fused_vae_rms_silu, vae_rms_silu_plain
 
@@ -777,6 +794,17 @@ def test_k11_matches_plain(card, rows, c, dtype, silu):
     assert out.dtype == dtype and out.shape == x.shape
     lo, hi = _k11_bracket(x, gamma, silu)
     assert _inside(ref, lo, hi) and _inside(out, lo, hi)
+
+
+@pytest.mark.parametrize("rows,c", [(99840, 256), (4097, 96), (1560, 1024)])
+def test_k11_twice_gives_the_same_bits(card, rows, c):
+    from fairygen_tpu_torch.ops.fused_norms import fused_vae_rms_silu
+
+    x = _randn(card, rows, c)
+    gamma = 1 + _randn(card, c, scale=0.3)
+    first = fused_vae_rms_silu(x, gamma)
+    again = fused_vae_rms_silu(x, gamma)
+    assert torch.equal(first.view(torch.int16), again.view(torch.int16))
 
 
 def test_k9_k11_refuse_what_they_do_not_take(card):
