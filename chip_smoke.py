@@ -14,6 +14,9 @@
     python3 chip_smoke.py --variants-only # device, build, then only the variants phase,
                                           # its A14B request at the flagship's 81 frames
                                           # (S = 32760); no result line
+    python3 chip_smoke.py --conditioning-only  # device, build, then only the conditioning
+                                          # phase and its tiny reference check; no result
+                                          # line
 
 Phases, each printing its wall seconds:
   1. device   — card name/count, nvidia-smi name and power limit, TF32 off.
@@ -115,6 +118,12 @@ Phases, each printing its wall seconds:
                 products at 494.7 / 3 TFLOP/s or exp2) with the 67 TFLOP/s
                 one beside it, fp32 SDPA as the yardstick, device time of
                 the pre-pass and the kernel at each counter's row shape.
+                Then the conditioned variants' new shapes: K2 on the S2V
+                RoPE tables (S = 7800 and, with the frame packer, 10114),
+                K3 at S = 9360 and K4's bounded form at the audio
+                injector's (4 x 40 heads, 1560 queries, 5 keys: within
+                2^-8 max|v| and a relative L2 error of 2^-10, twice bit
+                for bit) against their plain versions.
   4. weights  — full-width Wan2.2-TI2V-5B DiT, UMT5-XXL and VAE38, made on
                 the card in bf16 from a seeded CUDA generator.
   5. requests — WanVideoPipeline answers two 480x832x17-frame, 4-step,
@@ -137,7 +146,7 @@ Phases, each printing its wall seconds:
                 (bit for bit the streamed one), the decode with its
                 channel RMS norm + SiLU through K11 (channels-last out)
                 beside the plain chain and K11 transposed back (in turns,
-                twice; each within a relative L2 error of 2^-5 of the
+                once; each within a relative L2 error of 2^-5 of the
                 port's decode),
                 one profiled DiT sweep at S = 8190, and the requests
                 phase's 17-frame latents decoded streamed against
@@ -261,6 +270,20 @@ Phases, each printing its wall seconds:
                 against full-sequence; then Wan2.1-I2V-14B with a full-width
                 ViT-H answers a 2-step request; a tiny two-expert CLIP
                 pipeline on the card against the CPU.
+ 10f. conditioning — the Wan variants' second slice at full width from
+                seeded bf16 weights, 480x832 x 17 frames through the Wan2.1 VAE,
+                CFG 5, 2 steps: Wan2.1-VACE-14B (a control video, a mask,
+                a reference image: S = 9360), a
+                Wan2.2-Fun-A14B-Control-Camera expert,
+                a Fun-Reference 14B DiT (in_dim 36), Wan2.1-T2V-1.3B with
+                the motion controller and Wan2.2-S2V-14B with wav2vec
+                XLSR-53 large from a seeded waveform, then with a 73-frame
+                motion video (1 step, S = 10114); the 14B DiTs share one
+                set of 40 seeded blocks; walls, peaks, exact launches (a
+                14B sweep K1-K4 120 / 120 / 40 / 40, with VACE 144 / 120 /
+                48 / 48, S2V 0 / 80 / 40 / 52; K11 by latent frames
+                encoded and decoded), K11 at each Wan2.1 VAE shape, and
+                profiled VACE, camera and S2V sweeps and wav2vec encode.
  11. reference — a tiny-width pipeline on the card (kernels, bf16) against
                 the same pipeline on the CPU (plain versions, fp32), a tiny
                 pipeline loaded by from_pretrained(hints=...) from
@@ -277,7 +300,9 @@ Phases, each printing its wall seconds:
                 BrushNet goldens on the card at their default fp32 against
                 the goldens' images, and the tiny pipeline quantized
                 to "int8" and with TeaCache likewise (the TeaCache schedule
-                the same on the card as on the CPU in bf16 and fp32).
+                the same on the card as on the CPU in bf16 and fp32), and tiny
+                VACE, camera, Fun-Reference, motion-controller and S2V
+                (wav2vec from a waveform) pipelines likewise.
 Then the card line, one JSON line of kernel numbers and the result line.
 Any failure exits non-zero; past BUDGET_S seconds the run stops, naming
 the phase it was in.
@@ -1335,6 +1360,16 @@ def main(argv):
         done("variants", t0)
         timer.cancel()
         return 0
+    if "--conditioning-only" in argv:
+        t0 = phase("conditioning")
+        conditioning_kernel_checks()
+        conditioning_phase()
+        done("conditioning", t0)
+        t0 = phase("reference")
+        reference_conditioning_check()
+        done("reference", t0)
+        timer.cancel()
+        return 0
 
     t0 = phase("kernels")
     smoke = kernel_checks(1950, (5, 15, 26), "S=1950")
@@ -1349,6 +1384,7 @@ def main(argv):
     f32_k = f32_train_kernel_checks()
     f32_fwd_k = f32_fwd_kernel_checks()
     d64_k = bf16_d64_kernel_checks()
+    kc = conditioning_kernel_checks()
     k4_other = k4_ab(ab_lib) if ab_lib else None
     f32_other = f32_ab(ab_lib) if ab_lib else None
     k11_other = k11_ab(ab_lib) if ab_lib else None
@@ -1505,6 +1541,12 @@ def main(argv):
               f"the Wan variants: {launches}", flush=True)
         done("variants", t0)
 
+        t0 = phase("conditioning")
+        kc["vae_rms_silu"], cond_launches = conditioning_phase()
+        launches = {k: launches[k] + cond_launches[k] for k in launches}
+        print(f"  launches, with the conditioned Wan variants: {launches}", flush=True)
+        done("conditioning", t0)
+
         t0 = phase("reference")
         reference_check()
         reference_from_pretrained_check()
@@ -1517,6 +1559,7 @@ def main(argv):
         reference_fp32_goldens_check()
         reference_dora_check()
         reference_speed_check()
+        reference_conditioning_check()
         done("reference", t0)
 
     sources = {"ln_modulate": ("csrc/ln_modulate.cu", "fairygen_tpu/ops/fused_norms.py:42"),
@@ -1547,6 +1590,15 @@ def main(argv):
                                         "bound_by": v["bound"][1], "library_ms": v["library_ms"],
                                         "max_abs_err": v["max_abs_err"]}
                                   for tag, v in shapes.items()}
+            rows[-1]["max_abs_err"] = max([rows[-1]["max_abs_err"]] +
+                                          [v["max_abs_err"] for v in shapes.values()])
+        shapes = {tag.split(" ", 1)[1]: v for tag, v in kc.items() if tag.startswith(k + " ")}
+        if shapes:  # the conditioned variants' new shapes: S2V's tables, S = 9360, the injector
+            rows[-1]["conditioning"] = {
+                tag: {"ms": v["ms"], "device_ms": v["device_ms"], "plain_ms": v["plain_ms"],
+                      "bound_ms": v["bound"][0], "bound_by": v["bound"][1],
+                      "library_ms": v["library_ms"], "max_abs_err": v["max_abs_err"]}
+                for tag, v in shapes.items()}
             rows[-1]["max_abs_err"] = max([rows[-1]["max_abs_err"]] +
                                           [v["max_abs_err"] for v in shapes.values()])
         if k in dit_attn:
@@ -1625,6 +1677,10 @@ def main(argv):
                                                         for v in k11_main.values())
             rows[-1]["main_path_bound_ms_total"] = sum(v["calls"] * v["bound"][0]
                                                        for v in k11_main.values())
+        if k == "vae_rms_silu" and "vae_rms_silu" in kc:  # the conditioning phase's shapes
+            rows[-1]["wan21_vae_conditioning"] = kc["vae_rms_silu"]
+            rows[-1]["max_abs_err"] = max([rows[-1]["max_abs_err"]] +
+                                          [v["max_abs_err"] for v in kc["vae_rms_silu"].values()])
         if k == "vae_rms_silu" and k14:  # the Wan2.1 VAE's widest shapes (variants phase)
             rows[-1]["wan21_vae"] = k14["vae_rms_silu wan21"]
             rows[-1]["max_abs_err"] = max([rows[-1]["max_abs_err"]] +
@@ -2139,7 +2195,9 @@ def train_phase(pipe, serving_per_request):
         _kernels.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        # the device's activity only: a step runs ~36,000 kernels, and the
+        # tracer sorts the host ops' records for seconds (sdxl_train_phase)
+        acts = [torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) if profile else contextlib.nullcontext() \
                 as prof:
             t1 = time.perf_counter()
@@ -2890,7 +2948,7 @@ def flagship_phase(pipe, te_cfg, latents17, k8190):
 
         k11 = {}
         try:
-            for rep in (1, 2):  # in turns, twice
+            for rep in (1,):  # in turns, once (twice before the conditioning phase came)
                 for label, fn in (("K11, channels-last (the port's)", ported_norm_silu),
                                   ("plain chain", plain_chain),
                                   ("K11, transposed back", k11_transposed)):
@@ -6773,7 +6831,9 @@ def dora_phase(other=None):
         fa.flash_fwd = other if who == "other" else this_fwd
         _kernels.reset_launches()
         torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        # the device's activity only: ~58,000 kernels, whose host ops' records
+        # took the tracer longer to sort than the step (sdxl_train_phase)
+        acts = [torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             t1 = time.perf_counter()
             state, loss = step_plain(state, batch, gen)
@@ -7335,6 +7395,485 @@ def reference_variants_check():
         raise RuntimeError(f"a serving kernel did not run in the tiny two-expert pipeline: {ran}")
     if not rel <= tol:
         raise RuntimeError(f"tiny two-expert pipeline disagrees with the CPU reference: {rel:.4e}")
+
+
+COND_FRAMES = 17
+COND_STEPS = 2
+S2V_MOTION_STEPS = 1  # the request with a 73-frame motion video: two sweeps
+# per sweep of the 14B T2V DiT with the VACE branch's 8 blocks: each VACE
+# block adds K1 three times, K3 once (q / k through the plain rms -> RoPE)
+# and K4 once (q's rms into the text cross-attention)
+WAN14B_VACE_PER_SWEEP = dict(WAN14B_PER_SWEEP, ln_modulate=144, flash_bounded=48,
+                             flash_small_kv=48)
+# the S2V blocks: plain LayerNorm + modulation (no K1), K2 on q and k, K3,
+# K4 for the text and, after its 12 mapped blocks, the audio injector
+S2V_PER_SWEEP = {"rms_rope_heads_major": 80, "flash_bounded": 40, "flash_small_kv": 52}
+WAN13B_PER_SWEEP = {"ln_modulate": 90, "rms_rope_heads_major": 90, "flash_bounded": 30,
+                    "flash_small_kv": 30}
+
+
+def conditioning_configs():
+    """The conditioning phase's models, as configs/model_registry.json gives
+    them (by hash): Wan2.1-VACE-14B, the T2V-14B DiT and its VACE branch
+    (7a513e1f257a861512b1afd387a8ecd9, both entries); a
+    Wan2.2-Fun-A14B-Control-Camera expert (47dbeab5e560db3180adf51dc0232fb1;
+    its adapter's in_dim_control_adapter 24); the Fun-Reference DiT at the
+    Wan2.2-Fun-A14B-Control width (2267d489f0ceb9f21836532952852ee5; in_dim
+    cut from 52 to the 36 the I2V conditioning fills); Wan2.1-T2V-1.3B
+    (a61453409b67cd3246cf0c3bebad47ba) with the motion controller at its
+    width; Wan2.2-S2V-14B (966cffdcc52f9c46c391768b27637614) and wav2vec
+    XLSR-53 large (06be60f3a4526586d8431cd038a71486)."""
+    import dataclasses
+
+    from fairygen_tpu_torch.models.wan.aux_models import MotionControllerConfig, VaceConfig
+    from fairygen_tpu_torch.models.wan.camera import SimpleAdapterConfig
+    from fairygen_tpu_torch.models.wan.dit import WanDiTConfig
+    from fairygen_tpu_torch.models.wan.s2v import S2VConfig
+    from fairygen_tpu_torch.models.wan.wav2vec import Wav2Vec2Config
+
+    base = wan14b_cfg()
+    return {
+        "vace_dit": dataclasses.replace(base, in_dim=16),
+        "vace": VaceConfig(vace_layers=tuple(range(0, 40, 5)), vace_in_dim=96, dim=5120,
+                           num_heads=40, ffn_dim=13824),
+        "camera_dit": base,
+        "camera": SimpleAdapterConfig(in_dim=24, out_dim=5120),
+        "funref_dit": dataclasses.replace(base, has_ref_conv=True),
+        "t2v_1_3b": WanDiTConfig(dim=1536, in_dim=16, ffn_dim=8960, out_dim=16, text_dim=4096,
+                                 freq_dim=256, num_heads=12, num_layers=30,
+                                 require_clip_embedding=False),
+        "motion": MotionControllerConfig(freq_dim=256, dim=1536),
+        "s2v": S2VConfig(),
+        "wav2vec": Wav2Vec2Config(),
+    }
+
+
+def s2v_angles(motion):
+    """The S2V DiT's RoPE angles at 480x832 x 17 frames: 4 latent frames of
+    30 x 52 tokens, the reference frame at t = 30 and, with a motion video,
+    the frame packer's three grids over the 60 x 104 latent."""
+    from fairygen_tpu_torch.models.wan import s2v
+
+    grids = [((0, 0, 0), (4, 30, 52), (4, 30, 52)), ((30, 0, 0), (31, 30, 52), (1, 30, 52))]
+    if motion:
+        grids += s2v.frame_packer_grids(s2v.S2VConfig(), 60, 104)
+    return s2v.rope_grid_angles(grids, 128)
+
+
+def conditioning_kernel_checks(N=40, D=5120, hd=128):
+    """The conditioning slice's new kernel shapes against their plain
+    versions: K2 on the S2V tables (S = 7800, and 10114 with the frame
+    packer's tokens), K3 at S = 9360 (the Fun-Reference frame, or VACE's
+    reference frame, before 5 latent frames) and K4's bounded form as the
+    audio injector calls it (batch 4 latent frames x 40 heads, 1560
+    queries, 5 keys padded to a 128-key tile).  Each: error, event and
+    device ms, the plain version's ms, the bound, and SDPA where one call
+    computes the function."""
+    import torch
+
+    from fairygen_tpu_torch.models.wan.s2v import angles_to_freqs
+    from fairygen_tpu_torch.ops import flash_attention as fa
+    from fairygen_tpu_torch.ops import fused_qk as fq
+    from fairygen_tpu_torch.ops.rope import build_freqs_grid, precompute_freqs_3d
+
+    g = torch.Generator("cuda").manual_seed(2601)
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(bf)
+
+    def normed(*shape, scale=1.0):
+        x = torch.randn(shape, generator=g, device="cuda")
+        return (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + 1e-6) * scale).to(bf)
+
+    res = {}
+    for tag, motion in (("S2V S=7800", False), ("S2V S=10114 with the frame packer", True)):
+        ff = fq.build_freqs_full(angles_to_freqs(s2v_angles(motion), "cuda"))
+        S = ff.shape[1]
+        s_pad = fq._pad_for_flash(S)[0]
+        x, gq = randn(1, S, D), randn(D, scale=hd ** -0.5 * 1.4427)
+        rs = fq._rowscale(x, 1e-6)
+
+        def run():
+            return fq.rms_rope_heads_major(x, gq, rs, ff, N, s_pad)
+
+        err = check_close(f"K2 rms_rope on the {tag} tables", run(),
+                          fq.rms_rope_heads_major_plain(x, gq, rs, ff, N, s_pad),
+                          rtol=2 ** -7, atol=1e-5)
+        nbytes = S * D * 2 + S * 4 + D * 2 + 2 * S * hd * 4 + N * s_pad * hd * 2
+        res[f"rms_rope_heads_major {tag}"] = dict(
+            max_abs_err=err, ms=time_ms(run), device_ms=device_ms_twice(run, 20),
+            plain_ms=time_ms(lambda: fq.rms_rope_heads_major_plain(x, gq, rs, ff, N, s_pad), 2, 3),
+            bound=bound_ms(nbytes, 6 * S * D), library_ms=None)
+        del x, ff
+
+    S = 9360
+    s_pad, bq, bk = fq._pad_for_flash(S)
+    ff = fq.build_freqs_full(build_freqs_grid(precompute_freqs_3d(hd), 6, 30, 52, device="cuda"))
+    xq, xk = randn(1, S, D), randn(1, S, D)
+    gq, gk = randn(D, scale=hd ** -0.5 * 1.4427), randn(D)
+    qh = fq.rms_rope_heads_major(xq, gq, fq._rowscale(xq, 1e-6), ff, N, s_pad)
+    kh = fq.rms_rope_heads_major(xk, gk, fq._rowscale(xk, 1e-6), ff, N, s_pad)
+    v = randn(1, S, N, hd)
+
+    def run():
+        return fa.flash_attention_heads_major(qh, kh, v, b=1, n=N, sq=S, sk_actual=S, bq=bq,
+                                              bk=bk)
+
+    def plain():
+        return fa.flash_attention_heads_major_plain(qh, kh, v, b=1, n=N, sq=S, sk_actual=S)
+
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    ref = plain()  # one call, timed: each takes about a second (40 heads of 9360^2 logits)
+    b.record()
+    b.synchronize()
+    err = check_close(f"K3 flash_bounded S={S}", run(), ref, rtol=2 ** -7, atol=1e-3)
+    res[f"flash_bounded S={S}"] = dict(
+        max_abs_err=err, ms=time_ms(run), device_ms=device_ms_twice(run, 10),
+        plain_ms=a.elapsed_time(b), bound=bound_ms(4 * S * hd * N * 2, 4 * S * S * hd * N),
+        library_ms=time_ms(bounded_sdpa(qh, kh, v, N, S, S)))
+    del ref
+    del xq, xk, qh, kh, v, ff
+
+    B, sq, lk = 4, 1560, 5
+    q = normed(B, sq, N, hd, scale=hd ** -0.5 * 1.4427)
+    k, v = normed(B, lk, N, hd), randn(B, lk, N, hd)
+    qh, kh = fa._layout(q, k, None, True, 2048)  # as the audio injector's call lays them out
+
+    def run():
+        return fa.flash_attention_heads_major(qh, kh, v, b=B, n=N, sq=sq, sk_actual=lk,
+                                              bq=qh.shape[1], bk=kh.shape[1])
+
+    def plain():
+        return fa.flash_attention_heads_major_plain(qh, kh, v, b=B, n=N, sq=sq, sk_actual=lk)
+
+    # over 5 keys each p is a large share of its row's sum, so a logit summed
+    # in another order that flips one p's bf16 rounding moves o by up to
+    # 2^-8 (p / l) |v| <= 2^-8 max |v| (with many keys the share is small and
+    # 1e-3 holds); a relative L2 of 2^-10 as K4's other forms
+    out, ref = run(), plain()
+    tag = f"audio injector {B} x {N} x {sq} queries, {lk} keys in {kh.shape[1]}"
+    err = check_close(f"K4 flash_small_kv, {tag}", out, ref, rtol=2 ** -7,
+                      atol=2 ** -8 * v.abs().max().item())
+    rel = rel_l2(out, ref)
+    print(f"  K4 flash_small_kv, {tag}: relative L2 error {rel:.3e} (bound 2^-10)", flush=True)
+    if not rel < 2 ** -10 or not torch.equal(out, run()):
+        raise RuntimeError(f"K4 at the injector's shape: relative L2 {rel:.3e}, or two runs differ")
+    res["flash_small_kv injector"] = dict(
+        max_abs_err=err, rel_l2=rel, ms=time_ms(run), device_ms=device_ms_twice(run, 20),
+        plain_ms=time_ms(plain, 2, 3),
+        bound=bound_ms((2 * B * sq + 2 * B * lk) * N * hd * 2, 4 * B * sq * lk * hd * N),
+        library_ms=time_ms(bounded_sdpa(qh, kh, v, N, sq, lk)))
+    for tag, r in res.items():
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"  {tag}: ms {r['ms']:.4f} device_ms {r['device_ms']:.4f} plain_ms "
+              f"{r['plain_ms']:.4f} bound_ms {r['bound'][0]:.4f} ({r['bound'][1]}) library_ms "
+              f"{lib}", flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def conditioning_phase():
+    """The Wan variants' second slice at full width from seeded bf16 weights,
+    each 480x832 x 17 frames through the Wan2.1 VAE (streamed), CFG 5:
+    Wan2.1-VACE-14B (the T2V-14B DiT and its 8-block VACE branch, a control
+    video, a mask and one reference image: S = 9360), a
+    Wan2.2-Fun-A14B-Control-Camera expert ("Left", an input image), a 14B
+    DiT with the Fun-Reference conv (the I2V conditioning's in_dim 36, an
+    input image and a reference image: S = 9360), Wan2.1-T2V-1.3B with the
+    motion controller, and Wan2.2-S2V-14B with the wav2vec XLSR-53 large
+    encoder from a seeded 16 kHz waveform and an input image, then again
+    with a 73-frame motion video (the frame packer: S = 10114).  The 14B
+    DiTs share one set of 40 seeded blocks (the same shapes; each its own
+    embeddings, head and extras).  Each request: wall, decode wall, peak
+    memory, output shape, finite, exact launches; then K11 at every shape
+    the VAE gave it, and profiled sweeps of the VACE, camera and S2V DiTs
+    and of the wav2vec encode (the new kernel shapes are held in the kernels
+    phase, ``conditioning_kernel_checks``, early in the process where the
+    card's profiler keeps its records).  Returns (K11's numbers at the Wan2.1
+    VAE's shapes, the phase's launches)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.wan import vae as wvae
+    from fairygen_tpu_torch.models.wan.dit import precompute_cross_kv, wan_dit_forward
+    from fairygen_tpu_torch.models.wan.s2v import wan_s2v_forward
+    from fairygen_tpu_torch.models.wan.vae import WanVAEConfig
+    from fairygen_tpu_torch.models.wan.wav2vec import audio_embeds_from_waveform
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines.wan_video import WanVideoPipeline
+
+    bf, gib = torch.bfloat16, 2 ** 30
+    start = time.perf_counter()
+
+    def mark(what):
+        print(f"  [{time.perf_counter() - start:.1f} s] {what}", flush=True)
+
+    torch.cuda.empty_cache()
+    vae_cfg = WanVAEConfig.wan21_16()
+    enc_k11, dec_k11 = vae_norm_silu_calls(vae_cfg)
+    vae = convert.init_vae_params(vae_cfg, "cuda", bf, seed=71)
+    cfgs = conditioning_configs()
+    torch.cuda.reset_peak_memory_stats()
+    blocks = convert.init_dit_params(cfgs["vace_dit"], "cuda", bf, seed=72)["blocks"]
+    torch.cuda.synchronize()
+    print(f"  40 shared 14B blocks: {convert.count_params(blocks):,} params "
+          f"({tree_bytes(blocks) / gib:.2f} GiB)", flush=True)
+    mark("shared blocks seeded")
+
+    def dit14(seed, name):
+        cfg = cfgs[name]
+        params = convert.init_dit_params(dataclasses.replace(cfg, num_layers=0), "cuda", bf,
+                                         seed=seed)
+        params["blocks"] = blocks
+        return params, cfg
+
+    ctx, nctx = seeded_context(81, 120), seeded_context(82, 1)
+    img = seeded_image(83, 480, 832)
+    t900 = torch.tensor([900.0], device="cuda")
+    total = {k: 0 for k in _kernels.launches}
+    k11_shapes, walls_all, busy = {}, {}, {}
+
+    def request(label, pipe, per_sweep, sweeps, enc, dec, frames_out, **kw):
+        shapes, unrecord = record_k11_shapes(wvae)
+        walls = {}
+        wrap_timed(pipe, "_decode_output", walls)
+        before = dict(_kernels.launches)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        try:
+            video = pipe(context=ctx, negative_context=nctx, seed=84, height=480, width=832,
+                         num_frames=COND_FRAMES, cfg_scale=5.0, streaming_vae=True,
+                         output_type="floatpoint", **kw)
+            torch.cuda.synchronize()
+        finally:
+            unrecord()
+            delattr(pipe, "_decode_output")
+        wall = time.perf_counter() - t
+        for shape, n in shapes.items():
+            k11_shapes[shape] = k11_shapes.get(shape, 0) + n
+        got = {k: _kernels.launches[k] - before[k] for k in before}
+        want = {k: per_sweep.get(k, 0) * sweeps for k in got}
+        want["vae_rms_silu"] = enc * enc_k11 + dec * dec_k11
+        finite = bool(torch.isfinite(video).all())
+        walls_all[label] = wall
+        print(f"  {label}: {wall:.3f} s (decode {walls['_decode_output']:.3f} s), {sweeps} "
+              f"sweeps, output {tuple(video.shape)} finite {finite}; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB; launches "
+              f"{ {k: v for k, v in got.items() if v} }", flush=True)
+        if tuple(video.shape) != (1, 3, frames_out, 480, 832) or not finite:
+            raise RuntimeError(f"{label}: wrong shape or non-finite output")
+        if got != want:
+            raise RuntimeError(f"{label}: launches {got} != expected {want}")
+        for k in total:
+            total[k] += got[k]
+
+    def randn(*shape, seed):
+        gen = torch.Generator("cuda").manual_seed(seed)
+        return torch.randn(shape, generator=gen, device="cuda").to(bf)
+
+    # VACE: the T2V-14B DiT (in_dim 16) and its branch at layers 0, 5, ..., 35
+    params, cfg = dit14(73, "vace_dit")
+    vcfg = cfgs["vace"]
+    vace = convert.init_vace_params(vcfg, "cuda", bf, seed=74)
+    pipe = WanVideoPipeline(params, cfg, vae, vae_cfg, dtype=bf, device="cuda",
+                            vace_params=vace, vace_cfg=vcfg)
+    half = np.zeros((480, 832, 3), np.uint8)
+    half[:, 416:] = 255
+    request("Wan2.1-VACE-14B, control video + mask + 1 reference image", pipe,
+            WAN14B_VACE_PER_SWEEP, 2 * COND_STEPS, 5 + 5 + 1, 5, COND_FRAMES,
+            num_inference_steps=COND_STEPS,
+            vace_video=[seeded_image(90 + i, 480, 832) for i in range(COND_FRAMES)],
+            vace_video_mask=[half] * COND_FRAMES, vace_reference_image=seeded_image(89, 480, 832))
+    with torch.no_grad():
+        ckv = precompute_cross_kv(params, cfg, ctx)
+    lat, vctx = randn(1, 16, 6, 60, 104, seed=85), randn(1, 96, 6, 60, 104, seed=86)
+    busy["vace"], _ = profiled("VACE sweep (40 + 8 blocks), S = 9360", lambda: wan_dit_forward(
+        params, cfg, lat, t900, ctx, cross_kv=ckv, vace_params=vace, vace_cfg=vcfg,
+        vace_context=vctx), warm=False)
+    del pipe, vace, params, ckv, lat, vctx
+    torch.cuda.empty_cache()
+    mark("VACE")
+
+    # camera control: a Fun-A14B-Control-Camera expert (in_dim 36) and its adapter
+    params, cfg = dit14(75, "camera_dit")
+    ccfg = cfgs["camera"]
+    cam = convert.init_simple_adapter_params(ccfg, "cuda", bf, seed=76)
+    pipe = WanVideoPipeline(params, cfg, vae, vae_cfg, dtype=bf, device="cuda",
+                            camera_params=cam, camera_cfg=ccfg)
+    request("Wan2.2-Fun-A14B-Control-Camera, Left", pipe, WAN14B_PER_SWEEP, 2 * COND_STEPS,
+            5, 5, COND_FRAMES, num_inference_steps=COND_STEPS, camera_control_direction="Left",
+            input_image=img)
+    with torch.no_grad():
+        ckv = precompute_cross_kv(params, cfg, ctx)
+    lat, y = randn(1, 16, 5, 60, 104, seed=87), randn(1, 20, 5, 60, 104, seed=88)
+    tokens = randn(1, 7800, 5120, seed=89)
+    busy["camera"], _ = profiled("camera sweep, S = 7800", lambda: wan_dit_forward(
+        params, cfg, lat, t900, None, y=y, cross_kv=ckv, control_camera_tokens=tokens),
+        warm=False)
+    del pipe, cam, params, ckv, lat, y, tokens
+    torch.cuda.empty_cache()
+    mark("camera")
+
+    # Fun-Reference: the Control model's width with ref_conv, in_dim 36 (16
+    # noise + 20 I2V mask and y channels; the published 52 adds control
+    # video channels the pipeline never fills)
+    params, cfg = dit14(77, "funref_dit")
+    pipe = WanVideoPipeline(params, cfg, vae, vae_cfg, dtype=bf, device="cuda")
+    request("Fun-Reference 14B (in_dim 36), input image + reference image", pipe,
+            WAN14B_PER_SWEEP, 2 * COND_STEPS, 5 + 1, 5, COND_FRAMES,
+            num_inference_steps=COND_STEPS, input_image=img,
+            reference_image=seeded_image(78, 480, 832))
+    del pipe, params
+    torch.cuda.empty_cache()
+    mark("Fun-Reference")
+
+    # the motion controller on Wan2.1-T2V-1.3B
+    cfg13, mcfg = cfgs["t2v_1_3b"], cfgs["motion"]
+    pipe = WanVideoPipeline(convert.init_dit_params(cfg13, "cuda", bf, seed=79), cfg13, vae,
+                            vae_cfg, dtype=bf, device="cuda",
+                            motion_controller_params=convert.init_motion_controller_params(
+                                mcfg, "cuda", bf, seed=80), motion_controller_cfg=mcfg)
+    request("Wan2.1-T2V-1.3B, motion_bucket_id 20", pipe, WAN13B_PER_SWEEP, 2 * COND_STEPS, 0,
+            5, COND_FRAMES, num_inference_steps=COND_STEPS, motion_bucket_id=20)
+    del pipe
+    torch.cuda.empty_cache()
+    mark("motion controller")
+
+    # S2V-14B with wav2vec XLSR-53 large
+    s2v_cfg, w2v_cfg = cfgs["s2v"], cfgs["wav2vec"]
+    s2v = convert.init_s2v_params(s2v_cfg, "cuda", bf, seed=81, blocks=blocks)
+    w2v = convert.init_wav2vec2_params(w2v_cfg, "cuda", seed=82)
+    print(f"  S2V extras {convert.count_params(s2v) - convert.count_params(blocks):,} params, "
+          f"wav2vec {convert.count_params(w2v):,} (fp32)", flush=True)
+    pipe = WanVideoPipeline(None, None, vae, vae_cfg, dtype=bf, device="cuda", s2v_params=s2v,
+                            s2v_cfg=s2v_cfg, wav2vec_params=w2v, wav2vec_cfg=w2v_cfg)
+    rng = np.random.default_rng(83)
+    wave = (0.3 * np.sin(np.linspace(0, 2 * np.pi * 220, 16000))
+            + 0.05 * rng.standard_normal(16000)).astype(np.float32)
+    request("Wan2.2-S2V-14B from a 16 kHz waveform, input image", pipe, S2V_PER_SWEEP,
+            2 * COND_STEPS, 1, 5, COND_FRAMES, num_inference_steps=COND_STEPS,
+            input_audio=wave, input_image=img)
+    mark("S2V")
+    request(f"Wan2.2-S2V-14B with a 73-frame motion video, {S2V_MOTION_STEPS} step", pipe,
+            S2V_PER_SWEEP, 2 * S2V_MOTION_STEPS, 19 + 1, 19 + 4, 89,
+            num_inference_steps=S2V_MOTION_STEPS, input_audio=wave, input_image=img,
+            motion_video=[seeded_image(200 + i, 480, 832) for i in range(73)])
+    mark("S2V with a motion video")
+    audio = torch.from_numpy(audio_embeds_from_waveform(w2v, w2v_cfg, wave, num_frames=17)[0])
+    audio = audio.to("cuda", bf)
+    lat = randn(1, 16, 5, 60, 104, seed=90)
+    busy["s2v"], _ = profiled("S2V sweep, S = 7800", lambda: wan_s2v_forward(
+        s2v, s2v_cfg, lat, t900, ctx, audio), warm=False)
+    busy["wav2vec"], _ = profiled("wav2vec XLSR-53 encode of 1 s (16000 samples)",
+                                  lambda: audio_embeds_from_waveform(w2v, w2v_cfg, wave,
+                                                                     num_frames=17))
+    del pipe, s2v, w2v, blocks, lat, audio
+    torch.cuda.empty_cache()
+    mark("profiles")
+    k11 = k11_v1_checks(k11_shapes)
+    mark("K11 at the Wan2.1 VAE's shapes")
+    print(f"  conditioning: walls {json.dumps(walls_all)}; profiled busy ms "
+          f"{json.dumps(busy)}; launches {total}", flush=True)
+    return k11, total
+
+
+def reference_conditioning_check():
+    """Tiny VACE, camera, Fun-Reference, motion-controller and S2V (from a
+    waveform through a tiny wav2vec) pipelines, head dim 128 so the
+    serving kernels run, each a 128x256x9, 2-step, CFG 5 request with the
+    tiny Wan2.1 VAE, on the card in bf16 against the same weights on the
+    CPU in fp32 (plain versions); the bound as reference_check's: at most
+    twice the CPU bf16 run's relative L2 error plus 1e-3.  At 384 tokens
+    (512 with a reference frame) the self-attention is K4's bounded form;
+    the conditioning phase and the card tests hold K3 at these paths'
+    lengths."""
+    import numpy as np
+    import torch
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.wan.aux_models import MotionControllerConfig, VaceConfig
+    from fairygen_tpu_torch.models.wan.camera import SimpleAdapterConfig
+    from fairygen_tpu_torch.models.wan.dit import WanDiTConfig
+    from fairygen_tpu_torch.models.wan.s2v import S2VConfig
+    from fairygen_tpu_torch.models.wan.vae import WanVAEConfig
+    from fairygen_tpu_torch.models.wan.wav2vec import Wav2Vec2Config
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines.wan_video import WanVideoPipeline
+
+    f32 = torch.float32
+    tiny = dict(dim=256, in_dim=4, ffn_dim=512, out_dim=4, text_dim=64, freq_dim=64,
+                num_heads=2, num_layers=2, require_clip_embedding=False)
+    vae_cfg = WanVAEConfig.tiny_v1()
+    vae = convert.init_vae_params(vae_cfg, "cpu", f32, seed=91)
+    g = torch.Generator("cpu").manual_seed(92)
+    ctx, nctx = torch.randn(1, 40, 64, generator=g), torch.randn(1, 40, 64, generator=g)
+    img, ref_img = seeded_image(93, 128, 256), seeded_image(94, 128, 256)
+    kw = dict(context=ctx, negative_context=nctx, seed=95, height=128, width=256, num_frames=9,
+              cfg_scale=5.0, num_inference_steps=2, output_type="latents",
+              torch_compat_noise=True)
+    cases = []
+    vcfg = VaceConfig(vace_layers=(0, 1), vace_in_dim=72, dim=256, num_heads=2, ffn_dim=512)
+    cases.append(("VACE", WanDiTConfig(**tiny), {}, dict(
+        vace_params=convert.init_vace_params(vcfg, "cpu", f32, seed=96), vace_cfg=vcfg), dict(
+        vace_video=[seeded_image(100 + i, 128, 256) for i in range(9)],
+        vace_reference_image=ref_img, vace_scale=0.8)))
+    ccfg = SimpleAdapterConfig(in_dim=24, out_dim=256)
+    cases.append(("camera", WanDiTConfig(**dict(tiny, in_dim=8)), {}, dict(
+        camera_params=convert.init_simple_adapter_params(ccfg, "cpu", f32, seed=97),
+        camera_cfg=ccfg), dict(camera_control_direction="LeftUp", input_image=img)))
+    ref_conv = {"w": torch.randn(16, 256, generator=g) / 4, "b": torch.zeros(256)}
+    cases.append(("Fun-Reference", WanDiTConfig(**dict(tiny, has_ref_conv=True)),
+                  {"ref_conv": ref_conv}, {}, dict(reference_image=ref_img)))
+    mcfg = MotionControllerConfig(freq_dim=64, dim=256)
+    cases.append(("motion controller", WanDiTConfig(**tiny), {}, dict(
+        motion_controller_params=convert.init_motion_controller_params(mcfg, "cpu", f32, 98),
+        motion_controller_cfg=mcfg), dict(motion_bucket_id=7)))
+    s2v_cfg = S2VConfig(dim=256, in_dim=4, ffn_dim=512, out_dim=4, text_dim=64, freq_dim=64,
+                        num_heads=2, num_layers=2, cond_dim=4, audio_dim=32,
+                        audio_inject_layers=(0, 1), motion_channels=4)
+    w2v_cfg = Wav2Vec2Config(conv_dim=(32, 32, 32), conv_kernel=(10, 8, 8),
+                             conv_stride=(5, 8, 8), hidden_size=32, num_attention_heads=2,
+                             intermediate_size=64, num_conv_pos_embeddings=16,
+                             num_conv_pos_embedding_groups=2)
+    wave = np.sin(np.linspace(0, 2 * np.pi * 300, 16000)).astype(np.float32)
+    cases.append(("S2V", None, None, dict(
+        s2v_params=convert.init_s2v_params(s2v_cfg, "cpu", f32, seed=99), s2v_cfg=s2v_cfg,
+        wav2vec_params=convert.init_wav2vec2_params(w2v_cfg, "cpu", seed=100),
+        wav2vec_cfg=w2v_cfg), dict(input_audio=wave, input_image=img)))
+    for label, cfg, extra, models, req in cases:
+        dit = None
+        if cfg is not None:
+            dit = dict(convert.init_dit_params(cfg, "cpu", f32, seed=101), **extra)
+
+        def pipe(dev, dt):
+            m = {k: v if k.endswith("_cfg") or k.startswith("wav2vec") else to(v, dev, dt)
+                 for k, v in models.items()}
+            if "wav2vec_params" in m:
+                m["wav2vec_params"] = to(models["wav2vec_params"], dev, f32)
+            return WanVideoPipeline(None if dit is None else to(dit, dev, dt), cfg,
+                                    to(vae, dev, dt), vae_cfg, dtype=dt, device=dev, **m)
+
+        ref = pipe("cpu", f32)(**kw, **req)
+        rel16 = rel_l2(pipe("cpu", torch.bfloat16)(**kw, **req), ref)
+        before = dict(_kernels.launches)
+        out = pipe("cuda", torch.bfloat16)(**kw, **req).float().cpu()
+        ran = {k: _kernels.launches[k] - before[k] for k in before}
+        rel, tol = rel_l2(out, ref), 2 * rel16 + 1e-3
+        print(f"  tiny {label} pipeline latents {tuple(out.shape)}: relative L2 error to CPU "
+              f"fp32 {rel:.4e} (card bf16), {rel16:.4e} (CPU bf16); tolerance {tol:.4e}; "
+              f"kernel launches { {k: v for k, v in ran.items() if v} }", flush=True)
+        want = ("rms_rope_heads_major", "flash_small_kv") + (() if cfg is None else
+                                                             ("ln_modulate",))
+        if not all(ran[k] for k in want):
+            raise RuntimeError(f"a kernel did not run in the tiny {label} pipeline: {ran}")
+        if not rel <= tol:
+            raise RuntimeError(f"tiny {label} pipeline disagrees with the CPU reference: "
+                               f"{rel:.4e}")
 
 
 if __name__ == "__main__":

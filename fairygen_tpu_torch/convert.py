@@ -28,9 +28,13 @@ from .models.wan.image_encoder import init_vit_params  # noqa: F401  (the CLIP V
 from .models.z_image.dit import init_z_image_dit_params  # noqa: F401  (the Z-Image DiT's init)
 from .models.sdxl.clip import CLIPTextConfig
 from .models.sdxl.vae import AutoencoderKLConfig
+from .models.wan.aux_models import MotionControllerConfig, VaceConfig
+from .models.wan.camera import SimpleAdapterConfig
 from .models.wan.dit import WanDiTConfig
+from .models.wan.s2v import S2VConfig
 from .models.wan.text_encoder import UMT5Config
 from .models.wan.vae import WanVAEConfig, latent_stats
+from .models.wan.wav2vec import Wav2Vec2Config
 from .ops.quant import int_mm_layout
 
 
@@ -93,7 +97,10 @@ def from_jax_params(tree, device="cuda", dtype=None) -> Dict[str, Any]:
     DiT, T5, CLIP text tower, AutoencoderKL, Z-Image DiT, Qwen3 text
     encoder, SDXL UNet or BrushNet (with their LoRA / DoRA adapters), or
     the four-level SD1.5 UNet or BrushNet (its plain mid attention where
-    the tree has one) -> port state on ``device``, optionally cast to
+    the tree has one), the Wan variants' models (the DiT's Fun-Reference
+    ``ref_conv``, the camera SimpleAdapter, the motion controller, the
+    VACE branch, the S2V DiT and wav2vec, whose conv1d weights keep their
+    (k, in, out) layout) -> port state on ``device``, optionally cast to
     ``dtype``.  LoRA
     subtrees keep their dtype, and so do the scales and outlier operands
     of W8A8 layers (``ops/quant.py``); their ``w_int8`` stays int8, laid
@@ -112,14 +119,6 @@ def init_dit_params(cfg: WanDiTConfig, device="cuda", dtype=torch.bfloat16, seed
     r = Init(device, dtype, generator(device, seed))
     D = cfg.dim
     pt, ph, pw = cfg.patch_size
-
-    def attn(img=False):
-        p = {"q": r.dense(D, D), "k": r.dense(D, D), "v": r.dense(D, D), "o": r.dense(D, D),
-             "norm_q": r.ones((D,)), "norm_k": r.ones((D,))}
-        if img:
-            p.update(k_img=r.dense(D, D), v_img=r.dense(D, D), norm_k_img=r.ones((D,)))
-        return p
-
     params = {
         "patch_embed": r.dense(cfg.in_dim * pt * ph * pw, D),
         "text_embed": {"fc1": r.dense(cfg.text_dim, D), "fc2": r.dense(D, D)},
@@ -127,13 +126,8 @@ def init_dit_params(cfg: WanDiTConfig, device="cuda", dtype=torch.bfloat16, seed
         "time_proj": r.dense(D, 6 * D),
         "head": {**r.dense(D, cfg.out_dim * pt * ph * pw),
                  "modulation": r.normal((2, D), D ** -0.5)},
-        "blocks": [
-            {"self_attn": attn(), "cross_attn": attn(cfg.has_image_input),
-             "norm3": {"w": r.ones((D,)), "b": r.zeros((D,))},
-             "ffn": {"fc1": r.dense(D, cfg.ffn_dim), "fc2": r.dense(cfg.ffn_dim, D)},
-             "modulation": r.normal((6, D), D ** -0.5)}
-            for _ in range(cfg.num_layers)
-        ],
+        "blocks": [_dit_block(r, D, cfg.ffn_dim, cfg.has_image_input)
+                   for _ in range(cfg.num_layers)],
     }
     if cfg.has_image_input:
         params["img_emb"] = {"norm1": {"w": r.ones((1280,)), "b": r.zeros((1280,))},
@@ -141,7 +135,145 @@ def init_dit_params(cfg: WanDiTConfig, device="cuda", dtype=torch.bfloat16, seed
                              "norm2": {"w": r.ones((D,)), "b": r.zeros((D,))}}
         if cfg.has_image_pos_emb:
             params["img_emb"]["pos"] = r.zeros((1, 514, 1280))
+    if cfg.has_ref_conv:  # over (16 latent channels, 2, 2) patches, as the JAX init
+        params["ref_conv"] = r.dense(16 * 2 * 2, D)
     return params
+
+
+def _dit_block(r, D, ffn_dim, img=False):
+    """One DiT block's random params (the draws in ``init_dit_params``'
+    order); ``img``: the CLIP branch's k_img / v_img / norm_k_img."""
+    def attn(img=False):
+        p = {"q": r.dense(D, D), "k": r.dense(D, D), "v": r.dense(D, D), "o": r.dense(D, D),
+             "norm_q": r.ones((D,)), "norm_k": r.ones((D,))}
+        if img:
+            p.update(k_img=r.dense(D, D), v_img=r.dense(D, D), norm_k_img=r.ones((D,)))
+        return p
+
+    return {"self_attn": attn(), "cross_attn": attn(img),
+            "norm3": {"w": r.ones((D,)), "b": r.zeros((D,))},
+            "ffn": {"fc1": r.dense(D, ffn_dim), "fc2": r.dense(ffn_dim, D)},
+            "modulation": r.normal((6, D), D ** -0.5)}
+
+
+def init_simple_adapter_params(cfg: SimpleAdapterConfig, device="cuda", dtype=torch.bfloat16,
+                               seed=0):
+    """Random camera SimpleAdapter params: conv weights (out, in, kh, kw)
+    N(0, 1/fan_in), zero biases."""
+    device = resolve_device(device)
+    r = Init(device, dtype, generator(device, seed))
+    o, cin = cfg.out_dim, cfg.in_dim * 64
+    kh, kw = cfg.kernel_size
+
+    def conv(cout, cin_, k1, k2):
+        return {"w": r.normal((cout, cin_, k1, k2), (cin_ * k1 * k2) ** -0.5),
+                "b": r.zeros((cout,))}
+
+    return {"conv": conv(o, cin, kh, kw),
+            "blocks": [{"conv1": conv(o, o, 3, 3), "conv2": conv(o, o, 3, 3)}
+                       for _ in range(cfg.num_residual_blocks)]}
+
+
+def init_motion_controller_params(cfg: MotionControllerConfig, device="cuda",
+                                  dtype=torch.bfloat16, seed=0):
+    """Random motion controller params: dense N(0, 1/d_in), zero biases."""
+    device = resolve_device(device)
+    r = Init(device, dtype, generator(device, seed))
+    return {"fc1": r.dense(cfg.freq_dim, cfg.dim), "fc2": r.dense(cfg.dim, cfg.dim),
+            "fc3": r.dense(cfg.dim, 6 * cfg.dim)}
+
+
+def init_vace_params(cfg: VaceConfig, device="cuda", dtype=torch.bfloat16, seed=0):
+    """Random VACE branch params: the patch embedding, and one DiT block a
+    VACE layer with its after_proj (and before_proj on the first), at the
+    scales of ``init_dit_params``."""
+    device = resolve_device(device)
+    r = Init(device, dtype, generator(device, seed))
+    D = cfg.dim
+    pt, ph, pw = cfg.patch_size
+    blocks = []
+    for n in range(len(cfg.vace_layers)):
+        blk = _dit_block(r, D, cfg.ffn_dim, cfg.has_image_input)
+        blk["after_proj"] = r.dense(D, D)
+        if n == 0:
+            blk["before_proj"] = r.dense(D, D)
+        blocks.append(blk)
+    return {"patch_embedding": r.dense(cfg.vace_in_dim * pt * ph * pw, D), "blocks": blocks}
+
+
+def init_s2v_params(cfg: S2VConfig, device="cuda", dtype=torch.bfloat16, seed=0, blocks=None):
+    """Random S2V DiT params at ``init_dit_params``' scales: the patch and
+    pose embeddings, text / time MLPs, blocks (``blocks``: given ones, of
+    the same shapes, to share), head, the condition embedding, the causal
+    audio encoder (conv1d weights (k, in, out) N(0, 1/fan_in)), the audio
+    injectors with AdaLN and the frame packer."""
+    device = resolve_device(device)
+    r = Init(device, dtype, generator(device, seed))
+    D, a = cfg.dim, cfg.audio_dim
+    pt, ph, pw = cfg.patch_size
+    n_inject = len([layer for layer in cfg.audio_inject_layers if layer < cfg.num_layers])
+
+    def conv1d(cin, cout, k=3):
+        return {"w": r.normal((k, cin, cout), (k * cin) ** -0.5), "b": r.zeros((cout,))}
+
+    def attn():
+        return {"q": r.dense(D, D), "k": r.dense(D, D), "v": r.dense(D, D), "o": r.dense(D, D),
+                "norm_q": r.ones((D,)), "norm_k": r.ones((D,))}
+
+    enc = {"conv1_local": conv1d(a, D // 4 * cfg.num_audio_token),
+           "conv2": conv1d(D // 4, D // 2), "conv3": conv1d(D // 2, D),
+           "padding_tokens": r.zeros((1, 1, 1, D))}
+    if cfg.enable_adain:
+        enc.update(conv1_global=conv1d(a, D // 4), final_linear=r.dense(D, D))
+    return {
+        "patch_embedding": r.dense(cfg.in_dim * pt * ph * pw, D),
+        "cond_encoder": r.dense(cfg.cond_dim * pt * ph * pw, D),
+        "text_embed": {"fc1": r.dense(cfg.text_dim, D), "fc2": r.dense(D, D)},
+        "time_embed": {"fc1": r.dense(cfg.freq_dim, D), "fc2": r.dense(D, D)},
+        "time_proj": r.dense(D, 6 * D),
+        "blocks": blocks if blocks is not None else [
+            _dit_block(r, D, cfg.ffn_dim) for _ in range(cfg.num_layers)],
+        "head": {**r.dense(D, cfg.out_dim * pt * ph * pw),
+                 "modulation": r.normal((2, D), D ** -0.5)},
+        "trainable_cond_mask": r.normal((3, D), 0.02),
+        "casual_audio_encoder": {"weights": r.normal((1, cfg.num_audio_layers, 1, 1), 1.0),
+                                 "encoder": enc},
+        "audio_injector": {"injector": [attn() for _ in range(n_inject)],
+                           "adain": [{"linear": r.dense(D, 2 * D)} for _ in range(n_inject)]
+                           if cfg.enable_adain else []},
+        "frame_packer": {"proj": r.dense(cfg.motion_channels * 4, D),
+                         "proj_2x": r.dense(cfg.motion_channels * 2 * 4 * 4, D),
+                         "proj_4x": r.dense(cfg.motion_channels * 4 * 8 * 8, D)},
+    }
+
+
+def init_wav2vec2_params(cfg: Wav2Vec2Config, device="cuda", seed=0):
+    """Random fp32 wav2vec params in the converter's tree: conv weights (k,
+    in, out) and dense N(0, 1/fan_in), unit LayerNorms, zero biases."""
+    device = resolve_device(device)
+    r = Init(device, torch.float32, generator(device, seed))
+
+    def ln(d):
+        return {"w": r.ones((d,)), "b": r.zeros((d,))}
+
+    conv_layers, cin = [], 1
+    for cout, k in zip(cfg.conv_dim, cfg.conv_kernel):
+        p = {"conv": {"w": r.normal((k, cin, cout), (k * cin) ** -0.5)}, "ln": ln(cout)}
+        if cfg.conv_bias:
+            p["conv"]["b"] = r.zeros((cout,))
+        conv_layers.append(p)
+        cin = cout
+    h, f, k = cfg.hidden_size, cfg.intermediate_size, cfg.num_conv_pos_embeddings
+    hg = h // cfg.num_conv_pos_embedding_groups
+    return {
+        "conv_layers": conv_layers, "fp_ln": ln(cfg.conv_dim[-1]),
+        "fp_proj": r.dense(cfg.conv_dim[-1], h),
+        "pos_conv": {"w": r.normal((k, hg, h), (k * hg) ** -0.5), "b": r.zeros((h,))},
+        "layers": [{"ln1": ln(h), "q": r.dense(h, h), "k": r.dense(h, h), "v": r.dense(h, h),
+                    "o": r.dense(h, h), "ln2": ln(h), "ffn1": r.dense(h, f),
+                    "ffn2": r.dense(f, h)} for _ in range(cfg.num_hidden_layers)],
+        "final_ln": ln(h),
+    }
 
 
 def init_umt5_params(cfg: UMT5Config, device="cuda", dtype=torch.bfloat16, seed=0):

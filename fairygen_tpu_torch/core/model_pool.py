@@ -3,12 +3,13 @@ fairygen_tpu/core/model_pool.py).
 
 Each file's ``key:shape`` hash is looked up in the registry and the
 recognized models are built on ``device`` by the port's converters.  The
-port builds the Wan roles (the DiTs, with the I2V image branch; the VAE38
+port builds the Wan roles (the DiTs, with the I2V image branch and the
+Fun-Reference conv; the S2V DiT and its wav2vec audio encoder; the VAE38
 and the Wan2.1 VAE; UMT5) and the FLUX.1 and Z-Image families whose
 converters it has; a registry name without a builder, or a Wan variant
-the port does not run yet (LongCat-Video, S2V, Fun-Reference, ...), raises
-``NotImplementedError`` naming its ROADMAP item.  A file whose hash the
-registry does not know is reported and left out, as in the JAX package.
+the port does not run yet (LongCat-Video), raises ``NotImplementedError``
+naming its ROADMAP item.  A file whose hash the registry does not know is
+reported and left out, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -23,8 +24,6 @@ from .io import load_state_dict
 from .model_config import resolve_model_paths
 from .registry import MODEL_REGISTRY, ModelRegistry
 
-_VARIANTS = "the other Wan variants, ROADMAP.md Queue 1 item 6"
-
 
 def _dataclass_kwargs(cls, extra_kwargs):
     fields = {f.name for f in dataclasses.fields(cls)}
@@ -32,22 +31,48 @@ def _dataclass_kwargs(cls, extra_kwargs):
 
 
 def _build_wan_dit(state_dict, extra_kwargs, dtype, device):
+    """A Wan DiT, or the S2V DiT (its hash maps to wan_video_dit too; told
+    apart by its audio kwargs).  LongCat-Video's raises."""
     from ..models.wan.dit import WanDiTConfig, convert_dit_state_dict
 
     if "final_layer.adaLN_modulation.1.weight" in state_dict:
-        raise NotImplementedError(f"the LongCat-Video DiT is not ported ({_VARIANTS})")
+        raise NotImplementedError("the LongCat-Video DiT is not ported (ROADMAP.md Queue 1 "
+                                  "item 6d, LongCat)")
     if "audio_dim" in extra_kwargs or "cond_dim" in extra_kwargs:
-        raise NotImplementedError(f"the Wan S2V DiT is not ported ({_VARIANTS})")
+        from ..models.wan.s2v import S2VConfig, convert_s2v_state_dict
+
+        kwargs = _dataclass_kwargs(S2VConfig, extra_kwargs)
+        for tup in ("patch_size", "audio_inject_layers", "zip_frame_buckets"):
+            if tup in kwargs:
+                kwargs[tup] = tuple(kwargs[tup])
+        cfg = S2VConfig(**kwargs)
+        return convert_s2v_state_dict(state_dict, cfg, dtype=dtype, device=device), cfg
     kwargs = _dataclass_kwargs(WanDiTConfig, extra_kwargs)
-    # fields of the JAX config that the port's DiT lacks (has_ref_conv, the
-    # Fun-Reference conv) are accepted only at their defaults (off)
+    # upstream options without a DiT field here (the camera DiTs'
+    # add_control_adapter) are refused when set, as the JAX package's pool
+    # refuses them: their adapter is set on the pipeline (camera_params)
     unknown = {k: v for k, v in extra_kwargs.items() if k not in kwargs and v}
     if unknown:
-        raise NotImplementedError(f"Wan DiT options {sorted(unknown)} are not ported ({_VARIANTS})")
+        raise NotImplementedError(f"unsupported WanModel kwargs: {sorted(unknown)} (the "
+                                  "camera adapter is given to the pipeline as camera_params)")
     if "patch_size" in kwargs:
         kwargs["patch_size"] = tuple(kwargs["patch_size"])
     cfg = WanDiTConfig(**kwargs)
     return convert_dit_state_dict(state_dict, cfg, dtype=dtype, device=device), cfg
+
+
+def _build_wans2v_audio_encoder(state_dict, extra_kwargs, dtype, device):
+    """The S2V audio encoder: wav2vec XLSR-53 large, always fp32 (the JAX
+    package's builder does the same); ``extra_kwargs`` (through hints)
+    resize it."""
+    from ..models.wan.wav2vec import Wav2Vec2Config, convert_wav2vec2_state_dict
+
+    kwargs = _dataclass_kwargs(Wav2Vec2Config, extra_kwargs)
+    for tup in ("conv_dim", "conv_kernel", "conv_stride"):
+        if tup in kwargs:
+            kwargs[tup] = tuple(kwargs[tup])
+    cfg = Wav2Vec2Config(**kwargs)
+    return convert_wav2vec2_state_dict(state_dict, cfg, device=device), cfg
 
 
 def _build_wan_vae(state_dict, extra_kwargs, dtype, device):
@@ -137,6 +162,7 @@ def install_default_builders(registry: ModelRegistry = MODEL_REGISTRY):
     registry.register_builder("wan_video_dit", _build_wan_dit)
     registry.register_builder("wan_video_vae", _build_wan_vae)
     registry.register_builder("wan_video_text_encoder", _build_umt5)
+    registry.register_builder("wans2v_audio_encoder", _build_wans2v_audio_encoder)
     registry.register_builder("flux_dit", _build_flux_dit)
     registry.register_builder("flux_text_encoder_clip", _build_flux_clip)
     registry.register_builder("flux_text_encoder_t5", _build_flux_t5)

@@ -15,6 +15,10 @@ from typing import Any, Callable, Dict, List, Optional
 
 from .io import hash_model_file, load_state_dict
 
+# Wan registry names the JAX package's pool builds nothing for: the
+# pipeline takes them as constructor arguments
+_POOLLESS = {"wan_video_vace": "vace_params", "wan_video_motion_controller":
+             "motion_controller_params", "wan_video_image_encoder": "image_encoder_params"}
 _REGISTRY_JSON = os.path.join(os.path.dirname(__file__), "..", "configs", "model_registry.json")
 
 
@@ -43,9 +47,11 @@ class ModelRegistry:
         """The builder of ``model_name``; a name the port has no builder for
         raises ``NotImplementedError``."""
         if model_name not in self._builders:
-            # every registry name without a builder is a Wan variant or one
-            # of the image models' extras
-            item = ("item 6, the other Wan variants" if model_name.startswith("wan")
+            if model_name in _POOLLESS:
+                raise NotImplementedError(
+                    f"{model_name} has no model-pool builder, in the JAX package either: give "
+                    f"its params to the pipeline ({_POOLLESS[model_name]})")
+            item = ("item 6c, Animate and VAP / MoT" if model_name.startswith("wan")
                     else "item 8, the image DiTs")
             raise NotImplementedError(f"{model_name} is not ported to fairygen_tpu_torch "
                                       f"(ROADMAP.md Queue 1 {item})")
@@ -60,13 +66,17 @@ class ModelRegistry:
     def load(self, path, dtype=None, model_name: Optional[str] = None, device="cuda"):
         """Load, detect and build every model a file holds: a list of
         (model_name, params, config).  A detected architecture without a
-        builder in the port raises."""
+        builder in the port raises, but for the pipeline-given models of
+        ``_POOLLESS``, which are skipped."""
         specs = self.detect_file(path)
         if model_name is not None:
             specs = [s for s in specs if s.model_name == model_name]
         if not specs:
             return []
-        builders = [(s, self.builder(s.model_name)) for s in specs]
+        # a name the JAX package's pool builds nothing for is skipped, as
+        # there (a VACE checkpoint also holds its DiT, which is built)
+        builders = [(s, self.builder(s.model_name)) for s in specs
+                    if s.model_name not in _POOLLESS]
         state_dict = load_state_dict(path)
         out = []
         for spec, build in builders:

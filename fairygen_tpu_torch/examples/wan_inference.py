@@ -1,7 +1,11 @@
 """Single-shot video generation on the port: load a Wan model (UMT5 + the
-DiT, or the two-expert DiT pair, + VAE38 or the Wan2.1 VAE) by hash
-detection, optionally fuse a LoRA, animate a still (and, with
-``--end_image``, end on a second one: the I2V models).
+DiT, or the two-expert DiT pair, or the S2V DiT and its wav2vec encoder,
++ VAE38 or the Wan2.1 VAE) by hash detection, optionally fuse a LoRA,
+animate a still (and, with ``--end_image``, end on a second one: the I2V
+models), condition on a Fun-Reference image, a VACE control video, a
+camera direction or a motion bucket (their models given to the pipeline
+as in the JAX package's example), or drive an S2V model with a wav
+(``--audio``, muxed into the saved video where ffmpeg is found).
 
 The twin of examples/wan_inference.py, with its flags and its negative
 prompt, plus ``--device`` (default cuda).  Flags of paths the port does not
@@ -26,17 +30,12 @@ NEGATIVE_PROMPT = (
     "毁容的，形态畸形的肢体，手指融合，静止不动的画面，杂乱的背景，三条腿，背景人很多，倒着走"
 )
 
-_VARIANTS = "ROADMAP.md Queue 1 item 6, the other Wan variants"
 # flag -> the ROADMAP item that ports its path; given at other than its
 # default value, the flag ends the run
 UNPORTED_FLAGS = {
     "usp": "ROADMAP.md Queue 1 item 9, parallel/",
     "sp_strategy": "ROADMAP.md Queue 1 item 9, parallel/",
-    "vace_video": _VARIANTS, "vace_video_mask": _VARIANTS, "vace_reference_image": _VARIANTS,
-    "vace_scale": _VARIANTS, "camera_control_direction": _VARIANTS,
-    "camera_control_speed": _VARIANTS, "motion_bucket_id": _VARIANTS,
-    "reference_image": _VARIANTS, "audio": _VARIANTS, "audio_sample_rate": _VARIANTS,
-    "longcat_video": _VARIANTS,
+    "longcat_video": "ROADMAP.md Queue 1 item 6d, LongCat",
 }
 
 
@@ -102,7 +101,8 @@ def main(argv=None):
     from PIL import Image
 
     from fairygen_tpu_torch.pipelines.wan_video import WanVideoPipeline
-    from fairygen_tpu_torch.utils.video import save_video
+    from fairygen_tpu_torch.utils.video import (load_video_frames, load_wav, save_video,
+                                                save_video_with_audio)
 
     pipe = WanVideoPipeline.from_pretrained(json.loads(args.model_paths),
                                             tokenizer_path=args.tokenizer_path,
@@ -111,13 +111,28 @@ def main(argv=None):
         pipe.load_lora(args.lora, alpha=args.lora_alpha)
     if args.quantize:
         pipe.quantize(args.quantize)
+
     def load_image(path):
         return (Image.open(path).convert("RGB").resize((args.width, args.height))
                 if path else None)
 
+    def load_video(path):
+        return load_video_frames(path) if path else None
+
+    input_audio = audio_sr = None
+    if args.audio:
+        input_audio, file_sr = load_wav(args.audio)
+        audio_sr = args.audio_sample_rate or file_sr
+
     frames = pipe(
         prompt=args.prompt, negative_prompt=args.negative_prompt,
+        input_audio=input_audio, audio_sample_rate=audio_sr or 16000,
         input_image=load_image(args.input_image), end_image=load_image(args.end_image),
+        reference_image=load_image(args.reference_image),
+        vace_video=load_video(args.vace_video), vace_video_mask=load_video(args.vace_video_mask),
+        vace_reference_image=load_image(args.vace_reference_image), vace_scale=args.vace_scale,
+        camera_control_direction=args.camera_control_direction,
+        camera_control_speed=args.camera_control_speed, motion_bucket_id=args.motion_bucket_id,
         height=args.height, width=args.width, num_frames=args.num_frames,
         num_inference_steps=args.num_inference_steps, cfg_scale=args.cfg_scale,
         seed=args.seed, streaming_vae=True, vae_frames_per_chunk=args.vae_frames_per_chunk,
@@ -125,10 +140,16 @@ def main(argv=None):
         sliding_window_stride=args.sliding_window_stride,
         tea_cache_l1_thresh=args.tea_cache_l1_thresh,
         tea_cache_model_id=args.tea_cache_model_id)
-    out = save_video(frames, args.output, fps=args.fps, quality=5)
+    if args.audio:
+        try:
+            out = save_video_with_audio(frames, args.output, args.audio, fps=args.fps, quality=5)
+        except Exception as e:
+            print(f"audio mux failed ({e}); saving silent video")
+            out = save_video(frames, args.output, fps=args.fps, quality=5)
+    else:
+        out = save_video(frames, args.output, fps=args.fps, quality=5)
     print(f"saved {out}")
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -9,7 +9,12 @@ self-attention through K2 (q and k) + K3/K4, the text cross-attention
 through K2 (``rope=False``) + K4 with the per-prompt (k, v) hoisted by
 :func:`precompute_cross_kv`; the I2V configs' CLIP image branch adds its own
 (k_img, v_img) over the first 257 context tokens, through K2 + K4 beside
-the text's.  Those ops take their hand-written kernels on
+the text's.  The conditioning hooks of the Wan variants sit in
+:func:`wan_dit_forward`: the motion controller's ``t_mod_bias``, the
+camera adapter's ``control_camera_tokens`` added after the patch embed,
+the Fun-Reference tokens (``has_ref_conv``) prepended as an extra leading
+frame, and the VACE hints added after their mapped blocks
+(``models/wan/aux_models.py``).  Those ops take their hand-written kernels on
 CUDA tensors and their plain versions on CPU tensors.  A head_dim other
 than 128 (the tiny golden configs) runs the plain rms-norm -> RoPE ->
 attention chain, as in the JAX package; on CUDA that is refused.
@@ -56,6 +61,7 @@ class WanDiTConfig:
     num_layers: int = 30
     has_image_input: bool = False
     has_image_pos_emb: bool = False
+    has_ref_conv: bool = False
     seperated_timestep: bool = False
     require_vae_embedding: bool = True
     require_clip_embedding: bool = True
@@ -375,9 +381,22 @@ class offload_saved_carry:
         return self._hooks.__exit__(*exc)
 
 
+def reference_tokens(params, reference_latents):
+    """The Fun-Reference image latent (B, C, h, w) or (B, C, 1, h, w) ->
+    tokens (B, h/2·w/2, D) through ``ref_conv`` (a 2x2 stride-2 conv as a
+    dense over (c, kh, kw) patches)."""
+    r = reference_latents[:, :, 0] if reference_latents.dim() == 5 else reference_latents
+    rb, rc, rh, rw = r.shape
+    r = r.reshape(rb, rc, rh // 2, 2, rw // 2, 2).permute(0, 2, 4, 1, 3, 5)
+    return _dense(params["ref_conv"], r.reshape(rb, (rh // 2) * (rw // 2), rc * 4))
+
+
 def wan_dit_forward(params, cfg: WanDiTConfig, latents, timestep, context=None, *,
                     y=None, clip_feature=None, fuse_vae_embedding_in_latents: bool = False,
-                    cross_kv=None, remat=False, tea_cache_state=None, tea_cache_opts=None):
+                    cross_kv=None, remat=False, tea_cache_state=None, tea_cache_opts=None,
+                    t_mod_bias=None, control_camera_tokens=None, reference_latents=None,
+                    vace_hints=None, vace_scale: float = 1.0, vace_params=None, vace_cfg=None,
+                    vace_context=None):
     """Denoiser forward (upstream model_fn_wan_video, wan_video.py:1122-1388,
     text / first-frame / I2V-y conditioning).  latents (B, C, F, H, W);
     timestep (B,); context (B, L, text_dim) or ``cross_kv`` from
@@ -387,7 +406,16 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, timestep, context=None, 
     Returns (B, out_dim, F, H, W); with ``tea_cache_state``
     (``utils.tea_cache``; ``tea_cache_opts``: model_id, rel_l1_thresh,
     num_inference_steps) the block stack runs or is skipped by the TeaCache
-    gate, and the call returns (output, new state)."""
+    gate, and the call returns (output, new state).
+
+    Conditioning: ``t_mod_bias`` (B, 6, D) is added to the block
+    modulation (the motion controller); ``control_camera_tokens`` (B, S, D)
+    to the patch tokens (the camera adapter); with ``has_ref_conv``,
+    ``reference_latents`` become a leading frame of tokens, stripped again
+    before the output; ``vace_hints`` ({block index: (B, S, D)}) are added
+    after their blocks times ``vace_scale``, or computed here from
+    ``vace_context`` (B, vace_in_dim, F, H, W) by the VACE branch
+    ``vace_params`` / ``vace_cfg`` over the embedded ``context``."""
     if remat not in (False, True, "offload"):
         raise ValueError(f"remat must be False, True or 'offload', got {remat!r}")
     b, _, _, H, W = latents.shape
@@ -406,13 +434,16 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, timestep, context=None, 
     else:
         t, t_mod = time_embedding(params, cfg, timestep)
         t_mod = t_mod[:, None]
+        if t_mod_bias is not None:
+            t_mod = t_mod + t_mod_bias[:, None]
 
     ctx = None
-    if cross_kv is None:
+    if cross_kv is None or vace_context is not None:
         ctx = text_embedding(params, context)
-    elif not text_kv_hoistable(cfg, clip_feature):
+    if cross_kv is not None and not text_kv_hoistable(cfg, clip_feature):
         raise ValueError("precomputed cross_kv are the text branch's only where 257 CLIP "
                          "tokens fill the image branch")
+    vace_ctx = ctx  # the VACE blocks' context: [image tokens, text] for an image DiT
     img_kv = [None] * cfg.num_layers
     if cfg.has_image_input:
         clip = clip_feature if cfg.require_clip_embedding else None
@@ -421,6 +452,8 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, timestep, context=None, 
         else:  # the text branch is the hoisted (k, v)'s
             img = img_embedding(params, clip)
         img_kv = _image_cross_kv(params, cfg, img)
+        if vace_context is not None:
+            vace_ctx = torch.cat([img, ctx], dim=1)
     if cross_kv is None:
         cross_kv = [None] * cfg.num_layers
 
@@ -428,9 +461,23 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, timestep, context=None, 
     if y is not None and cfg.require_vae_embedding:
         x = torch.cat([x, y], dim=1)
     x, grid = patchify(params, cfg, x)
+    if control_camera_tokens is not None:
+        x = x + control_camera_tokens.to(x.dtype)
+    n_ref = 0
+    if reference_latents is not None and cfg.has_ref_conv:
+        ref = reference_tokens(params, reference_latents)
+        n_ref = ref.shape[1]
+        x = torch.cat([ref, x], dim=1)
+        grid = (grid[0] + 1, grid[1], grid[2])
     freqs = build_freqs_grid(precompute_freqs_3d(cfg.head_dim), *grid, device=x.device)
     freqs_full = build_freqs_full(freqs) if cfg.head_dim == 128 else None
     side = torch.cuda.Stream(x.device) if remat == "offload" and x.is_cuda else None
+    if vace_context is not None:
+        from .aux_models import vace_forward
+
+        vace_hints = vace_forward(vace_params, vace_cfg, x, vace_context, vace_ctx, t_mod,
+                                  freqs, seg=seg)
+    hints = vace_hints or {}
 
     def blocks(x):
         for i, blk in enumerate(params["blocks"]):
@@ -442,6 +489,8 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, timestep, context=None, 
                 x = checkpoint(dit_block, *args, use_reentrant=False)
             else:
                 x = dit_block(*args)
+            if i in hints:
+                x = x + hints[i] * vace_scale
         return x
 
     if tea_cache_state is not None:
@@ -451,6 +500,9 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, timestep, context=None, 
     else:
         x = blocks(x)
     x = head_forward(params["head"], x, t, cfg, seg=seg)
+    if n_ref:  # the reference frame's tokens go before the output
+        x = x[:, n_ref:]
+        grid = (grid[0] - 1, grid[1], grid[2])
     out = unpatchify(x, grid, cfg)
     return (out, new_state) if tea_cache_state is not None else out
 
@@ -460,7 +512,8 @@ def convert_dit_state_dict(sd: Dict[str, Any], cfg: WanDiTConfig, dtype=None, de
     """Upstream (civitai layout) DiT state dict of numpy arrays -> port
     params on ``device``: patch_embedding / text_embedding.{0,2} /
     time_embedding.{0,2} / time_projection.1 / blocks.N.* / head.head, and
-    img_emb.proj.* (and img_emb.emb_pos) for the image-input configs."""
+    img_emb.proj.* (and img_emb.emb_pos) for the image-input configs, and
+    ref_conv for the Fun-Reference configs."""
     def g(name):
         return np.asarray(sd[name])
 
@@ -504,4 +557,8 @@ def convert_dit_state_dict(sd: Dict[str, Any], cfg: WanDiTConfig, dtype=None, de
         }
         if cfg.has_image_pos_emb:
             params["img_emb"]["pos"] = g("img_emb.emb_pos")
+    if cfg.has_ref_conv:
+        rc = g("ref_conv.weight")  # (D, 16, 2, 2)
+        params["ref_conv"] = {"w": rc.transpose(1, 2, 3, 0).reshape(-1, D),
+                              "b": g("ref_conv.bias")}
     return to_tensors(params, device, dtype)

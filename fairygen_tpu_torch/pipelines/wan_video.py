@@ -1,5 +1,6 @@
 """Wan video pipeline: the TI2V, I2V, video-to-video and two-expert paths
-(port of fairygen_tpu/pipelines/wan_video.py ``WanVideoPipeline``).
+and the conditioned variants (port of fairygen_tpu/pipelines/wan_video.py
+``WanVideoPipeline``).
 
 The call: prompt strings through the UMT5 tokenizer and encoder (or
 encoded ``context`` / ``negative_context``), noise (``core.noise``), then
@@ -22,16 +23,33 @@ cross-attention (k, v) are computed once when it takes over (the first
 expert's freed first), but for the sliding window, whose sweeps take the
 context as the JAX package's do.
 
-``from_pretrained`` finds the DiTs (two files: the expert pair), the VAE38
-or the Wan2.1 VAE and UMT5 among checkpoint files by their key hash
-(``core.model_pool``); the CLIP image encoder is given to the constructor,
-as in the JAX package.  LoRAs load fused into the first expert's weights or
-hot (``load_lora(hotload=True)``, cleared by ``clear_lora`` on both).
-:meth:`WanVideoPipeline.quantize` swaps both experts' projections to W8A8
-(``ops/quant.py``); ``tea_cache_l1_thresh`` gates each sweep's block stack
-by TeaCache (``utils/tea_cache.py``), one state per CFG branch, carried
-across the expert switch.  The JAX pipeline's other paths (VACE, S2V,
-camera, animate, VAP, LongCat, Fun-Reference, the motion bucket) are not
+The conditioned variants, with their models set on the pipeline
+(``motion_controller_*``, ``vace_*``, ``camera_*``, ``s2v_*``,
+``wav2vec_*``, as in the JAX package): ``motion_bucket_id`` (the motion
+controller's bias on the block modulation), VACE (``vace_video`` /
+``_mask`` / ``_reference_image`` / ``vace_scale``: the control latents and
+the pixel-shuffled mask, reference frames rolled to the front of the
+noise and dropped after the denoise), camera control
+(``camera_control_direction`` / ``_speed``: plücker rays through the
+SimpleAdapter, which also makes ``y`` from ``input_image``), Fun-Reference
+(``reference_image``, a leading frame of ``ref_conv`` tokens, carried into
+every sliding window) and speech-to-video (``audio_embeds``, or
+``input_audio`` through wav2vec; ``s2v_pose_video`` / ``_latents``;
+``motion_video``: the S2V DiT with zero audio in the CFG branch, the
+reference frame re-pinned each step, the motion latents stitched in front
+before the decode).
+
+``from_pretrained`` finds the DiTs (two files: the expert pair; an S2V
+DiT apart by its config), the wav2vec encoder, the VAE38 or the Wan2.1
+VAE and UMT5 among checkpoint files by their key hash
+(``core.model_pool``); the CLIP image encoder and the conditioning models
+above are given to the constructor, as in the JAX package.  LoRAs load
+fused into the first expert's weights or hot (``load_lora(hotload=True)``,
+cleared by ``clear_lora`` on both).  :meth:`WanVideoPipeline.quantize`
+swaps both experts' projections to W8A8 (``ops/quant.py``);
+``tea_cache_l1_thresh`` gates each sweep's block stack by TeaCache
+(``utils/tea_cache.py``), one state per CFG branch, carried across the
+expert switch.  The JAX pipeline's animate, VAP and LongCat paths are not
 ported: their keywords raise.
 """
 from __future__ import annotations
@@ -48,22 +66,20 @@ from ..device import resolve_device
 from ..diffusion.flow_match import FlowMatchScheduler
 from ..models.wan.dit import (WanDiTConfig, precompute_cross_kv, text_kv_hoistable,
                               wan_dit_forward)
+from ..models.wan.s2v import wan_s2v_forward
 from ..models.wan.text_encoder import UMT5Config, mask_pad_tokens, umt5_encode
 from ..models.wan.vae import WanVAEConfig, vae38_decode, vae38_encode
 
-_VARIANTS = "ROADMAP.md Queue 1 item 6, the other Wan variants"
+_6C = "ROADMAP.md Queue 1 item 6c, Animate and VAP / MoT"
 # keywords of the JAX pipeline's __call__ whose paths are not ported -> (the
 # JAX default, which asks for nothing, and the ROADMAP item that ports it)
-_UNPORTED = {name: (None, _VARIANTS) for name in (
-    "motion_bucket_id", "vace_video", "vace_video_mask",
-    "vace_reference_image", "audio_embeds", "input_audio", "longcat_video", "s2v_pose_video",
-    "s2v_pose_latents", "motion_video", "camera_control_direction", "reference_image",
+_UNPORTED = {name: (None, _6C) for name in (
     "animate_pose_video", "animate_face_video", "animate_inpaint_video", "animate_mask_video",
     "vap_video", "context_vap", "negative_context_vap")}
-_UNPORTED.update(
-    vace_scale=(1.0, _VARIANTS),
-    audio_sample_rate=(16000, _VARIANTS), camera_control_speed=(1 / 54, _VARIANTS),
-    vap_prompt=(" ", _VARIANTS), negative_vap_prompt=(" ", _VARIANTS))
+_UNPORTED.update(vap_prompt=(" ", _6C), negative_vap_prompt=(" ", _6C),
+                 longcat_video=(None, "ROADMAP.md Queue 1 item 6d, LongCat"))
+_CAMERA_DIRECTIONS = ("Left", "Right", "Up", "Down", "LeftUp", "LeftDown", "RightUp",
+                      "RightDown")
 
 
 def _as_pil(image, width, height):
@@ -79,7 +95,9 @@ class WanVideoPipeline:
     ``from_pretrained``): Wan2.2-TI2V-5B, the I2V and T2V DiTs, and with
     ``dit2_params`` the two-expert pairs (both experts under ``dit_cfg``);
     ``image_encoder_params`` / ``image_encoder_cfg``: the CLIP ViT-H of the
-    DiTs that take CLIP features.
+    DiTs that take CLIP features; the conditioning models of the variants
+    (motion controller, VACE branch, camera SimpleAdapter, S2V DiT and its
+    wav2vec encoder) as (params, cfg) pairs.
 
     ``device`` defaults to "cuda" and raises without a card unless "cpu" is
     asked for; params must already live on that device."""
@@ -88,36 +106,51 @@ class WanVideoPipeline:
                  vae_cfg: Optional[WanVAEConfig] = None, te_params: Any = None,
                  te_cfg: Optional[UMT5Config] = None, dtype=torch.bfloat16, device="cuda",
                  tokenizer=None, dit2_params: Any = None, image_encoder_params: Any = None,
-                 image_encoder_cfg=None):
+                 image_encoder_cfg=None, motion_controller_params=None,
+                 motion_controller_cfg=None, vace_params=None, vace_cfg=None, s2v_params=None,
+                 s2v_cfg=None, wav2vec_params=None, wav2vec_cfg=None, camera_params=None,
+                 camera_cfg=None):
         self.device = resolve_device(device)
         self.dit_params, self.dit_cfg = dit_params, dit_cfg
         self.dit2_params = dit2_params
         self.vae_params, self.vae_cfg = vae_params, vae_cfg
         self.te_params, self.te_cfg = te_params, te_cfg
         self.image_encoder_params, self.image_encoder_cfg = image_encoder_params, image_encoder_cfg
+        self.motion_controller_params = motion_controller_params
+        self.motion_controller_cfg = motion_controller_cfg
+        self.vace_params, self.vace_cfg = vace_params, vace_cfg
+        self.s2v_params, self.s2v_cfg = s2v_params, s2v_cfg
+        self.wav2vec_params, self.wav2vec_cfg = wav2vec_params, wav2vec_cfg
+        self.camera_params, self.camera_cfg = camera_params, camera_cfg
         self.tokenizer = tokenizer  # utils.tokenizer.HuggingfaceTokenizer
         self.dtype = dtype
 
     @classmethod
     def from_pretrained(cls, model_paths, tokenizer_path=None, dtype=torch.bfloat16, hints=None,
                         mesh=None, device="cuda"):
-        """Hash-detected loading: the DiT, VAE and UMT5 files (paths or
-        ``core.model_config.ModelConfig``s, in any order) are built on
-        ``device``; two DiT files become the (``dit``, ``dit2``) expert
-        pair in the order the pool loaded them.  ``hints`` maps a path to
-        (model_name, extra_kwargs) for checkpoints the registry does not
-        know.  ``tokenizer_path``: a transformers tokenizer directory
-        (UMT5's, 512 tokens)."""
+        """Hash-detected loading: the DiT, VAE, UMT5 and wav2vec files
+        (paths or ``core.model_config.ModelConfig``s, in any order) are
+        built on ``device``; the DiTs are told apart by their config (an
+        S2V DiT goes to ``s2v_params``) and two plain DiT files become the
+        (``dit``, ``dit2``) expert pair in the order the pool loaded them.
+        ``hints`` maps a path to (model_name, extra_kwargs) for checkpoints
+        the registry does not know.  ``tokenizer_path``: a transformers
+        tokenizer directory (UMT5's, 512 tokens)."""
         if mesh is not None:
             raise NotImplementedError("mesh= (sequence parallelism) waits for parallel/ on "
                                       "torch.distributed, ROADMAP.md Queue 1 item 9")
         from ..core.model_pool import ModelPool
+        from ..models.wan.s2v import S2VConfig
 
         device = resolve_device(device)
         pool = ModelPool().load(model_paths, dtype=dtype, hints=hints, device=device)
-        dits = pool.fetch_model("wan_video_dit", index="all") or []
+        entries = pool.fetch_model("wan_video_dit", index="all") or []
+        s2vs = [e for e in entries if isinstance(e[1], S2VConfig)]
+        dits = [e for e in entries if not isinstance(e[1], S2VConfig)]
         dit_params, dit_cfg = dits[0] if dits else (None, None)
         dit2_params = dits[1][0] if len(dits) > 1 else None
+        s2v = s2vs[0] if s2vs else (None, None)
+        wav2vec = pool.fetch_model("wans2v_audio_encoder") or (None, None)
         vae = pool.fetch_model("wan_video_vae")
         te = pool.fetch_model("wan_video_text_encoder")
         tokenizer = None
@@ -127,7 +160,8 @@ class WanVideoPipeline:
             tokenizer = HuggingfaceTokenizer(tokenizer_path, seq_len=512, clean="whitespace")
         return cls(dit_params, dit_cfg, vae[0] if vae else None, vae[1] if vae else None,
                    te[0] if te else None, te[1] if te else None, dtype=dtype, device=device,
-                   tokenizer=tokenizer, dit2_params=dit2_params)
+                   tokenizer=tokenizer, dit2_params=dit2_params, s2v_params=s2v[0],
+                   s2v_cfg=s2v[1], wav2vec_params=wav2vec[0], wav2vec_cfg=wav2vec[1])
 
     def quantize(self, mode: str = "int8_ffn", *, act_amax=None, alpha: float = 0.5,
                  outlier_k=0):
@@ -224,13 +258,7 @@ class WanVideoPipeline:
         (1, z, (T-1)/4+1, h, w), in spatial tiles with ``tiled`` (whose
         encode streams), else full-sequence or ``streaming``."""
         video = torch.from_numpy(preprocess_video(input_video)).to(self.device, self.dtype)
-        if tiled:
-            from ..models.wan.vae_tiling import vae38_tiled_encode
-
-            return vae38_tiled_encode(self.vae_params, self.vae_cfg, video, tile_size=tile_size,
-                                      tile_stride=tile_stride).to(self.dtype)
-        return vae38_encode(self.vae_params, self.vae_cfg, video,
-                            streaming=streaming).to(self.dtype)
+        return self._encode(video, tiled, tile_size, tile_stride, streaming).to(self.dtype)
 
     @torch.no_grad()
     def encode_i2v_conditioning(self, input_image, height, width, num_frames, end_image=None,
@@ -265,6 +293,94 @@ class WanVideoPipeline:
         return encode_image(self.image_encoder_params, self.image_encoder_cfg,
                             img).to(self.dtype)
 
+    def _encode(self, x, tiled=False, tile_size=(34, 34), tile_stride=(18, 16),
+                streaming=False):
+        """The VAE encode of a video: in spatial tiles (whose encode streams)
+        with ``tiled``, else full-sequence or ``streaming``."""
+        if tiled:
+            from ..models.wan.vae_tiling import vae38_tiled_encode
+
+            return vae38_tiled_encode(self.vae_params, self.vae_cfg, x, tile_size=tile_size,
+                                      tile_stride=tile_stride)
+        return vae38_encode(self.vae_params, self.vae_cfg, x, streaming=streaming)
+
+    @torch.no_grad()
+    def encode_vace_context(self, vace_video, vace_video_mask, vace_reference_image, height,
+                            width, num_frames, tiled=False, tile_size=(34, 34),
+                            tile_stride=(18, 16), streaming=False):
+        """VACE conditioning (upstream WanVideoUnit_VACE): the VAE latents of
+        the control video outside and inside the mask, the mask
+        pixel-shuffled to 64 channels and resized in time (nearest), and
+        each reference image's latent in a leading frame with a zero mask.
+        Returns (vace_context (1, 2z + 64, n_ref + T', H/8, W/8), n_ref)."""
+        dev, dt = self.device, self.dtype
+        if vace_video is None:
+            vv = torch.zeros((1, 3, num_frames, height, width), device=dev, dtype=dt)
+        else:
+            vv = torch.from_numpy(preprocess_video(vace_video)).to(dev, dt)
+        if vace_video_mask is None:
+            vm = torch.ones_like(vv)
+        else:
+            vm = torch.from_numpy(preprocess_video(vace_video_mask, min_value=0,
+                                                   max_value=1)).to(dev, dt)
+            if vm.shape != vv.shape:
+                raise ValueError(f"vace_video_mask frames/size {tuple(vm.shape)} must match "
+                                 f"vace_video {tuple(vv.shape)}")
+        kw = dict(tiled=tiled, tile_size=tile_size, tile_stride=tile_stride, streaming=streaming)
+        latents = torch.cat([self._encode(vv * (1 - vm), **kw), self._encode(vv * vm, **kw)],
+                            dim=1)
+        m = vm[0, 0]  # (T, H, W)
+        T, H, W = m.shape
+        m = m.reshape(T, H // 8, 8, W // 8, 8).permute(2, 4, 0, 1, 3)
+        m = m.reshape(1, 64, T, H // 8, W // 8)
+        t_new = (T + 3) // 4
+        idx = np.floor((np.arange(t_new, dtype=np.float32) + np.float32(0.5)) * np.float32(T)
+                       / np.float32(t_new)).astype(np.int64).clip(0, T - 1)
+        mask = m[:, :, torch.from_numpy(idx).to(dev)]
+        n_ref = 0
+        if vace_reference_image is not None:
+            refs = (vace_reference_image if isinstance(vace_reference_image, list)
+                    else [vace_reference_image])
+            n_ref = len(refs)
+            ref = torch.cat([vae38_encode(self.vae_params, self.vae_cfg, torch.from_numpy(
+                preprocess_image(r)[None, :, None]).to(dev, dt)) for r in refs], dim=2)
+            latents = torch.cat([torch.cat([ref, torch.zeros_like(ref)], dim=1), latents], dim=2)
+            mask = torch.cat([torch.zeros_like(mask[:, :, :n_ref]), mask], dim=2)
+        return torch.cat([latents.to(dt), mask.to(dt)], dim=1), n_ref
+
+    @torch.no_grad()
+    def encode_camera_control(self, direction, speed, input_image, height, width, num_frames,
+                              streaming=False):
+        """Camera control (upstream WanVideoUnit_FunCameraControl): the
+        plücker embedding of the direction's trajectory, grouped 4 frames a
+        latent frame, through the SimpleAdapter once (upstream recomputes
+        it every step) -> tokens (1, S, D); and ``y``, the first-frame
+        latent conditioning of ``input_image``."""
+        from ..models.wan.camera import (generate_camera_coordinates, process_pose_file,
+                                         simple_adapter_forward)
+
+        if direction not in _CAMERA_DIRECTIONS:
+            raise ValueError(f"camera_control_direction {direction!r} not in "
+                             f"{_CAMERA_DIRECTIONS}")
+        coords = generate_camera_coordinates(direction, num_frames, speed)
+        v = process_pose_file(coords, width=width, height=height).transpose(3, 0, 1, 2)[None]
+        v = np.concatenate([np.repeat(v[:, :, 0:1], 4, axis=2), v[:, :, 1:]], axis=2)
+        b, c, f4, H, W = v.shape
+        v = v.transpose(0, 2, 1, 3, 4).reshape(b, f4 // 4, 4, c, H, W)
+        v = v.transpose(0, 1, 3, 2, 4, 5).reshape(b, f4 // 4, c * 4, H, W).transpose(0, 2, 1, 3, 4)
+        cam = simple_adapter_forward(self.camera_params, self.camera_cfg, torch.from_numpy(
+            np.ascontiguousarray(v)).to(self.device, self.dtype))
+        tokens = cam.reshape(cam.shape[0], cam.shape[1], -1).transpose(1, 2)
+        z = self.vae_cfg.z_dim
+        if self.dit_cfg.in_dim - z == z:
+            y = torch.zeros(self._latent_shape(height, width, num_frames), device=self.device,
+                            dtype=self.dtype)
+            y[:, :, :1] = self.encode_first_frame(input_image)
+        else:
+            y = self.encode_i2v_conditioning(input_image, height, width, num_frames,
+                                             streaming=streaming)
+        return tokens.to(self.dtype), y
+
     # ---------------------------------------------------------------- call
     @torch.no_grad()
     def __call__(self, prompt: Optional[str] = None, negative_prompt: str = "", *,
@@ -274,6 +390,12 @@ class WanVideoPipeline:
                  cfg_scale: float = 5.0, cfg_merge: bool = False,
                  switch_dit_boundary: float = 0.875,
                  num_inference_steps: int = 50, sigma_shift: float = 5.0,
+                 motion_bucket_id: Optional[int] = None, vace_video=None, vace_video_mask=None,
+                 vace_reference_image=None, vace_scale: float = 1.0, audio_embeds=None,
+                 input_audio=None, audio_sample_rate: int = 16000, s2v_pose_video=None,
+                 s2v_pose_latents=None, motion_video=None,
+                 camera_control_direction: Optional[str] = None,
+                 camera_control_speed: float = 1 / 54, reference_image=None,
                  tiled: bool = False, tile_size: Tuple[int, int] = (30, 52),
                  tile_stride: Tuple[int, int] = (15, 26),
                  sliding_window_size: Optional[int] = None,
@@ -287,10 +409,10 @@ class WanVideoPipeline:
         TeaCache gate's threshold over ``tea_cache_model_id``'s polynomial
         (``utils.tea_cache``; not with the sliding window).
         ``streaming_vae`` streams the decode and, unlike the JAX package,
-        the I2V and video encodes too (the same math within fp32 summation
-        order; a full-sequence encode of 81 frames would not fit beside a
-        14B expert pair).  A keyword of a path that is not ported is
-        accepted at the JAX default and raises otherwise."""
+        the I2V, video, VACE, camera and S2V encodes too (the same math
+        within fp32 summation order; a full-sequence encode of 81 frames
+        would not fit beside a 14B expert pair).  A keyword of a path that
+        is not ported is accepted at the JAX default and raises otherwise."""
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"__call__() got an unexpected keyword argument {name!r}")
@@ -315,9 +437,45 @@ class WanVideoPipeline:
         if use_cfg:
             negative_context = negative_context.to(self.device, self.dtype)
 
-        latents = generate_noise(self._latent_shape(height, width, num_frames), seed=seed,
-                                 dtype=self.dtype, torch_compat=torch_compat_noise,
-                                 device=self.device)
+        if input_audio is not None and audio_embeds is None:
+            # wav2vec's hidden states -> 30 fps -> buckets of num_frames - 1
+            # video frames; the first drives this clip
+            from ..models.wan.wav2vec import audio_embeds_from_waveform
+
+            if self.wav2vec_params is None:
+                raise ValueError("input_audio needs an audio encoder (wav2vec_params)")
+            audio_embeds = audio_embeds_from_waveform(
+                self.wav2vec_params, self.wav2vec_cfg, input_audio,
+                sample_rate=audio_sample_rate, num_frames=num_frames)[0]
+        if audio_embeds is not None:
+            if self.s2v_params is None:
+                raise ValueError("audio conditioning needs an S2V DiT (s2v_params)")
+            return self._generate_s2v(
+                context, negative_context if use_cfg else None, audio_embeds,
+                input_image=input_image, s2v_pose_video=s2v_pose_video,
+                s2v_pose_latents=s2v_pose_latents, motion_video=motion_video, height=height,
+                width=width, num_frames=num_frames, cfg_scale=cfg_scale, seed=seed,
+                num_inference_steps=num_inference_steps, sigma_shift=sigma_shift,
+                streaming_vae=streaming_vae, vae_frames_per_chunk=vae_frames_per_chunk,
+                output_type=output_type, torch_compat_noise=torch_compat_noise,
+                progress_callback=progress_callback)
+
+        cond = {}
+        n_ref = 0
+        if any(a is not None for a in (vace_video, vace_video_mask, vace_reference_image)):
+            if self.vace_params is None:
+                raise ValueError("VACE conditioning needs a VACE branch (vace_params)")
+            cond["vace_context"], n_ref = self.encode_vace_context(
+                vace_video, vace_video_mask, vace_reference_image, height, width, num_frames,
+                tiled=tiled, tile_size=tile_size, tile_stride=tile_stride,
+                streaming=streaming_vae)
+            cond["vace_scale"] = vace_scale
+        shape = self._latent_shape(height, width, num_frames)
+        shape = shape[:2] + (shape[2] + n_ref,) + shape[3:]
+        latents = generate_noise(shape, seed=seed, dtype=self.dtype,
+                                 torch_compat=torch_compat_noise, device=self.device)
+        if n_ref:  # the reference frames' noise rolled to the front
+            latents = torch.cat([latents[:, :, -n_ref:], latents[:, :, :-n_ref]], dim=2)
         scheduler = FlowMatchScheduler("Wan").set_timesteps(
             num_inference_steps, denoising_strength=denoising_strength, shift=sigma_shift)
         if input_video is not None:
@@ -326,7 +484,8 @@ class WanVideoPipeline:
                                             tile_stride=tile_stride, streaming=streaming_vae)
             latents = scheduler.add_noise(video, latents, 0)
         first = y = clip_feature = None
-        if input_image is not None:
+        # camera control makes its own y from input_image
+        if input_image is not None and camera_control_direction is None:
             cfg = self.dit_cfg
             if cfg.fuse_vae_embedding_in_latents:
                 first = self.encode_first_frame(_as_pil(input_image, width, height))
@@ -347,14 +506,42 @@ class WanVideoPipeline:
                                      "(require_clip_embedding=True) but no image encoder is "
                                      "loaded")
                 clip_feature = self.encode_clip_feature(_as_pil(input_image, width, height))
+        if reference_image is not None:  # upstream WanVideoUnit_FunReference
+            ref = preprocess_video([_as_pil(reference_image, width, height)])
+            cond["reference_latents"] = vae38_encode(
+                self.vae_params, self.vae_cfg, torch.from_numpy(ref).to(self.device, self.dtype))
+            if self.dit_cfg.require_clip_embedding and clip_feature is None:
+                clip_feature = self.encode_clip_feature(_as_pil(reference_image, width, height))
+        if camera_control_direction is not None:
+            if self.camera_params is None:
+                raise ValueError("camera control needs a camera adapter (camera_params)")
+            if input_image is None:
+                raise ValueError("camera control needs input_image")
+            cond["control_camera_tokens"], y = self.encode_camera_control(
+                camera_control_direction, camera_control_speed,
+                _as_pil(input_image, width, height), height, width, num_frames,
+                streaming=streaming_vae)
+        if motion_bucket_id is not None:
+            from ..models.wan.aux_models import motion_controller_forward
+
+            if self.motion_controller_params is None:
+                raise ValueError("motion_bucket_id needs motion_controller_params")
+            ids = torch.tensor([motion_bucket_id], dtype=torch.float32, device=self.device)
+            cond["t_mod_bias"] = motion_controller_forward(
+                self.motion_controller_params, self.motion_controller_cfg, ids).to(self.dtype)
 
         args = (latents, context, negative_context if use_cfg else None, scheduler, first,
                 cfg_scale, progress_callback, y, clip_feature,
-                self._boundary_index(scheduler, switch_dit_boundary))
+                self._boundary_index(scheduler, switch_dit_boundary), cond)
         if sliding_window_size is not None:
             if tea_cache_l1_thresh is not None:
                 raise ValueError("TeaCache and the temporal sliding window are mutually "
                                  "exclusive (per-window hidden-state shapes break the cache)")
+            if "vace_context" in cond or "control_camera_tokens" in cond:
+                raise ValueError("sliding-window denoising supports text / first-frame / "
+                                 "Fun-Reference / motion-bucket conditioning only; VACE, "
+                                 "animate and camera control have no defined per-window "
+                                 "semantics")
             latents = self._denoise_windowed(*args, sliding_window_size, sliding_window_stride)
         else:
             tea_opts = None
@@ -363,10 +550,71 @@ class WanVideoPipeline:
                                 rel_l1_thresh=float(tea_cache_l1_thresh),
                                 num_inference_steps=int(num_inference_steps))
             latents = self._denoise(*args, cfg_merge, tea_opts)
+        if n_ref:  # the denoised reference frames go
+            latents = latents[:, :, n_ref:]
         return self._decode_output(latents, output_type=output_type,
                                    streaming_vae=streaming_vae,
                                    frames_per_chunk=vae_frames_per_chunk, tiled=tiled,
                                    tile_size=tile_size, tile_stride=tile_stride)
+
+    def _generate_s2v(self, context, negative_context, audio_embeds, *, input_image,
+                      s2v_pose_video, s2v_pose_latents, motion_video, height, width, num_frames,
+                      cfg_scale, seed, num_inference_steps, sigma_shift, streaming_vae,
+                      vae_frames_per_chunk, output_type, torch_compat_noise, progress_callback):
+        """Speech-to-video (upstream WanVideoUnit_S2V, model_fn_wans2v and
+        WanVideoPostUnit_S2V): latent frame 0 is the reference image's
+        latent, re-pinned after every step; the CFG branch takes zero audio;
+        a 73-frame ``motion_video``'s latents run through the frame packer
+        and are stitched in front of the result before the decode."""
+        dev, dt = self.device, self.dtype
+        motion_latents = None
+        if motion_video is not None:
+            mv = torch.from_numpy(preprocess_video(motion_video)).to(dev, dt)
+            if mv.shape[2] != 73:
+                raise ValueError(f"motion_video must have 73 frames, got {mv.shape[2]}")
+            motion_latents = vae38_encode(self.vae_params, self.vae_cfg, mv,
+                                          streaming=streaming_vae)
+        if s2v_pose_latents is None and s2v_pose_video is not None:
+            infer = num_frames - 1
+            pv = torch.from_numpy(preprocess_video(s2v_pose_video)).to(dev, dt)[:, :, :infer]
+            if infer > pv.shape[2]:
+                pv = torch.cat([pv, -torch.ones((1, 3, infer - pv.shape[2], height, width),
+                                                device=dev, dtype=dt)], dim=2)
+            pv = torch.cat([pv[:, :, 0:1], pv], dim=2)
+            s2v_pose_latents = vae38_encode(self.vae_params, self.vae_cfg, pv,
+                                            streaming=streaming_vae)[:, :, 1:]
+        if s2v_pose_latents is not None:
+            s2v_pose_latents = torch.as_tensor(s2v_pose_latents).to(dev, dt)
+        latents = generate_noise(self._latent_shape(height, width, num_frames), seed=seed,
+                                 dtype=dt, torch_compat=torch_compat_noise, device=dev)
+        ref = None
+        if input_image is not None:
+            ref = self.encode_first_frame(_as_pil(input_image, width, height))
+            latents[:, :, 0:1] = ref
+        scheduler = FlowMatchScheduler("Wan").set_timesteps(num_inference_steps,
+                                                            shift=sigma_shift)
+        timesteps = torch.tensor(scheduler.timesteps, dtype=torch.float32)
+        audio = torch.as_tensor(np.asarray(audio_embeds)).to(dev, dt)
+        kw = dict(motion_latents=motion_latents, pose_cond=s2v_pose_latents,
+                  drop_motion_frames=motion_latents is None)
+        n = len(scheduler.timesteps)
+        for i in range(n):
+            t1 = timesteps[i:i + 1].to(dev)
+            v = wan_s2v_forward(self.s2v_params, self.s2v_cfg, latents, t1, context, audio, **kw)
+            if negative_context is not None:
+                v_n = wan_s2v_forward(self.s2v_params, self.s2v_cfg, latents, t1,
+                                      negative_context, torch.zeros_like(audio), **kw)
+                v = v_n + float(torch.tensor(cfg_scale, dtype=v.dtype)) * (v - v_n)
+            latents = scheduler.step(v, i, latents)
+            if ref is not None:
+                latents[:, :, 0:1] = ref
+            if progress_callback is not None:
+                progress_callback(i + 1, n)
+        if motion_latents is not None:
+            latents = torch.cat([motion_latents.to(dt), latents[:, :, 1:]], dim=2)
+        return self._decode_output(latents, output_type=output_type,
+                                   streaming_vae=streaming_vae,
+                                   frames_per_chunk=vae_frames_per_chunk)
 
     def _boundary_index(self, scheduler, switch_dit_boundary):
         """The first step of ``dit2``: the first whose timestep lies below
@@ -379,12 +627,21 @@ class WanVideoPipeline:
                                    -switch_dit_boundary * 1000, side="right"))
 
     def _sweep(self, params, latents, t1, fuse, cross_kv=None, context=None, y=None,
-               clip_feature=None, **tea):
-        """One DiT sweep of ``params`` (an expert); with ``tea``
-        (tea_cache_state, tea_cache_opts) it returns (output, new state)."""
+               clip_feature=None, cond=None, **tea):
+        """One DiT sweep of ``params`` (an expert) under the conditioning
+        ``cond`` (``wan_dit_forward``'s keywords; per-sample inputs repeated
+        to a merged CFG batch); with ``tea`` (tea_cache_state,
+        tea_cache_opts) it returns (output, new state)."""
+        cond = dict(cond or {})
+        b = latents.shape[0]
+        for k in ("control_camera_tokens", "reference_latents", "vace_context"):
+            if cond.get(k) is not None and cond[k].shape[0] != b:
+                cond[k] = torch.cat([cond[k]] * (b // cond[k].shape[0]))
+        if "vace_context" in cond:
+            cond.update(vace_params=self.vace_params, vace_cfg=self.vace_cfg)
         return wan_dit_forward(params, self.dit_cfg, latents, t1, context, y=y,
                                clip_feature=clip_feature, fuse_vae_embedding_in_latents=fuse,
-                               cross_kv=cross_kv, **tea)
+                               cross_kv=cross_kv, **cond, **tea)
 
     def _init_tea_states(self, latents, *, use_cfg, cfg_merge, fuse):
         """fp32 TeaCache states shaped for the DiT's tokens and t_mod rows:
@@ -404,7 +661,7 @@ class WanVideoPipeline:
         return tea_a, tea_b
 
     def _denoise(self, latents, context, negative_context, scheduler, first, cfg_scale,
-                 progress_callback, y, clip_feature, boundary, cfg_merge, tea_opts=None):
+                 progress_callback, y, clip_feature, boundary, cond, cfg_merge, tea_opts=None):
         """The steps: two batch-1 sweeps for CFG, or with ``cfg_merge`` one
         batch-2 sweep over [prompt, negative prompt]; the guidance combine
         in fp32, as in the JAX package.  Steps before ``boundary`` run
@@ -412,7 +669,9 @@ class WanVideoPipeline:
         it takes over (for the I2V DiTs too, beside their image branch:
         the JAX package projects them in every block there, the same ops).
         ``tea_opts``: TeaCache's options, with one gate state per sweep of a
-        step, carried across the switch."""
+        step, carried across the switch.  ``cond``: the sweeps' conditioning
+        (the VACE blocks take the prompt's context beside the hoisted
+        (k, v))."""
         timesteps = torch.tensor(scheduler.timesteps, dtype=torch.float32)
         n, fuse = len(scheduler.timesteps), first is not None
         merge = negative_context is not None and cfg_merge
@@ -421,6 +680,7 @@ class WanVideoPipeline:
             tea = list(self._init_tea_states(latents, use_cfg=negative_context is not None,
                                              cfg_merge=cfg_merge, fuse=fuse))
         hoist = text_kv_hoistable(self.dit_cfg, clip_feature)
+        vace = "vace_context" in cond
         if merge:
             y2 = None if y is None else torch.cat([y, y])
             clip2 = None if clip_feature is None else torch.cat([clip_feature, clip_feature])
@@ -431,7 +691,8 @@ class WanVideoPipeline:
                 continue
 
             def sweep(lat, t, kv, ctx, branch, y_, clip_):
-                kw = dict(cross_kv=kv, context=None if hoist else ctx, y=y_, clip_feature=clip_)
+                kw = dict(cross_kv=kv, context=None if hoist and not vace else ctx, y=y_,
+                          clip_feature=clip_, cond=cond)
                 if tea_opts is None:
                     return self._sweep(params, lat, t, fuse, **kw)
                 v, tea[branch] = self._sweep(params, lat, t, fuse, **kw,
@@ -469,13 +730,14 @@ class WanVideoPipeline:
         return latents
 
     def _denoise_windowed(self, latents, context, negative_context, scheduler, first,
-                          cfg_scale, progress_callback, y, clip_feature, boundary, window_size,
-                          window_stride):
+                          cfg_scale, progress_callback, y, clip_feature, boundary, cond,
+                          window_size, window_stride):
         """Long videos: each step denoises overlapping temporal windows
         (each sweep with the prompt's context, the expert of its step, the
-        window's frames of ``y``; CFG combined per window in the sweep's
-        dtype, as the JAX package's windowed path does) and blends them in
-        fp32 (``utils.temporal_tiler``)."""
+        window's frames of ``y``, the whole Fun-Reference latent and motion
+        bias of ``cond``; CFG combined per window in the sweep's dtype, as
+        the JAX package's windowed path does) and blends them in fp32
+        (``utils.temporal_tiler``)."""
         from ..utils.temporal_tiler import temporal_tiled_model_fn
 
         if window_stride is None:
@@ -487,7 +749,7 @@ class WanVideoPipeline:
             params = self.dit_params if i < boundary else self.dit2_params
 
             def model_fn(window, y=None):
-                kw = dict(y=y, clip_feature=clip_feature)
+                kw = dict(y=y, clip_feature=clip_feature, cond=cond)
                 v = self._sweep(params, window, t1, fuse, context=context, **kw)
                 if negative_context is not None:
                     v_n = self._sweep(params, window, t1, fuse, context=negative_context, **kw)

@@ -1,5 +1,5 @@
-"""Media IO: saving and loading video frames (port of the frame parts of
-fairygen_tpu/utils/video.py).
+"""Media IO: saving and loading video frames, reading a wav and muxing it
+into a saved video (port of fairygen_tpu/utils/video.py).
 
 ``save_video`` tries, in order: an mp4 through imageio (it needs an
 ffmpeg backend), a GIF through PIL, then a directory of numbered PNGs.
@@ -117,3 +117,74 @@ def load_video_frames(path: str, height: Optional[int] = None, width: Optional[i
     vd = (VideoData(image_folder=path, height=height, width=width) if os.path.isdir(path)
           else VideoData(video_file=path, height=height, width=width))
     return [vd[i] for i in range(len(vd))]
+
+
+def load_wav(path: str):
+    """A PCM ``.wav`` -> (mono float32 waveform in [-1, 1], sample rate):
+    8-bit unsigned, 16-bit, packed 24-bit and 32-bit signed little-endian
+    samples; several channels are averaged."""
+    import wave
+
+    with wave.open(path, "rb") as f:
+        sr = f.getframerate()
+        width = f.getsampwidth()
+        n_ch = f.getnchannels()
+        raw = f.readframes(f.getnframes())
+    if width == 1:
+        data = (np.frombuffer(raw, np.uint8).astype(np.float32) - 128.0) / 128.0
+    elif width == 2:
+        data = np.frombuffer(raw, "<i2").astype(np.float32) / 32768.0
+    elif width == 3:  # widen to int32 with a zero low byte
+        b = np.frombuffer(raw, np.uint8).reshape(-1, 3)
+        i32 = np.zeros((b.shape[0], 4), np.uint8)
+        i32[:, 1:] = b
+        data = i32.view("<i4")[:, 0].astype(np.float32) / 2147483648.0
+    elif width == 4:
+        data = np.frombuffer(raw, "<i4").astype(np.float32) / 2147483648.0
+    else:
+        raise ValueError(f"unsupported wav sample width: {width} bytes")
+    if n_ch > 1:
+        data = data.reshape(-1, n_ch).mean(axis=1)
+    return data, sr
+
+
+def merge_video_audio(video_path: str, audio_path: str):
+    """Mux an audio track into a saved video with ffmpeg (the video stream
+    copied, the audio AAC, trimmed to the shorter); raises when ffmpeg is
+    missing or fails."""
+    import shutil
+    import subprocess
+
+    for p in (video_path, audio_path):
+        if not os.path.exists(p):
+            raise FileNotFoundError(f"{p} does not exist")
+    ffmpeg = shutil.which("ffmpeg")
+    if ffmpeg is None:
+        try:
+            import imageio_ffmpeg
+
+            ffmpeg = imageio_ffmpeg.get_ffmpeg_exe()
+        except Exception as e:
+            raise RuntimeError("no ffmpeg available to mux audio") from e
+    base, ext = os.path.splitext(video_path)
+    temp_output = f"{base}_temp{ext}"
+    command = [ffmpeg, "-y", "-i", video_path, "-i", audio_path, "-c:v", "copy", "-c:a", "aac",
+               "-b:a", "192k", "-map", "0:v:0", "-map", "1:a:0", "-shortest", temp_output]
+    try:
+        result = subprocess.run(command, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        if result.returncode != 0:
+            raise RuntimeError(f"ffmpeg failed: {result.stderr[-2000:]}")
+        shutil.move(temp_output, video_path)
+    except Exception:
+        if os.path.exists(temp_output):
+            os.remove(temp_output)
+        raise
+
+
+def save_video_with_audio(video, save_path: str, audio_path: str, fps: int = 16,
+                          quality: int = 9):
+    """:func:`save_video`, then the driving audio muxed in (S2V outputs)."""
+    out = save_video(video, save_path, fps=fps, quality=quality)
+    merge_video_audio(out, audio_path)
+    return out

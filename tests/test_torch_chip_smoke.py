@@ -239,6 +239,89 @@ def test_expert_sweeps_are_counted_per_expert(smoke):
     assert counts == [2, 1] and wan_video.wan_dit_forward is real
 
 
+# -------------------------------------------------- the conditioning phase
+@pytest.mark.parametrize("name,model_hash,model_name", [
+    ("vace_dit", "7a513e1f257a861512b1afd387a8ecd9", "wan_video_dit"),
+    ("vace", "7a513e1f257a861512b1afd387a8ecd9", "wan_video_vace"),
+    ("camera_dit", "47dbeab5e560db3180adf51dc0232fb1", "wan_video_dit"),
+    ("funref_dit", "2267d489f0ceb9f21836532952852ee5", "wan_video_dit"),
+    ("t2v_1_3b", "a61453409b67cd3246cf0c3bebad47ba", "wan_video_dit"),
+    ("s2v", "966cffdcc52f9c46c391768b27637614", "wan_video_dit")])
+def test_the_conditioning_configs_are_the_registry_entries(smoke, name, model_hash,
+                                                           model_name):
+    """The conditioning phase's seeded models have the registry's fields;
+    the camera DiT's adapter options are the SimpleAdapter's, and the
+    Fun-Reference DiT's in_dim is the I2V conditioning's 36, not the
+    published 52 (its control-video channels are never filled)."""
+    import json
+
+    entries = json.loads((REPO / "fairygen_tpu_torch" / "configs" /
+                          "model_registry.json").read_text())
+    extra = next(e.get("extra_kwargs", {}) for e in entries
+                 if e["model_hash"] == model_hash and e["model_name"] == model_name)
+    cfgs = smoke.conditioning_configs()
+    cfg = cfgs[name]
+    for k, v in extra.items():
+        if k in ("add_control_adapter", "in_dim_control_adapter"):
+            continue
+        want = 36 if (name, k) == ("funref_dit", "in_dim") else v
+        assert getattr(cfg, k) == (tuple(want) if isinstance(want, list) else want), k
+    if name == "camera_dit":
+        assert cfgs["camera"].in_dim == extra["in_dim_control_adapter"]
+        assert cfgs["camera"].out_dim == cfg.dim
+    if name == "t2v_1_3b":
+        assert cfgs["motion"].dim == cfg.dim
+    if name == "s2v":
+        assert cfgs["wav2vec"].hidden_size == cfg.audio_dim
+        assert cfgs["wav2vec"].num_hidden_layers + 1 == cfg.num_audio_layers
+
+
+def test_the_conditioning_launch_tables(smoke):
+    """The per-sweep tables name counters that exist; a VACE sweep adds, a
+    VACE block, K1 three times, K3 and K4 once; an S2V sweep runs no K1 and
+    12 injector calls of K4; the S2V tables cover 7800 and 10114 tokens."""
+    from fairygen_tpu_torch.ops import _kernels
+
+    for table in (smoke.WAN14B_VACE_PER_SWEEP, smoke.S2V_PER_SWEEP, smoke.WAN13B_PER_SWEEP):
+        assert set(table) <= set(_kernels.KERNELS)
+    n = len(smoke.conditioning_configs()["vace"].vace_layers)
+    base = smoke.WAN14B_PER_SWEEP
+    assert smoke.WAN14B_VACE_PER_SWEEP == dict(
+        base, ln_modulate=base["ln_modulate"] + 3 * n, flash_bounded=base["flash_bounded"] + n,
+        flash_small_kv=base["flash_small_kv"] + n)
+    s2v = smoke.conditioning_configs()["s2v"]
+    assert smoke.S2V_PER_SWEEP == {"rms_rope_heads_major": 2 * s2v.num_layers,
+                                   "flash_bounded": s2v.num_layers,
+                                   "flash_small_kv": s2v.num_layers
+                                   + len(s2v.audio_inject_layers)}
+    assert len(smoke.s2v_angles(False)) == 7800 and len(smoke.s2v_angles(True)) == 10114
+
+
+def test_streamed_encodes_launch_k11_a_latent_frame(smoke):
+    """The phase counts K11 by latent frames: a streamed encode of 1, 17
+    and 73 frames (the first-frame, clip and motion-video encodes) and the
+    decode of its latents each call the norm + SiLU once a site a latent
+    frame (a small v1 VAE on the CPU, through the name its module calls)."""
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.wan import vae as tvae
+
+    cfg = tvae.WanVAEConfig.tiny_v1(dim_mult=(1, 2, 4, 4))
+    params = convert.init_vae_params(cfg, "cpu", torch.float32, seed=0)
+    enc, dec = smoke.vae_norm_silu_calls(cfg)
+    for frames in (1, 17, 73):
+        shapes, undo = smoke.record_k11_shapes(tvae)
+        try:
+            with torch.no_grad():
+                z = tvae.vae38_encode(params, cfg, torch.zeros(1, 3, frames, 16, 16),
+                                      streaming=True)
+                e = sum(shapes.values())
+                tvae.vae38_decode(params, cfg, z, streaming=True)
+        finally:
+            undo()
+        lat = (frames - 1) // 4 + 1
+        assert z.shape[2] == lat and (e, sum(shapes.values()) - e) == (lat * enc, lat * dec)
+
+
 PTXAS_LOG = """ptxas info : Compiling entry function '_Z18ln_modulate_kernelILi16EEvPK13bf16'
 ptxas info : Used 62 registers, used 0 barriers
 ptxas info :     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads

@@ -1982,3 +1982,146 @@ def test_fp32_goldens_match_on_the_card(card, which):
     spec.loader.exec_module(smoke)
     smoke.reference_fp32_goldens_check(only=which)
 
+
+
+# ------------------------------------------------ the conditioned Wan variants
+@pytest.mark.parametrize("b", [4, 5])
+def test_k4_bounded_at_five_keys_with_batch(card, b):
+    """K4's bounded form as the S2V audio injector calls it: one batch row a
+    latent frame, 40 heads, 1560 queries, 4 audio tokens + 1 padding token
+    (a 128-key tile, ``l -= pad`` over 123 zero keys); two runs bit for bit,
+    and the generic entry's dispatch to it."""
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    n, sq, lk, hd = 40, 1560, 5, 128
+
+    def normed(*shape, scale=1.0):
+        x = torch.randn(shape, generator=card, device="cuda")
+        return (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + 1e-6) * scale).to(torch.bfloat16)
+
+    q = normed(b, sq, n, hd, scale=hd ** -0.5 * 1.4427)
+    k = normed(b, lk, n, hd)
+    v = torch.randn((b, lk, n, hd), generator=card, device="cuda").to(torch.bfloat16)
+    qh, kh = fa._layout(q, k, None, True, 2048)
+    assert kh.shape[1] == 128
+    before = _kernels.launches["flash_small_kv"]
+    out = fa.flash_attention_heads_major(qh, kh, v, b=b, n=n, sq=sq, sk_actual=lk,
+                                         bq=qh.shape[1], bk=128)
+    assert _kernels.launches["flash_small_kv"] == before + 1
+    ref = fa.flash_attention_heads_major_plain(qh, kh, v, b=b, n=n, sq=sq, sk_actual=lk)
+    # each of 5 p's is a large share of its row's sum: a logit summed in
+    # another order that flips one p's bf16 rounding moves o by up to
+    # 2^-8 max |v|; a relative L2 of 2^-10 as K4's other forms
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7,
+                               atol=2 ** -8 * v.abs().max().item())
+    assert _rel_l2(out, ref) < 2 ** -10
+    assert torch.equal(out, fa.flash_attention_heads_major(qh, kh, v, b=b, n=n, sq=sq,
+                                                           sk_actual=lk, bq=qh.shape[1], bk=128))
+    via = fa.flash_attention(q, k, v, prescaled=True, bounded_logits=True)
+    torch.testing.assert_close(via.float(), out.float(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("motion", [False, True])
+def test_k2_on_the_s2v_tables(card, motion):
+    """K2 with S2V's per-token tables (the reference frame at t = 30 and,
+    with a motion video, the frame packer's negative-time grids) at the
+    480x832 x 17-frame shapes against its plain version."""
+    from fairygen_tpu_torch.models.wan import s2v
+    from fairygen_tpu_torch.ops import fused_qk as fq
+
+    grids = [((0, 0, 0), (4, 30, 52), (4, 30, 52)), ((30, 0, 0), (31, 30, 52), (1, 30, 52))]
+    if motion:
+        grids += s2v.frame_packer_grids(s2v.S2VConfig(), 60, 104)
+    ff = fq.build_freqs_full(s2v.angles_to_freqs(s2v.rope_grid_angles(grids, 128), "cuda"))
+    S, N, D = ff.shape[1], 40, 5120
+    assert S == (10114 if motion else 7800)
+    x = torch.randn((1, S, D), generator=card, device="cuda").to(torch.bfloat16)
+    gq = (torch.randn(D, generator=card, device="cuda") * 0.13).to(torch.bfloat16)
+    rs = fq._rowscale(x, 1e-6)
+    s_pad = fq._pad_for_flash(S)[0]
+    out = fq.rms_rope_heads_major(x, gq, rs, ff, N, s_pad)
+    ref = fq.rms_rope_heads_major_plain(x, gq, rs, ff, N, s_pad)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-5)
+
+
+def test_k3_at_9360_tokens(card):
+    """K3 at S = 9360: a reference frame ahead of 5 latent frames of 30 x 52
+    (Fun-Reference, VACE with a reference image), 40 heads."""
+    from fairygen_tpu_torch.ops import fused_qk as fq
+    from fairygen_tpu_torch.ops.flash_attention import (flash_attention_heads_major,
+                                                         flash_attention_heads_major_plain)
+    from fairygen_tpu_torch.ops.rope import build_freqs_grid, precompute_freqs_3d
+
+    S, N, D = 9360, 40, 5120
+    s_pad, bq, bk = fq._pad_for_flash(S)
+    ff = fq.build_freqs_full(build_freqs_grid(precompute_freqs_3d(128), 6, 30, 52, device="cuda"))
+
+    def heads(scale):
+        x = torch.randn((1, S, D), generator=card, device="cuda").to(torch.bfloat16)
+        g = (torch.randn(D, generator=card, device="cuda") * scale).to(torch.bfloat16)
+        return fq.rms_rope_heads_major(x, g, fq._rowscale(x, 1e-6), ff, N, s_pad)
+
+    qh, kh = heads(0.13), heads(1.0)
+    v = torch.randn((1, S, N, 128), generator=card, device="cuda").to(torch.bfloat16)
+    out = flash_attention_heads_major(qh, kh, v, b=1, n=N, sq=S, sk_actual=S, bq=bq, bk=bk)
+    ref = flash_attention_heads_major_plain(qh, kh, v, b=1, n=N, sq=S, sk_actual=S)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+
+
+def _to_dt(tree, dev, dt):
+    if isinstance(tree, dict):
+        return {k: _to_dt(v, dev, dt) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_dt(v, dev, dt) for v in tree]
+    return tree.to(dev, dt)
+
+
+@pytest.mark.parametrize("which", ["VACE", "S2V"])
+def test_two_block_14b_width_forward_on_the_card(card, which):
+    """A 2-block forward at 14B width (D = 5120, 40 heads; 5 latent frames
+    of 16 x 16 tokens: K3 runs) with the VACE branch (one block) or the S2V
+    audio stack, on the card in bf16 against the CPU in fp32: the relative
+    L2 error at most twice the CPU bf16 run's plus 1e-3; the kernels of the
+    path launched."""
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.wan.aux_models import VaceConfig
+    from fairygen_tpu_torch.models.wan.dit import WanDiTConfig, wan_dit_forward
+    from fairygen_tpu_torch.models.wan.s2v import S2VConfig, wan_s2v_forward
+    from fairygen_tpu_torch.ops import _kernels
+
+    g = torch.Generator("cpu").manual_seed(26)
+    lat = torch.randn(1, 16, 5, 32, 32, generator=g)
+    t = torch.tensor([700.0])
+    ctx = torch.randn(1, 64, 4096, generator=g) * 0.2
+    if which == "VACE":
+        cfg = WanDiTConfig(dim=5120, in_dim=16, ffn_dim=13824, out_dim=16, num_heads=40,
+                           num_layers=2, require_clip_embedding=False)
+        vcfg = VaceConfig(vace_layers=(1,), vace_in_dim=96, dim=5120, num_heads=40,
+                          ffn_dim=13824)
+        params = convert.init_dit_params(cfg, "cpu", torch.float32, seed=1)
+        vace = convert.init_vace_params(vcfg, "cpu", torch.float32, seed=2)
+        vctx = torch.randn(1, 96, 5, 32, 32, generator=g)
+
+        def run(dev, dt):
+            return wan_dit_forward(_to_dt(params, dev, dt), cfg, lat.to(dev, dt), t.to(dev),
+                                   ctx.to(dev, dt), vace_params=_to_dt(vace, dev, dt),
+                                   vace_cfg=vcfg, vace_context=vctx.to(dev, dt), vace_scale=0.9)
+        want = ("ln_modulate", "rms_rope_heads_major", "flash_bounded", "flash_small_kv")
+    else:
+        cfg = S2VConfig(num_layers=2, audio_inject_layers=(0, 1))
+        params = convert.init_s2v_params(cfg, "cpu", torch.float32, seed=3)
+        audio = torch.randn(1, 25, 1024, 16, generator=g)
+
+        def run(dev, dt):
+            return wan_s2v_forward(_to_dt(params, dev, dt), cfg, lat.to(dev, dt), t.to(dev),
+                                   ctx.to(dev, dt), audio.to(dev, dt))
+        want = ("rms_rope_heads_major", "flash_bounded", "flash_small_kv")
+    with torch.no_grad():
+        ref = run("cpu", torch.float32)
+        rel16 = _rel_l2(run("cpu", torch.bfloat16), ref)
+        before = dict(_kernels.launches)
+        out = run("cuda", torch.bfloat16).cpu()
+    ran = {k: _kernels.launches[k] - before[k] for k in before}
+    assert all(ran[k] for k in want), ran
+    assert _rel_l2(out, ref) <= 2 * rel16 + 1e-3

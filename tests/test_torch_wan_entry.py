@@ -144,21 +144,43 @@ def test_registry_copy_is_byte_equal():
     assert len(MODEL_REGISTRY.lookup("1f5ab7703c6fc803fdded85ff040c316")) == 1
 
 
-@pytest.mark.parametrize("name", ["wan_video_vace", "wans2v_audio_encoder", "flux2_dit",
+@pytest.mark.parametrize("name", ["wan_video_animate_adapter", "wan_video_vap", "flux2_dit",
                                   "qwen_image_dit"])
 def test_unported_registry_names_raise_with_their_roadmap_item(name):
-    item = "item 6" if name.startswith("wan") else "item 8"
+    item = "item 6c" if name.startswith("wan") else "item 8"
     with pytest.raises(NotImplementedError, match=f"{name} .*{item}"):
         ModelPool().registry.builder(name)
 
 
-@pytest.mark.parametrize("extra,match", [
-    ({"audio_dim": 1024, "cond_dim": 16}, "S2V"),
-    ({"has_ref_conv": True}, "has_ref_conv"),
+@pytest.mark.parametrize("name,attr", [("wan_video_vace", "vace_params"),
+                                       ("wan_video_motion_controller",
+                                        "motion_controller_params")])
+def test_pipeline_given_models_have_no_builder_and_are_skipped(name, attr, ckpts, monkeypatch):
+    """The JAX package's pool builds no VACE branch or motion controller
+    (the pipeline takes them); the port's refuses the name, names the
+    pipeline's argument, and a file whose hash also maps to it loads the
+    rest, as the JAX pool does."""
+    with pytest.raises(NotImplementedError, match=f"{name} has no model-pool builder.*{attr}"):
+        ModelPool().registry.builder(name)
+    from fairygen_tpu_torch.core import registry
+
+    path = ckpts["paths"]["dit"]
+    spec = registry.ModelSpec("0" * 32, name, {})
+    real = MODEL_REGISTRY.detect_file
+    monkeypatch.setattr(MODEL_REGISTRY, "detect_file", lambda p: [spec] if p == path else real(p))
+    assert MODEL_REGISTRY.load(path, dtype=torch.float32, device="cpu") == []
+
+
+@pytest.mark.parametrize("sd,extra,match", [
+    ({"final_layer.adaLN_modulation.1.weight": np.zeros(1)}, {}, "LongCat.*item 6d"),
+    ({}, {"add_control_adapter": True, "in_dim_control_adapter": 24},
+     "unsupported WanModel kwargs.*camera_params"),
 ])
-def test_wan_dit_variants_raise(extra, match):
+def test_wan_dit_variants_raise(sd, extra, match):
+    """LongCat-Video's DiT waits for item 6d; a camera DiT's adapter is not
+    built by the pool (in the JAX package either)."""
     with pytest.raises(NotImplementedError, match=match):
-        ModelPool().registry.builder("wan_video_dit")({}, extra, torch.float32, "cpu")
+        ModelPool().registry.builder("wan_video_dit")(sd, extra, torch.float32, "cpu")
 
 
 def test_model_config_resolves_local_paths(tmp_path, monkeypatch):
@@ -356,13 +378,22 @@ def test_hot_lora_refuses_a_training_adapter_and_takes_the_2d_branch():
 
 
 def test_unported_keywords_raise(pipes):
+    """Animate, VAP and LongCat wait for items 6c and 6d; the variants of
+    the second slice run (tests/test_torch_wan_conditioning.py and
+    test_torch_wan_s2v.py), and without their models say which is missing."""
     _, pipe = pipes
-    for kw in ({"vace_video": [np.zeros((32, 32, 3), np.uint8)]},
-               {"motion_bucket_id": 3}, {"vace_scale": 0.5}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+    for kw, item in (({"vap_video": [np.zeros((32, 32, 3), np.uint8)]}, "6c"),
+                     ({"animate_pose_video": [np.zeros((32, 32, 3), np.uint8)]}, "6c"),
+                     ({"vap_prompt": "x"}, "6c"), ({"longcat_video": []}, "6d")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 item {item}"):
+            pipe(**REQUEST, **kw)
+    for kw, match in (({"vace_video": [np.zeros((32, 32, 3), np.uint8)]}, "vace_params"),
+                      ({"motion_bucket_id": 3}, "motion_controller_params"),
+                      ({"audio_embeds": np.zeros((1, 25, 8, 4), np.float32)}, "s2v_params")):
+        with pytest.raises(ValueError, match=match):
             pipe(**REQUEST, **kw)
     # the JAX defaults ask for nothing
-    pipe(**REQUEST, output_type="latents", vace_scale=1.0, vace_video=None)
+    pipe(**REQUEST, output_type="latents", vap_prompt=" ", longcat_video=None, vace_scale=0.5)
     with pytest.raises(TypeError, match="unexpected keyword"):
         pipe(**REQUEST, no_such_keyword=1)
 
@@ -427,15 +458,58 @@ def test_cli_twins_keep_the_jax_examples_flags_and_prompt():
     assert flags == ref
 
 
-@pytest.mark.parametrize("flag", ["--usp 2", "--vace_video v.mp4",
-                                  "--camera_control_direction Left", "--audio a.wav",
-                                  "--longcat_video v.mp4", "--reference_image r.png",
-                                  "--motion_bucket_id 3"])
+@pytest.mark.parametrize("flag", ["--usp 2", "--longcat_video v.mp4", "--sp_strategy ring"])
 def test_cli_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as e:
         wan_inference.main(["--model_paths", "[]", "--prompt", "x", *flag.split()])
     assert e.value.code == 2
     assert "ROADMAP.md Queue 1 item" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag,key,want", [
+    ("--vace_video {dir}", "vace_video", 2), ("--camera_control_direction Left",
+                                              "camera_control_direction", "Left"),
+    ("--audio {wav}", "input_audio", 800), ("--reference_image {img}", "reference_image",
+                                            (32, 32)),
+    ("--motion_bucket_id 3", "motion_bucket_id", 3)])
+def test_cli_passes_the_variant_flags(flag, key, want, tmp_path, monkeypatch):
+    """The variant flags reach the pipeline as the JAX example passes them:
+    a frame directory as frames, the wav as a waveform (at its header's
+    rate), an image resized to the request."""
+    import wave
+
+    from PIL import Image
+
+    (tmp_path / "v").mkdir()
+    for i in range(2):
+        Image.fromarray(np.full((8, 8, 3), 40 * i, np.uint8)).save(tmp_path / "v" / f"{i}.png")
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "r.png")
+    with wave.open(str(tmp_path / "a.wav"), "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(8000)
+        f.writeframes(np.zeros(800, np.int16).tobytes())
+    seen = {}
+
+    class Pipe:
+        def __call__(self, **kw):
+            seen.update(kw)
+            return [np.zeros((8, 8, 3), np.uint8)]
+
+    monkeypatch.setattr(WanVideoPipeline, "from_pretrained", classmethod(lambda *a, **k: Pipe()))
+    args = flag.format(dir=tmp_path / "v", wav=tmp_path / "a.wav", img=tmp_path / "r.png")
+    assert wan_inference.main(["--model_paths", "[]", "--prompt", "x", "--height", "32",
+                               "--width", "32", "--output", str(tmp_path / "o.gif"),
+                               *args.split()]) == 0
+    got = seen[key]
+    if key == "vace_video":
+        got = len(got)
+    elif key == "input_audio":
+        assert seen["audio_sample_rate"] == 8000
+        got = len(got)
+    elif key == "reference_image":
+        got = got.size
+    assert got == want
 
 
 def test_cli_twin_writes_a_video(ckpts, tmp_path):

@@ -533,8 +533,8 @@ def test_vae_builder_tells_the_two_vaes_apart(monkeypatch):
 
 
 def test_dit_builder_takes_the_image_position_embedding():
-    """``has_image_pos_emb`` builds (its ``img_emb.emb_pos``); the
-    Fun-Reference conv stays refused (the second slice)."""
+    """``has_image_pos_emb`` builds (its ``img_emb.emb_pos``); so does the
+    Fun-Reference conv (``ref_conv``) beside it."""
     kw = dict(I2V_CLIP, has_image_pos_emb=True)
     cfg, jp = _jax_dit(kw, 0)
     sd = _upstream_dit_sd(jp, cfg)
@@ -542,8 +542,11 @@ def test_dit_builder_takes_the_image_position_embedding():
     build = ModelPool().registry.builder("wan_video_dit")
     params, tcfg = build(sd, _dit_hint(kw), torch.float32, "cpu")
     assert tcfg.has_image_pos_emb and float(params["img_emb"]["pos"][0, 3, 7]) == 0.5
-    with pytest.raises(NotImplementedError, match="has_ref_conv"):
-        build({}, dict(_dit_hint(A14B), has_ref_conv=True), torch.float32, "cpu")
+    sd["ref_conv.weight"] = np.full((cfg.dim, 16, 2, 2), 0.25, np.float32)
+    sd["ref_conv.bias"] = np.zeros(cfg.dim, np.float32)
+    params, tcfg = build(sd, dict(_dit_hint(kw), has_ref_conv=True), torch.float32, "cpu")
+    assert tcfg.has_ref_conv and params["ref_conv"]["w"].shape == (64, cfg.dim)
+    assert float(params["ref_conv"]["w"][5, 1]) == 0.25
 
 
 def test_quantize_lora_and_clear_on_two_experts(ckpts, tmp_path):
