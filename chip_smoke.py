@@ -17,6 +17,10 @@
     python3 chip_smoke.py --conditioning-only  # device, build, then only the conditioning
                                           # phase and its tiny reference check; no result
                                           # line
+    python3 chip_smoke.py --animate-vap-longcat-only  # device, build, then only the
+                                          # animate_vap_longcat phase (its kernel shapes
+                                          # first) and its tiny reference check; no
+                                          # result line
 
 Phases, each printing its wall seconds:
   1. device   — card name/count, nvidia-smi name and power limit, TF32 off.
@@ -284,6 +288,17 @@ Phases, each printing its wall seconds:
                 48 / 48, S2V 0 / 80 / 40 / 52; K11 by latent frames
                 encoded and decoded), K11 at each Wan2.1 VAE shape, and
                 profiled VACE, camera and S2V sweeps and wav2vec encode.
+ 10g. animate_vap_longcat — the last Wan variants at full width from
+                seeded bf16 weights through the Wan2.1 VAE (streamed), CFG
+                5: Wan2.2-Animate-14B (the conditioning phase's 40 blocks,
+                a ViT-H, the adapter; 21 frames with 17-frame pose, 512x512
+                face, inpaint and mask videos: S = 9360), Wan2.1-I2V-14B
+                with the 10-layer VAP / MoT branch (a 17-frame VAP video:
+                K5 at head dim 128 over 15600 joint tokens), then, those
+                freed, LongCat-Video (48 blocks of 4096) as T2V and as a
+                continuation of a 5-frame clip (2 conditioning latent
+                frames, pinned after each step); walls, peaks, exact
+                launches, a profiled sweep of each DiT.
  11. reference — a tiny-width pipeline on the card (kernels, bf16) against
                 the same pipeline on the CPU (plain versions, fp32), a tiny
                 pipeline loaded by from_pretrained(hints=...) from
@@ -302,7 +317,9 @@ Phases, each printing its wall seconds:
                 to "int8" and with TeaCache likewise (the TeaCache schedule
                 the same on the card as on the CPU in bf16 and fp32), and tiny
                 VACE, camera, Fun-Reference, motion-controller and S2V
-                (wav2vec from a waveform) pipelines likewise.
+                (wav2vec from a waveform) pipelines likewise, and tiny
+                head-dim-128 Animate, VAP (K5 over the joint tokens) and
+                LongCat (T2V and continuation) pipelines likewise.
 Then the card line, one JSON line of kernel numbers and the result line.
 Any failure exits non-zero; past BUDGET_S seconds the run stops, naming
 the phase it was in.
@@ -1370,6 +1387,16 @@ def main(argv):
         done("reference", t0)
         timer.cancel()
         return 0
+    if "--animate-vap-longcat-only" in argv:
+        t0 = phase("animate_vap_longcat")
+        avl_kernel_checks()
+        animate_vap_longcat_phase()
+        done("animate_vap_longcat", t0)
+        t0 = phase("reference")
+        reference_avl_check()
+        done("reference", t0)
+        timer.cancel()
+        return 0
 
     t0 = phase("kernels")
     smoke = kernel_checks(1950, (5, 15, 26), "S=1950")
@@ -1385,6 +1412,7 @@ def main(argv):
     f32_fwd_k = f32_fwd_kernel_checks()
     d64_k = bf16_d64_kernel_checks()
     kc = conditioning_kernel_checks()
+    avl = avl_kernel_checks()
     k4_other = k4_ab(ab_lib) if ab_lib else None
     f32_other = f32_ab(ab_lib) if ab_lib else None
     k11_other = k11_ab(ab_lib) if ab_lib else None
@@ -1542,10 +1570,17 @@ def main(argv):
         done("variants", t0)
 
         t0 = phase("conditioning")
-        kc["vae_rms_silu"], cond_launches = conditioning_phase()
+        kc["vae_rms_silu"], cond_launches, shared = conditioning_phase()
         launches = {k: launches[k] + cond_launches[k] for k in launches}
         print(f"  launches, with the conditioned Wan variants: {launches}", flush=True)
         done("conditioning", t0)
+
+        t0 = phase("animate_vap_longcat")
+        avl_launches = animate_vap_longcat_phase(shared)
+        del shared
+        launches = {k: launches[k] + avl_launches[k] for k in launches}
+        print(f"  launches, with Animate, VAP and LongCat: {launches}", flush=True)
+        done("animate_vap_longcat", t0)
 
         t0 = phase("reference")
         reference_check()
@@ -1560,6 +1595,7 @@ def main(argv):
         reference_dora_check()
         reference_speed_check()
         reference_conditioning_check()
+        reference_avl_check()
         done("reference", t0)
 
     sources = {"ln_modulate": ("csrc/ln_modulate.cu", "fairygen_tpu/ops/fused_norms.py:42"),
@@ -1839,6 +1875,18 @@ def main(argv):
                 "library_flash_ms", "library_cudnn_ms", "library_device_ms", "max_abs_err",
                 "rel_l2")} | {"bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
                 for tag, v in by.items()}})
+    for r in rows:  # the last Wan variants' new shapes (avl_kernel_checks)
+        shapes = {tag.split(" ", 1)[1]: v for tag, v in avl.items()
+                  if tag.split(" ", 1)[0] == r["name"]}
+        if shapes:
+            r["animate_vap_longcat"] = {
+                tag: {key: v.get(key) for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                                                  "library_flash_ms", "library_cudnn_ms",
+                                                  "max_abs_err", "rel_l2")}
+                | {"bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
+                for tag, v in shapes.items()}
+            r["max_abs_err"] = max([r["max_abs_err"]] + [v["max_abs_err"]
+                                                         for v in shapes.values()])
     timer.cancel()
     print(smi)
     print(json.dumps({"kernels": rows}))
@@ -7592,7 +7640,9 @@ def conditioning_phase():
     and of the wav2vec encode (the new kernel shapes are held in the kernels
     phase, ``conditioning_kernel_checks``, early in the process where the
     card's profiler keeps its records).  Returns (K11's numbers at the Wan2.1
-    VAE's shapes, the phase's launches)."""
+    VAE's shapes, the phase's launches, and the models the next phase
+    shares: the 40 blocks, the Wan2.1 VAE and the shapes K11 was held
+    at)."""
     import dataclasses
 
     import numpy as np
@@ -7772,14 +7822,14 @@ def conditioning_phase():
     busy["wav2vec"], _ = profiled("wav2vec XLSR-53 encode of 1 s (16000 samples)",
                                   lambda: audio_embeds_from_waveform(w2v, w2v_cfg, wave,
                                                                      num_frames=17))
-    del pipe, s2v, w2v, blocks, lat, audio
+    del pipe, s2v, w2v, lat, audio
     torch.cuda.empty_cache()
     mark("profiles")
     k11 = k11_v1_checks(k11_shapes)
     mark("K11 at the Wan2.1 VAE's shapes")
     print(f"  conditioning: walls {json.dumps(walls_all)}; profiled busy ms "
           f"{json.dumps(busy)}; launches {total}", flush=True)
-    return k11, total
+    return k11, total, dict(blocks=blocks, vae=vae, vae_cfg=vae_cfg, k11_shapes=set(k11_shapes))
 
 
 def reference_conditioning_check():
@@ -7875,6 +7925,490 @@ def reference_conditioning_check():
             raise RuntimeError(f"tiny {label} pipeline disagrees with the CPU reference: "
                                f"{rel:.4e}")
 
+
+# --------------------------------------------------- animate_vap_longcat
+AVL_STEPS = 1  # CFG 5: two sweeps a request (cut from the default 50)
+AVL_CONT_STEPS = 2  # the LongCat continuation: its latents pinned after each of two steps
+# an Animate-14B sweep: the 14B blocks with the CLIP branch (the text (k, v)
+# projected in every block, as the JAX package does while Animate is on);
+# the pose embedding, the face encoder and the face blocks launch no kernel
+ANIMATE_PER_SWEEP = WAN14B_CLIP_PER_SWEEP
+# a VAP sweep: 30 blocks of K1 x 3, the plain rms -> RoPE chain into K3 and
+# q's rms into K4 over the text and CLIP keys; the 10 MoT layers K5 over the
+# joint tokens and K4 over each side's text and CLIP keys
+VAP_PER_SWEEP = {"ln_modulate": 90, "flash_bounded": 30, "flash_small_kv": 100, "flash_fwd": 10}
+# a LongCat sweep: 48 blocks of K3 (two in cond mode: the conditioning
+# frames among themselves, the noise frames over all) and K4's max form
+# over the 512 text keys
+LONGCAT_PER_SWEEP = {"flash_bounded": 48, "flash_small_kv_max": 48}
+LONGCAT_COND_PER_SWEEP = dict(LONGCAT_PER_SWEEP, flash_bounded=96)
+
+
+def avl_configs():
+    """The phase's models, as configs/model_registry.json gives them (by
+    hash): Wan2.2-Animate-14B, its DiT and its adapter
+    (31fa352acb8a1b1d33cd8764273d80a2, both entries); Wan2.1-I2V-14B and the
+    VAP / MoT branch (5f90e66a0672219f12d9a626c8c21f61, both entries, the
+    branch at MotConfig's defaults); LongCat-Video
+    (8b27900f680d7251ce44e2dc8ae1ffef, LongCatDiTConfig.longcat())."""
+    from fairygen_tpu_torch.models.wan.animate import AnimateConfig
+    from fairygen_tpu_torch.models.wan.longcat import LongCatDiTConfig
+    from fairygen_tpu_torch.models.wan.mot import MotConfig
+
+    return {"animate_dit": wan14b_cfg(clip=True), "animate": AnimateConfig(),
+            "vap_dit": wan14b_cfg(clip=True), "vap": MotConfig(),
+            "longcat": LongCatDiTConfig.longcat()}
+
+
+def avl_kernel_checks(hd=128):
+    """The phase's new kernel shapes against their plain versions, on
+    rms-normed q / k laid out as ``flash_attention`` lays them out (its
+    padding and prescale): K5 at head dim 128 over MoT's 40 x 15600 joint
+    tokens (keys padded to 16384, masked past 15600; 2^-7 relative + 2^-8
+    absolute and a relative L2 of o below 2^-8, as K6a at the training
+    shapes), K4's max form as LongCat's cross-attention calls it (32 heads
+    of 7800 queries, 4680 in cond mode, over 512 text keys; 2^-7 + 1e-3, a
+    relative L2 below 2^-10) and K3 at LongCat's self-attention shapes (32 x
+    7800^2, the conditioning frames' 32 x 3120^2 and the noise frames' 32 x
+    4680 queries over all 7800 keys, Sq != Sk; 2^-7 + 1e-3).  Each: error,
+    event and device ms, the plain version's ms (one call, events), the
+    bound, and the library call that computes the function (K5: the faster
+    of cuDNN's forward and SDPA's flash; K3, K4: SDPA)."""
+    import torch
+    import torch.nn.functional as F
+
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator("cuda").manual_seed(2701)
+    bf, ln2 = torch.bfloat16, 0.6931471805599453
+
+    def normed(*shape):
+        x = torch.randn(shape, generator=g, device="cuda")
+        return (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + 1e-6)).to(bf)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(bf)
+
+    def one_call(fn):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b)
+
+    def heads(xh, n, s):  # (B*N, S_pad, d) -> (1, N, s, d), contiguous
+        return xh.view(1, n, -1, hd)[:, :, :s].contiguous()
+
+    res = {}
+    N, S = 40, 15600
+    qh, kh = fa._layout(normed(1, S, N, hd), normed(1, S, N, hd), None, False)
+    vh = fa._heads_major(randn(1, S, N, hd), kh.shape[1])
+
+    def run():
+        return fa.flash_fwd(qh, kh, vh, sk_actual=S, with_lse=False)
+
+    ref, plain_ms = one_call(lambda: fa.flash_fwd_plain(qh, kh, vh, sk_actual=S, with_lse=False))
+    tag = f"MoT joint {N}x{S}^2 (keys in {kh.shape[1]})"
+    out = run()
+    err = check_close(f"K5 flash_fwd d {hd}, {tag}", out, ref, rtol=2 ** -7, atol=2 ** -8)
+    rel = rel_l2(out, ref)
+    print(f"  K5 {tag}: relative L2 error of o {rel:.3e} (bound 2^-8)", flush=True)
+    if not rel < 2 ** -8:
+        raise RuntimeError(f"K5 at the MoT shape: relative L2 error {rel:.3e}")
+    del ref, out
+    qs, ks, vs = heads(qh, N, S), heads(kh, N, S), heads(vh, N, S)
+    sdpa = torch.ops.aten._scaled_dot_product_flash_attention
+    lib_flash = time_ms(lambda: sdpa(qs, ks, vs, 0.0, False, False, scale=ln2), 5, 3)
+    lib_cudnn = cudnn_fwd_ms(qs, ks, vs, ln2, tag)
+    res[f"flash_fwd {tag}"] = dict(
+        max_abs_err=err, rel_l2=rel, ms=time_ms(run, 5, 3), device_ms=device_ms_twice(run, 5),
+        plain_ms=plain_ms, bound=bound_ms(4 * N * S * hd * 2, 4 * N * S * S * hd),
+        library_ms=lib_flash if lib_cudnn is None else min(lib_flash, lib_cudnn),
+        library_flash_ms=lib_flash, library_cudnn_ms=lib_cudnn)
+    del qh, kh, vh, qs, ks, vs
+
+    N, lk = 32, 512
+    for sq, mode in ((7800, "T2V"), (4680, "cond")):
+        qh, kh = fa._layout(normed(1, sq, N, hd), normed(1, lk, N, hd), None, False)
+        vh = fa._heads_major(randn(1, lk, N, hd), kh.shape[1])
+
+        def run():
+            return fa.flash_small_kv_max(qh, kh, vh, sk_actual=lk)
+
+        ref, plain_ms = one_call(lambda: fa.flash_small_kv_max_plain(qh, kh, vh, sk_actual=lk))
+        tag = f"LongCat cross {mode} {N}x{sq} q, {lk} keys"
+        out = run()
+        err = check_close(f"K4 flash_small_kv_max d {hd}, {tag}", out, ref, rtol=2 ** -7,
+                          atol=1e-3)
+        rel = rel_l2(out, ref)
+        print(f"  K4 {tag}: relative L2 error of o {rel:.3e} (bound 2^-10)", flush=True)
+        if not rel < 2 ** -10:
+            raise RuntimeError(f"K4 max at LongCat's cross shape: relative L2 error {rel:.3e}")
+        q4, k4, v4 = heads(qh, N, sq), heads(kh, N, lk), heads(vh, N, lk)
+        res[f"flash_small_kv_max {tag}"] = dict(
+            max_abs_err=err, rel_l2=rel, ms=time_ms(run), device_ms=device_ms_twice(run, 20),
+            plain_ms=plain_ms, bound=bound_ms((2 * sq + 2 * lk) * N * hd * 2,
+                                              4 * N * sq * lk * hd),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=ln2)))
+        del qh, kh, vh, ref, out, q4, k4, v4
+
+    for sq, sk, tag in ((7800, 7800, f"LongCat T2V {N}x7800^2"),
+                        (3120, 3120, f"LongCat cond frames {N}x3120^2"),
+                        (4680, 7800, f"LongCat noise frames {N}x4680 q over 7800 keys")):
+        qh, kh = fa._layout(normed(1, sq, N, hd), normed(1, sk, N, hd), None, False, 2048)
+        v = randn(1, sk, N, hd)
+
+        def run():
+            return fa.flash_attention_heads_major(qh, kh, v, b=1, n=N, sq=sq, sk_actual=sk,
+                                                  bq=qh.shape[1], bk=fa.DEFAULT_BK)
+
+        ref, plain_ms = one_call(lambda: fa.flash_attention_heads_major_plain(
+            qh, kh, v, b=1, n=N, sq=sq, sk_actual=sk))
+        err = check_close(f"K3 flash_bounded, {tag}", run(), ref, rtol=2 ** -7, atol=1e-3)
+        res[f"flash_bounded {tag}"] = dict(
+            max_abs_err=err, ms=time_ms(run, 10, 3), device_ms=device_ms_twice(run, 10),
+            plain_ms=plain_ms, bound=bound_ms((2 * sq + 2 * sk) * N * hd * 2,
+                                              4 * sq * sk * hd * N),
+            library_ms=time_ms(bounded_sdpa(qh, kh, v, N, sq, sk), 10, 3))
+        del qh, kh, v, ref
+    for tag, r in res.items():
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"  {tag}: ms {r['ms']:.4f} device_ms {r['device_ms']:.4f} plain_ms "
+              f"{r['plain_ms']:.4f} bound_ms {r['bound'][0]:.4f} ({r['bound'][1]}) library_ms "
+              f"{lib}", flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def device_profiled(label, fn):
+    """One call of ``fn`` under torch.profiler with the device's activity
+    only (device_table; no warm call: the request before it ran the same
+    shapes): its device busy ms."""
+    import torch
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+    return device_table(list(prof.key_averages()), wall, label, 12) * 1e3
+
+
+def animate_vap_longcat_phase(shared=None):
+    """The last Wan variants at full width from seeded bf16 weights, 480x832
+    through the Wan2.1 VAE (streamed), CFG 5: Wan2.2-Animate-14B (21 frames;
+    17-frame pose, 512x512 face, inpaint and mask videos and an input image:
+    the CLIP branch of a full-width ViT-H, the inpaint ``y`` of a reference
+    frame before 5 latent frames: S = 9360), Wan2.1-I2V-14B with the VAP /
+    MoT branch at MotConfig's defaults (10 layers at 5120; a 17-frame VAP
+    video and an input image: the joint attention over 15600 tokens), both
+    on the conditioning phase's 40 shared blocks (``shared``; seeded here
+    when it is None) with the CLIP branch added; then, those freed, LongCat-Video (48 blocks of 4096)
+    as T2V at 17 frames and as a continuation of a 5-frame clip (2
+    conditioning latent frames, pinned after each of 2 steps: checked
+    against the clip's encode).  Each request: wall, decode wall, peak
+    memory, output shape, finite, exact launches (K11 by latent frames
+    encoded and decoded); one sweep of each DiT profiled with the device's
+    activity only; K11 at any Wan2.1 VAE shape the conditioning phase did
+    not hold.  The new kernel shapes are held in the kernels phase
+    (``avl_kernel_checks``).  Returns the phase's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.core.params import Init, generator
+    from fairygen_tpu_torch.models.wan import vae as wvae
+    from fairygen_tpu_torch.models.wan.dit import wan_dit_forward
+    from fairygen_tpu_torch.models.wan.image_encoder import ViTConfig
+    from fairygen_tpu_torch.models.wan.longcat import longcat_dit_forward
+    from fairygen_tpu_torch.models.wan.mot import wan_dit_forward_vap
+    from fairygen_tpu_torch.models.wan.vae import WanVAEConfig
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines import wan_video
+    from fairygen_tpu_torch.pipelines.wan_video import WanVideoPipeline
+
+    bf, gib = torch.bfloat16, 2 ** 30
+    start = time.perf_counter()
+
+    def mark(what):
+        print(f"  [{time.perf_counter() - start:.1f} s] {what}", flush=True)
+
+    cfgs = avl_configs()
+    torch.cuda.empty_cache()
+    if shared is None:  # as the conditioning phase seeds them
+        vae_cfg = WanVAEConfig.wan21_16()
+        shared = dict(blocks=convert.init_dit_params(wan14b_cfg(), "cuda", bf, seed=72)["blocks"],
+                      vae=convert.init_vae_params(vae_cfg, "cuda", bf, seed=71), vae_cfg=vae_cfg,
+                      k11_shapes=set())
+    vae, vae_cfg = shared["vae"], shared["vae_cfg"]
+    # the shared blocks with the CLIP branch both I2V DiTs add to each
+    # block's cross-attention (k_img, v_img, norm_k_img), seeded here
+    r = Init("cuda", bf, generator("cuda", 119))
+    D = cfgs["animate_dit"].dim
+    blocks = [dict(b, cross_attn=dict(b["cross_attn"], k_img=r.dense(D, D), v_img=r.dense(D, D),
+                                      norm_k_img=r.ones((D,))))
+              for b in shared.pop("blocks")]
+    torch.cuda.synchronize()
+    print(f"  40 shared 14B blocks with the CLIP branch: {convert.count_params(blocks):,} params "
+          f"({tree_bytes(blocks) / gib:.2f} GiB)", flush=True)
+    enc_k11, dec_k11 = vae_norm_silu_calls(vae_cfg)
+    ctx, nctx = seeded_context(111, 120), seeded_context(112, 1)
+    img = seeded_image(113, 480, 832)
+    t900 = torch.tensor([900.0], device="cuda")
+    total = {k: 0 for k in _kernels.launches}
+    k11_shapes, walls_all, busy = {}, {}, {}
+
+    def request(label, pipe, per_sweep, sweeps, enc, dec, frames, frames_out, **kw):
+        shapes, unrecord = record_k11_shapes(wvae)
+        walls = {}
+        wrap_timed(pipe, "_decode_output", walls)
+        before = dict(_kernels.launches)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        try:
+            video = pipe(context=ctx, negative_context=nctx, seed=114, height=480, width=832,
+                         num_frames=frames, cfg_scale=5.0, streaming_vae=True,
+                         output_type="floatpoint", **kw)
+            torch.cuda.synchronize()
+        finally:
+            unrecord()
+            delattr(pipe, "_decode_output")
+        wall = time.perf_counter() - t
+        for shape, n in shapes.items():
+            k11_shapes[shape] = k11_shapes.get(shape, 0) + n
+        got = {k: _kernels.launches[k] - before[k] for k in before}
+        want = {k: per_sweep.get(k, 0) * sweeps for k in got}
+        want["vae_rms_silu"] = enc * enc_k11 + dec * dec_k11
+        finite = bool(torch.isfinite(video).all())
+        walls_all[label] = wall
+        print(f"  {label}: {wall:.3f} s (decode {walls['_decode_output']:.3f} s), {sweeps} "
+              f"sweeps, output {tuple(video.shape)} finite {finite}; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB; launches "
+              f"{ {k: v for k, v in got.items() if v} }", flush=True)
+        if tuple(video.shape) != (1, 3, frames_out, 480, 832) or not finite:
+            raise RuntimeError(f"{label}: wrong shape or non-finite output")
+        if got != want:
+            raise RuntimeError(f"{label}: launches {got} != expected {want}")
+        for k in total:
+            total[k] += got[k]
+
+    def randn(*shape, seed):
+        gen = torch.Generator("cuda").manual_seed(seed)
+        return torch.randn(shape, generator=gen, device="cuda").to(bf)
+
+    def dit14(seed, name):
+        cfg = cfgs[name]
+        params = convert.init_dit_params(dataclasses.replace(cfg, num_layers=0), "cuda", bf,
+                                         seed=seed)
+        params["blocks"] = blocks
+        return params, cfg
+
+    vit_cfg = ViTConfig.vit_h_14()
+    vit = convert.init_vit_params(vit_cfg, "cuda", bf, seed=115)
+    clip = randn(1, 257, 1280, seed=116)
+
+    # Wan2.2-Animate-14B
+    acfg = cfgs["animate"]
+    adapter = convert.init_animate_params(acfg, "cuda", bf, seed=117)
+    print(f"  Animate adapter: {convert.count_params(adapter):,} params "
+          f"({tree_bytes(adapter) / gib:.2f} GiB)", flush=True)
+    params, cfg = dit14(118, "animate_dit")
+    pipe = WanVideoPipeline(params, cfg, vae, vae_cfg, dtype=bf, device="cuda",
+                            image_encoder_params=vit, image_encoder_cfg=vit_cfg,
+                            animate_params=adapter, animate_cfg=acfg)
+    half = np.zeros((480, 832, 3), np.uint8)
+    half[:, 416:] = 255
+    # the input image's 21-frame I2V y (6 latent frames, as the JAX package
+    # makes it before the inpaint y replaces it), the pose and background
+    # videos (5 each) and the reference frame; the decode drops frame 0
+    request("Wan2.2-Animate-14B, 17-frame pose / face / inpaint / mask videos", pipe,
+            ANIMATE_PER_SWEEP, 2 * AVL_STEPS, 6 + 5 + 5 + 1, 5, 21, 17,
+            num_inference_steps=AVL_STEPS, input_image=img,
+            animate_pose_video=[seeded_image(120 + i, 480, 832) for i in range(17)],
+            animate_face_video=[seeded_image(140 + i, 512, 512) for i in range(17)],
+            animate_inpaint_video=[seeded_image(160 + i, 480, 832) for i in range(17)],
+            animate_mask_video=[half] * 17)
+    mark("Animate")
+    lat, y = randn(1, 16, 6, 60, 104, seed=121), randn(1, 20, 6, 60, 104, seed=122)
+    pose, face = randn(1, 16, 5, 60, 104, seed=123), randn(1, 3, 17, 512, 512, seed=124)
+    busy["animate"] = device_profiled("Animate-14B sweep, S = 9360, 17 faces", lambda: (
+        wan_dit_forward(params, cfg, lat, t900, ctx, y=y, clip_feature=clip,
+                        animate_params=adapter, animate_cfg=acfg, pose_latents=pose,
+                        face_pixel_values=face)))
+    del pipe, adapter, params, lat, y, pose, face
+    torch.cuda.empty_cache()
+    mark("Animate profile")
+
+    # Wan2.1-I2V-14B with the VAP / MoT branch
+    mcfg = cfgs["vap"]
+    mot = convert.init_mot_params(mcfg, "cuda", bf, seed=125)
+    print(f"  VAP / MoT branch: {convert.count_params(mot):,} params "
+          f"({tree_bytes(mot) / gib:.2f} GiB)", flush=True)
+    params, cfg = dit14(126, "vap_dit")
+    pipe = WanVideoPipeline(params, cfg, vae, vae_cfg, dtype=bf, device="cuda",
+                            image_encoder_params=vit, image_encoder_cfg=vit_cfg, vap_params=mot,
+                            vap_cfg=mcfg)
+    ctx_vap, nctx_vap = seeded_context(127, 60), seeded_context(128, 1)
+    # the VAP video (5 latent frames), its first frame's I2V y and the input
+    # image's (5 each)
+    request("Wan2.1-I2V-14B + VAP (10 MoT layers), a 17-frame VAP video", pipe, VAP_PER_SWEEP,
+            2 * AVL_STEPS, 5 + 5 + 5, 5, 17, 17, num_inference_steps=AVL_STEPS, input_image=img,
+            vap_video=[seeded_image(180 + i, 480, 832) for i in range(17)], context_vap=ctx_vap,
+            negative_context_vap=nctx_vap)
+    mark("VAP")
+    lat, y = randn(1, 16, 5, 60, 104, seed=129), randn(1, 20, 5, 60, 104, seed=130)
+    hidden = randn(1, 36, 5, 60, 104, seed=131)
+    busy["vap"] = device_profiled("VAP sweep, S = 7800 + 7800 (10 joint layers)", lambda: (
+        wan_dit_forward_vap(params, cfg, mot, mcfg, lat, t900, ctx, clip_feature=clip, y=y,
+                            vap_hidden_state=hidden, context_vap=ctx_vap,
+                            vap_clip_feature=clip)))
+    del pipe, mot, params, lat, y, hidden, vit, blocks
+    torch.cuda.empty_cache()
+    mark("VAP profile; the 14B models freed")
+
+    # LongCat-Video
+    lcfg = cfgs["longcat"]
+    lc = convert.init_longcat_params(lcfg, "cuda", bf, seed=132)
+    torch.cuda.synchronize()
+    print(f"  LongCat-Video DiT: {convert.count_params(lc):,} params "
+          f"({tree_bytes(lc) / gib:.2f} GiB)", flush=True)
+    pipe = WanVideoPipeline(None, None, vae, vae_cfg, dtype=bf, device="cuda",
+                            longcat_params=lc, longcat_cfg=lcfg)
+    request("LongCat-Video T2V", pipe, LONGCAT_PER_SWEEP, 2 * AVL_STEPS, 0, 5, 17, 17,
+            num_inference_steps=AVL_STEPS)
+    mark("LongCat T2V")
+    kept, encoded, encode = capture_latents(pipe), [], wan_video.vae38_encode
+
+    def keep_encode(*a, **k):
+        encoded.append(encode(*a, **k))
+        return encoded[-1]
+
+    wan_video.vae38_encode = keep_encode
+    try:
+        clip5 = [seeded_image(190 + i, 480, 832) for i in range(5)]
+        request(f"LongCat-Video continuation of a 5-frame clip, {AVL_CONT_STEPS} steps", pipe,
+                LONGCAT_COND_PER_SWEEP, 2 * AVL_CONT_STEPS, 2, 5, 17, 17,
+                num_inference_steps=AVL_CONT_STEPS, longcat_video=clip5)
+    finally:
+        wan_video.vae38_encode = encode
+    pinned = torch.equal(kept[-1][:, :, :2], encoded[-1].to(bf))
+    print(f"  the 2 conditioning latent frames pinned through the steps: {pinned}", flush=True)
+    if not pinned or len(encoded) != 1:
+        raise RuntimeError("LongCat continuation: the conditioning latents were not pinned")
+    mark("LongCat continuation")
+    lat = randn(1, 16, 5, 60, 104, seed=133)
+    busy["longcat"] = device_profiled("LongCat-Video sweep, S = 7800", lambda: (
+        longcat_dit_forward(lc, lcfg, lat, t900, ctx)))
+    del pipe, lc, lat, kept, encoded
+    torch.cuda.empty_cache()
+    mark("LongCat profile")
+    new = {sh: n for sh, n in k11_shapes.items() if sh not in shared["k11_shapes"]}
+    if new:
+        k11_v1_checks(new)
+    print(f"  K11: {len(k11_shapes)} Wan2.1 VAE shapes in this phase, {len(new)} not held "
+          f"before (now held)", flush=True)
+    print(f"  animate_vap_longcat: walls {json.dumps(walls_all)}; profiled busy ms "
+          f"{json.dumps(busy)}; launches {total}", flush=True)
+    return total
+
+
+def reference_avl_check():
+    """Tiny Animate, VAP and LongCat pipelines (T2V and a continuation),
+    head dim 128 so the serving kernels run, each a 2-step, CFG 5 request
+    with the tiny Wan2.1 VAE, on the card in bf16 against the same weights
+    on the CPU in fp32 (plain versions); the bound as reference_check's: at
+    most twice the CPU bf16 run's relative L2 error plus 1e-3.  The VAP
+    request runs at 256x256 so that its joint attention passes 1024 keys
+    (K5); the others at 128x256 (K4's bounded form for the self-attention).
+    The Animate adapter's motion directions on the card against the CPU's
+    (the QR of cuSOLVER against LAPACK's: sign and order)."""
+    import numpy as np
+    import torch
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.wan.animate import AnimateConfig, get_motion
+    from fairygen_tpu_torch.models.wan.dit import WanDiTConfig
+    from fairygen_tpu_torch.models.wan.longcat import LongCatDiTConfig
+    from fairygen_tpu_torch.models.wan.mot import MotConfig
+    from fairygen_tpu_torch.models.wan.vae import WanVAEConfig
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.pipelines.wan_video import WanVideoPipeline
+
+    f32 = torch.float32
+    tiny = dict(dim=256, in_dim=12, ffn_dim=512, out_dim=4, text_dim=64, freq_dim=64,
+                num_heads=2, num_layers=2, require_clip_embedding=False)
+    vae_cfg = WanVAEConfig.tiny_v1()
+    vae = convert.init_vae_params(vae_cfg, "cpu", f32, seed=141)
+    g = torch.Generator("cpu").manual_seed(142)
+    ctx, nctx = torch.randn(1, 40, 64, generator=g), torch.randn(1, 40, 64, generator=g)
+    kw = dict(context=ctx, negative_context=nctx, seed=143, num_frames=9, cfg_scale=5.0,
+              num_inference_steps=2, output_type="latents", torch_compat_noise=True)
+    acfg = AnimateConfig(hidden_dim=256, heads_num=2, num_adapter_layers=1, adapter_stride=2,
+                         face_heads=2, face_inner=64, motion_size=8, style_dim=64, motion_dim=8,
+                         pose_in_dim=4)
+    adapter = convert.init_animate_params(acfg, "cpu", f32, seed=144)
+    faces = torch.rand(5, 3, 8, 8, generator=g) * 2 - 1
+    m_cpu = get_motion(adapter["motion_encoder"], faces)
+    m_card = get_motion(to(adapter["motion_encoder"], "cuda", f32), faces.cuda()).cpu()
+    err = (m_card - m_cpu).abs().max().item()
+    print(f"  the motion directions (QR on the card vs the CPU): max abs error {err:.3e} of "
+          f"max |m| {m_cpu.abs().max().item():.3e}", flush=True)
+    if not err <= 1e-4 * m_cpu.abs().max().item():
+        raise RuntimeError("the card's QR basis differs from the CPU's")
+    mcfg = MotConfig(mot_layers=(0,), has_image_input=False, dim=256, num_heads=2, ffn_dim=512,
+                     freq_dim=64, text_dim=64, in_dim=12)
+    lcfg = LongCatDiTConfig(in_channels=4, out_channels=4, hidden_size=256, depth=2,
+                            num_heads=2, caption_channels=64, adaln_tembed_dim=64, freq_dim=64)
+    size = dict(height=128, width=256)
+    vids = [[seeded_image(150 + 10 * j + i, 128, 256) for i in range(5)] for j in range(3)]
+    half = [np.where(np.arange(256)[None, :, None] < 128, 255, 0).repeat(128, 0).repeat(3, 2)
+            .astype(np.uint8)] * 5
+    cases = [
+        ("Animate", WanDiTConfig(**tiny), dict(animate_params=adapter, animate_cfg=acfg),
+         dict(size, input_image=seeded_image(145, 128, 256), animate_pose_video=vids[0],
+              animate_face_video=[seeded_image(170 + i, 8, 8) for i in range(5)],
+              animate_inpaint_video=vids[1], animate_mask_video=half),
+         ("ln_modulate", "rms_rope_heads_major", "flash_small_kv")),
+        ("VAP", WanDiTConfig(**tiny), dict(
+            vap_params=convert.init_mot_params(mcfg, "cpu", f32, seed=146), vap_cfg=mcfg),
+         dict(height=256, width=256, input_image=seeded_image(147, 256, 256),
+              vap_video=[seeded_image(180 + i, 256, 256) for i in range(9)],
+              context_vap=torch.randn(1, 20, 64, generator=g),
+              negative_context_vap=torch.randn(1, 20, 64, generator=g)),
+         ("ln_modulate", "flash_small_kv", "flash_fwd")),
+        ("LongCat T2V", None, dict(
+            longcat_params=convert.init_longcat_params(lcfg, "cpu", f32, seed=148),
+            longcat_cfg=lcfg), dict(size), ("flash_small_kv", "flash_small_kv_masked")),
+    ]
+    cases.append(("LongCat continuation", None, cases[-1][2],
+                  dict(size, longcat_video=vids[2]), cases[-1][4]))
+    for label, cfg, models, req, want in cases:
+        dit = None if cfg is None else convert.init_dit_params(cfg, "cpu", f32, seed=149)
+
+        def pipe(dev, dt):
+            m = {k: v if k.endswith("_cfg") else to(v, dev, dt) for k, v in models.items()}
+            return WanVideoPipeline(None if dit is None else to(dit, dev, dt), cfg,
+                                    to(vae, dev, dt), vae_cfg, dtype=dt, device=dev, **m)
+
+        ref = pipe("cpu", f32)(**kw, **req)
+        rel16 = rel_l2(pipe("cpu", torch.bfloat16)(**kw, **req), ref)
+        before = dict(_kernels.launches)
+        out = pipe("cuda", torch.bfloat16)(**kw, **req).float().cpu()
+        ran = {k: _kernels.launches[k] - before[k] for k in before}
+        rel, tol = rel_l2(out, ref), 2 * rel16 + 1e-3
+        print(f"  tiny {label} pipeline latents {tuple(out.shape)}: relative L2 error to CPU "
+              f"fp32 {rel:.4e} (card bf16), {rel16:.4e} (CPU bf16); tolerance {tol:.4e}; "
+              f"kernel launches { {k: v for k, v in ran.items() if v} }", flush=True)
+        if not all(ran[k] for k in want):
+            raise RuntimeError(f"a kernel did not run in the tiny {label} pipeline: {ran}")
+        if not rel <= tol:
+            raise RuntimeError(f"tiny {label} pipeline disagrees with the CPU reference: "
+                               f"{rel:.4e}")
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

@@ -14,6 +14,7 @@ from a ``torch.Generator`` — nothing of model size is built on the host.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import numpy as np
@@ -28,9 +29,12 @@ from .models.wan.image_encoder import init_vit_params  # noqa: F401  (the CLIP V
 from .models.z_image.dit import init_z_image_dit_params  # noqa: F401  (the Z-Image DiT's init)
 from .models.sdxl.clip import CLIPTextConfig
 from .models.sdxl.vae import AutoencoderKLConfig
+from .models.wan.animate import APP_CHANNELS, AnimateConfig
 from .models.wan.aux_models import MotionControllerConfig, VaceConfig
 from .models.wan.camera import SimpleAdapterConfig
 from .models.wan.dit import WanDiTConfig
+from .models.wan.longcat import LongCatDiTConfig
+from .models.wan.mot import MotConfig
 from .models.wan.s2v import S2VConfig
 from .models.wan.text_encoder import UMT5Config
 from .models.wan.vae import WanVAEConfig, latent_stats
@@ -100,8 +104,9 @@ def from_jax_params(tree, device="cuda", dtype=None) -> Dict[str, Any]:
     the tree has one), the Wan variants' models (the DiT's Fun-Reference
     ``ref_conv``, the camera SimpleAdapter, the motion controller, the
     VACE branch, the S2V DiT and wav2vec, whose conv1d weights keep their
-    (k, in, out) layout) -> port state on ``device``, optionally cast to
-    ``dtype``.  LoRA
+    (k, in, out) layout; the Wan-Animate adapter, its conv1d weights alike;
+    the VAP / MoT branch; the LongCat-Video DiT) -> port state on
+    ``device``, optionally cast to ``dtype``.  LoRA
     subtrees keep their dtype, and so do the scales and outlier operands
     of W8A8 layers (``ops/quant.py``); their ``w_int8`` stays int8, laid
     out column-major."""
@@ -130,14 +135,19 @@ def init_dit_params(cfg: WanDiTConfig, device="cuda", dtype=torch.bfloat16, seed
                    for _ in range(cfg.num_layers)],
     }
     if cfg.has_image_input:
-        params["img_emb"] = {"norm1": {"w": r.ones((1280,)), "b": r.zeros((1280,))},
-                             "fc1": r.dense(1280, 1280), "fc2": r.dense(1280, D),
-                             "norm2": {"w": r.ones((D,)), "b": r.zeros((D,))}}
+        params["img_emb"] = _img_emb(r, D)
         if cfg.has_image_pos_emb:
             params["img_emb"]["pos"] = r.zeros((1, 514, 1280))
     if cfg.has_ref_conv:  # over (16 latent channels, 2, 2) patches, as the JAX init
         params["ref_conv"] = r.dense(16 * 2 * 2, D)
     return params
+
+
+def _img_emb(r, D):
+    """The CLIP feature MLP over 1280-wide CLIP tokens."""
+    return {"norm1": {"w": r.ones((1280,)), "b": r.zeros((1280,))},
+            "fc1": r.dense(1280, 1280), "fc2": r.dense(1280, D),
+            "norm2": {"w": r.ones((D,)), "b": r.zeros((D,))}}
 
 
 def _dit_block(r, D, ffn_dim, img=False):
@@ -199,6 +209,99 @@ def init_vace_params(cfg: VaceConfig, device="cuda", dtype=torch.bfloat16, seed=
             blk["before_proj"] = r.dense(D, D)
         blocks.append(blk)
     return {"patch_embedding": r.dense(cfg.vace_in_dim * pt * ph * pw, D), "blocks": blocks}
+
+
+def init_animate_params(cfg: AnimateConfig, device="cuda", dtype=torch.bfloat16, seed=0):
+    """Random Wan-Animate adapter params: the appearance encoder for
+    ``motion_size`` faces over upstream's channel table (equalized conv and
+    linear weights N(0, 1), as upstream draws them, zero activation
+    biases), the motion MLP and direction basis, the face encoder (conv1d
+    weights (k, in, out) N(0, 1/fan_in)), the face blocks and the pose
+    patch embedding (dense N(0, 1/d_in), unit norms, zero biases)."""
+    device = resolve_device(device)
+    r = Init(device, dtype, generator(device, seed))
+    D, hd, sd = cfg.hidden_dim, cfg.hidden_dim // cfg.heads_num, cfg.style_dim
+    pt, ph, pw = cfg.patch_size
+
+    def layer(cout, cin, k, act=True):
+        p = {"conv": {"w": r.normal((cout, cin, k, k), 1.0)}}
+        if act:
+            p["act_bias"] = r.zeros((cout,))
+        return p
+
+    def conv1d(cin, cout, k=3):
+        return {"w": r.normal((k, cin, cout), (k * cin) ** -0.5), "b": r.zeros((cout,))}
+
+    cin = APP_CHANNELS[cfg.motion_size]
+    res_blocks = []
+    for i in range(int(math.log2(cfg.motion_size)), 2, -1):
+        cout = APP_CHANNELS[2 ** (i - 1)]
+        res_blocks.append({"conv1": layer(cin, cin, 3), "conv2": layer(cout, cin, 3),
+                           "skip": layer(cout, cin, 1, act=False)})
+        cin = cout
+    fc = [{"w": r.normal((sd, sd), 1.0), "b": r.zeros((sd,))} for _ in range(4)]
+    fc.append({"w": r.normal((sd, cfg.motion_dim), 1.0), "b": r.zeros((cfg.motion_dim,))})
+    inner = cfg.face_inner
+    return {
+        "pose_patch_embedding": r.dense(cfg.pose_in_dim * pt * ph * pw, D),
+        "motion_encoder": {
+            "net_app": {"convs": [layer(APP_CHANNELS[cfg.motion_size], 3, 1)],
+                        "res_blocks": res_blocks, "final": {"w": r.normal((sd, cin, 4, 4), 1.0)}},
+            "fc": fc, "direction_weight": r.normal((cfg.face_in_dim, cfg.motion_dim), 1.0)},
+        "face_encoder": {"conv1_local": conv1d(cfg.face_in_dim, inner * cfg.face_heads),
+                         "conv2": conv1d(inner, inner), "conv3": conv1d(inner, inner),
+                         "out_proj": r.dense(inner, D), "padding_tokens": r.zeros((1, 1, 1, D))},
+        "face_adapter": [{"linear1_kv": r.dense(D, 2 * D), "linear1_q": r.dense(D, D),
+                          "linear2": r.dense(D, D), "q_norm": r.ones((hd,)),
+                          "k_norm": r.ones((hd,))} for _ in range(cfg.num_adapter_layers)],
+    }
+
+
+def init_mot_params(cfg: MotConfig, device="cuda", dtype=torch.bfloat16, seed=0):
+    """Random VAP / MoT branch params at ``init_dit_params``' scales: the
+    patch, text and time embeddings, one DiT block a mapped layer (with the
+    CLIP branch for ``has_image_input``) and the CLIP feature MLP."""
+    device = resolve_device(device)
+    r = Init(device, dtype, generator(device, seed))
+    D = cfg.dim
+    pt, ph, pw = cfg.patch_size
+    params = {
+        "patch_embedding": r.dense(cfg.in_dim * pt * ph * pw, D),
+        "text_embed": {"fc1": r.dense(cfg.text_dim, D), "fc2": r.dense(D, D)},
+        "time_embed": {"fc1": r.dense(cfg.freq_dim, D), "fc2": r.dense(D, D)},
+        "time_proj": r.dense(D, 6 * D),
+        "blocks": [_dit_block(r, D, cfg.ffn_dim, cfg.has_image_input) for _ in cfg.mot_layers],
+    }
+    if cfg.has_image_input:
+        params["img_emb"] = _img_emb(r, D)
+    return params
+
+
+def init_longcat_params(cfg: LongCatDiTConfig, device="cuda", dtype=torch.bfloat16, seed=0):
+    """Random LongCat-Video DiT params: dense N(0, 1/d_in) (the SwiGLU FFN
+    without biases, as upstream), zero biases, unit norms."""
+    device = resolve_device(device)
+    r = Init(device, dtype, generator(device, seed))
+    C, E, hd, f = cfg.hidden_size, cfg.adaln_tembed_dim, cfg.head_dim, cfg.ffn_hidden
+    pt, ph, pw = cfg.patch_size
+
+    def block():
+        return {"adaln": r.dense(E, 6 * C), "qkv": r.dense(C, 3 * C), "q_norm": r.ones((hd,)),
+                "k_norm": r.ones((hd,)), "proj": r.dense(C, C),
+                "crs_norm": {"w": r.ones((C,)), "b": r.zeros((C,))}, "crs_q": r.dense(C, C),
+                "crs_kv": r.dense(C, 2 * C), "crs_q_norm": r.ones((hd,)),
+                "crs_k_norm": r.ones((hd,)), "crs_proj": r.dense(C, C),
+                "w1": r.dense(C, f, False), "w2": r.dense(f, C, False),
+                "w3": r.dense(C, f, False)}
+
+    return {
+        "x_embedder": r.dense(cfg.in_channels * pt * ph * pw, C),
+        "t_mlp": {"fc1": r.dense(cfg.freq_dim, E), "fc2": r.dense(E, E)},
+        "y_mlp": {"fc1": r.dense(cfg.caption_channels, C), "fc2": r.dense(C, C)},
+        "blocks": [block() for _ in range(cfg.depth)],
+        "final": {"adaln": r.dense(E, 2 * C),
+                  "linear": r.dense(C, cfg.out_channels * pt * ph * pw)},
+    }
 
 
 def init_s2v_params(cfg: S2VConfig, device="cuda", dtype=torch.bfloat16, seed=0, blocks=None):

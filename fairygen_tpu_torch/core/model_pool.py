@@ -4,12 +4,11 @@ fairygen_tpu/core/model_pool.py).
 Each file's ``key:shape`` hash is looked up in the registry and the
 recognized models are built on ``device`` by the port's converters.  The
 port builds the Wan roles (the DiTs, with the I2V image branch and the
-Fun-Reference conv; the S2V DiT and its wav2vec audio encoder; the VAE38
-and the Wan2.1 VAE; UMT5) and the FLUX.1 and Z-Image families whose
-converters it has; a registry name without a builder, or a Wan variant
-the port does not run yet (LongCat-Video), raises ``NotImplementedError``
-naming its ROADMAP item.  A file whose hash the registry does not know is
-reported and left out, as in the JAX package.
+Fun-Reference conv; the S2V and LongCat-Video DiTs; wav2vec; the VAE38 and
+the Wan2.1 VAE; UMT5) and the FLUX.1 and Z-Image families whose
+converters it has; a registry name without a builder raises
+``NotImplementedError`` naming its ROADMAP item.  A file whose hash the
+registry does not know is reported and left out, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -31,13 +30,20 @@ def _dataclass_kwargs(cls, extra_kwargs):
 
 
 def _build_wan_dit(state_dict, extra_kwargs, dtype, device):
-    """A Wan DiT, or the S2V DiT (its hash maps to wan_video_dit too; told
-    apart by its audio kwargs).  LongCat-Video's raises."""
+    """A Wan DiT, or the S2V or LongCat-Video DiT (their hashes map to
+    wan_video_dit too; told apart by the audio kwargs and by LongCat's final
+    layer).  LongCat takes its published config, or fields given by hints
+    for a resized checkpoint."""
     from ..models.wan.dit import WanDiTConfig, convert_dit_state_dict
 
     if "final_layer.adaLN_modulation.1.weight" in state_dict:
-        raise NotImplementedError("the LongCat-Video DiT is not ported (ROADMAP.md Queue 1 "
-                                  "item 6d, LongCat)")
+        from ..models.wan.longcat import LongCatDiTConfig, convert_longcat_dit_state_dict
+
+        kwargs = _dataclass_kwargs(LongCatDiTConfig, extra_kwargs)
+        if "patch_size" in kwargs:
+            kwargs["patch_size"] = tuple(kwargs["patch_size"])
+        cfg = LongCatDiTConfig(**kwargs)
+        return convert_longcat_dit_state_dict(state_dict, cfg, dtype=dtype, device=device), cfg
     if "audio_dim" in extra_kwargs or "cond_dim" in extra_kwargs:
         from ..models.wan.s2v import S2VConfig, convert_s2v_state_dict
 

@@ -18,7 +18,8 @@ from .io import hash_model_file, load_state_dict
 # Wan registry names the JAX package's pool builds nothing for: the
 # pipeline takes them as constructor arguments
 _POOLLESS = {"wan_video_vace": "vace_params", "wan_video_motion_controller":
-             "motion_controller_params", "wan_video_image_encoder": "image_encoder_params"}
+             "motion_controller_params", "wan_video_image_encoder": "image_encoder_params",
+             "wan_video_vap": "vap_params", "wan_video_animate_adapter": "animate_params"}
 _REGISTRY_JSON = os.path.join(os.path.dirname(__file__), "..", "configs", "model_registry.json")
 
 
@@ -51,10 +52,8 @@ class ModelRegistry:
                 raise NotImplementedError(
                     f"{model_name} has no model-pool builder, in the JAX package either: give "
                     f"its params to the pipeline ({_POOLLESS[model_name]})")
-            item = ("item 6c, Animate and VAP / MoT" if model_name.startswith("wan")
-                    else "item 8, the image DiTs")
             raise NotImplementedError(f"{model_name} is not ported to fairygen_tpu_torch "
-                                      f"(ROADMAP.md Queue 1 {item})")
+                                      f"(ROADMAP.md Queue 1 item 8, the image DiTs)")
         return self._builders[model_name]
 
     def lookup(self, model_hash: str) -> List[ModelSpec]:

@@ -4,8 +4,9 @@ DiT, or the two-expert DiT pair, or the S2V DiT and its wav2vec encoder,
 animate a still (and, with ``--end_image``, end on a second one: the I2V
 models), condition on a Fun-Reference image, a VACE control video, a
 camera direction or a motion bucket (their models given to the pipeline
-as in the JAX package's example), or drive an S2V model with a wav
-(``--audio``, muxed into the saved video where ffmpeg is found).
+as in the JAX package's example), drive an S2V model with a wav
+(``--audio``, muxed into the saved video where ffmpeg is found), or
+continue a clip with a LongCat-Video DiT (``--longcat_video``).
 
 The twin of examples/wan_inference.py, with its flags and its negative
 prompt, plus ``--device`` (default cuda).  Flags of paths the port does not
@@ -35,7 +36,6 @@ NEGATIVE_PROMPT = (
 UNPORTED_FLAGS = {
     "usp": "ROADMAP.md Queue 1 item 9, parallel/",
     "sp_strategy": "ROADMAP.md Queue 1 item 9, parallel/",
-    "longcat_video": "ROADMAP.md Queue 1 item 6d, LongCat",
 }
 
 
@@ -129,6 +129,7 @@ def main(argv=None):
         input_audio=input_audio, audio_sample_rate=audio_sr or 16000,
         input_image=load_image(args.input_image), end_image=load_image(args.end_image),
         reference_image=load_image(args.reference_image),
+        longcat_video=load_video(args.longcat_video),
         vace_video=load_video(args.vace_video), vace_video_mask=load_video(args.vace_video_mask),
         vace_reference_image=load_image(args.vace_reference_image), vace_scale=args.vace_scale,
         camera_control_direction=args.camera_control_direction,

@@ -13,9 +13,11 @@ the text's.  The conditioning hooks of the Wan variants sit in
 :func:`wan_dit_forward`: the motion controller's ``t_mod_bias``, the
 camera adapter's ``control_camera_tokens`` added after the patch embed,
 the Fun-Reference tokens (``has_ref_conv``) prepended as an extra leading
-frame, and the VACE hints added after their mapped blocks
-(``models/wan/aux_models.py``).  Those ops take their hand-written kernels on
-CUDA tensors and their plain versions on CPU tensors.  A head_dim other
+frame, the VACE hints added after their mapped blocks
+(``models/wan/aux_models.py``) and the Wan-Animate adapter's pose tokens
+and face-block residuals (``models/wan/animate.py``).  Those ops take
+their hand-written kernels on CUDA tensors and their plain versions on
+CPU tensors.  A head_dim other
 than 128 (the tiny golden configs) runs the plain rms-norm -> RoPE ->
 attention chain, as in the JAX package; on CUDA that is refused.
 
@@ -396,7 +398,8 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, timestep, context=None, 
                     cross_kv=None, remat=False, tea_cache_state=None, tea_cache_opts=None,
                     t_mod_bias=None, control_camera_tokens=None, reference_latents=None,
                     vace_hints=None, vace_scale: float = 1.0, vace_params=None, vace_cfg=None,
-                    vace_context=None):
+                    vace_context=None, animate_params=None, animate_cfg=None, pose_latents=None,
+                    face_pixel_values=None):
     """Denoiser forward (upstream model_fn_wan_video, wan_video.py:1122-1388,
     text / first-frame / I2V-y conditioning).  latents (B, C, F, H, W);
     timestep (B,); context (B, L, text_dim) or ``cross_kv`` from
@@ -415,7 +418,13 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, timestep, context=None, 
     before the output; ``vace_hints`` ({block index: (B, S, D)}) are added
     after their blocks times ``vace_scale``, or computed here from
     ``vace_context`` (B, vace_in_dim, F, H, W) by the VACE branch
-    ``vace_params`` / ``vace_cfg`` over the embedded ``context``."""
+    ``vace_params`` / ``vace_cfg`` over the embedded ``context``; with the
+    Wan-Animate adapter ``animate_params`` / ``animate_cfg``, the
+    ``pose_latents`` (B, C, F - 1, H, W) go into the patch tokens of frames
+    1.. and the face video ``face_pixel_values`` (B, 3, T, S, S) into
+    motion tokens that a face block reads after every ``adapter_stride``-th
+    block (``models/wan/animate.py``; not with TeaCache, as in the JAX
+    package)."""
     if remat not in (False, True, "offload"):
         raise ValueError(f"remat must be False, True or 'offload', got {remat!r}")
     b, _, _, H, W = latents.shape
@@ -463,6 +472,14 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, timestep, context=None, 
     x, grid = patchify(params, cfg, x)
     if control_camera_tokens is not None:
         x = x + control_camera_tokens.to(x.dtype)
+    motion_vec = None
+    if animate_params is not None and pose_latents is not None and face_pixel_values is not None:
+        from .animate import animate_after_patch_embedding, animate_after_transformer_block
+
+        if tea_cache_state is not None:
+            raise ValueError("TeaCache does not run with the Animate adapter")
+        x, motion_vec = animate_after_patch_embedding(animate_params, animate_cfg, x, grid,
+                                                      pose_latents, face_pixel_values)
     n_ref = 0
     if reference_latents is not None and cfg.has_ref_conv:
         ref = reference_tokens(params, reference_latents)
@@ -491,6 +508,9 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, timestep, context=None, 
                 x = dit_block(*args)
             if i in hints:
                 x = x + hints[i] * vace_scale
+            if motion_vec is not None:
+                x = animate_after_transformer_block(animate_params, animate_cfg, i, x,
+                                                    motion_vec)
         return x
 
     if tea_cache_state is not None:

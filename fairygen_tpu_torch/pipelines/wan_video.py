@@ -37,10 +37,20 @@ every sliding window) and speech-to-video (``audio_embeds``, or
 ``input_audio`` through wav2vec; ``s2v_pose_video`` / ``_latents``;
 ``motion_video``: the S2V DiT with zero audio in the CFG branch, the
 reference frame re-pinned each step, the motion latents stitched in front
-before the decode).
+before the decode), Wan-Animate (``animate_pose_video`` /
+``_face_video`` / ``_inpaint_video`` / ``_mask_video`` with
+``animate_*``: the pose latents in the patch tokens, the face video's
+motion tokens through the face blocks, a blank face video in the CFG
+branch, the inpaint ``y`` of a reference frame before the background
+frames, that frame dropped before the decode), VAP (``vap_video`` with
+``vap_*``, ``vap_prompt`` / ``context_vap``: the reference video's latents
+and I2V ``y`` through the MoT branch, joint with the main tokens at its
+layers) and LongCat-Video (a LongCat DiT in ``longcat_*`` takes every
+request; ``longcat_video``'s latents are pinned into the first frames after
+each step and the model's output is negated).
 
-``from_pretrained`` finds the DiTs (two files: the expert pair; an S2V
-DiT apart by its config), the wav2vec encoder, the VAE38 or the Wan2.1
+``from_pretrained`` finds the DiTs (two files: the expert pair; an S2V or
+a LongCat DiT apart by its config), the wav2vec encoder, the VAE38 or the Wan2.1
 VAE and UMT5 among checkpoint files by their key hash
 (``core.model_pool``); the CLIP image encoder and the conditioning models
 above are given to the constructor, as in the JAX package.  LoRAs load
@@ -49,8 +59,7 @@ cleared by ``clear_lora`` on both).  :meth:`WanVideoPipeline.quantize`
 swaps both experts' projections to W8A8 (``ops/quant.py``);
 ``tea_cache_l1_thresh`` gates each sweep's block stack by TeaCache
 (``utils/tea_cache.py``), one state per CFG branch, carried across the
-expert switch.  The JAX pipeline's animate, VAP and LongCat paths are not
-ported: their keywords raise.
+expert switch.
 """
 from __future__ import annotations
 
@@ -66,18 +75,12 @@ from ..device import resolve_device
 from ..diffusion.flow_match import FlowMatchScheduler
 from ..models.wan.dit import (WanDiTConfig, precompute_cross_kv, text_kv_hoistable,
                               wan_dit_forward)
+from ..models.wan.longcat import longcat_dit_forward
+from ..models.wan.mot import wan_dit_forward_vap
 from ..models.wan.s2v import wan_s2v_forward
 from ..models.wan.text_encoder import UMT5Config, mask_pad_tokens, umt5_encode
 from ..models.wan.vae import WanVAEConfig, vae38_decode, vae38_encode
 
-_6C = "ROADMAP.md Queue 1 item 6c, Animate and VAP / MoT"
-# keywords of the JAX pipeline's __call__ whose paths are not ported -> (the
-# JAX default, which asks for nothing, and the ROADMAP item that ports it)
-_UNPORTED = {name: (None, _6C) for name in (
-    "animate_pose_video", "animate_face_video", "animate_inpaint_video", "animate_mask_video",
-    "vap_video", "context_vap", "negative_context_vap")}
-_UNPORTED.update(vap_prompt=(" ", _6C), negative_vap_prompt=(" ", _6C),
-                 longcat_video=(None, "ROADMAP.md Queue 1 item 6d, LongCat"))
 _CAMERA_DIRECTIONS = ("Left", "Right", "Up", "Down", "LeftUp", "LeftDown", "RightUp",
                       "RightDown")
 
@@ -97,7 +100,8 @@ class WanVideoPipeline:
     ``image_encoder_params`` / ``image_encoder_cfg``: the CLIP ViT-H of the
     DiTs that take CLIP features; the conditioning models of the variants
     (motion controller, VACE branch, camera SimpleAdapter, S2V DiT and its
-    wav2vec encoder) as (params, cfg) pairs.
+    wav2vec encoder, Animate adapter, VAP / MoT branch, LongCat-Video DiT)
+    as (params, cfg) pairs.
 
     ``device`` defaults to "cuda" and raises without a card unless "cpu" is
     asked for; params must already live on that device."""
@@ -109,7 +113,8 @@ class WanVideoPipeline:
                  image_encoder_cfg=None, motion_controller_params=None,
                  motion_controller_cfg=None, vace_params=None, vace_cfg=None, s2v_params=None,
                  s2v_cfg=None, wav2vec_params=None, wav2vec_cfg=None, camera_params=None,
-                 camera_cfg=None):
+                 camera_cfg=None, animate_params=None, animate_cfg=None, vap_params=None,
+                 vap_cfg=None, longcat_params=None, longcat_cfg=None):
         self.device = resolve_device(device)
         self.dit_params, self.dit_cfg = dit_params, dit_cfg
         self.dit2_params = dit2_params
@@ -122,6 +127,9 @@ class WanVideoPipeline:
         self.s2v_params, self.s2v_cfg = s2v_params, s2v_cfg
         self.wav2vec_params, self.wav2vec_cfg = wav2vec_params, wav2vec_cfg
         self.camera_params, self.camera_cfg = camera_params, camera_cfg
+        self.animate_params, self.animate_cfg = animate_params, animate_cfg
+        self.vap_params, self.vap_cfg = vap_params, vap_cfg
+        self.longcat_params, self.longcat_cfg = longcat_params, longcat_cfg
         self.tokenizer = tokenizer  # utils.tokenizer.HuggingfaceTokenizer
         self.dtype = dtype
 
@@ -131,7 +139,8 @@ class WanVideoPipeline:
         """Hash-detected loading: the DiT, VAE, UMT5 and wav2vec files
         (paths or ``core.model_config.ModelConfig``s, in any order) are
         built on ``device``; the DiTs are told apart by their config (an
-        S2V DiT goes to ``s2v_params``) and two plain DiT files become the
+        S2V DiT goes to ``s2v_params``, a LongCat-Video DiT to
+        ``longcat_params``) and two plain DiT files become the
         (``dit``, ``dit2``) expert pair in the order the pool loaded them.
         ``hints`` maps a path to (model_name, extra_kwargs) for checkpoints
         the registry does not know.  ``tokenizer_path``: a transformers
@@ -140,16 +149,19 @@ class WanVideoPipeline:
             raise NotImplementedError("mesh= (sequence parallelism) waits for parallel/ on "
                                       "torch.distributed, ROADMAP.md Queue 1 item 9")
         from ..core.model_pool import ModelPool
+        from ..models.wan.longcat import LongCatDiTConfig
         from ..models.wan.s2v import S2VConfig
 
         device = resolve_device(device)
         pool = ModelPool().load(model_paths, dtype=dtype, hints=hints, device=device)
         entries = pool.fetch_model("wan_video_dit", index="all") or []
         s2vs = [e for e in entries if isinstance(e[1], S2VConfig)]
-        dits = [e for e in entries if not isinstance(e[1], S2VConfig)]
+        longcats = [e for e in entries if isinstance(e[1], LongCatDiTConfig)]
+        dits = [e for e in entries if not isinstance(e[1], (S2VConfig, LongCatDiTConfig))]
         dit_params, dit_cfg = dits[0] if dits else (None, None)
         dit2_params = dits[1][0] if len(dits) > 1 else None
         s2v = s2vs[0] if s2vs else (None, None)
+        longcat = longcats[0] if longcats else (None, None)
         wav2vec = pool.fetch_model("wans2v_audio_encoder") or (None, None)
         vae = pool.fetch_model("wan_video_vae")
         te = pool.fetch_model("wan_video_text_encoder")
@@ -161,7 +173,8 @@ class WanVideoPipeline:
         return cls(dit_params, dit_cfg, vae[0] if vae else None, vae[1] if vae else None,
                    te[0] if te else None, te[1] if te else None, dtype=dtype, device=device,
                    tokenizer=tokenizer, dit2_params=dit2_params, s2v_params=s2v[0],
-                   s2v_cfg=s2v[1], wav2vec_params=wav2vec[0], wav2vec_cfg=wav2vec[1])
+                   s2v_cfg=s2v[1], wav2vec_params=wav2vec[0], wav2vec_cfg=wav2vec[1],
+                   longcat_params=longcat[0], longcat_cfg=longcat[1])
 
     def quantize(self, mode: str = "int8_ffn", *, act_amax=None, alpha: float = 0.5,
                  outlier_k=0):
@@ -381,6 +394,39 @@ class WanVideoPipeline:
                                              streaming=streaming)
         return tokens.to(self.dtype), y
 
+    @torch.no_grad()
+    def encode_animate_inpaint(self, inpaint_video, mask_video, ref_image, streaming=False):
+        """Wan-Animate's ``y`` (upstream WanVideoUnit_AnimateInpaint): the
+        reference image's latent behind a mask of ones as frame 0, then the
+        background video's latents behind the inverted mask video,
+        nearest-resized to the latent grid and regrouped 4 frames a latent
+        frame.  Returns (1, 4 + z, 1 + T', H/8, W/8)."""
+        dev, dt = self.device, self.dtype
+
+        def i2v_mask(msk, mask_len):
+            # (1, T, h, w) -> (4, (T + 3) / 4, h, w), frame 0 repeated 4-fold
+            msk = msk.clone()
+            if mask_len:
+                msk[:, :mask_len] = 1.0
+            msk = torch.cat([msk[:, 0:1].repeat(1, 4, 1, 1), msk[:, 1:]], dim=1)
+            msk = msk.reshape(1, msk.shape[1] // 4, 4, msk.shape[2], msk.shape[3])
+            return msk.transpose(1, 2)[0]
+
+        bg = torch.from_numpy(preprocess_video(inpaint_video)).to(dev, dt)
+        y_reft = vae38_encode(self.vae_params, self.vae_cfg, bg, streaming=streaming)[0]
+        _, lat_t, lat_h, lat_w = y_reft.shape
+        ref = torch.from_numpy(preprocess_video([ref_image])).to(dev, dt)
+        ref_lat = vae38_encode(self.vae_params, self.vae_cfg, ref, streaming=streaming)
+        mask_ref = i2v_mask(torch.zeros((1, 1, lat_h, lat_w), device=dev), 1)
+        y_ref = torch.cat([mask_ref.to(dt), ref_lat[0].to(dt)])
+        mask_pix = 1.0 - torch.from_numpy(preprocess_video(mask_video, min_value=0,
+                                                           max_value=1)).to(dev)[0, 0].float()
+        ih = torch.arange(lat_h, device=dev) * mask_pix.shape[1] // lat_h
+        iw = torch.arange(lat_w, device=dev) * mask_pix.shape[2] // lat_w
+        msk_reft = i2v_mask(mask_pix[:, ih][:, :, iw][None], 0)
+        y_reft = torch.cat([msk_reft.to(dt), y_reft.to(dt)])
+        return torch.cat([y_ref, y_reft], dim=1)[None]
+
     # ---------------------------------------------------------------- call
     @torch.no_grad()
     def __call__(self, prompt: Optional[str] = None, negative_prompt: str = "", *,
@@ -396,30 +442,28 @@ class WanVideoPipeline:
                  s2v_pose_latents=None, motion_video=None,
                  camera_control_direction: Optional[str] = None,
                  camera_control_speed: float = 1 / 54, reference_image=None,
-                 tiled: bool = False, tile_size: Tuple[int, int] = (30, 52),
+                 animate_pose_video=None, animate_face_video=None, animate_inpaint_video=None,
+                 animate_mask_video=None, vap_video=None, vap_prompt: str = " ",
+                 negative_vap_prompt: str = " ", context_vap=None, negative_context_vap=None,
+                 longcat_video=None, tiled: bool = False, tile_size: Tuple[int, int] = (30, 52),
                  tile_stride: Tuple[int, int] = (15, 26),
                  sliding_window_size: Optional[int] = None,
                  sliding_window_stride: Optional[int] = None, streaming_vae: bool = False,
                  vae_frames_per_chunk: int = 1, output_type: str = "quantized",
                  torch_compat_noise: bool = False, progress_callback=None,
                  tea_cache_l1_thresh: Optional[float] = None,
-                 tea_cache_model_id: str = "Wan2.1-T2V-1.3B", **unported):
+                 tea_cache_model_id: str = "Wan2.1-T2V-1.3B"):
         """The JAX pipeline's keywords; ``progress_callback(steps_done,
         total_steps)`` runs after each step.  ``tea_cache_l1_thresh``: the
         TeaCache gate's threshold over ``tea_cache_model_id``'s polynomial
         (``utils.tea_cache``; not with the sliding window).
         ``streaming_vae`` streams the decode and, unlike the JAX package,
-        the I2V, video, VACE, camera and S2V encodes too (the same math
-        within fp32 summation order; a full-sequence encode of 81 frames
-        would not fit beside a 14B expert pair).  A keyword of a path that
-        is not ported is accepted at the JAX default and raises otherwise."""
-        for name, value in unported.items():
-            if name not in _UNPORTED:
-                raise TypeError(f"__call__() got an unexpected keyword argument {name!r}")
-            default, item = _UNPORTED[name]
-            if value is None if default is None else value == default:
-                continue
-            raise NotImplementedError(f"{name}: not ported ({item})")
+        the encodes too (I2V, video, VACE, camera, S2V, Animate, VAP,
+        LongCat: the same math within fp32 summation order; a full-sequence
+        encode of 81 frames would not fit beside a 14B expert pair).  A
+        loaded LongCat DiT takes the request first, then audio goes to S2V
+        and ``vap_video`` to VAP; a variant's input without its model raises
+        a ``ValueError`` naming the missing argument."""
         seed = 0 if seed is None else seed
         f = self.vae_cfg.upsampling_factor
         height, width, num_frames = check_resize_height_width(
@@ -436,6 +480,15 @@ class WanVideoPipeline:
         use_cfg = cfg_scale != 1.0
         if use_cfg:
             negative_context = negative_context.to(self.device, self.dtype)
+        out_kw = dict(output_type=output_type, streaming_vae=streaming_vae,
+                      frames_per_chunk=vae_frames_per_chunk)
+        if self.longcat_params is not None:
+            return self._generate_longcat(
+                context, negative_context if use_cfg else None, longcat_video, height=height,
+                width=width, num_frames=num_frames, cfg_scale=cfg_scale, seed=seed,
+                num_inference_steps=num_inference_steps, sigma_shift=sigma_shift,
+                torch_compat_noise=torch_compat_noise, progress_callback=progress_callback,
+                **out_kw)
 
         if input_audio is not None and audio_embeds is None:
             # wav2vec's hidden states -> 30 fps -> buckets of num_frames - 1
@@ -459,6 +512,16 @@ class WanVideoPipeline:
                 streaming_vae=streaming_vae, vae_frames_per_chunk=vae_frames_per_chunk,
                 output_type=output_type, torch_compat_noise=torch_compat_noise,
                 progress_callback=progress_callback)
+        if vap_video is not None:
+            if self.vap_params is None:
+                raise ValueError("vap_video needs a VAP / MoT branch (vap_params)")
+            return self._generate_vap(
+                context, negative_context if use_cfg else None, vap_video, vap_prompt,
+                negative_vap_prompt, context_vap, negative_context_vap, input_image=input_image,
+                end_image=end_image, height=height, width=width, num_frames=num_frames,
+                cfg_scale=cfg_scale, seed=seed, num_inference_steps=num_inference_steps,
+                sigma_shift=sigma_shift, torch_compat_noise=torch_compat_noise,
+                progress_callback=progress_callback, **out_kw)
 
         cond = {}
         n_ref = 0
@@ -512,6 +575,28 @@ class WanVideoPipeline:
                 self.vae_params, self.vae_cfg, torch.from_numpy(ref).to(self.device, self.dtype))
             if self.dit_cfg.require_clip_embedding and clip_feature is None:
                 clip_feature = self.encode_clip_feature(_as_pil(reference_image, width, height))
+        if animate_pose_video is not None and animate_face_video is not None:
+            if self.animate_params is None:
+                raise ValueError("Animate conditioning needs an Animate adapter (animate_params)")
+            if input_video is not None:  # upstream AnimateVideoSplit: 4 frames short
+                n_keep = len(input_video) - 4
+                animate_pose_video, animate_face_video = (animate_pose_video[:n_keep],
+                                                          animate_face_video[:n_keep])
+                if animate_inpaint_video is not None:
+                    animate_inpaint_video = animate_inpaint_video[:n_keep]
+                if animate_mask_video is not None:
+                    animate_mask_video = animate_mask_video[:n_keep]
+            pv = torch.from_numpy(preprocess_video(animate_pose_video)).to(self.device, self.dtype)
+            cond["pose_latents"] = vae38_encode(self.vae_params, self.vae_cfg, pv,
+                                                streaming=streaming_vae).to(self.dtype)
+            face = torch.from_numpy(preprocess_video(animate_face_video)).to(self.device,
+                                                                             self.dtype)
+            # the CFG branch takes a blank (-1) face video
+            cond["face_pixel_values"], cond["face_nega"] = face, torch.zeros_like(face) - 1
+            if animate_inpaint_video is not None and animate_mask_video is not None:
+                y = self.encode_animate_inpaint(animate_inpaint_video, animate_mask_video,
+                                                _as_pil(input_image, width, height),
+                                                streaming=streaming_vae)
         if camera_control_direction is not None:
             if self.camera_params is None:
                 raise ValueError("camera control needs a camera adapter (camera_params)")
@@ -537,7 +622,8 @@ class WanVideoPipeline:
             if tea_cache_l1_thresh is not None:
                 raise ValueError("TeaCache and the temporal sliding window are mutually "
                                  "exclusive (per-window hidden-state shapes break the cache)")
-            if "vace_context" in cond or "control_camera_tokens" in cond:
+            if any(k in cond for k in ("vace_context", "control_camera_tokens",
+                                       "pose_latents")):
                 raise ValueError("sliding-window denoising supports text / first-frame / "
                                  "Fun-Reference / motion-bucket conditioning only; VACE, "
                                  "animate and camera control have no defined per-window "
@@ -552,10 +638,10 @@ class WanVideoPipeline:
             latents = self._denoise(*args, cfg_merge, tea_opts)
         if n_ref:  # the denoised reference frames go
             latents = latents[:, :, n_ref:]
-        return self._decode_output(latents, output_type=output_type,
-                                   streaming_vae=streaming_vae,
-                                   frames_per_chunk=vae_frames_per_chunk, tiled=tiled,
-                                   tile_size=tile_size, tile_stride=tile_stride)
+        if "pose_latents" in cond:  # and Animate's reference-y frame
+            latents = latents[:, :, 1:]
+        return self._decode_output(latents, tiled=tiled, tile_size=tile_size,
+                                   tile_stride=tile_stride, **out_kw)
 
     def _generate_s2v(self, context, negative_context, audio_embeds, *, input_image,
                       s2v_pose_video, s2v_pose_latents, motion_video, height, width, num_frames,
@@ -616,6 +702,104 @@ class WanVideoPipeline:
                                    streaming_vae=streaming_vae,
                                    frames_per_chunk=vae_frames_per_chunk)
 
+    def _generate_vap(self, context, negative_context, vap_video, vap_prompt,
+                      negative_vap_prompt, context_vap, negative_context_vap, *, input_image,
+                      end_image, height, width, num_frames, cfg_scale, seed, num_inference_steps,
+                      sigma_shift, torch_compat_noise, progress_callback, **out_kw):
+        """Video as prompt (upstream WanVideoUnit_VAP and the MoT weave of
+        model_fn_wan_video): the VAP video's latents beside the I2V ``y`` of
+        its first frame (and last, with ``end_image``) ride the MoT branch
+        under their own prompt (zeros for the CFG branch without a
+        tokenizer) and the CLIP features of the first frame; the main branch
+        takes ``input_image``'s ``y`` and CLIP features; Euler steps with
+        CFG in the sweeps' dtype, as in the JAX package."""
+        dev, dt = self.device, self.dtype
+        streaming = out_kw["streaming_vae"]
+        if context_vap is None:
+            context_vap = self.encode_prompt(vap_prompt)
+        context_vap = context_vap.to(dev, dt)
+        if negative_context is not None and negative_context_vap is None:
+            negative_context_vap = (self.encode_prompt(negative_vap_prompt)
+                                    if self.tokenizer is not None
+                                    else torch.zeros_like(context_vap))
+        first = _as_pil(vap_video[0], width, height)
+        vap_clip = self.encode_clip_feature(first) if self.vap_cfg.has_image_input else None
+        vv = torch.from_numpy(preprocess_video(vap_video)).to(dev, dt)
+        vap_latent = vae38_encode(self.vae_params, self.vae_cfg, vv, streaming=streaming).to(dt)
+        y_vap = self.encode_i2v_conditioning(
+            first, height, width, num_frames, streaming=streaming,
+            end_image=None if end_image is None else _as_pil(vap_video[-1], width, height))
+        vap_hidden_state = torch.cat([vap_latent, y_vap], dim=1)
+        y = clip_feature = None
+        if input_image is not None:
+            img = _as_pil(input_image, width, height)
+            if self.dit_cfg.require_vae_embedding:
+                y = self.encode_i2v_conditioning(
+                    img, height, width, num_frames, streaming=streaming,
+                    end_image=None if end_image is None else _as_pil(end_image, width, height))
+            if self.dit_cfg.require_clip_embedding:
+                clip_feature = self.encode_clip_feature(img)
+        latents = generate_noise(self._latent_shape(height, width, num_frames), seed=seed,
+                                 dtype=dt, torch_compat=torch_compat_noise, device=dev)
+        scheduler = FlowMatchScheduler("Wan").set_timesteps(num_inference_steps,
+                                                            shift=sigma_shift)
+        timesteps = torch.tensor(scheduler.timesteps, dtype=torch.float32)
+
+        def sweep(t1, ctx, ctx_vap):
+            return wan_dit_forward_vap(
+                self.dit_params, self.dit_cfg, self.vap_params, self.vap_cfg, latents, t1, ctx,
+                clip_feature=clip_feature, y=y, vap_hidden_state=vap_hidden_state,
+                context_vap=ctx_vap, vap_clip_feature=vap_clip)
+
+        n = len(scheduler.timesteps)
+        for i in range(n):
+            t1 = timesteps[i:i + 1].to(dev)
+            v = sweep(t1, context, context_vap)
+            if negative_context is not None:
+                v_n = sweep(t1, negative_context, negative_context_vap.to(dev, dt))
+                v = v_n + float(torch.tensor(cfg_scale, dtype=v.dtype)) * (v - v_n)
+            latents = scheduler.step(v, i, latents)
+            if progress_callback is not None:
+                progress_callback(i + 1, n)
+        return self._decode_output(latents, **out_kw)
+
+    def _generate_longcat(self, context, negative_context, longcat_video, *, height, width,
+                          num_frames, cfg_scale, seed, num_inference_steps, sigma_shift,
+                          torch_compat_noise, progress_callback, **out_kw):
+        """LongCat-Video (upstream WanVideoUnit_LongCatVideo and
+        model_fn_longcat_video): text to video, or with ``longcat_video`` a
+        continuation whose latents fill the first frames (in cond mode) and
+        are pinned there again after each step; the DiT's fp32 output is
+        negated and combined for CFG in fp32."""
+        dev, dt = self.device, self.dtype
+        latents = generate_noise(self._latent_shape(height, width, num_frames), seed=seed,
+                                 dtype=dt, torch_compat=torch_compat_noise, device=dev)
+        cond, num_cond = None, 0
+        if longcat_video is not None:
+            lv = torch.from_numpy(preprocess_video(longcat_video)).to(dev, dt)
+            cond = vae38_encode(self.vae_params, self.vae_cfg, lv,
+                                streaming=out_kw["streaming_vae"]).to(dt)
+            num_cond = cond.shape[2]
+            latents[:, :, :num_cond] = cond
+        scheduler = FlowMatchScheduler("Wan").set_timesteps(num_inference_steps,
+                                                            shift=sigma_shift)
+        timesteps = torch.tensor(scheduler.timesteps, dtype=torch.float32)
+        n = len(scheduler.timesteps)
+        for i in range(n):
+            t1 = timesteps[i:i + 1].to(dev)
+            v = -longcat_dit_forward(self.longcat_params, self.longcat_cfg, latents, t1, context,
+                                     num_cond_latents=num_cond)
+            if negative_context is not None:
+                v_n = -longcat_dit_forward(self.longcat_params, self.longcat_cfg, latents, t1,
+                                           negative_context, num_cond_latents=num_cond)
+                v = v_n + float(torch.tensor(cfg_scale, dtype=v.dtype)) * (v - v_n)
+            latents = scheduler.step(v, i, latents)
+            if cond is not None:
+                latents[:, :, :num_cond] = cond
+            if progress_callback is not None:
+                progress_callback(i + 1, n)
+        return self._decode_output(latents, **out_kw)
+
     def _boundary_index(self, scheduler, switch_dit_boundary):
         """The first step of ``dit2``: the first whose timestep lies below
         boundary·1000 (a step at the boundary stays with ``dit``); the step
@@ -627,14 +811,20 @@ class WanVideoPipeline:
                                    -switch_dit_boundary * 1000, side="right"))
 
     def _sweep(self, params, latents, t1, fuse, cross_kv=None, context=None, y=None,
-               clip_feature=None, cond=None, **tea):
+               clip_feature=None, cond=None, negative=False, **tea):
         """One DiT sweep of ``params`` (an expert) under the conditioning
         ``cond`` (``wan_dit_forward``'s keywords; per-sample inputs repeated
-        to a merged CFG batch); with ``tea`` (tea_cache_state,
-        tea_cache_opts) it returns (output, new state)."""
+        to a merged CFG batch; Animate's face video, or with ``negative``
+        its blank one, or both for a merged batch); with ``tea``
+        (tea_cache_state, tea_cache_opts) it returns (output, new state)."""
         cond = dict(cond or {})
         b = latents.shape[0]
-        for k in ("control_camera_tokens", "reference_latents", "vace_context"):
+        if "pose_latents" in cond:
+            face, nega = cond.pop("face_pixel_values"), cond.pop("face_nega")
+            face = nega if negative else face
+            cond["face_pixel_values"] = face if face.shape[0] == b else torch.cat([face, nega])
+            cond.update(animate_params=self.animate_params, animate_cfg=self.animate_cfg)
+        for k in ("control_camera_tokens", "reference_latents", "vace_context", "pose_latents"):
             if cond.get(k) is not None and cond[k].shape[0] != b:
                 cond[k] = torch.cat([cond[k]] * (b // cond[k].shape[0]))
         if "vace_context" in cond:
@@ -679,7 +869,8 @@ class WanVideoPipeline:
         if tea_opts is not None:
             tea = list(self._init_tea_states(latents, use_cfg=negative_context is not None,
                                              cfg_merge=cfg_merge, fuse=fuse))
-        hoist = text_kv_hoistable(self.dit_cfg, clip_feature)
+        # the JAX package projects the text (k, v) in every Animate block
+        hoist = text_kv_hoistable(self.dit_cfg, clip_feature) and "pose_latents" not in cond
         vace = "vace_context" in cond
         if merge:
             y2 = None if y is None else torch.cat([y, y])
@@ -692,7 +883,7 @@ class WanVideoPipeline:
 
             def sweep(lat, t, kv, ctx, branch, y_, clip_):
                 kw = dict(cross_kv=kv, context=None if hoist and not vace else ctx, y=y_,
-                          clip_feature=clip_, cond=cond)
+                          clip_feature=clip_, cond=cond, negative=branch == 1)
                 if tea_opts is None:
                     return self._sweep(params, lat, t, fuse, **kw)
                 v, tea[branch] = self._sweep(params, lat, t, fuse, **kw,

@@ -297,6 +297,144 @@ def test_the_conditioning_launch_tables(smoke):
     assert len(smoke.s2v_angles(False)) == 7800 and len(smoke.s2v_angles(True)) == 10114
 
 
+# ------------------------------------------- the animate_vap_longcat phase
+@pytest.mark.parametrize("name,model_hash,model_name", [
+    ("animate_dit", "31fa352acb8a1b1d33cd8764273d80a2", "wan_video_dit"),
+    ("vap_dit", "5f90e66a0672219f12d9a626c8c21f61", "wan_video_dit")])
+def test_the_avl_dits_are_the_registry_entries(smoke, name, model_hash, model_name):
+    """The Animate-14B and the VAP's Wan2.1-I2V-14B DiTs have the registry's
+    fields (their hashes also map to the adapter and the branch, which the
+    pipeline is given); LongCat-Video's entry names no fields: the
+    published config."""
+    import json
+
+    entries = json.loads((REPO / "fairygen_tpu_torch" / "configs" /
+                          "model_registry.json").read_text())
+    names = {e["model_name"] for e in entries if e["model_hash"] == model_hash}
+    assert names == {model_name, {"animate_dit": "wan_video_animate_adapter",
+                                  "vap_dit": "wan_video_vap"}[name]}
+    extra = next(e["extra_kwargs"] for e in entries
+                 if e["model_hash"] == model_hash and e["model_name"] == model_name)
+    cfg = smoke.avl_configs()[name]
+    for k, v in extra.items():
+        assert getattr(cfg, k) == (tuple(v) if isinstance(v, list) else v), k
+    lc = next(e for e in entries if e["model_hash"] == "8b27900f680d7251ce44e2dc8ae1ffef")
+    assert lc["model_name"] == "wan_video_dit" and not lc.get("extra_kwargs")
+    from fairygen_tpu_torch.models.wan.longcat import LongCatDiTConfig
+
+    assert smoke.avl_configs()["longcat"] == LongCatDiTConfig()
+
+
+def _spy_launches(monkeypatch):
+    """{counter: calls} of the wrappers a forward on CPU tensors reaches,
+    named by the kernel each would launch on the card at its padded shapes
+    (K3 or K4 bounded by the key tile, K4 max or masked by sk_actual); the
+    modules' generic ``attention`` sent to ``flash_attention``, as it is
+    for CUDA tensors."""
+    from fairygen_tpu_torch.models.wan import dit as tdit
+    from fairygen_tpu_torch.models.wan import longcat as tlc
+    from fairygen_tpu_torch.models.wan import mot as tmot
+    from fairygen_tpu_torch.ops import flash_attention as fa
+    from fairygen_tpu_torch.ops import fused_qk as fq
+
+    def as_on_the_card(q, k, v, scale=None, prescaled=False, bounded_logits=False):
+        return fa.flash_attention(q, k, v, scale=scale, prescaled=prescaled,
+                                  bounded_logits=bounded_logits)
+
+    for mod in (tdit, tmot, tlc):
+        monkeypatch.setattr(mod, "attention", as_on_the_card)
+    counts = {}
+
+    def counted(name, fn):
+        def call(*a, **k):
+            key = name(*a, **k) if callable(name) else name
+            counts[key] = counts.get(key, 0) + 1
+            return fn(*a, **k)
+        return call
+
+    bounded = counted(lambda qh, kh, v, **k: "flash_small_kv" if kh.shape[1] == k.get("bk", 1024)
+                      else "flash_bounded", fa.flash_attention_heads_major)
+    monkeypatch.setattr(fa, "flash_attention_heads_major", bounded)
+    monkeypatch.setattr(fq, "flash_attention_heads_major", bounded)
+    monkeypatch.setattr(fa, "flash_fwd", counted("flash_fwd", fa.flash_fwd))
+    monkeypatch.setattr(fa, "flash_small_kv_max", counted(
+        lambda qh, kh, vh, sk_actual: "flash_small_kv_max" if sk_actual == kh.shape[1]
+        else "flash_small_kv_masked", fa.flash_small_kv_max))
+    monkeypatch.setattr(fq, "rms_rope_heads_major", counted("rms_rope_heads_major",
+                                                            fq.rms_rope_heads_major))
+    monkeypatch.setattr(tdit, "layer_norm_modulate", counted("ln_modulate",
+                                                             tdit.layer_norm_modulate))
+    return counts
+
+
+def test_the_avl_launch_tables_match_a_sweep_at_full_depth(smoke, monkeypatch):
+    """One sweep of each model at full depth and tiny width (head dim 128,
+    more than 1024 tokens, so each attention takes the kernel of the
+    phase's shapes), counted through the wrappers it reaches: Animate's 40
+    blocks with the CLIP branch and 8 face blocks, VAP's 40 blocks with 10
+    MoT layers (K5 over the joint tokens), LongCat's 48 blocks in T2V and
+    cond mode — the phase's tables."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        got = _avl_sweeps(smoke, monkeypatch)
+    finally:
+        torch.set_num_threads(threads)
+    assert got == {"animate": smoke.ANIMATE_PER_SWEEP, "vap": smoke.VAP_PER_SWEEP,
+                   "longcat": smoke.LONGCAT_PER_SWEEP,
+                   "longcat cond": smoke.LONGCAT_COND_PER_SWEEP}
+    assert smoke.ANIMATE_PER_SWEEP == smoke.WAN14B_CLIP_PER_SWEEP
+    from fairygen_tpu_torch.ops import _kernels
+
+    for table in got.values():
+        assert set(table) <= set(_kernels.KERNELS)
+
+
+def _avl_sweeps(smoke, monkeypatch):
+    import dataclasses
+
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.wan import dit as tdit
+    from fairygen_tpu_torch.models.wan.longcat import longcat_dit_forward
+    from fairygen_tpu_torch.models.wan.mot import wan_dit_forward_vap
+
+    f32 = torch.float32
+    cfgs = smoke.avl_configs()
+    narrow = dict(dim=128, ffn_dim=64, text_dim=32, freq_dim=32, num_heads=1)
+    g = torch.Generator("cpu").manual_seed(0)
+    lat, y = torch.randn(1, 16, 3, 40, 40, generator=g), torch.randn(1, 20, 3, 40, 40, generator=g)
+    ctx, clip = torch.randn(1, 512, 32, generator=g), torch.randn(1, 257, 1280, generator=g)
+    t = torch.tensor([900.0])
+    got = {}
+    with torch.no_grad():
+        dcfg = dataclasses.replace(cfgs["animate_dit"], **narrow)
+        dit = convert.init_dit_params(dcfg, "cpu", f32, seed=1)
+        acfg = dataclasses.replace(cfgs["animate"], hidden_dim=128, heads_num=1, motion_size=8,
+                                   style_dim=16, face_inner=32)
+        counts = _spy_launches(monkeypatch)
+        tdit.wan_dit_forward(dit, dcfg, lat, t, ctx, y=y, clip_feature=clip,
+                             animate_params=convert.init_animate_params(acfg, "cpu", f32, seed=2),
+                             animate_cfg=acfg, pose_latents=lat[:, :, 1:],
+                             face_pixel_values=torch.rand(1, 3, 5, 8, 8, generator=g))
+        got["animate"] = dict(counts)
+        mcfg = dataclasses.replace(cfgs["vap"], **narrow)
+        counts.clear()
+        wan_dit_forward_vap(dit, dcfg, convert.init_mot_params(mcfg, "cpu", f32, seed=3), mcfg,
+                            lat, t, ctx, clip_feature=clip, y=y,
+                            vap_hidden_state=torch.cat([lat, y], dim=1), context_vap=ctx[:, :40],
+                            vap_clip_feature=clip)
+        got["vap"] = dict(counts)
+        lcfg = dataclasses.replace(cfgs["longcat"], hidden_size=128, num_heads=1,
+                                   caption_channels=32, adaln_tembed_dim=32, freq_dim=32)
+        lc = convert.init_longcat_params(lcfg, "cpu", f32, seed=4)
+        lat = torch.randn(1, 16, 3, 48, 48, generator=g)  # 576 tokens a frame
+        for tag, n in (("longcat", 0), ("longcat cond", 2)):
+            counts.clear()
+            longcat_dit_forward(lc, lcfg, lat, t, ctx, num_cond_latents=n)
+            got[tag] = dict(counts)
+    return got
+
+
 def test_streamed_encodes_launch_k11_a_latent_frame(smoke):
     """The phase counts K11 by latent frames: a streamed encode of 1, 17
     and 73 frames (the first-frame, clip and motion-video encodes) and the

@@ -2125,3 +2125,82 @@ def test_two_block_14b_width_forward_on_the_card(card, which):
     ran = {k: _kernels.launches[k] - before[k] for k in before}
     assert all(ran[k] for k in want), ran
     assert _rel_l2(out, ref) <= 2 * rel16 + 1e-3
+
+
+def test_k5_d128_over_the_mot_joint_tokens(card):
+    """K5 at head dim 128 as MoT's joint attention calls it: 40 heads of
+    15600 queries and keys (the keys padded to 16384 and masked past 15600),
+    through ``flash_attention`` without ``bounded_logits``: one K5 launch,
+    within 2^-7 relative + 2^-8 absolute of its plain version and a
+    relative L2 error below 2^-8."""
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    N, S = 40, 15600
+    q, k = _normed(card, 1, S, N, 128), _normed(card, 1, S, N, 128)
+    v = torch.randn((1, S, N, 128), generator=card, device="cuda").to(torch.bfloat16)
+    before = _kernels.launches["flash_fwd"]
+    out = fa.flash_attention(q, k, v)
+    assert _kernels.launches["flash_fwd"] == before + 1
+    qh, kh = fa._layout(q, k, None, False)
+    assert kh.shape[1] == 16384
+    ref = fa._natural(fa.flash_fwd_plain(qh, kh, fa._heads_major(v, 16384), sk_actual=S,
+                                         with_lse=False), 1, N, S)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=2 ** -8)
+    assert _rel_l2(out, ref) < 2 ** -8
+
+
+@pytest.mark.parametrize("sq", [7800, 4680])
+def test_k4_max_d128_over_512_text_keys(card, sq):
+    """K4's max form at head dim 128 as LongCat's cross-attention calls it:
+    32 heads of 7800 queries (4680 in cond mode) over 512 keys; 2^-7 + 1e-3
+    and a relative L2 error below 2^-10."""
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    N, lk = 32, 512
+    q, k = _normed(card, 1, sq, N, 128), _normed(card, 1, lk, N, 128)
+    v = torch.randn((1, lk, N, 128), generator=card, device="cuda").to(torch.bfloat16)
+    before = _kernels.launches["flash_small_kv_max"]
+    out = fa.flash_attention(q, k, v)
+    assert _kernels.launches["flash_small_kv_max"] == before + 1
+    qh, kh = fa._layout(q, k, None, False)
+    ref = fa._natural(fa.flash_small_kv_max_plain(qh, kh, fa._heads_major(v, lk), sk_actual=lk),
+                      1, N, sq)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+    assert _rel_l2(out, ref) < 2 ** -10
+
+
+@pytest.mark.parametrize("sq,sk", [(4680, 7800), (3120, 3120), (300, 4097)])
+def test_k3_with_fewer_queries_than_keys(card, sq, sk):
+    """K3 (bounded, no kv_len) with Sq != Sk: LongCat's noise frames over
+    all 7800 keys, its conditioning frames among themselves, and a ragged
+    pair; through ``flash_attention(bounded_logits=True)``, one K3 launch,
+    2^-7 + 1e-3 of the plain version."""
+    from fairygen_tpu_torch.ops import _kernels
+    from fairygen_tpu_torch.ops import flash_attention as fa
+
+    N = 32
+    q, k = _normed(card, 1, sq, N, 128), _normed(card, 1, sk, N, 128)
+    v = torch.randn((1, sk, N, 128), generator=card, device="cuda").to(torch.bfloat16)
+    before = _kernels.launches["flash_bounded"]
+    out = fa.flash_attention(q, k, v, bounded_logits=True)
+    assert _kernels.launches["flash_bounded"] == before + 1
+    qh, kh = fa._layout(q, k, None, False, 2048)
+    ref = fa.flash_attention_heads_major_plain(qh, kh, v, b=1, n=N, sq=sq, sk_actual=sk)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+
+
+def test_animate_motion_directions_on_the_card(card):
+    """The Animate adapter's motion vectors on the card in fp32 against the
+    CPU's: the QR of the direction weight through cuSOLVER in the sign and
+    order of LAPACK's."""
+    from fairygen_tpu_torch import convert
+    from fairygen_tpu_torch.models.wan.animate import AnimateConfig, get_motion
+
+    cfg = AnimateConfig(motion_size=16, style_dim=64, motion_dim=20)
+    me = convert.init_animate_params(cfg, "cpu", torch.float32, seed=3)["motion_encoder"]
+    faces = torch.rand((4, 3, 16, 16), generator=torch.Generator("cpu").manual_seed(4)) * 2 - 1
+    ref = get_motion(me, faces)
+    out = get_motion(_to_dt(me, "cuda", torch.float32), faces.cuda()).cpu()
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())

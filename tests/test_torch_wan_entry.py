@@ -144,22 +144,22 @@ def test_registry_copy_is_byte_equal():
     assert len(MODEL_REGISTRY.lookup("1f5ab7703c6fc803fdded85ff040c316")) == 1
 
 
-@pytest.mark.parametrize("name", ["wan_video_animate_adapter", "wan_video_vap", "flux2_dit",
-                                  "qwen_image_dit"])
+@pytest.mark.parametrize("name", ["flux2_dit", "qwen_image_dit"])
 def test_unported_registry_names_raise_with_their_roadmap_item(name):
-    item = "item 6c" if name.startswith("wan") else "item 8"
-    with pytest.raises(NotImplementedError, match=f"{name} .*{item}"):
+    with pytest.raises(NotImplementedError, match=f"{name} .*item 8"):
         ModelPool().registry.builder(name)
 
 
 @pytest.mark.parametrize("name,attr", [("wan_video_vace", "vace_params"),
                                        ("wan_video_motion_controller",
-                                        "motion_controller_params")])
+                                        "motion_controller_params"),
+                                       ("wan_video_vap", "vap_params"),
+                                       ("wan_video_animate_adapter", "animate_params")])
 def test_pipeline_given_models_have_no_builder_and_are_skipped(name, attr, ckpts, monkeypatch):
-    """The JAX package's pool builds no VACE branch or motion controller
-    (the pipeline takes them); the port's refuses the name, names the
-    pipeline's argument, and a file whose hash also maps to it loads the
-    rest, as the JAX pool does."""
+    """The JAX package's pool builds no VACE branch, motion controller, VAP
+    branch or Animate adapter (the pipeline takes them); the port's refuses
+    the name, names the pipeline's argument, and a file whose hash also
+    maps to it loads the rest, as the JAX pool does."""
     with pytest.raises(NotImplementedError, match=f"{name} has no model-pool builder.*{attr}"):
         ModelPool().registry.builder(name)
     from fairygen_tpu_torch.core import registry
@@ -172,15 +172,57 @@ def test_pipeline_given_models_have_no_builder_and_are_skipped(name, attr, ckpts
 
 
 @pytest.mark.parametrize("sd,extra,match", [
-    ({"final_layer.adaLN_modulation.1.weight": np.zeros(1)}, {}, "LongCat.*item 6d"),
     ({}, {"add_control_adapter": True, "in_dim_control_adapter": 24},
      "unsupported WanModel kwargs.*camera_params"),
 ])
 def test_wan_dit_variants_raise(sd, extra, match):
-    """LongCat-Video's DiT waits for item 6d; a camera DiT's adapter is not
-    built by the pool (in the JAX package either)."""
+    """A camera DiT's adapter is not built by the pool (in the JAX package
+    either)."""
     with pytest.raises(NotImplementedError, match=match):
         ModelPool().registry.builder("wan_video_dit")(sd, extra, torch.float32, "cpu")
+
+
+LONGCAT_EXTRA = dict(in_channels=4, out_channels=4, hidden_size=96, depth=2, num_heads=4,
+                     caption_channels=32, adaln_tembed_dim=64, freq_dim=32)
+
+
+@pytest.fixture(scope="module")
+def longcat_ckpt(ckpts, goldens):
+    """The LongCat golden's upstream state dict with its caption projection
+    redrawn for the tiny UMT5's width (32), as safetensors, and a hints file
+    that adds it to the tiny checkpoints' hints."""
+    g = goldens("longcat")
+    sd = {k[3:]: g[k] for k in g.files if k.startswith("sd.")}
+    rng = np.random.default_rng(6)
+    sd["y_embedder.y_proj.0.weight"] = (0.1 * rng.standard_normal((96, 32))).astype(np.float32)
+    path = str(ckpts["tmp"] / "longcat.safetensors")
+    tio.save_safetensors(path, sd)
+    hints = dict(ckpts["hints"], **{path: ("wan_video_dit", LONGCAT_EXTRA)})
+    hints_file = ckpts["tmp"] / "hints_longcat.json"
+    hints_file.write_text(json.dumps(hints))
+    return dict(path=path, sd=sd, hints=hints, hints_file=str(hints_file))
+
+
+def test_the_pool_builds_a_tiny_longcat_and_from_pretrained_sorts_it_out(ckpts, longcat_ckpt):
+    """LongCat-Video's DiT is found by its final layer (its hash maps to
+    wan_video_dit): the pool builds it at the hints' config, the converter's
+    params, and ``from_pretrained`` sorts it out of the DiTs beside a Wan
+    DiT file, as the JAX package's type split does."""
+    from fairygen_tpu_torch.models.wan import longcat as tlc
+
+    params, cfg = ModelPool().registry.builder("wan_video_dit")(
+        longcat_ckpt["sd"], dict(LONGCAT_EXTRA), torch.float32, "cpu")
+    assert cfg == tlc.LongCatDiTConfig(**LONGCAT_EXTRA)
+    ref = tlc.convert_longcat_dit_state_dict(longcat_ckpt["sd"], cfg, device="cpu")
+    np.testing.assert_array_equal(params["blocks"][1]["w2"]["w"].numpy(),
+                                  ref["blocks"][1]["w2"]["w"].numpy())
+    pipe = WanVideoPipeline.from_pretrained(
+        [longcat_ckpt["path"], ckpts["paths"]["dit"], ckpts["paths"]["vae"]],
+        hints=longcat_ckpt["hints"], dtype=torch.float32, device="cpu")
+    assert pipe.longcat_cfg == cfg and pipe.s2v_params is None
+    assert isinstance(pipe.dit_cfg, tdit.WanDiTConfig) and pipe.dit2_params is None
+    np.testing.assert_array_equal(pipe.longcat_params["x_embedder"]["w"].numpy(),
+                                  ref["x_embedder"]["w"].numpy())
 
 
 def test_model_config_resolves_local_paths(tmp_path, monkeypatch):
@@ -377,19 +419,20 @@ def test_hot_lora_refuses_a_training_adapter_and_takes_the_2d_branch():
                                atol=1e-5)
 
 
-def test_unported_keywords_raise(pipes):
-    """Animate, VAP and LongCat wait for items 6c and 6d; the variants of
-    the second slice run (tests/test_torch_wan_conditioning.py and
-    test_torch_wan_s2v.py), and without their models say which is missing."""
+def test_variant_inputs_without_their_models_name_the_missing_argument(pipes):
+    """Every Wan variant runs (tests/test_torch_wan_conditioning.py,
+    test_torch_wan_s2v.py, test_torch_wan_animate.py, test_torch_wan_mot.py,
+    test_torch_longcat.py); without its model a request says which argument
+    is missing."""
     _, pipe = pipes
-    for kw, item in (({"vap_video": [np.zeros((32, 32, 3), np.uint8)]}, "6c"),
-                     ({"animate_pose_video": [np.zeros((32, 32, 3), np.uint8)]}, "6c"),
-                     ({"vap_prompt": "x"}, "6c"), ({"longcat_video": []}, "6d")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 item {item}"):
-            pipe(**REQUEST, **kw)
-    for kw, match in (({"vace_video": [np.zeros((32, 32, 3), np.uint8)]}, "vace_params"),
+    frames = [np.zeros((32, 32, 3), np.uint8)]
+    for kw, match in (({"vace_video": frames}, "vace_params"),
                       ({"motion_bucket_id": 3}, "motion_controller_params"),
-                      ({"audio_embeds": np.zeros((1, 25, 8, 4), np.float32)}, "s2v_params")):
+                      ({"audio_embeds": np.zeros((1, 25, 8, 4), np.float32)}, "s2v_params"),
+                      ({"animate_pose_video": frames, "animate_face_video": frames},
+                       "animate_params"),
+                      ({"vap_video": frames, "context_vap": torch.zeros(1, 6, 32)},
+                       "vap_params")):
         with pytest.raises(ValueError, match=match):
             pipe(**REQUEST, **kw)
     # the JAX defaults ask for nothing
@@ -458,7 +501,7 @@ def test_cli_twins_keep_the_jax_examples_flags_and_prompt():
     assert flags == ref
 
 
-@pytest.mark.parametrize("flag", ["--usp 2", "--longcat_video v.mp4", "--sp_strategy ring"])
+@pytest.mark.parametrize("flag", ["--usp 2", "--sp_strategy ring"])
 def test_cli_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as e:
         wan_inference.main(["--model_paths", "[]", "--prompt", "x", *flag.split()])
@@ -534,6 +577,37 @@ def test_cli_twin_writes_a_video(ckpts, tmp_path):
     assert r.returncode == 0, r.stderr[-3000:]
     gif = tmp_path / "out.gif"
     assert gif.exists() and len(tvideo.load_video_frames(str(gif))) == 5
+
+
+def test_cli_twin_continues_a_clip_with_longcat(ckpts, longcat_ckpt, tmp_path, monkeypatch):
+    """``--longcat_video`` reaches the LongCat request: the twin run
+    in-process with ``--device cpu`` on the tiny LongCat DiT, VAE38 and UMT5
+    (prompt strings, CFG), continuing a one-frame clip to 9 frames; the
+    clip's latent stays pinned in frame 0."""
+    from PIL import Image
+
+    from fairygen_tpu_torch.pipelines import wan_video
+
+    (tmp_path / "clip").mkdir()
+    Image.fromarray(ckpts["img"]).resize((32, 32)).save(tmp_path / "clip" / "0.png")
+    seen = {}
+    real = wan_video.WanVideoPipeline._generate_longcat
+
+    def spy(self, context, negative_context, longcat_video, **kw):
+        seen.update(frames=len(longcat_video), cfg=negative_context is not None)
+        return real(self, context, negative_context, longcat_video, **kw)
+
+    monkeypatch.setattr(wan_video.WanVideoPipeline, "_generate_longcat", spy)
+    monkeypatch.setenv("FAIRYGEN_MODEL_HINTS", longcat_ckpt["hints_file"])
+    out = tmp_path / "out.mp4"
+    rc = wan_inference.main([
+        "--device", "cpu", "--model_paths", json.dumps(
+            [longcat_ckpt["path"], ckpts["paths"]["vae"], ckpts["paths"]["umt5"]]),
+        "--tokenizer_path", ckpts["tokenizer"], "--prompt", "a pig walks", "--height", "32",
+        "--width", "32", "--num_frames", "9", "--num_inference_steps", "2",
+        "--longcat_video", str(tmp_path / "clip"), "--output", str(out)])
+    assert rc == 0 and seen == {"frames": 1, "cfg": True}
+    assert len(tvideo.load_video_frames(str(tmp_path / "out.gif"))) == 9
 
 
 def test_batch_cli_twin_animates_each_shot(ckpts, tmp_path, monkeypatch):
